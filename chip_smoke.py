@@ -5,30 +5,50 @@
 Phases (each prints a line starting with "phase"; any failure raises and
 the script exits non-zero without a result line):
 
-1. build   - the card's name and power limit, torch's version, and the
-             build of every kernel on the serving path from this
-             checkout's sources (nvcc for the CUDA flash attention,
-             Triton's JIT for the LayerNorm), with build times.
-2. kernels - each kernel against its plain PyTorch version on the card
-             at the main path's shapes, with stated tolerances, and both
-             timed with CUDA events (best of several runs);
-             F.scaled_dot_product_attention and F.layer_norm are timed
-             beside them for information.
-3. serving - VisualBERT-base at full width (12 x 768, 12 heads, 3129
-             answers, bf16 compute; weights from a seeded
-             torch.Generator) behind ServingEngine(max_batch_size=32) and
-             ServingServer on 127.0.0.1, port 0. Concurrent /v1/predict
-             requests in the VQA2 example layout; answers checked for
-             status, shape and finiteness; the kernels' launch counts
-             checked against the model's structure; one request's scores
-             checked against the same weights' f32 forward on the CPU
-             (plain versions); samples/s at bucket 32 and request latency.
+1. build    - the card's name and power limit, torch's version, and the
+              build of every kernel on the serving and training paths
+              from this checkout's sources, all started together: nvcc
+              for the CUDA flash-attention forward (K1) and backward (K2,
+              K3), Triton's JIT for the LayerNorm (K4), with build times.
+2. kernels  - each kernel against its plain PyTorch version on the card
+              at the main paths' shapes, with stated tolerances, and both
+              timed with CUDA events (best of several runs): K1 in its
+              inference and stats forms, K2 and K3 (also against autograd
+              through mha_reference), K4. F.scaled_dot_product_attention
+              (forward and backward) and F.layer_norm are timed beside
+              them for information; each kernel's bound (bytes over the
+              memory rate, operations over the peak rate) is computed
+              from its shapes.
+3. serving  - VisualBERT-base at full width (12 x 768, 12 heads, 3129
+              answers, bf16 compute; weights from a seeded
+              torch.Generator) behind ServingEngine(max_batch_size=32) and
+              ServingServer on 127.0.0.1, port 0. Concurrent /v1/predict
+              requests in the VQA2 example layout; answers checked for
+              status, shape and finiteness; the kernels' launch counts
+              checked against the model's structure; one request's scores
+              checked against the same weights' f32 forward on the CPU
+              (plain versions); samples/s at bucket 32 and request latency.
+4. training - VisualBERT-base at full width (f32 parameters, bf16
+              compute, hidden dropout 0.1 from the step's generator,
+              attention-probability dropout 0) trained with the VQA2
+              config (AdamW lr 5e-5, BERT no-decay groups, warmup_cosine
+              with its warmup cut to 2 updates, logit_bce) on B=64 VQA2
+              batches: 1 warm-up and 6 timed steps, finite losses, exact
+              launch counts per step, ms per step, samples/s, peak memory
+              and device time; then 3 steps through the kernels against
+              3 steps through the plain versions from the same weights and
+              batch at dropout 0, with each side's launches counted (the
+              losses, the last after an update at lr > 0; per-parameter
+              first-step gradient cosine and norm-relative error; update
+              cosine; all against stated bounds).
 
 Then one JSON line describing the kernels, the nvidia-smi line, and the
 last line {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
+import contextlib
 import json
+import math
 import subprocess
 import sys
 import threading
@@ -44,11 +64,13 @@ if not torch.cuda.is_available():
 
 import torch.nn.functional as F  # noqa: E402
 
+from mmf_tpu_torch.modules import transformer as T  # noqa: E402
 from mmf_tpu_torch.ops import attention as A  # noqa: E402
 from mmf_tpu_torch.ops import layernorm as L  # noqa: E402
 from mmf_tpu_torch.serving import ServingEngine  # noqa: E402
 from mmf_tpu_torch.serving import engine as engine_lib  # noqa: E402
 from mmf_tpu_torch.serving.server import ServingServer  # noqa: E402
+from mmf_tpu_torch.trainers.core import train_state  # noqa: E402
 from mmf_tpu_torch.utils import flagship  # noqa: E402
 
 DEV = torch.device("cuda")
@@ -63,6 +85,33 @@ TOL = {torch.float32: dict(atol=1e-5, rtol=1e-5),
 SERVE_ATOL = 0.1
 SERVE_MIN_COSINE = 0.999
 N_REQUESTS = 8
+# backward kernels: max abs error over the largest entry of the plain
+# version's gradient. f32: same formulas, other summation order (TF32 off);
+# bf16: p and ds rounded to bf16 before the tensor-core products and the
+# gradients stored in bf16 (one ulp is 2^-8 relative). Against autograd
+# through mha_reference (other formulas, other roundings) half as much
+# again
+GRAD_REL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# stats form: m and l are f32 sums of the same products in another order
+STATS_TOL = dict(atol=1e-4, rtol=1e-4)
+TRAIN_B, TRAIN_STEPS = 64, 6
+# training step through the kernels vs through the plain versions, same
+# weights and batch, dropout 0, bf16 compute: both round activations to
+# bf16 at the same places; the kernels also round p and ds to bf16
+TRAIN_LOSS_RTOL = 2e-3
+TRAIN_MIN_GRAD_COSINE = 0.99
+# per parameter: a missing or doubled scale in a backward kernel moves it
+# to ~1 or beyond
+TRAIN_MAX_GRAD_REL = 0.05
+TRAIN_MIN_UPDATE_COSINE = 0.9
+# steps of the kernel-vs-plain comparison: warmup_cosine runs update 0 at
+# lr 0, so the third loss is the first one after a real update
+COMPARED_STEPS = 3
+# H100 SXM data-sheet peaks (dense): the bound of a kernel is the larger of
+# its bytes over the memory rate and its operations over the peak rate of
+# the unit that runs them
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 
 def card_line() -> str:
@@ -102,74 +151,242 @@ def max_err(got, want, dtype) -> float:
     return float((got.float() - want.float()).abs().max())
 
 
+KERNELS = {  # name in the report -> the wrapper that counts launches
+    "flash_attention_fwd": A.flash_attention,
+    "flash_attention_fwd_stats": A.flash_attention_with_stats,
+    "flash_attention_bwd_dq": A.flash_attention_bwd_dq,
+    "flash_attention_bwd_dkv": A.flash_attention_bwd_dkv,
+    "layer_norm": L.layer_norm_kernel,
+}
+ZERO_COUNTS = {name: 0 for name in KERNELS}
+
+
+def reset_counts():
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
 # -- phase 1 ---------------------------------------------------------------
-def phase_build(card):
-    t0 = time.perf_counter()
-    info = A.build_flash_attention()
-    flash_s = time.perf_counter() - t0
-    regs = [ln.strip() for ln in info["ptxas"].splitlines()
-            if "registers" in ln]
+def _ln_build():
     x = torch.zeros(2, HIDDEN, device=DEV, dtype=torch.bfloat16)
     w = torch.ones(HIDDEN, device=DEV)
-    t0 = time.perf_counter()
     for residual in (None, x):  # both specialisations of the kernel
         for dtype in (torch.bfloat16, torch.float32):
             L.layer_norm_kernel(x.to(dtype), w, w * 0,
                                 None if residual is None
                                 else residual.to(dtype))
     torch.cuda.synchronize()
-    ln_s = time.perf_counter() - t0
+
+
+def phase_build(card):
+    """Every kernel's build, started together: one nvcc per CUDA source
+    and Triton's JIT, each in its own thread."""
+    jobs = {"flash_attention_fwd": A.build_flash_attention,
+            "flash_attention_bwd": A.build_flash_attention_bwd,
+            "layer_norm": _ln_build}
+    done, errors = {}, []
+
+    def run(name, fn):
+        t0 = time.perf_counter()
+        try:
+            done[name] = (fn(), time.perf_counter() - t0)
+        except BaseException as e:  # re-raised below, on the main thread
+            errors.append(e)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=run, args=item)
+               for item in jobs.items()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    wall = time.perf_counter() - t0
+    parts = []
+    for name in ("flash_attention_fwd", "flash_attention_bwd"):
+        info, _ = done[name]
+        regs = [ln.strip() for ln in info["ptxas"].splitlines()
+                if "registers" in ln]
+        spills = sum("spill stores" in ln and " 0 bytes spill stores" not in ln
+                     for ln in info["ptxas"].splitlines())
+        parts.append(f"{name} nvcc {info['build_s']:.1f}s ({len(regs)} "
+                     f"kernels, lines with spills {spills})")
+    parts.append(f"layer_norm triton jit {done['layer_norm'][1]:.1f}s")
     print(f"phase build: ok card='{card}' torch={torch.__version__} "
-          f"cuda={torch.version.cuda} flash_attention_fwd nvcc "
-          f"{info['build_s']:.1f}s (load {flash_s:.1f}s, "
-          f"{len(regs)} kernels, e.g. {regs[0] if regs else '?'}); "
-          f"layer_norm triton jit {ln_s:.1f}s")
+          f"cuda={torch.version.cuda}; built in parallel in {wall:.1f}s: "
+          + "; ".join(parts))
 
 
 # -- phase 2 ---------------------------------------------------------------
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def bound(nbytes, flops, dtype):
+    """(bound_ms, bound_by): the least time for the work on the card."""
+    mem_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    op_ms = 1e3 * flops / PEAK_FLOPS[dtype]
+    return (mem_ms, "bytes") if mem_ms >= op_ms else (op_ms, "operations")
+
+
+def rel_err(got, want, rel, what):
+    """Max abs error, checked against ``rel`` times the largest entry."""
+    want = want.float()
+    err = float((got.float() - want).abs().max())
+    scale = max(float(want.abs().max()), 1e-6)
+    check(not torch.isnan(got).any() and err <= rel * scale,
+          f"{what}: max abs err {err} > {rel} * {scale}")
+    return err
+
+
 def _attention_inputs(b, sq, skv, dtype, g):
-    # q/k/v as the [B,S,H,D] -> [B,H,S,D] views the attention block hands
-    # the kernel; a padding mask with masked columns in every row
+    # q/k/v/dO as the [B,S,H,D] -> [B,H,S,D] views the attention block
+    # hands the kernels; a padding mask with masked columns in every row
     def proj(s):
         return torch.randn(b, s, HEADS, HEAD_DIM, device=DEV,
                            generator=g).to(dtype).transpose(1, 2)
 
     mask = (torch.rand(b, skv, device=DEV, generator=g) > 0.2).int()
     mask[:, 0] = 1
-    return proj(sq), proj(skv), proj(skv), A.make_attention_bias(mask, dtype)
+    return (proj(sq), proj(skv), proj(skv), A.make_attention_bias(mask, dtype),
+            proj(sq))
+
+
+def _sdpa_with_lse(q, k, v, bias):
+    """A callable: the memory-efficient SDPA forward that also returns the
+    rows' logsumexp (m + log l), as SDPA calls it when a backward will
+    follow. The bias is padded to an aligned row and broadcast by
+    stride, as SDPA's own dispatch does."""
+    skv = bias.shape[-1]
+    padded = F.pad(bias, (0, -skv % 16))[..., :skv]
+    padded = padded.expand(q.shape[0], q.shape[1], q.shape[2], skv)
+    return lambda: torch.ops.aten._scaled_dot_product_efficient_attention(
+        q, k, v, padded, True)
+
+
+def _sdpa_backward(q, k, v, bias, dout):
+    """One SDPA forward, and a callable timing its backward alone."""
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves, attn_mask=bias)
+    return lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True)
 
 
 def phase_kernels(card):
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 parity
     g = torch.Generator(device=DEV).manual_seed(0)
-    results = {"flash_attention_fwd": {"err": 0.0},
-               "layer_norm": {"err": 0.0}}
+    names = ("flash_attention_fwd", "flash_attention_fwd_stats",
+             "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+             "layer_norm")
+    results = {n: {"err": 0.0} for n in names}
     lines = []
     cases = [(b, S, S, dt) for b in (1, 64)
              for dt in (torch.bfloat16, torch.float32)]
     cases.append((8, 128, 100, torch.bfloat16))  # Sq != Skv
     for b, sq, skv, dt in cases:
-        q, k, v, bias = _attention_inputs(b, sq, skv, dt, g)
+        q, k, v, bias, dout = _attention_inputs(b, sq, skv, dt, g)
         out = A.flash_attention(q, k, v, bias)
+        out_s, m, l = A.flash_attention_with_stats(q, k, v, bias)
+        dq, delta = A.flash_attention_bwd_dq(q, k, v, bias, out_s, m, l,
+                                             dout)
+        dk, dv = A.flash_attention_bwd_dkv(q, k, v, bias, dout, m, l, delta)
         torch.cuda.synchronize()
-        err = max_err(out, A.mha_reference(q, k, v, bias), dt)
-        r = results["flash_attention_fwd"]
-        r["err"] = max(r["err"], err)
-        kern = time_ms(lambda: A.flash_attention(q, k, v, bias))
-        plain = time_ms(lambda: A.mha_reference(q, k, v, bias))
+        ref_out, ref_m, ref_l = A.flash_forward_reference(q, k, v, bias)
+        err = max_err(out, ref_out, dt)
+        check(torch.equal(out, out_s), "stats form output != inference form")
+        torch.testing.assert_close(m, ref_m, **STATS_TOL)
+        torch.testing.assert_close(l, ref_l, **STATS_TOL)
+        err_s = max(err, float((m - ref_m).abs().max()),
+                    float((l - ref_l).abs().max()))
+        ref = A.flash_backward_reference(q, k, v, bias, out_s, m, l, dout)
+        errs = [rel_err(got, want, GRAD_REL[dt], f"{name} B={b} {dt}")
+                for name, got, want in zip(("dq", "dk", "dv"),
+                                           (dq, dk, dv), ref)]
+        leaves = [t.detach().float().requires_grad_() for t in (q, k, v)]
+        auto = torch.autograd.grad(A.mha_reference(*leaves, bias),
+                                   leaves, dout.float())
+        for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), auto):
+            rel_err(got, want, 1.5 * GRAD_REL[dt],
+                    f"{name} vs autograd(mha_reference) B={b} {dt}")
+        for name, e in zip(names[:4], (err, err_s, errs[0],
+                                       max(errs[1:]))):
+            results[name]["err"] = max(results[name]["err"], e)
+
+        plain_fwd = lambda: A.mha_reference(q, k, v, bias)  # noqa: E731
+        t = {
+            "flash_attention_fwd": time_ms(
+                lambda: A.flash_attention(q, k, v, bias)),
+            "flash_attention_fwd_stats": time_ms(
+                lambda: A.flash_attention_with_stats(q, k, v, bias)),
+            "flash_attention_bwd_dq": time_ms(
+                lambda: A.flash_attention_bwd_dq(q, k, v, bias, out_s, m, l,
+                                                 dout)),
+            "flash_attention_bwd_dkv": time_ms(
+                lambda: A.flash_attention_bwd_dkv(q, k, v, bias, dout, m, l,
+                                                  delta)),
+        }
+        plain = {
+            "flash_attention_fwd": time_ms(plain_fwd),
+            "flash_attention_fwd_stats": time_ms(
+                lambda: A.flash_forward_reference(q, k, v, bias)),
+            # the plain backward computes dq, dk and dv together
+            "flash_attention_bwd_dq": time_ms(
+                lambda: A.flash_backward_reference(q, k, v, bias, out_s, m,
+                                                   l, dout), iters=10),
+        }
+        plain["flash_attention_bwd_dkv"] = plain["flash_attention_bwd_dq"]
         sdpa = time_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=bias))
+        sdpa_bwd = time_ms(_sdpa_backward(q, k, v, bias, dout), iters=10)
+        sdpa_lse = time_ms(_sdpa_with_lse(q, k, v, bias))
         if (b, sq, dt) == (64, S, torch.bfloat16):
-            r["ms"], r["plain_ms"] = kern, plain
-        lines.append(f"  flash B={b} H={HEADS} Sq={sq} Skv={skv} "
-                     f"D={HEAD_DIM} {str(dt)[6:]}: max_abs_err={err:.3g} "
-                     f"kernel {kern:.4f} ms, plain {plain:.4f} ms, "
-                     f"sdpa {sdpa:.4f} ms")
+            qkvo = 4 * _nbytes(q)
+            st = _nbytes(m)  # one f32 [B,H,Sq] row statistic
+            pairs = b * HEADS * sq * skv * HEAD_DIM  # multiply-adds per
+            work = {  # product; (bytes, FLOPs) each input read once,
+                # each output written once
+                "flash_attention_fwd": (qkvo + _nbytes(bias), 4 * pairs),
+                "flash_attention_fwd_stats": (qkvo + _nbytes(bias) + 2 * st,
+                                              4 * pairs),
+                "flash_attention_bwd_dq": (6 * _nbytes(q) + _nbytes(bias)
+                                           + 3 * st, 6 * pairs),
+                "flash_attention_bwd_dkv": (6 * _nbytes(q) + _nbytes(bias)
+                                            + 3 * st, 8 * pairs),
+            }
+            for name, (nb, fl) in work.items():
+                r = results[name]
+                r["ms"], r["plain_ms"] = t[name], plain[name]
+                r["bound_ms"], r["bound_by"] = bound(nb, fl, dt)
+            results["flash_attention_fwd"]["library_ms"] = sdpa
+            results["flash_attention_fwd_stats"]["library_ms"] = sdpa_lse
+            # the SDPA backward computes dq, dk and dv together: one
+            # library time for K2 and K3 combined
+            for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+                results[name]["library_ms"] = sdpa_bwd
+        lines.append(
+            f"  flash B={b} H={HEADS} Sq={sq} Skv={skv} D={HEAD_DIM} "
+            f"{str(dt)[6:]}: max_abs_err fwd {err:.3g}, stats {err_s:.3g}, "
+            f"dq {errs[0]:.3g}, dk {errs[1]:.3g}, dv {errs[2]:.3g}; ms "
+            f"K1 {t['flash_attention_fwd']:.4f}, K1-stats "
+            f"{t['flash_attention_fwd_stats']:.4f}, K2 "
+            f"{t['flash_attention_bwd_dq']:.4f}, K3 "
+            f"{t['flash_attention_bwd_dkv']:.4f}; plain fwd "
+            f"{plain['flash_attention_fwd']:.4f}, plain fwd+stats "
+            f"{plain['flash_attention_fwd_stats']:.4f}, plain bwd "
+            f"{plain['flash_attention_bwd_dq']:.4f}; sdpa fwd {sdpa:.4f}, "
+            f"sdpa fwd+lse {sdpa_lse:.4f}, sdpa bwd {sdpa_bwd:.4f}")
     rows = 64 * S
     for dt in (torch.bfloat16, torch.float32):
         x = torch.randn(rows, HIDDEN, device=DEV, generator=g).to(dt)
         res = torch.randn(rows, HIDDEN, device=DEV, generator=g).to(dt)
         w = 1.0 + 0.1 * torch.randn(HIDDEN, device=DEV, generator=g)
         bb = 0.1 * torch.randn(HIDDEN, device=DEV, generator=g)
+        dy = torch.randn(rows, HIDDEN, device=DEV, generator=g).to(dt)
         for residual in (None, res):
             out = L.layer_norm_kernel(x, w, bb, residual)
             torch.cuda.synchronize()
@@ -183,15 +400,30 @@ def phase_kernels(card):
             stock = time_ms(lambda: F.layer_norm(
                 x if residual is None else x + residual, (HIDDEN,),
                 w.to(dt), bb.to(dt), 1e-12))
+            # the backward (VJP of the plain version, as in JAX)
+            leaves = [t.detach().requires_grad_()
+                      for t in (x, residual, w, bb) if t is not None]
+            xi, *rest = leaves
+            ri = rest.pop(0) if residual is not None else None
+            y = L.layer_norm(xi, rest[0], rest[1], ri)
+            bwd = time_ms(lambda: torch.autograd.grad(
+                y, leaves, dy, retain_graph=True), iters=10)
             if dt == torch.bfloat16 and residual is not None:
-                r["ms"], r["plain_ms"] = kern, plain
+                r["ms"], r["plain_ms"], r["library_ms"] = kern, plain, stock
+                r["bound_ms"], r["bound_by"] = bound(
+                    _nbytes(x, residual, w, bb, out), 8 * x.numel(), dt)
+                r["bwd_ms"] = bwd
             lines.append(f"  layer_norm [{rows}, {HIDDEN}] {str(dt)[6:]} "
                          f"residual={residual is not None}: "
                          f"max_abs_err={err:.3g} kernel {kern:.4f} ms, "
                          f"plain {plain:.4f} ms, F.layer_norm(+add) "
-                         f"{stock:.4f} ms")
+                         f"{stock:.4f} ms; backward (plain VJP) "
+                         f"{bwd:.4f} ms")
     print(f"phase kernels: ok (card '{card}'; tolerances f32 "
-          f"{TOL[torch.float32]}, bf16 {TOL[torch.bfloat16]})")
+          f"{TOL[torch.float32]}, bf16 {TOL[torch.bfloat16]}; stats "
+          f"{STATS_TOL}; gradients relative {GRAD_REL[torch.float32]} / "
+          f"{GRAD_REL[torch.bfloat16]} of the largest entry, 1.5x that "
+          "against autograd through mha_reference)")
     print("\n".join(lines))
     return results
 
@@ -240,8 +472,7 @@ def phase_serving(card):
         stats0 = server.stats()["batcher"]
 
         # the main path, counted from zero
-        A.flash_attention.launches = 0
-        L.layer_norm_kernel.launches = 0
+        reset_counts()
         replies = [None] * N_REQUESTS
 
         def send(i):
@@ -254,8 +485,7 @@ def phase_serving(card):
         for t in threads:
             t.join(timeout=600)
         torch.cuda.synchronize()
-        launches = {"flash_attention_fwd": A.flash_attention.launches,
-                    "layer_norm": L.layer_norm_kernel.launches}
+        launches = read_counts()
         stats1 = server.stats()["batcher"]
         check(not any(t.is_alive() for t in threads), "a request hung")
         for status, payload, _ in replies:
@@ -266,8 +496,8 @@ def phase_serving(card):
         batches = stats1["batches"] - stats0["batches"]
         # per forward: 12 attention calls; 24 residual LayerNorms plus the
         # embedding and the classifier-head LayerNorm
-        want = {"flash_attention_fwd": 12 * batches,
-                "layer_norm": 26 * batches}
+        want = dict(ZERO_COUNTS, flash_attention_fwd=12 * batches,
+                    layer_norm=26 * batches)
         check(batches >= 1 and launches == want,
               f"launches {launches}, want {want} for {batches} batch(es)")
         lat = sorted(r[2] for r in replies)
@@ -325,27 +555,278 @@ def phase_serving(card):
     return launches
 
 
+# -- phase 4 ---------------------------------------------------------------
+@contextlib.contextmanager
+def plain_versions():
+    """The trunk's attention and LayerNorm swapped for their plain
+    versions on the card, for the kernel-vs-plain step comparison only."""
+    attn, ln = T.dot_product_attention, T.layer_norm
+    T.dot_product_attention = (
+        lambda q, k, v, bias=None, scale=None, dropout_rate=0.0,
+        generator=None: A.mha_reference(q, k, v, bias, scale, dropout_rate,
+                                        generator))
+    T.layer_norm = (lambda x, scale, bias, residual=None, eps=1e-12:
+                    L._ln_reference(x, residual, scale, bias, eps))
+    try:
+        yield
+    finally:
+        T.dot_product_attention, T.layer_norm = attn, ln
+
+
+def _cosine(a, b):
+    a, b = a.double().flatten(), b.double().flatten()
+    den = float(a.norm() * b.norm())
+    return 1.0 if den == 0.0 else float(a @ b) / den
+
+
+def _norm_rel(got, want):
+    """||got - want|| / ||want||: unlike the cosine, it sees scale."""
+    got, want = got.double(), want.double()
+    den = float(want.norm())
+    return float((got - want).norm()) / den if den else float(got.norm())
+
+
+DEVICE_CATEGORIES = (  # kernel-name fragment -> category, first match
+    (("flash_fwd", "bwd_dq_", "bwd_dkv_"), "attention K1/K2/K3"),
+    (("_ln_fwd_kernel",), "LayerNorm K4"),
+    (("nvjet", "gemm", "cutlass", "sm90_", "xmma"), "GEMMs"),
+    (("multi_tensor_apply",), "optimizer"),
+)
+
+
+def _category(name):
+    for fragments, category in DEVICE_CATEGORIES:
+        if any(f in name for f in fragments):
+            return category
+    return "elementwise, reductions, copies"
+
+
+def _device_ms(step_fn, n):
+    """Device time per step from torch.profiler over ``n`` steps: the sum
+    of the kernels' self time, and that sum by category of kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step_fn()
+        torch.cuda.synchronize()
+    by_category = {}
+    for e in prof.key_averages():
+        # device-side kernels only; user annotations (the optimizer's
+        # record_function range) span kernels and would count them twice
+        if e.device_type != torch.autograd.DeviceType.CUDA or getattr(
+                e, "is_user_annotation", False) or e.key.startswith(
+                ("Optimizer.", "ProfilerStep")):
+            continue
+        ms = (getattr(e, "self_device_time_total", None)
+              or e.self_cuda_time_total) / 1e3 / n
+        cat = _category(e.key)
+        total, count = by_category.get(cat, (0.0, 0.0))
+        by_category[cat] = (total + ms, count + e.count / n)
+    return sum(v[0] for v in by_category.values()), by_category
+
+
+def _compared_steps(cfg, state_dict, batch):
+    """COMPARED_STEPS steps at dropout 0 from ``state_dict``: (losses,
+    gradients of the first step, parameter updates after all, launch
+    counts). The schedule's update 0 runs at lr 0, so the first two
+    losses are taken at the initial weights and the third after an
+    update at lr > 0."""
+    model = flagship.vqa2_visual_bert(cfg, {"hidden_dropout_prob": 0.0})
+    model.load_state_dict(state_dict, strict=True)
+    state, step = flagship.vqa2_trainer(model, cfg, seed=1)
+    losses, grads = [], None
+    reset_counts()
+    for _ in range(COMPARED_STEPS):
+        state, rep = step(state, batch)
+        losses.append(float(rep["total_loss"]))
+        if grads is None:
+            grads = {n: p.grad.detach().float().cpu()
+                     for n, p in model.named_parameters()}
+    launches = read_counts()
+    updates = {n: p.detach().cpu() - state_dict[n]
+               for n, p in model.named_parameters()}
+    return losses, grads, updates, launches
+
+
+def phase_training(card):
+    cfg = flagship.vqa2_config([
+        # the flash kernel has no probabilities to drop (as in JAX)
+        "model_config.visual_bert.attention_probs_dropout_prob=0.0",
+        # so that the lr is above 0 within the run
+        "scheduler.params.num_warmup_steps=2",
+    ])
+    model = flagship.vqa2_visual_bert(cfg)
+    mc = model.config
+    check((mc["hidden_size"], mc["num_hidden_layers"],
+           mc["num_attention_heads"], mc["num_labels"], mc["dtype"],
+           mc["hidden_dropout_prob"], mc["attention_probs_dropout_prob"])
+          == (HIDDEN, 12, HEADS, 3129, "bfloat16", 0.1, 0.0), dict(mc))
+    model.init_weights(torch.Generator().manual_seed(0))
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    n_params = sum(p.numel() for p in model.parameters())
+    model = model.to(DEV)
+    check(all(p.dtype == torch.float32 for p in model.parameters()),
+          "master parameters must stay f32")
+    state, step = flagship.vqa2_trainer(model, cfg, seed=0)
+    groups = [(g["weight_decay"], len(g["params"]))
+              for g in state.optimizer.param_groups]
+    batch = train_state._to_device(flagship.vqa2_train_batch(
+        TRAIN_B, SEQ, REGIONS, VDIM, seed=0), DEV)
+
+    t0 = time.perf_counter()
+    state, rep = step(state, batch)  # warm-up
+    warm_loss = float(rep["total_loss"])
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+
+    # the main path, counted from zero
+    reset_counts()
+    losses, step_ms, lrs = [], [], []
+    for _ in range(TRAIN_STEPS):
+        lrs.append(state.optimizer.param_groups[0]["lr"])
+        t0 = time.perf_counter()
+        state, rep = step(state, batch)
+        losses.append(float(rep["total_loss"]))  # synchronises
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    launches = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(all(math.isfinite(x) for x in [warm_loss] + losses)
+          and not bool(rep["nan_flag"]), f"losses {losses}")
+    check(lrs[0] > 0.0, f"lr {lrs}")
+    # per step: 12 attention calls (stats form forward, K2 and K3 in the
+    # backward, no inference form); 26 LayerNorm forwards (embedding, 24
+    # residual, classifier head), whose backward is the plain VJP
+    want = dict(ZERO_COUNTS, flash_attention_fwd_stats=12 * TRAIN_STEPS,
+                flash_attention_bwd_dq=12 * TRAIN_STEPS,
+                flash_attention_bwd_dkv=12 * TRAIN_STEPS,
+                layer_norm=26 * TRAIN_STEPS)
+    check(launches == want, f"training launches {launches}, want {want}")
+
+    def one_step():
+        nonlocal state
+        state, _ = step(state, batch)
+
+    dev_ms, by_category = _device_ms(one_step, 2)
+    best_ms = min(step_ms)
+    del state, step, model, rep
+    torch.cuda.empty_cache()
+
+    # kernels vs plain versions: same weights, same batch, dropout 0
+    k_losses, k_grads, k_upd, k_launches = _compared_steps(cfg, init, batch)
+    with plain_versions():
+        p_losses, p_grads, p_upd, p_launches = _compared_steps(cfg, init,
+                                                               batch)
+    want_k = {name: count * COMPARED_STEPS // TRAIN_STEPS
+              for name, count in want.items()}
+    check(k_launches == want_k, f"kernel side launches {k_launches}")
+    check(p_launches == ZERO_COUNTS, f"plain side launches {p_launches}")
+    check(k_losses[1] == k_losses[0] and k_losses[2] != k_losses[1],
+          f"update 0 at lr 0 and update 1 above it: losses {k_losses}")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(k_losses, p_losses))
+    # the key bias's true gradient is 0 (softmax is shift-invariant along
+    # keys): both sides hold rounding noise there, so it is left out
+    compared = [n for n in k_grads if not n.endswith("key.bias")]
+    g_cos = {n: _cosine(k_grads[n], p_grads[n]) for n in compared}
+    g_rel = {n: _norm_rel(k_grads[n], p_grads[n]) for n in compared}
+    u_cos = {n: _cosine(k_upd[n], p_upd[n]) for n in compared}
+    worst_g = min(g_cos, key=g_cos.get)
+    worst_r = max(g_rel, key=g_rel.get)
+    worst_u = min(u_cos, key=u_cos.get)
+    check(loss_rel <= TRAIN_LOSS_RTOL,
+          f"kernel vs plain losses {k_losses} / {p_losses}")
+    check(g_cos[worst_g] >= TRAIN_MIN_GRAD_COSINE,
+          f"gradient cosine {g_cos[worst_g]} at {worst_g}")
+    check(g_rel[worst_r] <= TRAIN_MAX_GRAD_REL,
+          f"gradient norm-relative error {g_rel[worst_r]} at {worst_r}")
+    check(u_cos[worst_u] >= TRAIN_MIN_UPDATE_COSINE,
+          f"update cosine {u_cos[worst_u]} at {worst_u}")
+
+    print(f"phase training: ok VisualBERT-base {n_params / 1e6:.1f}M f32 "
+          f"params, bf16 compute, B={TRAIN_B}; warm-up step {warm_s:.1f}s "
+          f"loss {warm_loss:.4f}; {TRAIN_STEPS} steps, losses "
+          f"{[round(x, 4) for x in losses]} all finite, lr {lrs[0]:.3g} -> "
+          f"{lrs[-1]:.3g}; optimizer groups (weight decay, params) "
+          f"{groups}; launches {launches} (exact per step)")
+    print(f"  training on '{card}': ms per step "
+          f"{[round(x, 2) for x in step_ms]} (best {best_ms:.2f}), "
+          f"{TRAIN_B * 1e3 / best_ms:.1f} samples/s at best, "
+          f"{TRAIN_B * 1e3 * TRAIN_STEPS / sum(step_ms):.1f} mean; device "
+          f"time {dev_ms:.2f} ms per step (torch.profiler, 2 steps) against "
+          f"{best_ms:.2f} ms wall; max_memory_allocated {peak_gb:.2f} GB")
+    print("  device time per step by kind of kernel (ms, launches): "
+          + "; ".join(f"{cat} {ms:.2f} x{cnt:.0f}" for cat, (ms, cnt) in
+                      sorted(by_category.items(), key=lambda kv: -kv[1][0])))
+    print(f"  kernels vs plain versions, {COMPARED_STEPS} steps at dropout "
+          f"0 (launches {k_launches} vs {p_launches}): losses {k_losses} vs "
+          f"{p_losses} (max rel {loss_rel:.3g}, bound {TRAIN_LOSS_RTOL}); "
+          f"first-step gradients: cosine min {g_cos[worst_g]:.6f} at "
+          f"{worst_g} (bound {TRAIN_MIN_GRAD_COSINE}), |g_k - g_p| / |g_p| "
+          f"max {g_rel[worst_r]:.3g} at {worst_r} (bound "
+          f"{TRAIN_MAX_GRAD_REL}); update cosine after {COMPARED_STEPS} "
+          f"steps min {u_cos[worst_u]:.6f} at {worst_u} (bound "
+          f"{TRAIN_MIN_UPDATE_COSINE}); {len(compared)} of {len(k_grads)} "
+          "parameters compared (attention key biases left out)")
+    return launches
+
+
+SOURCES = {  # name -> (route, source, the TPU kernel it replaces)
+    "flash_attention_fwd": ("cuda",
+                            "mmf_tpu_torch/ops/csrc/flash_attention_fwd.cu",
+                            "mmf_tpu/ops/attention.py:114"),
+    "flash_attention_fwd_stats": (
+        "cuda", "mmf_tpu_torch/ops/csrc/flash_attention_fwd.cu",
+        "mmf_tpu/ops/attention.py:114"),
+    "flash_attention_bwd_dq": (
+        "cuda", "mmf_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+        "mmf_tpu/ops/attention.py:372"),
+    "flash_attention_bwd_dkv": (
+        "cuda", "mmf_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+        "mmf_tpu/ops/attention.py:419"),
+    "layer_norm": ("triton", "mmf_tpu_torch/ops/layernorm_triton.py",
+                   "mmf_tpu/ops/layernorm.py:81"),
+}
+
+
+LIBRARY = {  # name -> the PyTorch call timed as its library_ms
+    "flash_attention_fwd": "F.scaled_dot_product_attention",
+    "flash_attention_fwd_stats": (
+        "aten._scaled_dot_product_efficient_attention with "
+        "compute_log_sumexp (output and the rows' m + log l)"),
+    "flash_attention_bwd_dq": (
+        "F.scaled_dot_product_attention backward: dq, dk, dv together "
+        "(K2 + K3 combined)"),
+    "flash_attention_bwd_dkv": (
+        "F.scaled_dot_product_attention backward: dq, dk, dv together "
+        "(K2 + K3 combined)"),
+    "layer_norm": "F.layer_norm after the residual add",
+}
+
+
 def main():
     card = card_line()
     phase_build(card)
     results = phase_kernels(card)
-    launches = phase_serving(card)
-    print(json.dumps({"kernels": [
-        {"name": "flash_attention_fwd", "route": "cuda",
-         "source": "mmf_tpu_torch/ops/csrc/flash_attention_fwd.cu",
-         "replaces": "mmf_tpu/ops/attention.py:114",
-         "launches": launches["flash_attention_fwd"],
-         "max_abs_err": results["flash_attention_fwd"]["err"],
-         "ms": results["flash_attention_fwd"]["ms"],
-         "plain_ms": results["flash_attention_fwd"]["plain_ms"]},
-        {"name": "layer_norm", "route": "triton",
-         "source": "mmf_tpu_torch/ops/layernorm_triton.py",
-         "replaces": "mmf_tpu/ops/layernorm.py:81",
-         "launches": launches["layer_norm"],
-         "max_abs_err": results["layer_norm"]["err"],
-         "ms": results["layer_norm"]["ms"],
-         "plain_ms": results["layer_norm"]["plain_ms"]},
-    ]}))
+    served = phase_serving(card)
+    trained = phase_training(card)
+    kernels = []
+    for name, (route, source, replaces) in SOURCES.items():
+        r = results[name]
+        kernels.append({
+            "name": name, "route": route, "source": source,
+            "replaces": replaces,
+            # launches on the paths that run the kernel: serving (K1
+            # inference form, K4) and training (K1 stats form, K2, K3, K4)
+            "launches": served[name] + trained[name],
+            "max_abs_err": r["err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            # one PyTorch call computing the same function: LIBRARY says
+            # which
+            "library_ms": r["library_ms"], "library": LIBRARY[name],
+        })
+    print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

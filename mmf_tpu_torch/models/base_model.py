@@ -2,8 +2,9 @@
 
 Port of ``mmf_tpu/models/base_model.py`` on ``torch.nn.Module``: a model
 is built from its ``model_config`` section and maps a sample-list dict of
-tensors to ``{"scores": ...}``. Losses, lr multipliers and weight-decay
-masks wait for the trainer port.
+tensors to ``{"scores": ...}``. It also names its losses
+(``build_losses``), lr multipliers and weight-decay mask, which the
+optimizer turns into parameter groups.
 """
 
 from __future__ import annotations
@@ -40,6 +41,29 @@ class BaseModel(nn.Module):
         from mmf_tpu_torch.config import omega
 
         return cls(config=omega.create(kwargs))
+
+    def get_lr_multipliers(self, config=None):
+        """Per-module lr scales as {parameter-name prefix: scale}; None
+        means uniform."""
+        return None
+
+    def get_weight_decay_mask(self, config=None):
+        """Callable ``model -> {name: decay}`` (True = decay), or None for
+        uniform decay. BERT-family models return ``bert_no_decay_mask()``
+        (bias and LayerNorm parameters get weight decay 0)."""
+        return None
+
+    def build_losses(self):
+        """The loss container from ``config.losses``. Dict-style losses
+        are resolved inside a model's heads, not here."""
+        from mmf_tpu_torch.modules.losses import Losses
+
+        loss_list = []
+        if self.config is not None:
+            loss_list = self.config.get("losses", []) or []
+        if hasattr(loss_list, "keys"):
+            loss_list = []
+        return Losses(loss_list)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator,

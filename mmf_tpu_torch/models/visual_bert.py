@@ -3,8 +3,10 @@
 Port of ``mmf_tpu/models/visual_bert.py``: text tokens and projected
 region features are concatenated into one sequence and run through the
 shared BERT trunk. Heads ported: classification with
-``pooler_strategy: default | vqa`` and ``nlvr2`` pair pooling. The
-``pretraining`` head (masked-LM loss) waits for the trainer port.
+``pooler_strategy: default | vqa`` and ``nlvr2`` pair pooling, in eval and
+training mode (dropout from the generator that
+``modules.transformer.dropout_generator`` installs). The ``pretraining``
+head (masked-LM loss) is not ported yet.
 
 Input contract (same SampleList fields as the JAX model): ``input_ids``,
 ``input_mask``, ``segment_ids`` (optional), ``image_feature_0``,
@@ -22,6 +24,7 @@ from torch import nn
 from mmf_tpu_torch.common.registry import registry
 from mmf_tpu_torch.models.base_model import BaseModel
 from mmf_tpu_torch.modules.transformer import (
+    Dropout,
     Embed,
     Pooler,
     PredictionHeadTransform,
@@ -56,7 +59,7 @@ class VisualBertEmbeddings(nn.Module):
             config.type_vocab_size, hs, dt
         )
         self.layer_norm = ResidualLayerNorm(hs, config.layer_norm_eps)
-        self.dropout = nn.Dropout(config.hidden_dropout_prob)
+        self.dropout = Dropout(config.hidden_dropout_prob)
 
     def forward(self, input_ids, token_type_ids, visual_embeddings,
                 visual_embeddings_type):
@@ -108,14 +111,14 @@ class VisualBERT(BaseModel):
         self.head = self.config.get("training_head_type", "classification")
         if self.head == "pretraining":
             raise NotImplementedError(
-                "the VisualBERT pretraining (masked-LM) head waits for the "
-                "trainer port; use training_head_type=classification|nlvr2"
+                "the VisualBERT pretraining (masked-LM) head is not ported "
+                "yet; use training_head_type=classification|nlvr2"
             )
         self.pooler_strategy = self.config.get("pooler_strategy", "default")
         self.bert = VisualBertBase(
             cfg, self.config.get("visual_embedding_dim", 2048)
         )
-        self.dropout = nn.Dropout(cfg.hidden_dropout_prob)
+        self.dropout = Dropout(cfg.hidden_dropout_prob)
         in_features = cfg.hidden_size
         if self.head == "nlvr2" and self.pooler_strategy != "vqa":
             in_features = 2 * cfg.hidden_size  # pair-concat pooling
@@ -126,6 +129,13 @@ class VisualBERT(BaseModel):
     @classmethod
     def config_path(cls):
         return "configs/models/visual_bert/pretrain.yaml"
+
+    def get_weight_decay_mask(self, config=None):
+        """Bias and LayerNorm parameters are exempt from weight decay
+        (``bert_no_decay_mask``), as in the JAX model."""
+        from mmf_tpu_torch.utils.modeling import bert_no_decay_mask
+
+        return bert_no_decay_mask()
 
     @classmethod
     def format_state_key(cls, key: str) -> str:

@@ -1,4 +1,4 @@
-"""Shared BERT-family transformer trunk, eval path.
+"""Shared BERT-family transformer trunk, eval and training modes.
 
 Port of ``mmf_tpu/modules/transformer.py``. Module and parameter names
 mirror the flax scopes with dots (``encoder.layer_0.attention.query.
@@ -11,6 +11,13 @@ input and weights to the compute dtype in ``forward`` (a no-op once
 ``BaseModel.to_compute_dtype`` has cast the weights, which the serving
 engine does once); LayerNorm parameters stay float32.
 
+Dropout (``Dropout``, and attention-probability dropout through
+``dot_product_attention``) draws its masks from an explicit
+``torch.Generator`` that the caller installs with ``dropout_generator``
+for the length of a training forward: the counterpart of flax's
+``rngs={"dropout": key}``. A module in training mode with a rate above 0
+and no generator installed raises, as flax does without a dropout rng.
+
 Not ported yet: remat, MoE, sequence and pipeline parallelism (the config
 fields are accepted; ``moe_experts > 0`` raises), the int8 path
 (``quant: int8`` raises), the encoder's ``output_hidden_states`` /
@@ -22,6 +29,8 @@ an explicit ``torch.Generator``.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import os
 from typing import Any, Optional
@@ -96,6 +105,55 @@ class TransformerConfig:
         if isinstance(d.get("dtype"), str):
             d["dtype"] = _DTYPES[d["dtype"]]
         return cls(**{k: v for k, v in d.items() if k in fields})
+
+
+_DROPOUT_GENERATOR: contextvars.ContextVar = contextvars.ContextVar(
+    "mmf_dropout_generator", default=None)
+
+
+@contextlib.contextmanager
+def dropout_generator(generator: Optional[torch.Generator]):
+    """Install ``generator`` as the source of every dropout mask drawn
+    inside the block (a training step's forward)."""
+    token = _DROPOUT_GENERATOR.set(generator)
+    try:
+        yield generator
+    finally:
+        _DROPOUT_GENERATOR.reset(token)
+
+
+def current_dropout_generator(rate: float) -> torch.Generator:
+    """The installed generator; raises when dropout at ``rate`` is due
+    and none is installed."""
+    g = _DROPOUT_GENERATOR.get()
+    if g is None:
+        raise RuntimeError(
+            f"dropout at rate {rate} in training mode needs a generator: "
+            "run the forward inside modules.transformer.dropout_generator"
+            "(torch.Generator(device=...)), or call .eval()"
+        )
+    return g
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout``: in training mode keeps each element with
+    probability ``1 - rate`` and scales it by ``1 / (1 - rate)``; the
+    mask comes from the installed ``dropout_generator``."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = float(rate)
+
+    def forward(self, x):
+        if not self.training or self.rate == 0.0:
+            return x
+        g = current_dropout_generator(self.rate)
+        keep = torch.rand(x.shape, generator=g, device=x.device) < (
+            1.0 - self.rate)
+        return torch.where(keep, x / (1.0 - self.rate), torch.zeros_like(x))
+
+    def extra_repr(self) -> str:
+        return f"rate={self.rate}"
 
 
 def apply_padding_idx(embeds, input_ids, pad_token_id=0):
@@ -191,7 +249,7 @@ class SelfAttention(nn.Module):
         self.key = _dense(config, hs, hs)
         self.value = _dense(config, hs, hs)
         self.output_dense = _dense(config, hs, hs)
-        self.dropout = nn.Dropout(config.hidden_dropout_prob)
+        self.dropout = Dropout(config.hidden_dropout_prob)
         self.output_layer_norm = ResidualLayerNorm(hs, config.layer_norm_eps)
 
     def forward(self, hidden, kv=None, bias=None, prefix_kv=None,
@@ -200,11 +258,6 @@ class SelfAttention(nn.Module):
         this call's keys/values; ``return_kv`` also returns this call's
         own split (k, v)."""
         cfg = self.config
-        if self.training and cfg.attention_probs_dropout_prob > 0.0:
-            raise NotImplementedError(
-                "attention-probability dropout in training waits for the "
-                "trainer port; call .eval()"
-            )
         if kv is None:
             kv = hidden
         nh = cfg.num_attention_heads
@@ -220,7 +273,14 @@ class SelfAttention(nn.Module):
         if prefix_kv is not None:
             k = torch.cat([prefix_kv[0], k], dim=2)
             v = torch.cat([prefix_kv[1], v], dim=2)
-        ctx = dot_product_attention(q, k, v, bias=bias)
+        rate, generator = 0.0, None
+        if self.training and cfg.attention_probs_dropout_prob > 0.0:
+            # no probabilities to drop inside the kernel: this routes to
+            # the plain version, as the JAX dispatcher does
+            rate = cfg.attention_probs_dropout_prob
+            generator = current_dropout_generator(rate)
+        ctx = dot_product_attention(q, k, v, bias=bias, dropout_rate=rate,
+                                    generator=generator)
         ctx = ctx.transpose(1, 2).reshape(
             hidden.shape[0], hidden.shape[1], cfg.hidden_size
         )
@@ -241,7 +301,7 @@ class FeedForward(nn.Module):
         self.output_dense = _dense(
             config, config.intermediate_size, config.hidden_size
         )
-        self.dropout = nn.Dropout(config.hidden_dropout_prob)
+        self.dropout = Dropout(config.hidden_dropout_prob)
         self.output_layer_norm = ResidualLayerNorm(
             config.hidden_size, config.layer_norm_eps
         )

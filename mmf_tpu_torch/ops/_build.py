@@ -4,8 +4,9 @@ Route: ``nvcc`` compiles the sources under ``ops/csrc/`` into a shared
 library with a plain C interface, loaded with ``ctypes`` (no PyTorch
 headers, so a build takes seconds). Output goes to
 ``<repo>/build/mmf_tpu_torch/<name>-<hash>/``, keyed by a hash of the
-sources and flags, so a checkout builds everything it needs from its own
-files and a changed source never loads a stale library. There is no
+sources, the shared headers (``ops/csrc/*.cuh``) and the flags, so a
+checkout builds everything it needs from its own files and a changed
+source never loads a stale library. There is no
 fallback: a missing ``nvcc`` or a failed build raises.
 """
 
@@ -31,8 +32,15 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 ]
 
-_lock = threading.Lock()
+_locks_lock = threading.Lock()
+_locks: Dict[str, threading.Lock] = {}
 _libs: Dict[str, Tuple[ctypes.CDLL, dict]] = {}
+
+
+def _lock_for(name: str) -> threading.Lock:
+    """One lock per library, so different libraries build in parallel."""
+    with _locks_lock:
+        return _locks.setdefault(name, threading.Lock())
 
 
 def find_nvcc() -> str:
@@ -54,12 +62,14 @@ def load_library(name: str, sources: List[str]) -> Tuple[ctypes.CDLL, dict]:
     hash and load the result. Returns ``(library, info)``; ``info`` holds
     ``build_s`` (0.0 when an earlier build was reused), the library path
     and the compiler's ``-Xptxas -v`` report."""
-    with _lock:
+    with _lock_for(name):
         if name in _libs:
             return _libs[name]
         paths = [os.path.join(CSRC, s) for s in sources]
+        headers = sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
+                         if f.endswith(".cuh"))
         h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for p in paths:
+        for p in paths + headers:
             with open(p, "rb") as f:
                 h.update(f.read())
         out_dir = os.path.join(BUILD_ROOT, f"{name}-{h.hexdigest()[:16]}")

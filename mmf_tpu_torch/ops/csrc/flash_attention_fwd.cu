@@ -1,10 +1,15 @@
-// Flash-attention forward for Hopper (sm_90a), inference mode.
+// Flash-attention forward for Hopper (sm_90a): K1, in its inference form
+// and its stats form.
 //
 // Replaces the Pallas TPU kernel mmf_tpu/ops/attention.py::_flash_kernel
 // (launched from _flash_forward). Same function: softmax(q k^T * scale +
 // bias) v with the online softmax over kv tiles in f32, output cast to the
 // input dtype; rows whose every column is -inf (nothing to attend to) emit
-// zeros instead of NaN.
+// zeros instead of NaN. The stats form (the TPU kernel's with_lse=True,
+// for the backward in flash_attention_bwd.cu) also writes the row max m
+// and the normalizer l, f32 [B, H, Sq], separately and not as m + log l:
+// at the -0.7 * f32max mask value log l would be absorbed. A row with
+// l == 0 stores m = 0 and l = 1, so exp(s - m) / l is exactly 0 there.
 //
 // What bounds it on the H100: at the main path's shape (B<=64, H=12,
 // S=228, D=64) attention is ~4*S*S*D FLOPs per (b, h) against ~4*S*D
@@ -37,14 +42,13 @@
 //        -Xcompiler -fPIC (mmf_tpu_torch/ops/_build.py); plain C entry
 //        point loaded with ctypes.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "flash_attention_common.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
+using namespace mmf_flash;
 constexpr int BQ = 64;  // q rows per block
 constexpr int BK = 64;  // kv columns per shared-memory tile
 constexpr int MAX_D = 128;
@@ -60,18 +64,6 @@ struct Strides {
 constexpr int F_THREADS = 256;
 constexpr int F_LD = 65;  // padded row length of the [*, 64] f32 tiles
 
-__device__ __forceinline__ float max_xor(float x, int width) {
-  for (int off = width / 2; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float sum_xor(float x, int width) {
-  for (int off = width / 2; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
 size_t f32_smem_bytes(int d) {
   // q^T [D][F_LD], k^T [D][F_LD], v [BK][D], p [BQ][F_LD]
   return sizeof(float) *
@@ -84,6 +76,7 @@ __global__ void __launch_bounds__(F_THREADS)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v,
                      const float* __restrict__ bias, float* __restrict__ o,
+                     float* __restrict__ m_out, float* __restrict__ l_out,
                      int Sq, int Skv, int D, float scale, Strides st) {
   extern __shared__ float smem[];
   float* qt = smem;          // [D][F_LD]: q^T * scale
@@ -211,6 +204,11 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int d = tx + 16 * j;
       if (d < D) ob[r * st.o[2] + d] = acc[i][j] * inv;
     }
+    if (m_out != nullptr && tx == 0) {  // the 16 lanes of a row agree
+      const long long idx = ((long long)b * gridDim.y + h) * Sq + r;
+      m_out[idx] = l[i] > 0.f ? m[i] : 0.f;
+      l_out[idx] = l[i] > 0.f ? l[i] : 1.f;
+    }
   }
 }
 
@@ -226,25 +224,6 @@ constexpr int T_WARPS = 4;
 constexpr int T_THREADS = 32 * T_WARPS;
 constexpr int V_LD = BK + 8;  // row length of the transposed v tile
 
-__device__ __forceinline__ void mma_16816(float (&d)[4],
-                                          const uint32_t (&a)[4],
-                                          const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);  // two bf16, 4-byte aligned
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 template <int NK>
 size_t bf16_smem_bytes() {
   // q [BQ][16 NK + 8], k [BK][16 NK + 8], v^T [16 NK][V_LD]
@@ -259,6 +238,7 @@ __global__ void __launch_bounds__(T_THREADS)
 flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v,
                       const float* __restrict__ bias, bf16* __restrict__ o,
+                      float* __restrict__ m_out, float* __restrict__ l_out,
                       int Sq, int Skv, int D, float scale, Strides st) {
   constexpr int DP = 16 * NK;
   constexpr int LDH = DP + 8;  // padded rows: conflict-free fragment loads
@@ -425,14 +405,19 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         *reinterpret_cast<__nv_bfloat162*>(orow + d) = __floats2bfloat162_rn(
             acc[j][2 * i] * inv, acc[j][2 * i + 1] * inv);
     }
+    if (m_out != nullptr && t == 0) {  // the 4 lanes of a group agree
+      const long long idx = ((long long)b * gridDim.y + h) * Sq + qrow[i];
+      m_out[idx] = l[i] > 0.f ? m[i] : 0.f;
+      l_out[idx] = l[i] > 0.f ? l[i] : 1.f;
+    }
   }
 }
 
 template <int NJ>
 cudaError_t launch_f32(const void* q, const void* k, const void* v,
-                       const void* bias, void* o, int B, int H, int Sq,
-                       int Skv, int D, float scale, const Strides& st,
-                       cudaStream_t stream) {
+                       const void* bias, void* o, float* m_out,
+                       float* l_out, int B, int H, int Sq, int Skv, int D,
+                       float scale, const Strides& st, cudaStream_t stream) {
   const size_t smem = f32_smem_bytes(D);
   auto kernel = flash_fwd_f32_kernel<NJ>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -442,15 +427,15 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
   kernel<<<grid, F_THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(bias),
-      static_cast<float*>(o), Sq, Skv, D, scale, st);
+      static_cast<float*>(o), m_out, l_out, Sq, Skv, D, scale, st);
   return cudaGetLastError();
 }
 
 template <int NK>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
-                        const void* bias, void* o, int B, int H, int Sq,
-                        int Skv, int D, float scale, const Strides& st,
-                        cudaStream_t stream) {
+                        const void* bias, void* o, float* m_out,
+                        float* l_out, int B, int H, int Sq, int Skv, int D,
+                        float scale, const Strides& st, cudaStream_t stream) {
   const size_t smem = bf16_smem_bytes<NK>();
   auto kernel = flash_fwd_bf16_kernel<NK>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -460,16 +445,8 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
   kernel<<<grid, T_THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const float*>(bias),
-      static_cast<bf16*>(o), Sq, Skv, D, scale, st);
+      static_cast<bf16*>(o), m_out, l_out, Sq, Skv, D, scale, st);
   return cudaGetLastError();
-}
-
-bool aligned16(const void* p, const long long* strides) {
-  // bf16 rows are loaded as 16-byte vectors
-  if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
-  for (int i = 0; i < 3; ++i)
-    if (strides[i] % 8 != 0) return false;
-  return true;
 }
 
 }  // namespace
@@ -479,17 +456,19 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it); bias is
 // float32 or null. strides: 15 element strides, (batch, head, seq) for
 // q, k, v, o and bias in that order; the head dim is contiguous in all.
+// m_out / l_out: both null (inference form) or both contiguous float32
+// [B, H, Sq] (stats form).
 // bfloat16 q/k/v need 16-byte aligned pointers and strides that are
 // multiples of 8. Launches on `stream`, allocates nothing, returns
 // cudaGetLastError() (or cudaErrorInvalidValue / cudaErrorMisalignedAddress
 // for arguments the kernels do not take).
 int mmf_flash_attention_fwd(const void* q, const void* k, const void* v,
-                            const void* bias, void* o, int dtype, int B,
-                            int H, int Sq, int Skv, int D,
-                            const long long* strides, float scale,
-                            void* stream) {
-  if (D <= 0 || D > MAX_D || D % 8 != 0 || B > 65535 || H > 65535 ||
-      (dtype != 0 && dtype != 1))
+                            const void* bias, void* o, float* m_out,
+                            float* l_out, int dtype, int B, int H, int Sq,
+                            int Skv, int D, const long long* strides,
+                            float scale, void* stream) {
+  if ((m_out == nullptr) != (l_out == nullptr) || D <= 0 || D > MAX_D ||
+      D % 8 != 0 || B > 65535 || H > 65535 || (dtype != 0 && dtype != 1))
     return int(cudaErrorInvalidValue);
   if (B == 0 || H == 0 || Sq == 0) return 0;
   Strides st;
@@ -508,8 +487,8 @@ int mmf_flash_attention_fwd(const void* q, const void* k, const void* v,
     switch (n16) {
 #define MMF_CASE(n)                                                         \
   case n:                                                                   \
-    return int(launch_bf16<n>(q, k, v, bias, o, B, H, Sq, Skv, D, scale, st, \
-                              s));
+    return int(launch_bf16<n>(q, k, v, bias, o, m_out, l_out, B, H, Sq, Skv, \
+                              D, scale, st, s));
       MMF_CASE(1) MMF_CASE(2) MMF_CASE(3) MMF_CASE(4)
       MMF_CASE(5) MMF_CASE(6) MMF_CASE(7) MMF_CASE(8)
 #undef MMF_CASE
@@ -518,8 +497,8 @@ int mmf_flash_attention_fwd(const void* q, const void* k, const void* v,
     switch (n16) {
 #define MMF_CASE(n)                                                        \
   case n:                                                                  \
-    return int(launch_f32<n>(q, k, v, bias, o, B, H, Sq, Skv, D, scale, st, \
-                             s));
+    return int(launch_f32<n>(q, k, v, bias, o, m_out, l_out, B, H, Sq, Skv, \
+                             D, scale, st, s));
       MMF_CASE(1) MMF_CASE(2) MMF_CASE(3) MMF_CASE(4)
       MMF_CASE(5) MMF_CASE(6) MMF_CASE(7) MMF_CASE(8)
 #undef MMF_CASE

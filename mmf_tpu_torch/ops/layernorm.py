@@ -13,9 +13,14 @@ output in x's dtype.
   product; ~8 FLOPs per element against 4-6 bytes moved): one program
   reads one whole row (and its residual) once, keeps the sum and the
   centred sum of squares in registers, and writes only the output.
+- ``LayerNormFunction``: the autograd Function over the kernel, the
+  counterpart of the JAX ``_ln_pallas`` custom_vjp: the forward is the
+  Triton kernel; the backward recomputes through ``_ln_reference`` and
+  takes its VJP, as JAX does (JAX has no Pallas backward for LayerNorm).
 - ``_ln_reference``: the plain version, used for CPU tensors.
-- ``layer_norm``: CUDA tensors go to the kernel, CPU tensors to the plain
-  version. Unlike the JAX package, where the Pallas kernel is opt-in
+- ``layer_norm``: CUDA tensors go to the kernel (through
+  ``LayerNormFunction`` when a gradient is wanted), CPU tensors to the
+  plain version. Unlike the JAX package, where the Pallas kernel is opt-in
   (``MMF_TPU_LN``), the port always takes its kernel on the card; whether
   it should is measured in ``PERF.md``.
 """
@@ -93,6 +98,30 @@ def layer_norm_kernel(
 layer_norm_kernel.launches = 0
 
 
+class LayerNormFunction(torch.autograd.Function):
+    """Forward: the Triton kernel. Backward: the VJP of ``_ln_reference``
+    recomputed from the saved inputs (``_ln_pallas_bwd`` in JAX)."""
+
+    @staticmethod
+    def forward(ctx, x, residual, scale, bias, eps):
+        ctx.save_for_backward(x, residual, scale, bias)
+        ctx.eps = eps
+        return layer_norm_kernel(x, scale, bias, residual, eps)
+
+    @staticmethod
+    def backward(ctx, grad):
+        saved = ctx.saved_tensors
+        leaves = [None if t is None else t.detach().requires_grad_()
+                  for t in saved]
+        x, residual, scale, bias = leaves
+        with torch.enable_grad():
+            y = _ln_reference(x, residual, scale, bias, ctx.eps)
+        inputs = [t for t in leaves if t is not None]
+        grads = iter(torch.autograd.grad(y, inputs, grad))
+        return (*(None if t is None else next(grads) for t in leaves),
+                None)
+
+
 def layer_norm(
     x: torch.Tensor,
     scale: torch.Tensor,
@@ -102,6 +131,10 @@ def layer_norm(
 ) -> torch.Tensor:
     """LayerNorm(x [+ residual]) with f32 statistics, output in x.dtype:
     the Triton kernel for CUDA tensors, the plain version for CPU ones."""
-    if x.is_cuda:
-        return layer_norm_kernel(x, scale, bias, residual, eps)
-    return _ln_reference(x, residual, scale, bias, eps)
+    if not x.is_cuda:
+        return _ln_reference(x, residual, scale, bias, eps)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, residual, scale, bias)):
+        return LayerNormFunction.apply(x, residual, scale, bias, eps)
+    return layer_norm_kernel(x, scale, bias, residual, eps)

@@ -8,7 +8,9 @@ reusable. There is no jit.
 
 The model is an ``nn.Module`` mapping a (possibly nested) batch dict of
 tensors with a shared leading batch dimension to a dict of outputs with
-the same leading dimension. The engine moves it to ``device`` once,
+the same leading dimension. The engine serves on the card (``device``
+defaults to ``"cuda"``; a machine without one raises) unless the caller
+passes ``device="cpu"``. It moves the model to ``device`` once,
 puts it in eval mode and, when the model has ``to_compute_dtype``, casts
 its weights to the compute dtype once. Per batch: the stacked numpy
 arrays go to the device in one host-to-device copy, the forward runs
@@ -228,13 +230,19 @@ class ServingEngine:
     def __init__(
         self,
         model: torch.nn.Module,
-        device: Any = "cpu",
+        device: Any = "cuda",
         max_batch_size: int = 32,
         buckets: Optional[Sequence[int]] = None,
         postprocess: Optional[Callable[[Dict[str, Any]], Any]] = None,
         output_fields: Optional[Sequence[str]] = None,
     ):
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "ServingEngine serves on the card by default, and this "
+                "machine has no CUDA device; pass device='cpu' to serve "
+                "through the plain versions on the CPU"
+            )
         # top-level output keys to return (None = all); unused fields
         # are never copied back to the host
         self.output_fields = (

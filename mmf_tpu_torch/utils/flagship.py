@@ -6,6 +6,14 @@ package's ``defaults.yaml`` (VisualBERT-base: 12 x 768, 12 heads, bf16
 compute) with a VQA2 classification head (3129 answers), and VQA2-shaped
 inputs (128 text tokens, 100 regions of 2048-dim features) drawn from a
 numpy seed.
+
+For training: ``vqa2_config`` merges
+``projects/visual_bert/configs/vqa2/defaults.yaml`` over the JAX
+package's ``config/defaults.yaml`` (both read as data),
+``vqa2_visual_bert`` builds the model of its ``model_config``,
+``vqa2_train_batch`` adds soft VQA targets to ``example_batch``, and
+``vqa2_trainer`` builds the optimizer, schedule, losses and train step
+from that config, as ``MMFTrainer`` does.
 """
 
 from __future__ import annotations
@@ -15,6 +23,8 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 
 VQA2_NUM_LABELS = 3129
+VQA2_CONFIG = "projects/visual_bert/configs/vqa2/defaults.yaml"
+VQA2_META = {"dataset_name": "vqa2", "dataset_type": "train"}
 
 
 def visual_bert(model_overrides: Optional[Dict[str, Any]] = None):
@@ -61,3 +71,90 @@ def split_samples(batch: Dict[str, Any]) -> List[Dict[str, Any]]:
 
     n = len(batch["input_ids"])
     return [take(batch, i) for i in range(n)]
+
+
+def vqa2_config(opts: Optional[List[str]] = None):
+    """The VQA2 VisualBERT config merged over the root defaults, then
+    ``opts`` (``a.b.c=value`` overrides) applied."""
+    from mmf_tpu_torch.config import omega
+    from mmf_tpu_torch.config.configuration import load_yaml
+
+    cfg = omega.merge(load_yaml("config/defaults.yaml"),
+                      load_yaml(VQA2_CONFIG))
+    omega.merge_with_dotlist(cfg, list(opts or []))
+    return cfg
+
+
+def vqa2_visual_bert(config, model_overrides: Optional[Dict[str, Any]] = None):
+    """VisualBERT from the config's ``model_config.visual_bert`` with
+    ``model_overrides`` on a copy."""
+    from mmf_tpu_torch.common.registry import registry
+    from mmf_tpu_torch.config import omega
+    from mmf_tpu_torch.utils.env import setup_imports
+
+    setup_imports()
+    mc = omega.merge(config["model_config"]["visual_bert"],
+                     model_overrides or {})
+    return registry.get_model_class("visual_bert")(config=mc)
+
+
+def vqa2_train_batch(batch_size: int = 8, seq_len: int = 128,
+                     regions: int = 100, vdim: int = 2048,
+                     vocab_size: int = 30522,
+                     num_labels: int = VQA2_NUM_LABELS,
+                     seed: int = 0) -> Dict[str, Any]:
+    """``example_batch`` plus ``targets`` [B, num_labels]: VQA soft
+    scores, three answers per question at 0.3, 0.6, 0.9 or 1.0, drawn
+    from ``np.random.RandomState(seed + 1)``."""
+    batch = example_batch(batch_size, seq_len, regions, vdim, vocab_size,
+                          seed)
+    rng = np.random.RandomState(seed + 1)
+    targets = np.zeros((batch_size, num_labels), np.float32)
+    for i in range(batch_size):
+        idx = rng.choice(num_labels, size=min(3, num_labels), replace=False)
+        targets[i, idx] = rng.choice([0.3, 0.6, 0.9, 1.0], size=len(idx))
+    batch["targets"] = targets
+    return batch
+
+
+def vqa2_trainer(model, config, seed: int = 0, device: Any = "cuda"):
+    """``(state, train_step)`` for ``model``, moved to ``device``, as
+    ``MMFTrainer`` builds them: the model's weight-decay mask and lr
+    multipliers as optimizer groups, the configured schedule as a
+    ``LambdaLR``, clipping from ``training``, the model's losses, and
+    the VQA2 meta fields. Trains on the card unless the caller passes
+    ``device="cpu"``; raises where there is no card."""
+    import torch
+
+    from mmf_tpu_torch.modules.optimizers import build_optimizer
+    from mmf_tpu_torch.modules.schedulers import (
+        build_lr_scheduler,
+        build_scheduler,
+    )
+    from mmf_tpu_torch.trainers.core.train_state import (
+        create_train_state,
+        make_train_step,
+    )
+    from mmf_tpu_torch.utils.general import clip_gradients_config
+
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "vqa2_trainer trains on the card by default, and this machine "
+            "has no CUDA device; pass device='cpu' to train through the "
+            "plain versions on the CPU"
+        )
+    # before the optimizer is built: its groups hold the moved parameters
+    model = model.to(device)
+    optimizer = build_optimizer(
+        config, model, lr_multipliers=model.get_lr_multipliers(config),
+        weight_decay_mask=model.get_weight_decay_mask(config),
+    )
+    lr_scheduler = build_lr_scheduler(optimizer, build_scheduler(config))
+    step = make_train_step(
+        model.build_losses(),
+        update_frequency=config["training"].get("update_frequency", 1),
+        max_grad_norm=clip_gradients_config(config),
+        meta=VQA2_META,
+    )
+    return create_train_state(model, optimizer, seed, lr_scheduler), step

@@ -16,7 +16,7 @@ setup(
     include_package_data=True,
     package_data={"mmf_tpu": ["configs/**/*.yaml", "utils/phoc/src/*.c",
                           "utils/native/src/*.c", "utils/native/src/*.cc"],
-                  "mmf_tpu_torch": ["ops/csrc/*.cu"]},
+                  "mmf_tpu_torch": ["ops/csrc/*.cu", "ops/csrc/*.cuh"]},
     python_requires=">=3.10",
     install_requires=[
         "jax", "flax", "optax", "orbax-checkpoint", "numpy", "pyyaml",

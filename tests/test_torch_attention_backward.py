@@ -1,0 +1,180 @@
+"""The port's attention for training against the JAX package: K1's stats
+form (``flash_forward_reference``) against JAX's ``_flash_forward(...,
+with_lse=True)``, and the backward (``flash_backward_reference``, and
+autograd through the port's ``dot_product_attention``) against
+``jax.grad`` through ``flash_attention``. The JAX side runs its Pallas
+kernels (K1 stats form, K2, K3) in interpret mode; the port runs its plain
+versions, which the CUDA kernels are held against on the card
+(tests/test_torch_cuda_kernels.py, chip_smoke.py)."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from mmf_tpu.ops import attention as jattn
+from mmf_tpu_torch.ops import attention as tattn
+
+torch.set_num_threads(2)  # several test workers share the host
+
+# gradients, as max abs error over the largest reference entry. f32: the
+# same formulas in another summation order; bf16: inputs, outputs and the
+# rounded probabilities in bf16 (one ulp is 2^-8 relative), both sides
+# accumulating in f32
+GRAD_REL = {"float32": 2e-5, "bfloat16": 2e-2}
+OUT_ATOL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+
+def _rel_err(got, want):
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    return float(np.abs(got - want).max()) / max(float(np.abs(want).max()),
+                                                 1e-6)
+
+
+def _case(name):
+    """(q, k, v, mask-or-bias, dout) numpy inputs of one named case."""
+    shapes = {"padding_mask": (2, 3, 12, 12, 16),
+              "sq_ne_skv": (2, 2, 9, 21, 8),
+              "user_masked_row": (2, 2, 6, 6, 8),
+              "d16_ragged_37": (1, 2, 37, 37, 16)}
+    b, h, sq, skv, d = shapes[name]
+    rng = np.random.RandomState(sorted(shapes).index(name))
+    q = rng.randn(b, h, sq, d).astype(np.float32)
+    k = rng.randn(b, h, skv, d).astype(np.float32)
+    v = rng.randn(b, h, skv, d).astype(np.float32)
+    dout = rng.randn(b, h, sq, d).astype(np.float32)
+    if name == "user_masked_row":
+        # one q row masked at every column with the finite mask value and
+        # one batch whose every column is masked
+        bias = np.zeros((b, 1, sq, skv), np.float32)
+        bias[0, 0, 3, :] = jattn.DEFAULT_MASK_VALUE
+        bias[1] = jattn.DEFAULT_MASK_VALUE
+        return q, k, v, bias, dout
+    mask = (rng.rand(b, skv) > 0.3).astype(np.int32)
+    mask[:, 0] = 1
+    return q, k, v, mask, dout
+
+
+CASES = ["padding_mask", "sq_ne_skv", "user_masked_row", "d16_ragged_37"]
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _to_both(q, k, v, bias_np, dout, dtype):
+    jdt, tdt = DTYPES[dtype]
+    jx = [jnp.asarray(a, jdt) for a in (q, k, v, dout)]
+    tx = [torch.from_numpy(a).to(tdt) for a in (q, k, v, dout)]
+    if bias_np.ndim == 2:  # padding mask -> make_attention_bias
+        jb = jattn.make_attention_bias(jnp.asarray(bias_np), jdt)
+        tb = tattn.make_attention_bias(torch.from_numpy(bias_np), tdt)
+    else:
+        jb, tb = jnp.asarray(bias_np), torch.from_numpy(bias_np)
+    return jx, jb, tx, tb
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("case", CASES)
+def test_stats_form_matches_jax_with_lse(case, dtype, monkeypatch):
+    monkeypatch.setenv("MMF_TPU_ATTENTION_LOGITS", "f32")
+    q, k, v, bias_np, dout = _case(case)
+    (jq, jk, jv, _), jb, (tq, tk, tv, _), tb = _to_both(q, k, v, bias_np,
+                                                        dout, dtype)
+    scale = q.shape[-1] ** -0.5
+    j_out, j_m, j_l = jattn._flash_forward(jq, jk, jv, jb, scale, 512, 1024,
+                                           True, with_lse=True)
+    sq = q.shape[2]
+    out, m, l = tattn.flash_forward_reference(tq, tk, tv, tb)
+    assert m.dtype == l.dtype == torch.float32 and m.shape == q.shape[:3]
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(j_out[:, :, :sq], np.float32),
+                               atol=OUT_ATOL[dtype], rtol=0)
+    # JAX stores the stats lane-replicated over 128 lanes
+    np.testing.assert_allclose(m.numpy(), np.asarray(j_m[:, :, :sq, 0]),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(l.numpy(), np.asarray(j_l[:, :, :sq, 0]),
+                               rtol=1e-5, atol=1e-5)
+
+
+def _jax_grads(jq, jk, jv, jb, jdout):
+    def f(q_, k_, v_):
+        out = jattn.flash_attention(q_, k_, v_, jb, interpret=True)
+        return jnp.sum(out.astype(jnp.float32) * jdout.astype(jnp.float32))
+
+    return jax.grad(f, argnums=(0, 1, 2))(jq, jk, jv)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("case", CASES)
+def test_backward_matches_jax_kernels(case, dtype, monkeypatch):
+    """flash_backward_reference from the stats form, and autograd through
+    dot_product_attention, against jax.grad through JAX's K2 and K3."""
+    monkeypatch.setenv("MMF_TPU_ATTENTION_LOGITS", "f32")
+    q, k, v, bias_np, dout = _case(case)
+    (jq, jk, jv, jdout), jb, (tq, tk, tv, tdout), tb = _to_both(
+        q, k, v, bias_np, dout, dtype)
+    want = _jax_grads(jq, jk, jv, jb, jdout)
+
+    out, m, l = tattn.flash_forward_reference(tq, tk, tv, tb)
+    plain = tattn.flash_backward_reference(tq, tk, tv, tb, out, m, l, tdout)
+
+    leaves = [t.clone().requires_grad_() for t in (tq, tk, tv)]
+    tattn.dot_product_attention(*leaves, tb).backward(tdout)
+    for name, p, leaf, w in zip("qkv", plain, leaves, want):
+        assert p.dtype == leaf.grad.dtype == DTYPES[dtype][1]
+        assert p.shape == leaf.grad.shape == tuple(w.shape)
+        for what, got in (("plain", p), ("autograd", leaf.grad)):
+            err = _rel_err(got.float().numpy(), w)
+            assert err < GRAD_REL[dtype], f"d{name} ({what}): rel {err:.2e}"
+
+
+def test_backward_of_minus_inf_rows_is_zero_not_nan(monkeypatch):
+    """Two combined masks overflow to -inf: a row that is -inf at every
+    column gets zero gradients from the port (stats m = 0, l = 1), where
+    JAX gives NaN; every other row matches JAX."""
+    monkeypatch.setenv("MMF_TPU_ATTENTION_LOGITS", "f32")
+    rng = np.random.RandomState(11)
+    q, k, v, dout = (rng.randn(2, 2, 5, 8).astype(np.float32)
+                     for _ in range(4))
+    mask = np.ones((2, 5), np.int32)
+    mask[1] = 0
+    jm = jattn.make_attention_bias(jnp.asarray(mask))
+    tm = tattn.make_attention_bias(torch.from_numpy(mask))
+    jb, tb = jattn.combine_biases(jm, jm), tattn.combine_biases(tm, tm)
+    tq, tk, tv, tdout = map(torch.from_numpy, (q, k, v, dout))
+    out, m, l = tattn.flash_forward_reference(tq, tk, tv, tb)
+    assert (m[1] == 0).all() and (l[1] == 1).all()
+    grads = tattn.flash_backward_reference(tq, tk, tv, tb, out, m, l, tdout)
+    leaves = [t.clone().requires_grad_() for t in (tq, tk, tv)]
+    tattn.dot_product_attention(*leaves, tb).backward(tdout)
+    want = _jax_grads(*map(jnp.asarray, (q, k, v)), jb, jnp.asarray(dout))
+    for g, leaf, w in zip(grads, leaves, want):
+        for got in (g, leaf.grad):
+            assert (got[1] == 0).all()
+            np.testing.assert_allclose(got[0].numpy(), np.asarray(w[0]),
+                                       atol=1e-5, rtol=0)
+        assert np.isnan(np.asarray(w[1])).any()  # the JAX divergence
+
+
+def test_autograd_function_needs_the_card():
+    """On CPU tensors the kernel wrappers refuse instead of running the
+    plain version, and dot_product_attention takes the plain version only
+    because the tensors lie on the CPU."""
+    q = torch.zeros(1, 2, 8, 8, requires_grad=True)
+    stats = torch.zeros(1, 2, 8)
+    counts = [f.launches for f in (tattn.flash_attention_with_stats,
+                                   tattn.flash_attention_bwd_dq,
+                                   tattn.flash_attention_bwd_dkv)]
+    with pytest.raises(RuntimeError, match="CUDA kernel"):
+        tattn.flash_attention_with_stats(q, q, q)
+    with pytest.raises(RuntimeError, match="CUDA kernel"):
+        tattn.flash_attention_bwd_dq(q, q, q, None, q, stats, stats, q)
+    with pytest.raises(RuntimeError, match="CUDA kernel"):
+        tattn.flash_attention_bwd_dkv(q, q, q, None, q, stats, stats, stats)
+    tattn.dot_product_attention(q, q, q).sum().backward()
+    assert q.grad is not None
+    assert [f.launches for f in (tattn.flash_attention_with_stats,
+                                 tattn.flash_attention_bwd_dq,
+                                 tattn.flash_attention_bwd_dkv)] == counts

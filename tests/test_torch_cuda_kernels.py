@@ -65,3 +65,178 @@ def test_layer_norm_kernel_matches_plain(card, dtype, with_residual):
     assert L.layer_norm_kernel.launches == before + 1
     torch.testing.assert_close(out, L._ln_reference(x, res, w, bias, 1e-12),
                                **TOL[dtype])
+
+
+# backward kernels: gradients are compared relative to the largest
+# reference entry. f32: the same formulas, other summation orders (TF32
+# off); bf16: p and ds are rounded to bf16 before the tensor-core products
+# (one ulp is 2^-8 relative) and the gradients are stored in bf16
+GRAD_REL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _assert_rel(got, want, rel, what):
+    want = want.float()
+    err = float((got.float() - want).abs().max())
+    scale = max(float(want.abs().max()), 1e-6)
+    assert not torch.isnan(got).any(), f"{what}: NaN"
+    assert err <= rel * scale, f"{what}: max abs err {err} > {rel} * {scale}"
+
+
+def _bwd_case(card, dtype, b, h, sq, skv, d, seed=0):
+    g = torch.Generator(device=card).manual_seed(seed)
+
+    def proj(s):  # the [B,S,H,D] -> [B,H,S,D] view of a projection
+        return torch.randn(b, s, h, d, device=card, generator=g).to(
+            dtype).transpose(1, 2)
+
+    q, k, v = proj(sq), proj(skv), proj(skv)
+    mask = (torch.rand(b, skv, device=card, generator=g) > 0.3).int()
+    mask[:, 0] = 1
+    if b > 1:  # one batch whose every column is -inf (two masks combined)
+        mask[-1] = 0
+        last = torch.ones_like(mask)
+        last[-1] = 0
+        bias = A.combine_biases(A.make_attention_bias(mask, dtype),
+                                A.make_attention_bias(last, dtype))
+    else:
+        bias = A.make_attention_bias(mask, dtype)
+    dout = torch.randn(b, sq, h, d, device=card, generator=g).to(
+        dtype).transpose(1, 2)
+    return q, k, v, bias, dout
+
+
+BWD_SHAPES = [(2, 12, 228, 228, 64), (2, 3, 128, 100, 64),
+              (1, 2, 37, 70, 8), (2, 2, 9, 130, 16), (1, 2, 70, 45, 24),
+              (1, 2, 70, 70, 128)]
+
+
+@pytest.fixture
+def no_tf32():
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+def test_flash_stats_and_backward_match_plain(card, no_tf32, dtype, shape):
+    b, h, sq, skv, d = shape
+    q, k, v, bias, dout = _bwd_case(card, dtype, *shape)
+    counts = (A.flash_attention_with_stats.launches,
+              A.flash_attention_bwd_dq.launches,
+              A.flash_attention_bwd_dkv.launches)
+    out, m, l = A.flash_attention_with_stats(q, k, v, bias)
+    dq, delta = A.flash_attention_bwd_dq(q, k, v, bias, out, m, l, dout)
+    dk, dv = A.flash_attention_bwd_dkv(q, k, v, bias, dout, m, l, delta)
+    torch.cuda.synchronize()
+    assert (A.flash_attention_with_stats.launches,
+            A.flash_attention_bwd_dq.launches,
+            A.flash_attention_bwd_dkv.launches) == tuple(c + 1 for c in counts)
+
+    ref_out, ref_m, ref_l = A.flash_forward_reference(q, k, v, bias)
+    torch.testing.assert_close(out, ref_out, **TOL[dtype])
+    torch.testing.assert_close(m, ref_m, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(l, ref_l, atol=1e-4, rtol=1e-4)
+    want_delta = (dout.float() * out.float()).sum(-1)
+    torch.testing.assert_close(delta, want_delta, atol=1e-3, rtol=1e-4)
+
+    want = A.flash_backward_reference(q, k, v, bias, out, m, l, dout)
+    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        assert got.dtype == dtype and got.shape == ref.shape
+        _assert_rel(got, ref, GRAD_REL[dtype], name)
+    if b > 1:  # the -inf batch: zero gradients, not NaN
+        assert (dq[-1] == 0).all() and (dk[-1] == 0).all()
+        assert (dv[-1] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_autograd_runs_the_kernels(card, no_tf32, dtype):
+    """dot_product_attention with grad: stats form forward, K2 and K3 as
+    its backward; gradients against autograd through mha_reference."""
+    q, k, v, bias, dout = _bwd_case(card, dtype, 2, 4, 100, 100, 64, seed=3)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    counts = (A.flash_attention.launches,
+              A.flash_attention_with_stats.launches,
+              A.flash_attention_bwd_dq.launches,
+              A.flash_attention_bwd_dkv.launches)
+    out = A.dot_product_attention(*leaves, bias)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert (A.flash_attention.launches,
+            A.flash_attention_with_stats.launches,
+            A.flash_attention_bwd_dq.launches,
+            A.flash_attention_bwd_dkv.launches) == (
+        counts[0], counts[1] + 1, counts[2] + 1, counts[3] + 1)
+    ref_leaves = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    ref = A.mha_reference(*ref_leaves, bias)
+    ref.backward(dout.float())
+    for name, got, want in zip("qkv", leaves, ref_leaves):
+        _assert_rel(got.grad, want.grad, 1.5 * GRAD_REL[dtype], "d" + name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_residual", [False, True])
+def test_layer_norm_autograd_matches_plain(card, dtype, with_residual):
+    g = torch.Generator(device=card).manual_seed(2)
+    x = torch.randn(4, 57, 768, device=card, generator=g).to(dtype)
+    res = torch.randn_like(x) if with_residual else None
+    w = 1.0 + 0.1 * torch.randn(768, device=card, generator=g)
+    bias = 0.1 * torch.randn(768, device=card, generator=g)
+    dy = torch.randn_like(x)
+
+    def grads(fn):
+        leaves = [t.detach().clone().requires_grad_()
+                  for t in (x, res, w, bias) if t is not None]
+        xi, *rest = leaves
+        ri = rest.pop(0) if with_residual else None
+        fn(xi, rest[0], rest[1], ri).backward(dy)
+        return [t.grad for t in leaves]
+
+    before = L.layer_norm_kernel.launches
+    got = grads(lambda x_, w_, b_, r_: L.layer_norm(x_, w_, b_, r_))
+    torch.cuda.synchronize()
+    assert L.layer_norm_kernel.launches == before + 1
+    want = grads(lambda x_, w_, b_, r_: L._ln_reference(x_, r_, w_, b_,
+                                                         1e-12))
+    for a, b_ in zip(got, want):
+        torch.testing.assert_close(a, b_, rtol=1e-5, atol=1e-5)
+
+
+def test_training_forward_routes_attention_dropout_to_plain(card):
+    """Attention-probability dropout above 0 in training goes to
+    mha_reference with the step's CUDA generator (no attention kernel
+    launch), as in JAX; the masks repeat with the seed and the gradients
+    are finite."""
+    from mmf_tpu_torch.modules.transformer import dropout_generator
+    from mmf_tpu_torch.utils.flagship import example_batch, visual_bert
+
+    model = visual_bert({"num_hidden_layers": 2, "hidden_size": 64,
+                         "num_attention_heads": 4, "intermediate_size": 128,
+                         "visual_embedding_dim": 32, "num_labels": 5,
+                         "hidden_dropout_prob": 0.1,
+                         "attention_probs_dropout_prob": 0.2})
+    model.init_weights(torch.Generator().manual_seed(0))
+    model = model.to(card).train()
+    batch = example_batch(2, 8, 4, 32, vocab_size=1000, seed=0)
+    batch = {k: ({kk: torch.from_numpy(vv).to(card) for kk, vv in v.items()}
+                 if isinstance(v, dict) else torch.from_numpy(v).to(card))
+             for k, v in batch.items()}
+
+    def scores(seed):
+        with dropout_generator(torch.Generator(device=card).manual_seed(
+                seed)):
+            return model(batch)["scores"]
+
+    counts = (A.flash_attention.launches,
+              A.flash_attention_with_stats.launches)
+    out = scores(1)
+    out.sum().backward()
+    torch.cuda.synchronize()
+    assert (A.flash_attention.launches,
+            A.flash_attention_with_stats.launches) == counts
+    assert all(torch.isfinite(p.grad).all() for p in model.parameters()
+               if p.grad is not None)
+    with torch.no_grad():
+        torch.testing.assert_close(scores(1), scores(1), rtol=0, atol=0)
+        assert not torch.equal(scores(1), scores(2))

@@ -24,6 +24,12 @@ SLICE_MODULES = [
     "mmf_tpu_torch.modules.transformer",
     "mmf_tpu_torch.models.base_model",
     "mmf_tpu_torch.models.visual_bert",
+    "mmf_tpu_torch.modules.losses",
+    "mmf_tpu_torch.modules.optimizers",
+    "mmf_tpu_torch.modules.schedulers",
+    "mmf_tpu_torch.trainers.core.train_state",
+    "mmf_tpu_torch.utils.general",
+    "mmf_tpu_torch.utils.modeling",
     "mmf_tpu_torch.serving",
     "mmf_tpu_torch.serving.batcher",
     "mmf_tpu_torch.serving.engine",

@@ -143,3 +143,16 @@ def test_batch_moves_in_one_buffer_and_keeps_dtypes():
     ptrs = {t.untyped_storage().data_ptr()
             for t in (out["a"], out["n"]["f"], out["n"]["b"], out["s"])}
     assert len(ptrs) == 1
+
+
+def test_engine_serves_on_the_card_by_default():
+    """``ServingEngine(model)`` means the card: without one it raises
+    instead of serving on the CPU; ``device="cpu"`` must be asked for."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device would work")
+    from tests.torch_port_utils import port_visual_bert
+
+    model = port_visual_bert(TINY)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingEngine(model)
+    assert ServingEngine(model, device="cpu").device.type == "cpu"
