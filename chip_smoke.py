@@ -9,13 +9,16 @@ the script exits non-zero without a result line):
               build of every kernel on the serving and training paths
               from this checkout's sources, all started together: nvcc
               for the CUDA flash-attention forward (K1) and backward (K2,
-              K3), Triton's JIT for the LayerNorm (K4), with build times.
+              K3) and the int8 GEMM (K5), Triton's JIT for the LayerNorm
+              (K4), with build times.
 2. kernels  - each kernel against its plain PyTorch version on the card
               at the main paths' shapes, with stated tolerances, and both
               timed with CUDA events (best of several runs): K1 in its
               inference and stats forms, K2 and K3 (also against autograd
-              through mha_reference), K4. F.scaled_dot_product_attention
-              (forward and backward) and F.layer_norm are timed beside
+              through mha_reference), K4, and K5 at the MMBT trunk's and
+              pooler's shapes (M = 131 and 1) and VisualBERT's bucket 32
+              (M = 7296). F.scaled_dot_product_attention (forward and
+              backward), F.layer_norm and torch._int_mm are timed beside
               them for information; each kernel's bound (bytes over the
               memory rate, operations over the peak rate) is computed
               from its shapes.
@@ -41,6 +44,19 @@ the script exits non-zero without a result line):
               losses, the last after an update at lr > 0; per-parameter
               first-step gradient cosine and norm-relative error; update
               cosine; all against stated bounds).
+5. mmbt     - MMBT-grid at full width (ResNet-152 at 224 px, 12 x 768,
+              12 heads, 2 labels, bf16 compute, seeded weights) served at
+              batch 1 through ServingEngine(max_batch_size=1) in bf16, with
+              quant: int8 from the config, and with MMF_TPU_QUANT=int8 (the
+              route mmf_serve takes): exact launch counts per forward,
+              latency p50 and p95 over 50 calls (host clock, outputs on
+              the host), device time per forward by kind of kernel; pooled
+              features and scores against the f32 CPU forward (bf16) and
+              the int8 CPU forward through the plain versions (int8), and
+              the ResNet features under cuDNN's TF32 default against f32.
+6. vb-int8  - the serving phase's VisualBERT-base with quant: int8 at
+              bucket 32: K5 launches per forward, forward time beside
+              bf16's, and one sample against the int8 CPU forward.
 
 Then one JSON line describing the kernels, the nvidia-smi line, and the
 last line {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -49,6 +65,7 @@ last line {"ok": true, "device": {...}}. Imports nothing of JAX.
 import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import threading
@@ -67,6 +84,7 @@ import torch.nn.functional as F  # noqa: E402
 from mmf_tpu_torch.modules import transformer as T  # noqa: E402
 from mmf_tpu_torch.ops import attention as A  # noqa: E402
 from mmf_tpu_torch.ops import layernorm as L  # noqa: E402
+from mmf_tpu_torch.ops import quant as Q  # noqa: E402
 from mmf_tpu_torch.serving import ServingEngine  # noqa: E402
 from mmf_tpu_torch.serving import engine as engine_lib  # noqa: E402
 from mmf_tpu_torch.serving.server import ServingServer  # noqa: E402
@@ -111,7 +129,39 @@ COMPARED_STEPS = 3
 # its bytes over the memory rate and its operations over the peak rate of
 # the unit that runs them
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
+              torch.int8: 1979e12}
+# K5 (int8 GEMM) shapes (M, K, N) on the main paths, with their launches
+# per forward: the MMBT trunk at batch 1 (131 tokens; Q, K, V, O, FFN in,
+# FFN out in 12 layers), its pooler (M = 1) and VisualBERT at bucket 32
+# (32 x 228 tokens)
+K5_MMBT = {(131, 768, 768): 48, (131, 768, 3072): 12, (131, 3072, 768): 12,
+           (1, 768, 768): 1}
+K5_VB = (7296, 768, 3072)
+K5_HEADLINE = (131, 768, 3072)  # the row reported in the kernels line
+# MMBT-grid at batch 1: 3 modal tokens (start, one pooled ResNet cell,
+# end) and 128 text tokens; per forward 12 attention calls, 26 LayerNorms
+# (24 residual, the embedding LayerNorm on the modal and the text span)
+# and under int8 73 K5 launches (72 trunk projections and the pooler)
+MMBT_PER_FORWARD = {"flash_attention_fwd": 12, "layer_norm": 26}
+MMBT_K5 = 73
+# VisualBERT under int8: its visual projection, 72 trunk projections, the
+# pooler and the head transform (the answer logits stay a plain Dense)
+VB_K5 = 75
+LATENCY_CALLS = 50
+# served outputs against a CPU forward of the same weights (plain
+# versions): max abs error of scores and pooled features (|f| <= 1, tanh),
+# and the pooled features' cosine. bf16 vs f32: twelve layers of bf16
+# activations and TF32 convolutions. int8 vs int8: the same quantisation;
+# bf16 and TF32 roundings that differ between card and CPU may flip a
+# rounding at a .5 boundary, moving an activation by one step (1/127 of
+# its row's largest entry)
+MMBT_ATOL = 0.1
+MMBT_MIN_COSINE = 0.999
+# ResNet-152 features under cuDNN's TF32 default against f32 on the CPU,
+# relative to the largest feature: a 10-bit mantissa in each of 155
+# convolutions
+MMBT_TF32_REL = 0.05
 
 
 def card_line() -> str:
@@ -140,6 +190,41 @@ def time_ms(fn, iters=20, repeats=5) -> float:
     return best
 
 
+def device_ms(fn, iters=20, repeats=5) -> float:
+    """Device time per call, without the host's cost of launching it:
+    a spin kernel (torch.cuda._sleep) holds the stream while ``iters``
+    calls are queued behind it, so the CUDA events around the calls see
+    them back to back. The spin is lengthened until it outlasts the
+    queueing. Best of ``repeats``."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(10 ** 6)
+    end.record()
+    end.synchronize()
+    cycles_per_ms = 1e6 / start.elapsed_time(end)
+    spin_ms, best, done = 1.0, float("inf"), 0
+    for _ in range(repeats + 10):
+        t0 = time.perf_counter()
+        torch.cuda._sleep(int(spin_ms * cycles_per_ms))
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        queued_ms = 1e3 * (time.perf_counter() - t0)
+        end.synchronize()
+        if queued_ms > 0.5 * spin_ms:  # the spin may have ended first
+            spin_ms = 4.0 * queued_ms
+            continue
+        best = min(best, start.elapsed_time(end) / iters)
+        done += 1
+        if done == repeats:
+            return best
+    raise RuntimeError("device_ms: the spin never outlasted the queueing")
+
+
 def check(ok, what):
     """A failed check ends the run (an assert would vanish under -O)."""
     if not ok:
@@ -157,6 +242,7 @@ KERNELS = {  # name in the report -> the wrapper that counts launches
     "flash_attention_bwd_dq": A.flash_attention_bwd_dq,
     "flash_attention_bwd_dkv": A.flash_attention_bwd_dkv,
     "layer_norm": L.layer_norm_kernel,
+    "int8_dequant_gemm": Q.dequant_gemm,
 }
 ZERO_COUNTS = {name: 0 for name in KERNELS}
 
@@ -187,6 +273,7 @@ def phase_build(card):
     and Triton's JIT, each in its own thread."""
     jobs = {"flash_attention_fwd": A.build_flash_attention,
             "flash_attention_bwd": A.build_flash_attention_bwd,
+            "int8_gemm": Q.build_int8_gemm,
             "layer_norm": _ln_build}
     done, errors = {}, []
 
@@ -208,7 +295,7 @@ def phase_build(card):
         raise errors[0]
     wall = time.perf_counter() - t0
     parts = []
-    for name in ("flash_attention_fwd", "flash_attention_bwd"):
+    for name in ("flash_attention_fwd", "flash_attention_bwd", "int8_gemm"):
         info, _ = done[name]
         regs = [ln.strip() for ln in info["ptxas"].splitlines()
                 if "registers" in ln]
@@ -419,13 +506,109 @@ def phase_kernels(card):
                          f"plain {plain:.4f} ms, F.layer_norm(+add) "
                          f"{stock:.4f} ms; backward (plain VJP) "
                          f"{bwd:.4f} ms")
+    results["int8_dequant_gemm"] = _k5_cases(g, lines)
     print(f"phase kernels: ok (card '{card}'; tolerances f32 "
           f"{TOL[torch.float32]}, bf16 {TOL[torch.bfloat16]}; stats "
           f"{STATS_TOL}; gradients relative {GRAD_REL[torch.float32]} / "
           f"{GRAD_REL[torch.bfloat16]} of the largest entry, 1.5x that "
-          "against autograd through mha_reference)")
+          "against autograd through mha_reference; K5 f32 within 2 ulp of "
+          "its epilogue's operands, bf16 within 1 bf16 ulp)")
     print("\n".join(lines))
     return results
+
+
+def k5_error(got, x8, w8, xs, ws, bias, out_dtype, what):
+    """Max abs error of K5 against its plain version, checked elementwise:
+    f32 output within 2 ulp of the epilogue's operands (|y xs ws| + |b|),
+    bf16 output within 1 bf16 ulp of the plain result."""
+    ref = Q.dequant_gemm_reference(x8, w8, xs, ws, bias, out_dtype).float()
+    err = (got.float() - ref).abs()
+    if out_dtype == torch.float32:
+        scaled = Q.dequant_gemm_reference(x8, w8, xs, ws, None,
+                                          torch.float32).abs()
+        allowed = 2.0 ** -22 * (scaled + (0 if bias is None else bias.abs()))
+    else:
+        _, exponent = torch.frexp(ref)  # |ref| in [2^(e-1), 2^e)
+        allowed = torch.ldexp(torch.ones_like(ref), exponent - 8)
+    bad = int((err > allowed).sum())
+    check(not torch.isnan(got).any() and bad == 0,
+          f"{what}: {bad} entries beyond the bound, max abs err "
+          f"{float(err.max())}")
+    return float(err.max())
+
+
+def _k5_operands(m, k, n, g):
+    """Quantised operands as the trunk makes them: activations ~N(0, 1),
+    weights ~N(0, 0.02) as init_weights draws them, a small bias."""
+    x = torch.randn(m, k, device=DEV, generator=g).to(torch.bfloat16)
+    w = 0.02 * torch.randn(n, k, device=DEV, generator=g)
+    bias = 0.1 * torch.randn(n, device=DEV, generator=g)
+    x8, xs = Q.quantize_rows(x)
+    w8, ws = Q.quantize_rows(w, eps=1e-11)
+    return x8, w8, xs.reshape(-1), ws.reshape(-1), bias
+
+
+def _k5_cases(g, lines):
+    """K5 against its plain version at the main paths' shapes; returns its
+    row of the kernels report (the headline shape's times)."""
+    row = {"err": 0.0}
+    cases = [(shape, torch.bfloat16) for shape in K5_MMBT]
+    cases += [(K5_VB, torch.float32), (K5_VB, torch.bfloat16)]
+    per_forward = 0.0
+    for (m, k, n), dt in cases:
+        x8, w8, xs, ws, bias = _k5_operands(m, k, n, g)
+        out = Q.dequant_gemm(x8, w8, xs, ws, bias, dt)
+        torch.cuda.synchronize()
+        err = k5_error(out, x8, w8, xs, ws, bias, dt, f"K5 {m}x{k}x{n} {dt}")
+        row["err"] = max(row["err"], err)
+        # device time per call: at M = 131 back-to-back launches through
+        # the Python wrapper measure the host's launch rate, not the
+        # kernel (time_ms gives that rate, printed too)
+        def kern_fn():
+            return Q.dequant_gemm(x8, w8, xs, ws, bias, dt)
+
+        kern = device_ms(kern_fn)
+        wrapper_ms = time_ms(kern_fn)
+        plain = device_ms(lambda: Q.dequant_gemm_reference(
+            x8, w8, xs, ws, bias, dt), iters=5)
+        w8t = w8.t()  # [K, N], column-major: cuBLASLt's int8 layout
+        # torch._int_mm takes M > 16 only
+        lib = (device_ms(lambda: torch._int_mm(x8, w8t)) if m > 16
+               else None)
+        nbytes = _nbytes(x8, w8, xs, ws, bias, out)
+        b_ms, b_by = bound(nbytes, 2 * m * n * k, torch.int8)
+        if ((m, k, n), dt) == (K5_HEADLINE, torch.bfloat16):
+            row.update(ms=kern, plain_ms=plain, library_ms=lib,
+                       bound_ms=b_ms, bound_by=b_by)
+        if (m, k, n) in K5_MMBT:
+            per_forward += K5_MMBT[(m, k, n)] * kern
+        lines.append(
+            f"  int8_gemm M={m} K={k} N={n} -> {str(dt)[6:]}: max_abs_err "
+            f"{err:.3g}; device ms per call: kernel {kern:.4f} "
+            f"({2e-9 * m * n * k / kern:.1f} TOP/s), plain {plain:.4f}, "
+            f"torch._int_mm (int32 product alone) "
+            f"{'n/a' if lib is None else f'{lib:.4f}'}; bound {b_ms:.4f} "
+            f"by {b_by}; back-to-back calls through the wrapper (CUDA "
+            f"events) {wrapper_ms:.4f} ms each")
+    lines.append(f"  int8_gemm per MMBT forward at batch 1 (73 launches): "
+                 f"{per_forward:.4f} ms of kernel device time")
+    return row
+
+
+def cpu_forward(model, sample):
+    """One sample through ``model`` on the CPU (the plain versions)."""
+    def batch_of_one(tree):
+        if isinstance(tree, dict):
+            return {k: batch_of_one(v) for k, v in tree.items()}
+        if isinstance(tree, (np.ndarray, np.generic)):
+            return torch.from_numpy(np.asarray(tree)[None])
+        return tree  # meta strings
+
+    model.eval().to_compute_dtype()
+    batch = batch_of_one(sample)
+    with torch.inference_mode():
+        out = model(batch)
+    return {k: v[0].float().numpy() for k, v in out.items()}
 
 
 # -- phase 3 ---------------------------------------------------------------
@@ -507,15 +690,8 @@ def phase_serving(card):
         # versions) on the same weights
         ref_model = flagship.visual_bert({"dtype": "float32"})
         ref_model.load_state_dict(cpu_state, strict=True)
-        ref_model.eval()
         probe = 3  # the request with max_features = 37
-        with torch.inference_mode():
-            ref = ref_model({k: (torch.from_numpy(np.asarray(v)[None])
-                                 if not isinstance(v, dict) else
-                                 {kk: torch.from_numpy(np.asarray(vv)[None])
-                                  for kk, vv in v.items()})
-                             for k, v in samples[probe].items()})
-        ref = ref["scores"][0].numpy()
+        ref = cpu_forward(ref_model, samples[probe])["scores"]
         got = np.asarray(replies[probe][1]["scores"], np.float32)
         err = float(np.abs(got - ref).max())
         cos = float(got @ ref / (np.linalg.norm(got) * np.linalg.norm(ref)))
@@ -552,7 +728,8 @@ def phase_serving(card):
           f"p50 {p50_ms:.1f} ms (client side, {N_REQUESTS} requests, "
           f"JSON of ~{len(bodies[0]) / 1e6:.1f} MB each); batcher p50 "
           f"{stats1['latency_ms']['p50']:.1f} ms")
-    return launches
+    return launches, {"state": cpu_state, "batch32": batch32,
+                      "fwd_ms": fwd_ms, "probe": probe, "ref_f32": ref}
 
 
 # -- phase 4 ---------------------------------------------------------------
@@ -589,6 +766,10 @@ def _norm_rel(got, want):
 DEVICE_CATEGORIES = (  # kernel-name fragment -> category, first match
     (("flash_fwd", "bwd_dq_", "bwd_dkv_"), "attention K1/K2/K3"),
     (("_ln_fwd_kernel",), "LayerNorm K4"),
+    (("int8_gemm_kernel",), "int8 GEMM K5"),
+    (("fprop", "conv", "winograd", "implicit_gemm", "cudnn"),
+     "convolutions (cuDNN)"),
+    (("bn_fw", "batch_norm"), "BatchNorm"),
     (("nvjet", "gemm", "cutlass", "sm90_", "xmma"), "GEMMs"),
     (("multi_tensor_apply",), "optimizer"),
 )
@@ -771,6 +952,209 @@ def phase_training(card):
     return launches
 
 
+# -- phase 5 ---------------------------------------------------------------
+def _mmbt(state=None, **overrides):
+    """MMBT-grid with fused_feature_only (the pooled features come back
+    beside the scores): seeded weights, or ``state``."""
+    model = flagship.mmbt_grid(dict({"fused_feature_only": True},
+                                    **overrides))
+    if state is None:
+        model.init_weights(torch.Generator().manual_seed(0))
+    else:
+        model.load_state_dict(state, strict=True)
+    return model
+
+
+def _compare(got, want, what, atol=MMBT_ATOL, min_cos=MMBT_MIN_COSINE,
+             enforce=True):
+    """(max abs error over scores and pooled features, the features'
+    cosine), checked against the bounds when ``enforce``."""
+    err = max(float(np.abs(np.asarray(got[k], np.float32) - want[k]).max())
+              for k in ("scores", "fused_feature"))
+    a, b = np.asarray(got["fused_feature"], np.float64), want[
+        "fused_feature"].astype(np.float64)
+    cos = float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
+    if enforce:
+        check(err <= atol and cos >= min_cos,
+              f"{what}: max_abs_err {err} (bound {atol}), cosine {cos} "
+              f"(bound {min_cos})")
+    return err, cos
+
+
+def _serve_batch1(model, sample, k5_per_forward):
+    """Serve ``sample`` at batch 1 LATENCY_CALLS times, counted from zero:
+    (launches, latencies in ms, last output, device ms per forward and
+    its breakdown)."""
+    engine = ServingEngine(model, device=DEV, max_batch_size=1)
+    engine.warmup(sample)
+    engine.predict(sample)
+    torch.cuda.synchronize()
+    reset_counts()  # the main path, counted from zero
+    lat = []
+    for _ in range(LATENCY_CALLS):
+        t0 = time.perf_counter()
+        out = engine.predict(sample)  # outputs copied back to the host
+        lat.append(1e3 * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    launches = read_counts()
+    want = dict(ZERO_COUNTS, int8_dequant_gemm=k5_per_forward * LATENCY_CALLS,
+                **{k: v * LATENCY_CALLS for k, v in MMBT_PER_FORWARD.items()})
+    check(launches == want, f"MMBT launches {launches}, want {want}")
+    check(np.asarray(out["scores"]).shape == (2,)
+          and np.asarray(out["fused_feature"]).shape == (HIDDEN,)
+          and all(np.isfinite(np.asarray(v)).all() for v in out.values()),
+          f"MMBT output {out}")
+    arrays, _ = engine_lib._split_static(engine_lib._stack_samples([sample]))
+    dev_batch = engine_lib._to_device(arrays, DEV)
+
+    def forward():
+        with torch.inference_mode():
+            engine.model(dev_batch)
+
+    dev_ms, by_category = _device_ms(forward, 5)
+    return launches, lat, out, dev_ms, by_category
+
+
+def phase_mmbt(card):
+    model = _mmbt()
+    mc = model.config
+    text = mc["text_encoder"]["params"]
+    check((text["hidden_size"], text["num_hidden_layers"],
+           text["num_attention_heads"], mc["num_labels"], mc["dtype"],
+           model.encoder_name) == (HIDDEN, 12, HEADS, 2, "bfloat16",
+                                   "ResNet152ImageEncoder_0"), dict(mc))
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    n_params = sum(p.numel() for p in model.parameters())
+    sample = flagship.split_samples(flagship.hateful_memes_example_batch(
+        1, seed=0))[0]
+    os.environ["MMF_TPU_QUANT"] = "int8"  # the route mmf_serve takes
+    try:
+        env_model = _mmbt(state)
+    finally:
+        del os.environ["MMF_TPU_QUANT"]
+    for m, k5 in ((model, 0), (env_model, MMBT_K5)):
+        check(sum(isinstance(x, Q.QuantDense) for x in m.modules()) == k5,
+              f"QuantDense modules, want {k5}")
+
+    # the ResNet features under cuDNN's default (TF32 on) and with TF32
+    # off, against the f32 CPU forward
+    tf32 = torch.backends.cudnn.allow_tf32
+    image = torch.from_numpy(sample["image"][None])
+    ref_model = _mmbt(state, dtype="float32")
+    encoder = getattr(ref_model, ref_model.encoder_name).eval()
+    with torch.inference_mode():
+        feat_cpu = encoder(image).numpy()
+        encoder.to(DEV)
+        feat_tf32 = encoder(image.to(DEV)).cpu().numpy()
+        torch.backends.cudnn.allow_tf32 = False
+        feat_f32 = encoder(image.to(DEV)).cpu().numpy()
+        torch.backends.cudnn.allow_tf32 = tf32
+    encoder.cpu()
+    scale = float(np.abs(feat_cpu).max())
+    tf32_rel = float(np.abs(feat_tf32 - feat_cpu).max()) / scale
+    f32_rel = float(np.abs(feat_f32 - feat_cpu).max()) / scale
+    check(tf32_rel <= MMBT_TF32_REL, f"ResNet TF32 features rel err "
+          f"{tf32_rel} (bound {MMBT_TF32_REL})")
+    ref_f32 = cpu_forward(ref_model, sample)
+    ref_int8 = cpu_forward(_mmbt(state, quant="int8"), sample)
+
+    runs, launches = {}, dict(ZERO_COUNTS)
+    for name, m, k5 in (("bf16", model, 0),
+                        ("int8 (config)", _mmbt(state, quant="int8"),
+                         MMBT_K5),
+                        ("int8 (MMF_TPU_QUANT)", env_model, MMBT_K5)):
+        counts, lat, out, dev_ms, by_category = _serve_batch1(m, sample, k5)
+        runs[name] = (lat, out, dev_ms, by_category)
+        launches = {k: launches[k] + counts[k] for k in launches}
+        m.cpu()
+        torch.cuda.empty_cache()
+    bf16_err = _compare(runs["bf16"][1], ref_f32, "MMBT bf16 vs f32 CPU")
+    int8_err = _compare(runs["int8 (config)"][1], ref_int8,
+                        "MMBT int8 vs int8 CPU (plain versions)")
+    env_err = _compare(runs["int8 (MMF_TPU_QUANT)"][1], ref_int8,
+                       "MMBT int8 (MMF_TPU_QUANT) vs int8 CPU")
+    info_err = _compare(runs["int8 (config)"][1], ref_f32, "", enforce=False)
+
+    print(f"phase mmbt: ok MMBT-grid {n_params / 1e6:.1f}M params "
+          f"(ResNet-152 at 224 px, 12 x {HIDDEN}, 2 labels, bf16 compute) "
+          f"at batch 1; launches per forward {MMBT_PER_FORWARD} plus K5 0 "
+          f"(bf16) and {MMBT_K5} (int8, by config and by MMF_TPU_QUANT), "
+          f"exact over {LATENCY_CALLS} calls each; max_abs_err / pooled "
+          f"cosine: bf16 vs f32 CPU {bf16_err[0]:.4g} / {bf16_err[1]:.6f}, "
+          f"int8 vs int8 CPU {int8_err[0]:.4g} / {int8_err[1]:.6f}, "
+          f"MMF_TPU_QUANT int8 vs int8 CPU {env_err[0]:.4g} / "
+          f"{env_err[1]:.6f} (bounds {MMBT_ATOL} / {MMBT_MIN_COSINE}); "
+          f"int8 vs f32 CPU (information) {info_err[0]:.4g} / "
+          f"{info_err[1]:.6f}")
+    print(f"  ResNet-152 convolutions under cudnn.allow_tf32={tf32} "
+          f"(cuDNN's default): features max abs err {tf32_rel:.3g} of the "
+          f"largest |feature| against f32 on the CPU (bound "
+          f"{MMBT_TF32_REL}); {f32_rel:.3g} with TF32 off")
+    for name, (lat, _, dev_ms, by_category) in runs.items():
+        print(f"  MMBT {name} on '{card}': batch-1 latency p50 "
+              f"{np.percentile(lat, 50):.3f} ms, p95 "
+              f"{np.percentile(lat, 95):.3f} ms over {LATENCY_CALLS} calls "
+              f"(host clock, ServingEngine.predict, outputs on the host); "
+              f"device time {dev_ms:.3f} ms per forward (torch.profiler, 5 "
+              "forwards): " + "; ".join(
+                  f"{cat} {ms:.3f} x{cnt:.0f}" for cat, (ms, cnt) in
+                  sorted(by_category.items(), key=lambda kv: -kv[1][0])))
+    return launches
+
+
+# -- phase 6 ---------------------------------------------------------------
+def phase_vb_int8(card, serving):
+    model = flagship.visual_bert({"quant": "int8"})
+    model.load_state_dict(serving["state"], strict=True)
+    check(sum(isinstance(m, Q.QuantDense) for m in model.modules())
+          == VB_K5, "QuantDense modules")
+    engine = ServingEngine(model, device=DEV, max_batch_size=32)
+    batch32 = serving["batch32"]
+    engine.predict_many(batch32)
+    torch.cuda.synchronize()
+    reset_counts()  # the main path, counted from zero
+    outs = engine.predict_many(batch32)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    want = dict(ZERO_COUNTS, flash_attention_fwd=12, layer_norm=26,
+                int8_dequant_gemm=VB_K5)
+    check(launches == want, f"VisualBERT int8 launches {launches}, want "
+          f"{want}")
+    arrays, _ = engine_lib._split_static(engine_lib._stack_samples(batch32))
+    dev_batch = engine_lib._to_device(arrays, DEV)
+    def forward():
+        with torch.inference_mode():
+            engine.model(dev_batch)
+
+    fwd_ms = time_ms(forward, iters=5, repeats=3)
+    dev_ms, by_category = _device_ms(forward, 3)
+    probe = serving["probe"]
+    ref_model = flagship.visual_bert({"quant": "int8"})
+    ref_model.load_state_dict(serving["state"], strict=True)
+    ref = cpu_forward(ref_model, batch32[probe])["scores"]
+    got = np.asarray(outs[probe]["scores"], np.float32)
+    err = float(np.abs(got - ref).max())
+    cos = float(got @ ref / (np.linalg.norm(got) * np.linalg.norm(ref)))
+    check(err <= SERVE_ATOL and cos >= SERVE_MIN_COSINE,
+          f"VisualBERT int8 vs int8 CPU: max_abs_err {err}, cosine {cos}")
+    info = float(np.abs(got - serving["ref_f32"]).max())
+    model.cpu()
+    torch.cuda.empty_cache()
+    print(f"phase vb-int8: ok VisualBERT-base quant: int8 at bucket 32; "
+          f"launches {launches} (exact per forward); one request's scores "
+          f"vs the int8 CPU forward (plain versions) max_abs_err "
+          f"{err:.4g} cosine {cos:.6f} (bounds {SERVE_ATOL} / "
+          f"{SERVE_MIN_COSINE}); vs the f32 CPU forward (information) "
+          f"{info:.4g}")
+    print(f"  VisualBERT forward alone at bucket 32 on '{card}': int8 "
+          f"{fwd_ms:.2f} ms, bf16 {serving['fwd_ms']:.2f} ms (CUDA "
+          f"events); int8 device time {dev_ms:.3f} ms (torch.profiler, 3 "
+          "forwards): " + "; ".join(
+              f"{cat} {ms:.3f} x{cnt:.0f}" for cat, (ms, cnt) in
+              sorted(by_category.items(), key=lambda kv: -kv[1][0])))
+    return launches
+
+
 SOURCES = {  # name -> (route, source, the TPU kernel it replaces)
     "flash_attention_fwd": ("cuda",
                             "mmf_tpu_torch/ops/csrc/flash_attention_fwd.cu",
@@ -786,6 +1170,8 @@ SOURCES = {  # name -> (route, source, the TPU kernel it replaces)
         "mmf_tpu/ops/attention.py:419"),
     "layer_norm": ("triton", "mmf_tpu_torch/ops/layernorm_triton.py",
                    "mmf_tpu/ops/layernorm.py:81"),
+    "int8_dequant_gemm": ("cuda", "mmf_tpu_torch/ops/csrc/int8_gemm.cu",
+                          "mmf_tpu/ops/quant.py:71"),
 }
 
 
@@ -801,6 +1187,10 @@ LIBRARY = {  # name -> the PyTorch call timed as its library_ms
         "F.scaled_dot_product_attention backward: dq, dk, dv together "
         "(K2 + K3 combined)"),
     "layer_norm": "F.layer_norm after the residual add",
+    "int8_dequant_gemm": ("torch._int_mm on the same operands: the int32 "
+                          "product alone, no dequantising epilogue (K5's "
+                          "times are device_ms: calls queued behind a "
+                          "spin kernel)"),
 }
 
 
@@ -808,8 +1198,10 @@ def main():
     card = card_line()
     phase_build(card)
     results = phase_kernels(card)
-    served = phase_serving(card)
+    served, serving = phase_serving(card)
     trained = phase_training(card)
+    mmbt = phase_mmbt(card)
+    vb_int8 = phase_vb_int8(card, serving)
     kernels = []
     for name, (route, source, replaces) in SOURCES.items():
         r = results[name]
@@ -817,8 +1209,11 @@ def main():
             "name": name, "route": route, "source": source,
             "replaces": replaces,
             # launches on the paths that run the kernel: serving (K1
-            # inference form, K4) and training (K1 stats form, K2, K3, K4)
-            "launches": served[name] + trained[name],
+            # inference form, K4), training (K1 stats form, K2, K3, K4),
+            # MMBT-grid at batch 1 (K1, K4, K5 under int8) and VisualBERT
+            # under int8 (K1, K4, K5)
+            "launches": (served[name] + trained[name] + mmbt[name]
+                         + vb_int8[name]),
             "max_abs_err": r["err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],

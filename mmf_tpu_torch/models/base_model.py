@@ -69,31 +69,53 @@ class BaseModel(nn.Module):
     def init_weights(self, generator: torch.Generator,
                      std: float = 0.02) -> "BaseModel":
         """Random weights from an explicit generator, in a fixed module
-        order: dense and embedding weights ~ N(0, std), dense biases 0,
-        LayerNorm scale 1 and bias 0."""
+        order: dense (``Dense`` and ``QuantDense``) and embedding weights
+        ~ N(0, std), dense biases 0, LayerNorm scale 1 and bias 0;
+        convolution kernels He-normal over the fan-out (std sqrt(2 /
+        (out_channels * kh * kw)), so activations stay O(1) through a
+        deep ResNet), BatchNorm weight 1, bias 0, running mean 0 and
+        running variance 1."""
         from mmf_tpu_torch.modules.transformer import (
             Dense,
             Embed,
             ResidualLayerNorm,
         )
+        from mmf_tpu_torch.ops.quant import QuantDense
+
+        def normal(p, sd):
+            w = torch.empty(p.shape, dtype=torch.float32)
+            w.normal_(0.0, sd, generator=generator)
+            p.copy_(w)
 
         for module in self.modules():
-            if isinstance(module, (Dense, Embed)):
-                w = torch.empty(module.weight.shape, dtype=torch.float32)
-                w.normal_(0.0, std, generator=generator)
-                module.weight.copy_(w)
-                if isinstance(module, Dense):
+            if isinstance(module, (Dense, QuantDense, Embed)):
+                normal(module.weight, std)
+                if isinstance(module, (Dense, QuantDense)):
                     module.bias.zero_()
             elif isinstance(module, ResidualLayerNorm):
                 module.weight.fill_(1.0)
                 module.bias.zero_()
+            elif isinstance(module, nn.Conv2d):
+                o, _, kh, kw = module.weight.shape
+                normal(module.weight, (2.0 / (o * kh * kw)) ** 0.5)
+                if module.bias is not None:
+                    module.bias.zero_()
+            elif isinstance(module, nn.BatchNorm2d):
+                module.weight.fill_(1.0)
+                module.bias.zero_()
+                module.running_mean.zero_()
+                module.running_var.fill_(1.0)
         return self
 
     @torch.no_grad()
     def to_compute_dtype(self) -> "BaseModel":
         """Cast every ``Dense``/``Embed`` weight to its compute dtype once
         (flax casts float32 params on every call; the rounding is the
-        same). LayerNorm parameters stay float32. For inference."""
+        same). For inference. Left in float32: LayerNorm parameters,
+        ``QuantDense`` weights (quantised from float32 on every call, as
+        in JAX; a bf16 weight would move every column scale) and
+        convolutions and BatchNorm (the ResNet computes in float32, as a
+        flax ``nn.Conv`` without a dtype does on an f32 image)."""
         from mmf_tpu_torch.modules.transformer import Dense, Embed
 
         for module in self.modules():

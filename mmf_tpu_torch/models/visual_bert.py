@@ -24,6 +24,7 @@ from torch import nn
 from mmf_tpu_torch.common.registry import registry
 from mmf_tpu_torch.models.base_model import BaseModel
 from mmf_tpu_torch.modules.transformer import (
+    Dense,
     Dropout,
     Embed,
     Pooler,
@@ -124,7 +125,9 @@ class VisualBERT(BaseModel):
             in_features = 2 * cfg.hidden_size  # pair-concat pooling
         self.classifier_transform = PredictionHeadTransform(cfg, in_features)
         self.num_labels = self.config.get("num_labels", 2)
-        self.classifier_logits = _dense(cfg, cfg.hidden_size, self.num_labels)
+        # a plain Dense under quant: int8 too, as in JAX
+        self.classifier_logits = Dense(cfg.hidden_size, self.num_labels,
+                                       cfg.dtype)
 
     @classmethod
     def config_path(cls):

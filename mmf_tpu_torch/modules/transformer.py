@@ -18,11 +18,15 @@ for the length of a training forward: the counterpart of flax's
 ``rngs={"dropout": key}``. A module in training mode with a rate above 0
 and no generator installed raises, as flax does without a dropout rng.
 
+``quant: int8`` (or ``MMF_TPU_QUANT=int8``, which takes precedence, as in
+JAX) makes every ``_dense`` projection a ``QuantDense``: the int8 GEMM
+kernel (K5) on the card, its plain version on the CPU.
+
 Not ported yet: remat, MoE, sequence and pipeline parallelism (the config
-fields are accepted; ``moe_experts > 0`` raises), the int8 path
-(``quant: int8`` raises), the encoder's ``output_hidden_states`` /
-``prefix_kvs`` / ``return_kv`` (the attention block has ``prefix_kv`` and
-``return_kv``), ``TextEmbeddings``/``TransformerModel`` and ``MLMHead``.
+fields are accepted; ``moe_experts > 0`` raises), the encoder's
+``output_hidden_states`` / ``prefix_kvs`` / ``return_kv`` (the
+attention block has ``prefix_kv`` and ``return_kv``),
+``TextEmbeddings``/``TransformerModel`` and ``MLMHead``.
 Dense weights start at zero: ``BaseModel.init_weights`` fills them from
 an explicit ``torch.Generator``.
 """
@@ -230,9 +234,9 @@ def _quant_mode(cfg: TransformerConfig) -> str:
 def _dense(cfg: TransformerConfig, in_features: int,
            features: int) -> nn.Module:
     if _quant_mode(cfg) == "int8":
-        raise NotImplementedError(
-            "quant: int8 needs the int8 GEMM kernel, not ported yet"
-        )
+        from mmf_tpu_torch.ops.quant import QuantDense
+
+        return QuantDense(in_features, features, cfg.dtype)
     return Dense(in_features, features, cfg.dtype)
 
 

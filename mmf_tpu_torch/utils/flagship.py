@@ -1,4 +1,4 @@
-"""The flagship model and its example inputs, as the port builds them.
+"""The flagship models and their example inputs, as the port builds them.
 
 Counterparts of ``__graft_entry__.py::_visual_bert`` and
 ``_example_batch``: VisualBERT through the registry and the JAX
@@ -14,6 +14,12 @@ package's ``config/defaults.yaml`` (both read as data),
 ``vqa2_train_batch`` adds soft VQA targets to ``example_batch``, and
 ``vqa2_trainer`` builds the optimizer, schedule, losses and train step
 from that config, as ``MMFTrainer`` does.
+
+For Hateful Memes at batch 1 (the JAX package's latency metric,
+``tools/benchmarks/bench_latency.py``): ``mmbt_grid`` builds MMBT-grid
+(ResNet-152 grid features, 12 x 768 trunk, 2 labels, bf16 compute) from
+``configs/models/mmbt/defaults.yaml`` with the classification head, and
+``hateful_memes_example_batch`` draws that script's inputs.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import numpy as np
 VQA2_NUM_LABELS = 3129
 VQA2_CONFIG = "projects/visual_bert/configs/vqa2/defaults.yaml"
 VQA2_META = {"dataset_name": "vqa2", "dataset_type": "train"}
+HATEFUL_MEMES_META = {"dataset_name": "hateful_memes", "dataset_type": "test"}
 
 
 def visual_bert(model_overrides: Optional[Dict[str, Any]] = None):
@@ -62,12 +69,49 @@ def example_batch(batch_size: int = 8, seq_len: int = 128,
     }
 
 
+def mmbt_grid(model_overrides: Optional[Dict[str, Any]] = None):
+    """MMBT-grid for Hateful Memes, as ``bench_latency.py`` builds it: the
+    MMBT defaults with the classification head, 2 labels and bf16
+    compute, then ``model_overrides`` (e.g. ``{"quant": "int8"}``)."""
+    from mmf_tpu_torch.common.registry import registry
+    from mmf_tpu_torch.config import omega
+    from mmf_tpu_torch.config.configuration import load_yaml
+    from mmf_tpu_torch.utils.env import setup_imports
+
+    setup_imports()
+    cfg = load_yaml("configs/models/mmbt/defaults.yaml")
+    mc = cfg["model_config"]["mmbt"]
+    mc["training_head_type"] = "classification"
+    mc["num_labels"] = 2
+    mc["dtype"] = "bfloat16"
+    mc = omega.merge(mc, model_overrides or {})
+    return registry.get_model_class("mmbt")(config=mc)
+
+
+def hateful_memes_example_batch(batch_size: int = 1,
+                                seed: int = 0) -> Dict[str, Any]:
+    """``bench_latency.py``'s inputs (same draws from
+    ``np.random.RandomState(seed)``): 128 text tokens, all-ones mask,
+    zero segments, a [B, 3, 224, 224] f32 image, and the
+    ``hateful_memes`` meta fields."""
+    rng = np.random.RandomState(seed)
+    input_ids = rng.randint(0, 30522, (batch_size, 128)).astype(np.int32)
+    return {
+        "input_ids": input_ids,
+        "input_mask": np.ones((batch_size, 128), np.int32),
+        "segment_ids": np.zeros((batch_size, 128), np.int32),
+        "image": rng.randn(batch_size, 3, 224, 224).astype(np.float32),
+        **HATEFUL_MEMES_META,
+    }
+
+
 def split_samples(batch: Dict[str, Any]) -> List[Dict[str, Any]]:
-    """Batch dict -> list of per-sample dicts (one request each)."""
+    """Batch dict -> list of per-sample dicts (one request each); fields
+    that are not arrays (meta strings) go to every sample as they are."""
     def take(tree, i):
         if isinstance(tree, dict):
             return {k: take(v, i) for k, v in tree.items()}
-        return tree[i]
+        return tree[i] if isinstance(tree, np.ndarray) else tree
 
     n = len(batch["input_ids"])
     return [take(batch, i) for i in range(n)]

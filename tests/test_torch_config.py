@@ -55,8 +55,10 @@ def test_transformer_config_and_unported_options():
     assert cfg.dtype == torch.bfloat16 and cfg.hidden_size == 16
     assert TransformerConfig.from_dict({"dtype": "fp32"}).dtype == \
         torch.float32
-    with pytest.raises(NotImplementedError):
-        _dense(TransformerConfig(quant="int8"), 4, 4)
+    from mmf_tpu_torch.ops.quant import QuantDense
+
+    quant = _dense(TransformerConfig(quant="int8"), 4, 6)
+    assert isinstance(quant, QuantDense) and quant.weight.shape == (6, 4)
     with pytest.raises(NotImplementedError):
         TransformerLayer(TransformerConfig(moe_experts=2), moe=True)
 

@@ -10,6 +10,7 @@ import torch
 
 from mmf_tpu_torch.ops import attention as A
 from mmf_tpu_torch.ops import layernorm as L
+from mmf_tpu_torch.ops import quant as Q
 
 pytestmark = pytest.mark.cuda
 
@@ -240,3 +241,98 @@ def test_training_forward_routes_attention_dropout_to_plain(card):
     with torch.no_grad():
         torch.testing.assert_close(scores(1), scores(1), rtol=0, atol=0)
         assert not torch.equal(scores(1), scores(2))
+
+
+# K5 shapes (M, K, N): MMBT's pooler and trunk at batch 1, VisualBERT at
+# bucket 32, and ragged edges (M, N not multiples of the 64 x 64 tile, K
+# not a multiple of the 64-byte slab)
+K5_SHAPES = [(1, 768, 768), (131, 768, 3072), (131, 3072, 768),
+             (7296, 768, 3072), (37, 48, 70), (65, 16, 9)]
+
+
+def _k5_bound(ref_scaled, bias, ref, out_dtype):
+    """Allowed error per entry: f32 within 2 ulp of the epilogue's
+    operands (|y xs ws| + |b|), bf16 within 1 bf16 ulp of the plain
+    result."""
+    if out_dtype == torch.float32:
+        return 2.0 ** -22 * (ref_scaled.abs()
+                             + (0 if bias is None else bias.abs()))
+    _, exponent = torch.frexp(ref.float())
+    return torch.ldexp(torch.ones_like(ref.float()), exponent - 8)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", K5_SHAPES)
+def test_int8_gemm_matches_plain(card, out_dtype, shape):
+    m, k, n = shape
+    g = torch.Generator(device=card).manual_seed(m + k + n)
+    x = torch.randn(m, k, device=card, generator=g)
+    w = 0.02 * torch.randn(n, k, device=card, generator=g)
+    x8, xs = Q.quantize_rows(x)
+    w8, ws = Q.quantize_rows(w, eps=1e-11)
+    xs, ws = xs.reshape(-1), ws.reshape(-1)
+    for bias in (None, 0.1 * torch.randn(n, device=card, generator=g)):
+        before = Q.dequant_gemm.launches
+        out = Q.dequant_gemm(x8, w8, xs, ws, bias, out_dtype)
+        torch.cuda.synchronize()
+        assert Q.dequant_gemm.launches == before + 1
+        assert out.dtype == out_dtype and out.shape == (m, n)
+        ref = Q.dequant_gemm_reference(x8, w8, xs, ws, bias, out_dtype)
+        scaled = Q.dequant_gemm_reference(x8, w8, xs, ws, None,
+                                          torch.float32)
+        err = (out.float() - ref.float()).abs()
+        assert (err <= _k5_bound(scaled, bias, ref, out_dtype)).all(), \
+            float(err.max())
+
+
+def test_int8_gemm_takes_views_and_refuses_bad_k(card):
+    g = torch.Generator(device=card).manual_seed(7)
+    x8 = torch.randint(-127, 128, (40, 80), device=card, generator=g,
+                       dtype=torch.int8)
+    w8 = torch.randint(-127, 128, (24, 80), device=card, generator=g,
+                       dtype=torch.int8)
+    xs, ws = torch.rand(40, device=card), torch.rand(24, device=card)
+    # an offset, strided view is copied to an aligned operand
+    view = x8[:, 16:]
+    out = Q.dequant_gemm(view, w8[:, 16:], xs, ws, None)
+    ref = Q.dequant_gemm_reference(view, w8[:, 16:], xs, ws, None,
+                                   torch.float32)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=2.4e-7, atol=0)
+    before = Q.dequant_gemm.launches
+    for k in (8, 24, Q.MAX_K + 16):
+        with pytest.raises(ValueError, match="multiple of 16"):
+            Q.dequant_gemm(torch.zeros(4, k, dtype=torch.int8, device=card),
+                           torch.zeros(4, k, dtype=torch.int8, device=card),
+                           torch.ones(4, device=card),
+                           torch.ones(4, device=card), None)
+    assert Q.dequant_gemm.launches == before
+
+
+def test_quant_dense_runs_k5_on_the_card(card):
+    """QuantDense on the card launches K5 once per call, never the plain
+    version, and agrees with the same module on the CPU; its
+    straight-through gradients match the CPU's."""
+    layer = Q.QuantDense(96, 40, torch.bfloat16)
+    g = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        layer.weight.normal_(0.0, 0.02, generator=g)
+        layer.bias.normal_(0.0, 0.1, generator=g)
+    x = torch.randn(3, 11, 96, generator=g).to(torch.bfloat16)
+    cpu = layer(x)
+    gpu_layer = Q.QuantDense(96, 40, torch.bfloat16).to(card)
+    gpu_layer.load_state_dict(layer.state_dict())
+    before = Q.dequant_gemm.launches
+    xg = x.to(card).requires_grad_()
+    out = gpu_layer(xg)
+    out.float().sum().backward()
+    torch.cuda.synchronize()
+    assert Q.dequant_gemm.launches == before + 1
+    assert out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.cpu(), cpu, rtol=2 ** -8, atol=1e-6)
+    xc = x.clone().requires_grad_()
+    layer(xc).float().sum().backward()
+    torch.testing.assert_close(gpu_layer.weight.grad.cpu(), layer.weight.grad,
+                               rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(xg.grad.cpu().float(), xc.grad.float(),
+                               rtol=1e-2, atol=1e-3)

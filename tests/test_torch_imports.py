@@ -21,9 +21,13 @@ SLICE_MODULES = [
     "mmf_tpu_torch.ops._build",
     "mmf_tpu_torch.ops.attention",
     "mmf_tpu_torch.ops.layernorm",
+    "mmf_tpu_torch.ops.quant",
     "mmf_tpu_torch.modules.transformer",
     "mmf_tpu_torch.models.base_model",
     "mmf_tpu_torch.models.visual_bert",
+    "mmf_tpu_torch.modules.resnet",
+    "mmf_tpu_torch.modules.encoders",
+    "mmf_tpu_torch.models.mmbt",
     "mmf_tpu_torch.modules.losses",
     "mmf_tpu_torch.modules.optimizers",
     "mmf_tpu_torch.modules.schedulers",
@@ -40,10 +44,13 @@ _PROBE = """
 import importlib, json, sys
 for name in {modules!r}:
     importlib.import_module(name)
-from mmf_tpu_torch.utils.flagship import visual_bert
+from mmf_tpu_torch.utils.flagship import mmbt_grid, visual_bert
 model = visual_bert({{"num_hidden_layers": 1, "hidden_size": 32,
                      "num_attention_heads": 4, "intermediate_size": 64,
-                     "visual_embedding_dim": 8}})
+                     "visual_embedding_dim": 8, "quant": "int8"}})
+model = mmbt_grid({{"quant": "int8", "text_encoder": {{"params": {{
+    "num_hidden_layers": 1, "hidden_size": 32, "num_attention_heads": 4,
+    "intermediate_size": 64}}}}}})
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                     "mmf_tpu"))
@@ -77,7 +84,7 @@ def test_chip_smoke_fails_without_a_card():
 
 
 def test_kernel_entries_refuse_cpu_tensors():
-    from mmf_tpu_torch.ops import attention, layernorm
+    from mmf_tpu_torch.ops import attention, layernorm, quant
 
     q = torch.zeros(1, 2, 8, 8)
     before = attention.flash_attention.launches
@@ -91,9 +98,17 @@ def test_kernel_entries_refuse_cpu_tensors():
         layernorm.layer_norm_kernel(x, torch.ones(16), torch.zeros(16))
     assert layernorm.layer_norm_kernel.launches == before
 
+    x8 = torch.zeros(4, 16, dtype=torch.int8)
+    before = quant.dequant_gemm.launches
+    with pytest.raises(RuntimeError, match="CUDA kernel"):
+        quant.dequant_gemm(x8, x8, torch.ones(4), torch.ones(4), None)
+    assert quant.dequant_gemm.launches == before
+
     # the dispatchers take the plain versions for CPU tensors, and only
     # because the tensors lie on the CPU; no kernel launch is counted
     attention.dot_product_attention(q, q, q)
     layernorm.layer_norm(x, torch.ones(16), torch.zeros(16))
+    quant.int8_dense(x, torch.ones(16, 16))
     assert attention.flash_attention.launches == 0
     assert layernorm.layer_norm_kernel.launches == 0
+    assert quant.dequant_gemm.launches == 0
