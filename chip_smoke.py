@@ -10,12 +10,18 @@ the script exits non-zero without a result line):
               from this checkout's sources, all started together: nvcc
               for the CUDA flash-attention forward (K1) and backward (K2,
               K3) and the int8 GEMM (K5), Triton's JIT for the LayerNorm
-              (K4), with build times.
+              (K4), with build times, and the backward kernels' registers,
+              spills and shared memory from ptxas.
 2. kernels  - each kernel against its plain PyTorch version on the card
               at the main paths' shapes, with stated tolerances, and both
               timed with CUDA events (best of several runs): K1 in its
-              inference and stats forms, K2 and K3 (also against autograd
-              through mha_reference), K4, and K5 at the MMBT trunk's and
+              inference, stats and raw-stats forms (the raw states of the
+              two kv halves merged against K1 over the whole kv), K2 and
+              K3 (also against autograd through mha_reference; two calls
+              bit-equal; device time by device_ms beside the events, and
+              the wrappers' host time per call; B=64 S=228, B=8 Sq=128
+              Skv=100 and a long-kv case B=8 S=1024), K4, and K5 at the
+              MMBT trunk's and
               pooler's shapes (M = 131 and 1) and VisualBERT's bucket 32
               (M = 7296). F.scaled_dot_product_attention (forward and
               backward), F.layer_norm and torch._int_mm are timed beside
@@ -66,6 +72,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -112,6 +119,11 @@ N_REQUESTS = 8
 GRAD_REL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # stats form: m and l are f32 sums of the same products in another order
 STATS_TOL = dict(atol=1e-4, rtol=1e-4)
+# raw-stats form's f32 accumulator, relative to its largest entry: f32 the
+# same products in another order; bf16 probabilities rounded to bf16 at
+# each tile's running max (the plain version rounds them at the final max)
+RAW_REL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+LONG_S = 1024  # the long-kv case: B=8, Sq = Skv = 1024
 TRAIN_B, TRAIN_STEPS = 64, 6
 # training step through the kernels vs through the plain versions, same
 # weights and batch, dropout 0, bf16 compute: both round activations to
@@ -190,6 +202,20 @@ def time_ms(fn, iters=20, repeats=5) -> float:
     return best
 
 
+def host_us(fn, iters=50) -> float:
+    """Host time per call in microseconds: the wrapper's checks, ctypes
+    call and launch (the backward's TMA descriptors included), without
+    waiting for the card."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    us = 1e6 * (time.perf_counter() - t0) / iters
+    torch.cuda.synchronize()
+    return us
+
+
 def device_ms(fn, iters=20, repeats=5) -> float:
     """Device time per call, without the host's cost of launching it:
     a spin kernel (torch.cuda._sleep) holds the stream while ``iters``
@@ -239,6 +265,7 @@ def max_err(got, want, dtype) -> float:
 KERNELS = {  # name in the report -> the wrapper that counts launches
     "flash_attention_fwd": A.flash_attention,
     "flash_attention_fwd_stats": A.flash_attention_with_stats,
+    "flash_attention_fwd_raw": A.flash_attention_block,
     "flash_attention_bwd_dq": A.flash_attention_bwd_dq,
     "flash_attention_bwd_dkv": A.flash_attention_bwd_dkv,
     "layer_norm": L.layer_norm_kernel,
@@ -254,6 +281,28 @@ def reset_counts():
 
 def read_counts():
     return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def ptxas_report(log):
+    """[(kernel, registers, spill store bytes, static smem bytes)] from
+    nvcc's -Xptxas -v output, kernels demangled to their short names."""
+    out, name, spill = [], None, 0
+    for ln in log.splitlines():
+        m = re.search(r"entry function '([^']+)'", ln)
+        if m:
+            short = re.search(r"\d((?:bwd_d|flash_fwd_|int8_)\w*?_kernel)"
+                              r"(?:ILi(\d+)E)?", m.group(1))
+            name = m.group(1)[-40:] if short is None else short.group(1) + (
+                f"<{short.group(2)}>" if short.group(2) else "")
+            spill = 0
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", ln)
+        if m and name is not None:
+            out.append((name, int(m.group(1)), spill, int(m.group(2) or 0)))
+            name = None
+    return out
 
 
 # -- phase 1 ---------------------------------------------------------------
@@ -294,19 +343,25 @@ def phase_build(card):
     if errors:
         raise errors[0]
     wall = time.perf_counter() - t0
-    parts = []
+    parts, reports = [], []
     for name in ("flash_attention_fwd", "flash_attention_bwd", "int8_gemm"):
         info, _ = done[name]
-        regs = [ln.strip() for ln in info["ptxas"].splitlines()
-                if "registers" in ln]
-        spills = sum("spill stores" in ln and " 0 bytes spill stores" not in ln
-                     for ln in info["ptxas"].splitlines())
-        parts.append(f"{name} nvcc {info['build_s']:.1f}s ({len(regs)} "
-                     f"kernels, lines with spills {spills})")
+        kernels = ptxas_report(info["ptxas"])
+        parts.append(f"{name} nvcc {info['build_s']:.1f}s ({len(kernels)} "
+                     f"kernels, {sum(k[2] > 0 for k in kernels)} with "
+                     "spills)")
+        if name == "flash_attention_bwd":
+            reports = kernels
+    smem = A._bwd_lib()[0].mmf_flash_attention_bwd_smem_bytes(HEAD_DIM)
     parts.append(f"layer_norm triton jit {done['layer_norm'][1]:.1f}s")
     print(f"phase build: ok card='{card}' torch={torch.__version__} "
           f"cuda={torch.version.cuda}; built in parallel in {wall:.1f}s: "
           + "; ".join(parts))
+    print("  backward kernels (ptxas: registers, spill store bytes, static "
+          "smem bytes; bf16 K2 and K3 take their ring as dynamic smem, "
+          f"{smem} B a block at D={HEAD_DIM}): " + "; ".join(
+              f"{n} {r} regs, {sp} B spills, {sm} B" for n, r, sp, sm in
+              reports))
 
 
 # -- phase 2 ---------------------------------------------------------------
@@ -368,17 +423,24 @@ def phase_kernels(card):
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 parity
     g = torch.Generator(device=DEV).manual_seed(0)
     names = ("flash_attention_fwd", "flash_attention_fwd_stats",
-             "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
-             "layer_norm")
+             "flash_attention_fwd_raw", "flash_attention_bwd_dq",
+             "flash_attention_bwd_dkv", "layer_norm")
     results = {n: {"err": 0.0} for n in names}
     lines = []
     cases = [(b, S, S, dt) for b in (1, 64)
              for dt in (torch.bfloat16, torch.float32)]
     cases.append((8, 128, 100, torch.bfloat16))  # Sq != Skv
+    # long kv: many ring tiles and many 64-row blocks per (b, h)
+    cases.append((8, LONG_S, LONG_S, torch.bfloat16))
     for b, sq, skv, dt in cases:
         q, k, v, bias, dout = _attention_inputs(b, sq, skv, dt, g)
         out = A.flash_attention(q, k, v, bias)
         out_s, m, l = A.flash_attention_with_stats(q, k, v, bias)
+        raw = A.flash_attention_block(q, k, v, bias)
+        half = skv // 2
+        halves = [A.flash_attention_block(q, k[:, :, sl], v[:, :, sl],
+                                          bias[..., sl])
+                  for sl in (slice(0, half), slice(half, skv))]
         dq, delta = A.flash_attention_bwd_dq(q, k, v, bias, out_s, m, l,
                                              dout)
         dk, dv = A.flash_attention_bwd_dkv(q, k, v, bias, dout, m, l, delta)
@@ -390,6 +452,18 @@ def phase_kernels(card):
         torch.testing.assert_close(l, ref_l, **STATS_TOL)
         err_s = max(err, float((m - ref_m).abs().max()),
                     float((l - ref_l).abs().max()))
+        # raw-stats form: against its plain version, and the merged states
+        # of the two kv halves against K1 over the whole kv
+        ref_raw = A.flash_attention_block_reference(q, k, v, bias)
+        torch.testing.assert_close(raw[1], ref_raw[1], **STATS_TOL)
+        torch.testing.assert_close(raw[2], ref_raw[2], **STATS_TOL)
+        err_r = max(rel_err(raw[0], ref_raw[0], RAW_REL[dt],
+                            f"raw acc B={b} {dt}"),
+                    float((raw[1] - ref_raw[1]).abs().max()),
+                    float((raw[2] - ref_raw[2]).abs().max()))
+        macc, _, ml = A.merge_block_states(halves)
+        merged = (macc / ml[..., None]).to(dt)
+        err_merge = max_err(merged, out, dt)
         ref = A.flash_backward_reference(q, k, v, bias, out_s, m, l, dout)
         errs = [rel_err(got, want, GRAD_REL[dt], f"{name} B={b} {dt}")
                 for name, got, want in zip(("dq", "dk", "dv"),
@@ -400,27 +474,52 @@ def phase_kernels(card):
         for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), auto):
             rel_err(got, want, 1.5 * GRAD_REL[dt],
                     f"{name} vs autograd(mha_reference) B={b} {dt}")
-        for name, e in zip(names[:4], (err, err_s, errs[0],
-                                       max(errs[1:]))):
+        # no atomics: a second call gives the same bits
+        dq2, delta2 = A.flash_attention_bwd_dq(q, k, v, bias, out_s, m, l,
+                                               dout)
+        dk2, dv2 = A.flash_attention_bwd_dkv(q, k, v, bias, dout, m, l,
+                                             delta2)
+        torch.cuda.synchronize()
+        check(all(torch.equal(x, y) for x, y in
+                  ((dq, dq2), (delta, delta2), (dk, dk2), (dv, dv2))),
+              f"backward not bit-equal across calls B={b} {dt}")
+        for name, e in zip(names[:5], (err, err_s, max(err_r, err_merge),
+                                       errs[0], max(errs[1:]))):
             results[name]["err"] = max(results[name]["err"], e)
 
+        def k2():
+            return A.flash_attention_bwd_dq(q, k, v, bias, out_s, m, l, dout)
+
+        def k3():
+            return A.flash_attention_bwd_dkv(q, k, v, bias, dout, m, l,
+                                             delta)
+
+        def k1_raw():
+            return A.flash_attention_block(q, k, v, bias)
+
         plain_fwd = lambda: A.mha_reference(q, k, v, bias)  # noqa: E731
-        t = {
+        t = {  # CUDA events around back-to-back calls
             "flash_attention_fwd": time_ms(
                 lambda: A.flash_attention(q, k, v, bias)),
             "flash_attention_fwd_stats": time_ms(
                 lambda: A.flash_attention_with_stats(q, k, v, bias)),
-            "flash_attention_bwd_dq": time_ms(
-                lambda: A.flash_attention_bwd_dq(q, k, v, bias, out_s, m, l,
-                                                 dout)),
-            "flash_attention_bwd_dkv": time_ms(
-                lambda: A.flash_attention_bwd_dkv(q, k, v, bias, dout, m, l,
-                                                  delta)),
+            "flash_attention_bwd_dq": time_ms(k2),
+            "flash_attention_bwd_dkv": time_ms(k3),
         }
+        dev = {  # device time per call, calls queued behind a spin kernel
+            "flash_attention_fwd_raw": device_ms(k1_raw),
+            "flash_attention_bwd_dq": device_ms(k2),
+            "flash_attention_bwd_dkv": device_ms(k3),
+        }
+        host = {n: host_us(fn) for n, fn in (
+            ("K1-stats", lambda: A.flash_attention_with_stats(q, k, v, bias)),
+            ("K2", k2), ("K3", k3))}
         plain = {
             "flash_attention_fwd": time_ms(plain_fwd),
             "flash_attention_fwd_stats": time_ms(
                 lambda: A.flash_forward_reference(q, k, v, bias)),
+            "flash_attention_fwd_raw": time_ms(
+                lambda: A.flash_attention_block_reference(q, k, v, bias)),
             # the plain backward computes dq, dk and dv together
             "flash_attention_bwd_dq": time_ms(
                 lambda: A.flash_backward_reference(q, k, v, bias, out_s, m,
@@ -429,7 +528,9 @@ def phase_kernels(card):
         plain["flash_attention_bwd_dkv"] = plain["flash_attention_bwd_dq"]
         sdpa = time_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=bias))
-        sdpa_bwd = time_ms(_sdpa_backward(q, k, v, bias, dout), iters=10)
+        sdpa_bwd_fn = _sdpa_backward(q, k, v, bias, dout)
+        sdpa_bwd = time_ms(sdpa_bwd_fn, iters=10)
+        sdpa_bwd_dev = device_ms(sdpa_bwd_fn, iters=10)
         sdpa_lse = time_ms(_sdpa_with_lse(q, k, v, bias))
         if (b, sq, dt) == (64, S, torch.bfloat16):
             qkvo = 4 * _nbytes(q)
@@ -440,6 +541,10 @@ def phase_kernels(card):
                 "flash_attention_fwd": (qkvo + _nbytes(bias), 4 * pairs),
                 "flash_attention_fwd_stats": (qkvo + _nbytes(bias) + 2 * st,
                                               4 * pairs),
+                # q, k, v in, f32 acc, m and l out
+                "flash_attention_fwd_raw": (3 * _nbytes(q) + _nbytes(bias)
+                                            + _nbytes(raw[0]) + 2 * st,
+                                            4 * pairs),
                 "flash_attention_bwd_dq": (6 * _nbytes(q) + _nbytes(bias)
                                            + 3 * st, 6 * pairs),
                 "flash_attention_bwd_dkv": (6 * _nbytes(q) + _nbytes(bias)
@@ -447,26 +552,42 @@ def phase_kernels(card):
             }
             for name, (nb, fl) in work.items():
                 r = results[name]
-                r["ms"], r["plain_ms"] = t[name], plain[name]
+                r["ms"] = dev.get(name, t.get(name))
+                r["plain_ms"] = plain[name]
                 r["bound_ms"], r["bound_by"] = bound(nb, fl, dt)
+                if name in t and name in dev:
+                    r["events_ms"] = t[name]
             results["flash_attention_fwd"]["library_ms"] = sdpa
             results["flash_attention_fwd_stats"]["library_ms"] = sdpa_lse
+            # no PyTorch call returns the unnormalized state
+            results["flash_attention_fwd_raw"]["library_ms"] = None
             # the SDPA backward computes dq, dk and dv together: one
             # library time for K2 and K3 combined
             for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
-                results[name]["library_ms"] = sdpa_bwd
+                results[name]["library_ms"] = sdpa_bwd_dev
+                results[name]["library_events_ms"] = sdpa_bwd
         lines.append(
             f"  flash B={b} H={HEADS} Sq={sq} Skv={skv} D={HEAD_DIM} "
             f"{str(dt)[6:]}: max_abs_err fwd {err:.3g}, stats {err_s:.3g}, "
-            f"dq {errs[0]:.3g}, dk {errs[1]:.3g}, dv {errs[2]:.3g}; ms "
-            f"K1 {t['flash_attention_fwd']:.4f}, K1-stats "
+            f"raw {err_r:.3g}, merged halves vs K1 {err_merge:.3g}, "
+            f"dq {errs[0]:.3g}, dk {errs[1]:.3g}, dv {errs[2]:.3g}; "
+            "backward bit-equal across calls; device ms (spin-queued) "
+            f"K1-raw {dev['flash_attention_fwd_raw']:.4f}, K2 "
+            f"{dev['flash_attention_bwd_dq']:.4f}, K3 "
+            f"{dev['flash_attention_bwd_dkv']:.4f}, K2+K3 "
+            f"{dev['flash_attention_bwd_dq'] + dev['flash_attention_bwd_dkv']:.4f}"
+            f", sdpa bwd {sdpa_bwd_dev:.4f}; events ms K1 "
+            f"{t['flash_attention_fwd']:.4f}, K1-stats "
             f"{t['flash_attention_fwd_stats']:.4f}, K2 "
             f"{t['flash_attention_bwd_dq']:.4f}, K3 "
             f"{t['flash_attention_bwd_dkv']:.4f}; plain fwd "
             f"{plain['flash_attention_fwd']:.4f}, plain fwd+stats "
-            f"{plain['flash_attention_fwd_stats']:.4f}, plain bwd "
+            f"{plain['flash_attention_fwd_stats']:.4f}, plain raw "
+            f"{plain['flash_attention_fwd_raw']:.4f}, plain bwd "
             f"{plain['flash_attention_bwd_dq']:.4f}; sdpa fwd {sdpa:.4f}, "
-            f"sdpa fwd+lse {sdpa_lse:.4f}, sdpa bwd {sdpa_bwd:.4f}")
+            f"sdpa fwd+lse {sdpa_lse:.4f}, sdpa bwd {sdpa_bwd:.4f}; host us "
+            "per wrapper call " + ", ".join(
+                f"{n} {us:.1f}" for n, us in host.items()))
     rows = 64 * S
     for dt in (torch.bfloat16, torch.float32):
         x = torch.randn(rows, HIDDEN, device=DEV, generator=g).to(dt)
@@ -1162,6 +1283,9 @@ SOURCES = {  # name -> (route, source, the TPU kernel it replaces)
     "flash_attention_fwd_stats": (
         "cuda", "mmf_tpu_torch/ops/csrc/flash_attention_fwd.cu",
         "mmf_tpu/ops/attention.py:114"),
+    "flash_attention_fwd_raw": (
+        "cuda", "mmf_tpu_torch/ops/csrc/flash_attention_fwd.cu",
+        "mmf_tpu/ops/attention.py:168"),
     "flash_attention_bwd_dq": (
         "cuda", "mmf_tpu_torch/ops/csrc/flash_attention_bwd.cu",
         "mmf_tpu/ops/attention.py:372"),
@@ -1180,12 +1304,17 @@ LIBRARY = {  # name -> the PyTorch call timed as its library_ms
     "flash_attention_fwd_stats": (
         "aten._scaled_dot_product_efficient_attention with "
         "compute_log_sumexp (output and the rows' m + log l)"),
+    "flash_attention_fwd_raw": (
+        "none: no PyTorch call returns the unnormalized state (K1-raw's "
+        "ms is device_ms)"),
     "flash_attention_bwd_dq": (
         "F.scaled_dot_product_attention backward: dq, dk, dv together "
-        "(K2 + K3 combined)"),
+        "(K2 + K3 combined); K2, K3 and it timed by device_ms, CUDA "
+        "events over back-to-back calls beside them"),
     "flash_attention_bwd_dkv": (
         "F.scaled_dot_product_attention backward: dq, dk, dv together "
-        "(K2 + K3 combined)"),
+        "(K2 + K3 combined); K2, K3 and it timed by device_ms, CUDA "
+        "events over back-to-back calls beside them"),
     "layer_norm": "F.layer_norm after the residual add",
     "int8_dequant_gemm": ("torch._int_mm on the same operands: the int32 "
                           "product alone, no dequantising epilogue (K5's "
@@ -1220,6 +1349,8 @@ def main():
             # one PyTorch call computing the same function: LIBRARY says
             # which
             "library_ms": r["library_ms"], "library": LIBRARY[name],
+            **{k: r[k] for k in ("events_ms", "library_events_ms")
+               if k in r},
         })
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -8,8 +8,10 @@ additive and broadcastable to [B, H, Sq, Skv].
   CUDA C++ kernel ``ops/csrc/flash_attention_fwd.cu`` (K1), which
   replaces the Pallas kernel ``mmf_tpu/ops/attention.py::_flash_kernel``
   in its inference form and in its ``with_lse`` form (row max ``m`` and
-  normalizer ``l`` for the backward). The ``raw_stats`` form of the ring
-  is not ported yet.
+  normalizer ``l`` for the backward); ``flash_attention_block`` wraps its
+  ``raw_stats`` form (the unnormalized accumulator with raw ``m`` and
+  ``l``), the block state that ring attention merges
+  (``merge_block_states``, plain torch).
 - ``flash_attention_bwd_dq`` / ``flash_attention_bwd_dkv``: wrappers of
   ``ops/csrc/flash_attention_bwd.cu``, which replaces
   ``_flash_bwd_dq_kernel`` (K2) and ``_flash_bwd_dkv_kernel`` (K3).
@@ -20,8 +22,9 @@ additive and broadcastable to [B, H, Sq, Skv].
   The kernel sources say what bounds them on the H100 and how their
   design answers that. Every kernel wrapper takes CUDA tensors only: it
   launches or raises, and counts its launches.
-- ``mha_reference``, ``flash_forward_reference`` and
-  ``flash_backward_reference``: the plain versions, f32 scores and
+- ``mha_reference``, ``flash_forward_reference``,
+  ``flash_attention_block_reference`` and ``flash_backward_reference``:
+  the plain versions, f32 scores and
   softmax. Unlike the JAX reference they do not store bf16 logits (that
   was a TPU bandwidth choice), and a row whose every score is -inf gives
   zeros (and zero gradients), as the kernels do, where the JAX functions
@@ -104,6 +107,47 @@ def flash_forward_reference(
             torch.where(empty, torch.ones_like(l), l))
 
 
+def flash_attention_block_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+):
+    """Plain version of the kernel's raw-stats form: ``(acc, m, l)`` with
+    the raw row max ``m`` of the scores, ``l = sum_k exp(s - m)`` and the
+    UNNORMALIZED ``acc = exp(s - m) v``, all f32 (acc [B,H,Sq,D], m and l
+    [B,H,Sq]); probabilities are rounded to v's dtype before the product,
+    as in ``mha_reference``. A row with no finite score gives m = -inf,
+    l = 0, acc = 0 (JAX gives NaN there)."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    s = _scores(q, k, bias, scale)
+    m = s.amax(dim=-1)
+    m_use = torch.where(torch.isneginf(m), torch.zeros_like(m), m)
+    p = torch.exp(s - m_use[..., None])
+    acc = torch.matmul(p.to(v.dtype).float(), v.float())
+    return acc, m, p.sum(dim=-1)
+
+
+def merge_block_states(states):
+    """Merge ``(acc, m, l)`` block states over disjoint kv blocks with the
+    ring recurrence of ``mmf_tpu/ops/ring_attention.py``: m' = max(m1,
+    m2), acc' = acc1 e^(m1 - m') + acc2 e^(m2 - m'), l' likewise. A state
+    with m = -inf is empty and adds nothing. The attention output is
+    ``acc' / l'`` (zero where l' = 0)."""
+    acc, m, l = states[0]
+    for acc_b, m_b, l_b in states[1:]:
+        m_new = torch.maximum(m, m_b)
+        m_use = torch.where(torch.isneginf(m_new), torch.zeros_like(m_new),
+                            m_new)
+        alpha, beta = torch.exp(m - m_use), torch.exp(m_b - m_use)
+        acc = acc * alpha[..., None] + acc_b * beta[..., None]
+        l = l * alpha + l_b * beta
+        m = m_new
+    return acc, m, l
+
+
 def flash_backward_reference(q, k, v, bias, out, m, l, dout, scale=None):
     """Plain version of the backward kernels: ``(dq, dk, dv)`` in the
     input dtypes from the forward's ``out``, ``m`` and ``l``, by the
@@ -151,6 +195,8 @@ def _fwd_lib():
     return _typed_library("flash_attention_fwd", {
         "mmf_flash_attention_fwd":
             [_P] * 7 + _DIMS + [_STRIDES, _F, _P],
+        "mmf_flash_attention_fwd_raw":
+            [_P] * 7 + _DIMS + [_STRIDES, _F, _P],
     })
 
 
@@ -158,17 +204,21 @@ def _bwd_lib():
     return _typed_library("flash_attention_bwd", {
         "mmf_flash_attention_bwd_dq": [_P] * 10 + _DIMS + [_STRIDES, _F, _P],
         "mmf_flash_attention_bwd_dkv": [_P] * 10 + _DIMS + [_STRIDES, _F, _P],
+        "mmf_flash_attention_bwd_smem_bytes": [_I],
     })
 
 
 def _kernel_layout_ok(t: torch.Tensor) -> bool:
     """Contiguous head dim; for bf16 also 16-byte aligned rows (the
-    tensor-core kernels load 8 bf16 at a time)."""
+    tensor-core kernels load 8 bf16 at a time) and positive strides on
+    dims longer than 1 (the backward's TMA maps cannot broadcast)."""
     if t.stride(-1) != 1:
         return False
     if t.dtype != torch.bfloat16:
         return True
-    return t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
+    return t.data_ptr() % 16 == 0 and all(
+        s % 8 == 0 and (s > 0 or n == 1)
+        for s, n in zip(t.stride()[:3], t.shape[:3]))
 
 
 def _kernel_operand(t: torch.Tensor) -> torch.Tensor:
@@ -318,6 +368,39 @@ def flash_attention_with_stats(q, k, v, bias=None, scale=None):
 
 
 flash_attention_with_stats.launches = 0
+
+
+def flash_attention_block(q, k, v, bias=None, scale=None):
+    """The kernel's raw-stats form (the TPU kernel's ``raw_stats``, the
+    block state of ring attention): ``(acc, m, l)`` as
+    ``flash_attention_block_reference`` gives them, acc f32 [B,H,Sq,D]
+    (contiguous), m and l f32 [B,H,Sq]. Arguments as ``flash_attention``.
+    Merge the states of several kv blocks with ``merge_block_states``."""
+    b, h, sq, skv, d = _check_qkv("flash_attention_block", q, k, v)
+    q, k, v = map(_kernel_operand, (q, k, v))
+    if scale is None:
+        scale = d ** -0.5
+    bias_ptr, bias_strides, _bias = _kernel_bias(bias, q, b, h, sq, skv)
+    acc = torch.empty((b, h, sq, d), dtype=torch.float32, device=q.device)
+    m = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    if acc.numel() == 0:
+        return acc, m, l
+    lib, _ = _fwd_lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.mmf_flash_attention_fwd_raw(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr,
+            acc.data_ptr(), m.data_ptr(), l.data_ptr(), _DTYPE_CODE[q.dtype],
+            b, h, sq, skv, d, _strides(q, k, v, acc, bias_strides),
+            float(scale), stream,
+        )
+    _check_rc(lib, rc, "flash_attention_block")
+    flash_attention_block.launches += 1
+    return acc, m, l
+
+
+flash_attention_block.launches = 0
 
 
 def _check_backward_args(what, q, k, v, stats, grads):

@@ -19,41 +19,60 @@
 //
 // What bounds them on the H100: at the main path's shape (B=64, H=12,
 // S=228, D=64) K2 does 3 and K3 4 products of ~2*S*S*D FLOPs per (b, h)
-// against ~6*S*D elements read: a few hundred FLOPs per byte, so tensor-
-// core throughput, and the [S, S] tiles kept out of device memory, decide.
-// Design (the forward's, with the same fragment tricks):
-//   - bfloat16: mma.sync m16n8k16 (bf16 in, f32 accumulate), 4 warps of 16
-//     rows. K2 keeps its q and dO fragments in registers for the whole kv
-//     loop; scores and dO v^T are f32 accumulators, turned into ds in
-//     registers and repacked in place, rounded to bf16, as the A operand of
-//     ds k. K3 does the same with the roles of q and kv swapped, its k and
-//     v fragments read from shared memory, and both p^T and ds^T repacked
-//     as A operands of p^T dO and ds^T q.
-//   - Each product needs its B operand contiguous along the reduction, so
-//     the tile that a kernel reduces over along the sequence (k in K2, q
-//     and dO in K3) is also stored transposed, in shared memory only: no
-//     transposed copy is made in device memory.
+// against ~6*S*D elements read: a few hundred FLOPs per byte, so the
+// bound is close to the line between bytes and tensor-core operations,
+// and only wgmma reaches the tensor cores' full rate on Hopper. At this
+// shape a block's work is short (four 64-row tiles), so what decides the
+// time is the latency of a block's chain of loads, products and
+// elementwise math, and how many blocks overlap on an SM. Design of the
+// bfloat16 kernels (warp-specialised; layouts in hopper.cuh):
+//   - K2: one block per (b, h, 64 q rows): one consumer warpgroup and one
+//     producer warp. q and dO are loaded once by TMA; k and v tiles of 64
+//     kv rows stream through a 3-stage shared-memory ring filled by TMA,
+//     with the tile's padding-mask bias row beside them (cp.async);
+//     mbarriers count the bytes, so loads overlap the products and the
+//     producer never waits for a load. s = q k^T and dp = dO v^T run on
+//     wgmma from shared memory (K-major); ds = p (dp - delta) is formed in
+//     the accumulator registers, rounded to bf16 and fed back as wgmma's
+//     register A operand for dq += ds k, with k read through an MN-major
+//     descriptor: no transposed copy. delta is K2's prologue (16-byte
+//     loads of dO and O, all in flight together), written for K3.
+//   - K3: one block per (b, h, 64 kv rows): k and v loaded once; q and dO
+//     tiles of 64 q rows stream through the ring with their m, l and
+//     delta rows (cp.async). s^T = k q^T and dp^T = v dO^T on wgmma; p^T
+//     and ds^T stay in registers as the A operands of dv += p^T dO and
+//     dk += ds^T q, with q and dO read MN-major.
+//   - The elementwise math is branch-free and the wgmma paths are
+//     provably non-divergent (ptxas otherwise serialises the products).
+//     K2 runs three blocks an SM, K3 two (its five accumulators).
+//   - The head dim is zero-padded to 64-column boxes (TMA fills rows and
+//     columns outside the tensor with zeros); padded kv columns get p = 0
+//     and padded rows are never stored. No atomics: every output element
+//     is written by one block, so two runs give the same bits.
 //   - float32: plain FMAs in a 16 x 16 thread grid (4 x 4 register tiles),
 //     as the forward's f32 kernel, to keep f32 parity.
-//   - Ragged q rows and kv columns are masked in the kernels; the bias is
-//     read in f32 through its strides (0 on broadcast dims); q, k, v, O,
-//     dO and the three gradients are addressed through (batch, head, seq)
-//     strides, so [B, S, H, D] projection views are read and written in
-//     place.
-//   - wgmma, TMA, ldmatrix and overlap of loads with compute are later
-//     work: this is the first, simple version.
+//   - The bias is read in f32 through its strides (0 on broadcast dims): a
+//     [B,1,1,Skv] padding-mask row once per tile (K2) or block (K3), any
+//     other bias per element. q, k, v, O, dO and the three gradients are
+//     addressed through (batch, head, seq) strides, so [B, S, H, D]
+//     projection views are read and written in place (the bf16 tensor
+//     maps carry the strides).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (mmf_tpu_torch/ops/_build.py); plain C entry
-//        points loaded with ctypes.
+//        points loaded with ctypes. TMA descriptors are encoded per call
+//        with cuTensorMapEncodeTiled, reached through the runtime's
+//        cudaGetDriverEntryPoint, so the library needs no -lcuda.
 
 #include <math.h>
 
 #include "flash_attention_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using namespace mmf_flash;
+using namespace mmf_hopper;
 
 constexpr int BQ = 64;  // q rows per tile
 constexpr int BK = 64;  // kv rows per tile
@@ -389,318 +408,518 @@ __global__ void __launch_bounds__(F_THREADS) bwd_dkv_f32_kernel(Args a) {
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16: tensor-core kernels on mma.sync m16n8k16, 4 warps; warp w owns
-// the tile rows 16 w .. 16 w + 15 (q rows in K2, kv rows in K3); a lane
-// holds rows g and g + 8 of them (fragment layouts in the common header).
+// bfloat16: warp-specialised wgmma kernels. A block is one consumer
+// warpgroup (warps 0-3, 64 rows: q rows in K2, kv rows in K3) and one
+// producer warp (warp 4) that keeps a ring of STAGES shared-memory stages
+// filled by TMA and cp.async; mbarriers signal a full stage (32 producer
+// lanes and the copies' bytes) and an empty one (128 consumer threads).
+// The head dim is padded with zeros to NB 64-column boxes (NB = 1 for
+// D <= 64, 2 up to 128); layouts and descriptors in hopper.cuh.
 // ---------------------------------------------------------------------------
-constexpr int T_WARPS = 4;
-constexpr int T_THREADS = 32 * T_WARPS;
-constexpr int T_LD = 64 + 8;  // row length of a transposed [D][64] tile
+constexpr int STAGES = 3;       // ring depth
+constexpr int ALIGN = 1024;     // swizzled boxes start on 1 KB
+constexpr int ROWS = 64;        // rows a block owns
+constexpr int CONSUMERS = 128;  // one warpgroup
+constexpr int THREADS = CONSUMERS + 32;
 
-template <int NK>
-size_t dq_bf16_smem_bytes() {
-  // q, dO [BQ][16 NK + 8]; k, v [BK][16 NK + 8]; k^T [16 NK][T_LD]
-  return sizeof(bf16) * (size_t(2 * BQ + 2 * BK) * (16 * NK + 8) +
-                         size_t(16 * NK) * T_LD);
+struct Maps {
+  CUtensorMap q, k, v, dout;
+};
+
+// Layout of a block's shared memory: its two own operands (64 rows each,
+// loaded once), the ring (two tiles and up to 256 f32 row values a
+// stage), f32 row statistics (K2), the mbarriers.
+template <int NB>
+struct WLayout {
+  static constexpr int TILE = NB * BOX_BYTES;  // one operand, 64 rows
+  static constexpr int STAGE = 2 * TILE + ALIGN;
+  static constexpr int RING = 2 * TILE;
+  static constexpr int STATS = RING + STAGES * STAGE;
+  static constexpr int BARS = STATS + 3 * ROWS * 4;
+  static constexpr int BYTES = BARS + (2 * STAGES + 1) * 8 + ALIGN;
+};
+
+__device__ __forceinline__ unsigned char* align_smem(unsigned char* p) {
+  const uint32_t a = smem_u32(p);
+  return p + ((ALIGN - a % ALIGN) % ALIGN);
 }
 
-template <int NK>
-size_t dkv_bf16_smem_bytes() {
-  // k, v [BK][16 NK + 8]; q, dO [BQ][16 NK + 8]; q^T, dO^T [16 NK][T_LD]
-  return sizeof(bf16) * (size_t(2 * BK + 2 * BQ) * (16 * NK + 8) +
-                         size_t(2 * 16 * NK) * T_LD);
+// The ring's stage index and phase parity of tile t.
+__device__ __forceinline__ int stage_of(int t) { return t % STAGES; }
+__device__ __forceinline__ uint32_t full_parity(int t) {
+  return (t / STAGES) & 1;
 }
 
-// rows [row0, row0 + n) of a (seq, D) bf16 matrix at `src` (row stride
-// `ld`) into `dst` [n][LDH], zero outside the sequence and the head dim;
-// with `dst_t` non-null also transposed into dst_t [DP][T_LD].
-template <int DP, int LDH>
-__device__ __forceinline__ void load_tile(bf16* dst, bf16* dst_t,
-                                          const bf16* src, long long ld,
-                                          int row0, int n_seq, int D) {
-  constexpr int VEC = DP / 8;  // 16-byte vectors per padded row
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  for (int idx = threadIdx.x; idx < 64 * VEC; idx += T_THREADS) {
-    // rows fastest, so neighbouring lanes store neighbouring columns of
-    // the transposed tile
-    const int rr = idx % 64, c8 = (idx / 64) * 8;
-    const int s = row0 + rr;
-    const uint4 val = (s < n_seq && c8 < D)
-                          ? *reinterpret_cast<const uint4*>(src + s * ld + c8)
-                          : zero;
-    *reinterpret_cast<uint4*>(dst + rr * LDH + c8) = val;
-    if (dst_t != nullptr) {
-      const bf16* e = reinterpret_cast<const bf16*>(&val);
+// Producer: waits for stage `t` to be free; lane 0 starts the two tiles'
+// copies; then `fill` starts cp.async copies of the stage's f32 rows (all
+// 32 lanes), and every lane arrives on the full barrier when its copies
+// land, so the producer never waits for a load.
+template <int NB, typename Fill>
+__device__ __forceinline__ void produce(int t, unsigned char* ring,
+                                        uint64_t* full, uint64_t* empty,
+                                        const CUtensorMap* m0,
+                                        const CUtensorMap* m1, int row0,
+                                        int h, int b, Fill fill) {
+  using Lay = WLayout<NB>;
+  const int s = stage_of(t);
+  if (t >= STAGES) mbar_wait(&empty[s], ((t / STAGES) - 1) & 1);
+  unsigned char* st = ring + s * Lay::STAGE;
+  if ((threadIdx.x & 31) == 0) {
+    mbar_expect_tx(&full[s], 2 * Lay::TILE);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) dst_t[(c8 + i) * T_LD + rr] = e[i];
+    for (int nb = 0; nb < NB; ++nb) {
+      tma_load(st + nb * BOX_BYTES, m0, &full[s], 64 * nb, row0, h, b);
+      tma_load(st + Lay::TILE + nb * BOX_BYTES, m1, &full[s], 64 * nb, row0,
+               h, b);
     }
+  }
+  fill(reinterpret_cast<float*>(st + 2 * Lay::TILE));
+  cp_async_arrive(&full[s]);
+}
+
+// One thread loads the block's own two operands (64 rows from row0 of
+// maps m0 and m1) to the start of shared memory, onto `bar`.
+template <int NB>
+__device__ __forceinline__ void load_own(unsigned char* base, uint64_t* bar,
+                                         const CUtensorMap* m0,
+                                         const CUtensorMap* m1, int row0,
+                                         int h, int b) {
+  mbar_arrive_expect_tx(bar, 2 * WLayout<NB>::TILE);
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb) {
+    tma_load(base + nb * BOX_BYTES, m0, bar, 64 * nb, row0, h, b);
+    tma_load(base + WLayout<NB>::TILE + nb * BOX_BYTES, m1, bar, 64 * nb,
+             row0, h, b);
   }
 }
 
-template <int NK>
-__global__ void __launch_bounds__(T_THREADS) bwd_dq_bf16_kernel(Args a) {
-  constexpr int DP = 16 * NK;
-  constexpr int LDH = DP + 8;  // padded rows: conflict-free fragment loads
-  constexpr int NS = BK / 8;   // 8-column score slices per kv tile
-  constexpr int NO = 2 * NK;   // 8-column output slices
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ float m_s[BQ], li_s[BQ], dl_s[BQ];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [BQ][LDH]
-  bf16* dos = qs + BQ * LDH;                     // [BQ][LDH]
-  bf16* ks = dos + BQ * LDH;                     // [BK][LDH]
-  bf16* vs = ks + BK * LDH;                      // [BK][LDH]
-  bf16* kt = vs + BK * LDH;                      // [DP][T_LD]: k^T
+// s (+)= A B^T and dp (+)= C E^T over the head dim, all four K-major tiles
+// (the block's own rows times a ring tile).
+template <int NB>
+__device__ __forceinline__ void two_score_products(float (&s)[32],
+                                                   float (&dp)[32],
+                                                   uint32_t a, uint32_t bt,
+                                                   uint32_t c, uint32_t et) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4 * NB; ++kk)
+    wgmma_ss(s, kmajor_desc(a, kk), kmajor_desc(bt, kk), 1);
+#pragma unroll
+  for (int kk = 0; kk < 4 * NB; ++kk)
+    wgmma_ss(dp, kmajor_desc(c, kk), kmajor_desc(et, kk), 1);
+  wg_commit();
+  wg_wait_all();
+  fence_acc(s);
+  fence_acc(dp);
+}
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int D = a.D;
+// The A operand of a 64-deep product from a 64 x 64 f32 accumulator,
+// rounded to bf16: k16 step kk takes column blocks 2 kk and 2 kk + 1.
+__device__ __forceinline__ void pack_acc(uint32_t (&a)[4][4],
+                                         const float (&d)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      a[kk][r] = pack_bf16(d[8 * kk + 2 * r], d[8 * kk + 2 * r + 1]);
+}
+
+// Stores rows `row[i]` (i < 2) of a warpgroup's [64, 64 NB] accumulators
+// as bf16 times `mul`, columns below D.
+template <int NB>
+__device__ __forceinline__ void store_rows(bf16* base, long long ld,
+                                           const int (&row)[2], int n_rows,
+                                           int D, float mul,
+                                           const float (&acc)[NB][32]) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (row[i] >= n_rows) continue;
+    bf16* dst = base + row[i] * ld;
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int d = 64 * nb + 8 * j + 2 * t;
+        if (d < D)
+          *reinterpret_cast<__nv_bfloat162*>(dst + d) = __floats2bfloat162_rn(
+              acc[nb][4 * j + 2 * i] * mul, acc[nb][4 * j + 2 * i + 1] * mul);
+      }
+  }
+}
+
+// The tiles' elementwise math is branch-free (selects, clamped indices,
+// the kind of bias chosen once per tile), so the 32 elements' dependency
+// chains interleave; with a branch per element they run one after another.
+
+// exp(x) as exp2(x log2 e): the subtraction s - m comes first, so the
+// finite -0.7 * f32max mask value never overflows the product.
+constexpr float LOG2E = 1.4426950408889634f;
+
+// 1 / x to about 1 ulp, branch-free (x = l >= 1 here, or 0 on rows that
+// are masked out afterwards).
+__device__ __forceinline__ float rcp_approx(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// K2: ds = p (dp - delta) in place of the scores, p = exp(s - m) / l, for
+// the rows `i` of this lane; columns past Skv get p = 0. The bias is the
+// tile's row (`bias_row`, zeros without a bias) or, with ELEM_BIAS, read
+// per element from the rows `brow`.
+template <bool ELEM_BIAS>
+__device__ __forceinline__ void dq_tile_ds(
+    float (&sc)[32], const float (&dp)[32], const float* bias_row,
+    const float* const (&brow)[2], int kv0, int Skv, float scale,
+    const float (&mr)[2], const float (&lir)[2], const float (&dr)[2]) {
+  const int t4 = threadIdx.x & 3;
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    const int i = (e >> 1) & 1, c = 8 * (e >> 2) + 2 * t4 + (e & 1);
+    const float bias =
+        ELEM_BIAS ? brow[i][min(kv0 + c, Skv - 1)] : bias_row[c];
+    const float p =
+        exp2f((fmaf(sc[e], scale, bias) - mr[i]) * LOG2E) * lir[i];
+    sc[e] = (kv0 + c < Skv ? p : 0.f) * (dp[e] - dr[i]);
+  }
+}
+
+// K3: p^T in place of s^T and ds^T in place of dp^T for this lane's kv
+// rows; `rows` holds the q tile's m, l and delta; p = 0 outside either
+// sequence. The bias is the kv rows' padding-mask value `bk` (zeros
+// without a bias) or, with ELEM_BIAS, read per element.
+template <bool ELEM_BIAS>
+__device__ __forceinline__ void dkv_tile_p_ds(
+    float (&sc)[32], float (&dp)[32], const float* rows, const float (&bk)[2],
+    const float* bias_bh, long long bias_ld, const int (&kvrow)[2], int q0,
+    int Sq, int Skv, float scale) {
+  const int t4 = threadIdx.x & 3;
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    const int i = (e >> 1) & 1, c = 8 * (e >> 2) + 2 * t4 + (e & 1);
+    const bool in = q0 + c < Sq && kvrow[i] < Skv;
+    const float bias =
+        ELEM_BIAS ? bias_bh[min(q0 + c, Sq - 1) * bias_ld +
+                            min(kvrow[i], Skv - 1)]
+                  : bk[i];
+    const float pe = exp2f((fmaf(sc[e], scale, bias) - rows[c]) * LOG2E) *
+                     rcp_approx(rows[64 + c]);
+    const float p = in ? pe : 0.f;
+    sc[e] = p;
+    dp[e] = p * (dp[e] - rows[128 + c]);
+  }
+}
+
+template <int NB, int MIN_BLOCKS>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+    bwd_dq_sm90_kernel(const __grid_constant__ Maps maps, const Args a) {
+  using Lay = WLayout<NB>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align_smem(smem_raw);
+  unsigned char* ring = base + Lay::RING;
+  float* m_s = reinterpret_cast<float*>(base + Lay::STATS);
+  float* li_s = m_s + ROWS;
+  float* dl_s = li_s + ROWS;
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + Lay::BARS);
+  uint64_t* empty = full + STAGES;
+  uint64_t* own_bar = empty + STAGES;
+
+  const int q0 = blockIdx.x * ROWS, h = blockIdx.y, b = blockIdx.z;
   const Strides& st = a.st;
-  const bf16* qb = static_cast<const bf16*>(a.q) + b * st.q[0] + h * st.q[1];
-  const bf16* kb = static_cast<const bf16*>(a.k) + b * st.k[0] + h * st.k[1];
-  const bf16* vb = static_cast<const bf16*>(a.v) + b * st.v[0] + h * st.v[1];
-  const bf16* ob = static_cast<const bf16*>(a.o) + b * st.o[0] + h * st.o[1];
-  const bf16* dob =
-      static_cast<const bf16*>(a.dout) + b * st.dout[0] + h * st.dout[1];
-  bf16* dqb = static_cast<bf16*>(a.dq) + b * st.dq[0] + h * st.dq[1];
-  const long long so = ((long long)b * a.H + h) * a.Sq;
-
-  load_tile<DP, LDH>(qs, nullptr, qb, st.q[2], q0, a.Sq, D);
-  load_tile<DP, LDH>(dos, nullptr, dob, st.dout[2], q0, a.Sq, D);
-  // delta = rowsum(dO * O) in f32: warp w reduces rows 16 w .. 16 w + 15
-  for (int rr = 0; rr < 16; ++rr) {
-    const int r = warp * 16 + rr, s = q0 + r;
-    float acc = 0.f;
-    if (s < a.Sq)
-      for (int d = lane; d < D; d += 32)
-        acc += __bfloat162float(dob[s * st.dout[2] + d]) *
-               __bfloat162float(ob[s * st.o[2] + d]);
-    acc = sum_xor(acc, 32);
-    if (lane == 0) {
-      const bool in = s < a.Sq;
-      dl_s[r] = in ? acc : 0.f;
-      m_s[r] = in ? a.m[so + s] : 0.f;
-      li_s[r] = in ? 1.f / a.l[so + s] : 1.f;
-      if (in) a.delta[so + s] = acc;
+  const int n_tiles = (a.Skv + 63) / 64;
+  const float* bias_bh =
+      a.bias == nullptr ? nullptr : a.bias + b * st.bias[0] + h * st.bias[1];
+  const bool row_bias = bias_bh != nullptr && st.bias[2] == 0;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 32);
+      mbar_init(&empty[s], CONSUMERS);
     }
+    mbar_init(own_bar, 1);
+    mbar_init_fence();
   }
   __syncthreads();
 
-  const int rq = warp * 16 + g;  // this lane's rows: rq and rq + 8
-  const int qrow[2] = {q0 + rq, q0 + rq + 8};
-  float mr[2], lir[2], dr[2];
-  const float* brow[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    mr[i] = m_s[rq + 8 * i];
-    lir[i] = li_s[rq + 8 * i];
-    dr[i] = dl_s[rq + 8 * i];
-    brow[i] = (a.bias != nullptr && qrow[i] < a.Sq)
-                  ? a.bias + b * st.bias[0] + h * st.bias[1] +
-                        qrow[i] * st.bias[2]
-                  : nullptr;
-  }
-  uint32_t qf[NK][4], dof[NK][4];  // A fragments of this warp's 16 rows
-#pragma unroll
-  for (int kc = 0; kc < NK; ++kc) {
-    load_a(qf[kc], qs + rq * LDH + 16 * kc + 2 * t, LDH);
-    load_a(dof[kc], dos + rq * LDH + 16 * kc + 2 * t, LDH);
-  }
-
-  float acc[NO][4];
-#pragma unroll
-  for (int j = 0; j < NO; ++j)
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-
-  for (int kv0 = 0; kv0 < a.Skv; kv0 += BK) {
-    __syncthreads();  // every warp is done with the previous ks/vs/kt
-    load_tile<DP, LDH>(ks, kt, kb, st.k[2], kv0, a.Skv, D);
-    load_tile<DP, LDH>(vs, nullptr, vb, st.v[2], kv0, a.Skv, D);
-    __syncthreads();
-
-    float sc[NS][4], dp[NS][4];
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
-      dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
-#pragma unroll
-      for (int kc = 0; kc < NK; ++kc) {
-        uint32_t bk[2], bv[2];
-        load_b(bk, ks + (8 * j + g) * LDH + 16 * kc + 2 * t);
-        load_b(bv, vs + (8 * j + g) * LDH + 16 * kc + 2 * t);
-        mma_16816(sc[j], qf[kc], bk);
-        mma_16816(dp[j], dof[kc], bv);
-      }
+  // producer warp: q, dO once; k, v through the ring
+  if (warp_uniform_index() >= CONSUMERS / 32) {
+    if (threadIdx.x == CONSUMERS)
+      load_own<NB>(base, own_bar, &maps.q, &maps.dout, q0, h, b);
+    const int lane = threadIdx.x & 31;
+    for (int t = 0; t < n_tiles; ++t) {
+      const int kv0 = 64 * t;
+      produce<NB>(t, ring, full, empty, &maps.k, &maps.v, kv0, h, b,
+                  [&](float* rows) {  // the tile's padding-mask row, or 0
+                    for (int c = lane; c < 64; c += 32) {
+                      const bool in = row_bias && kv0 + c < a.Skv;
+                      cp_async_4(rows + c, in ? bias_bh + kv0 + c : a.m, in);
+                    }
+                  });
     }
-    // ds = p * (dp - delta), p = exp(s - m) / l, in place of the scores
+    return;
+  }
+
+  // consumers: the warpgroup owns q rows q0 .. q0 + 63
+  const int tid = threadIdx.x, g = (tid & 31) >> 2;
+  const long long so = ((long long)b * a.H + h) * a.Sq;
+  {
+    // delta = rowsum(dO * O), f32, 8 threads a row, 16-byte loads; with
+    // m and 1 / l, for the block's rows
+    const bf16* ob = static_cast<const bf16*>(a.o) + b * st.o[0] + h * st.o[1];
+    const bf16* dob =
+        static_cast<const bf16*>(a.dout) + b * st.dout[0] + h * st.dout[1];
+    // (all loads of the four passes are independent: unrolled, they are
+    // in flight together)
+    const int part = tid & 7;
+    float acc[4], mv[4], lv[4];
 #pragma unroll
-    for (int j = 0; j < NS; ++j)
+    for (int pass = 0; pass < 4; ++pass) {
+      const int s = q0 + 16 * pass + (tid >> 3);
+      const bool in = s < a.Sq;
+      acc[pass] = 0.f;
+      mv[pass] = 0.f;
+      lv[pass] = 1.f;
+      if (in && part == 0) {
+        mv[pass] = a.m[so + s];
+        lv[pass] = a.l[so + s];
+      }
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1, c = kv0 + 8 * j + 2 * t + (e & 1);
-        float s = sc[j][e] * a.scale;
-        if (c >= a.Skv) {
-          s = -INFINITY;  // outside the sequence: p = 0
-        } else if (brow[i] != nullptr) {
-          s += brow[i][c];
+      for (int c = 0; c < NB; ++c) {
+        const int c8 = 8 * part + 64 * c;
+        if (!in || c8 >= a.D) continue;
+        const uint4 x =
+            *reinterpret_cast<const uint4*>(dob + s * st.dout[2] + c8);
+        const uint4 y = *reinterpret_cast<const uint4*>(ob + s * st.o[2] + c8);
+        const __nv_bfloat162* xp = reinterpret_cast<const __nv_bfloat162*>(&x);
+        const __nv_bfloat162* yp = reinterpret_cast<const __nv_bfloat162*>(&y);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 xf = __bfloat1622float2(xp[e]);
+          const float2 yf = __bfloat1622float2(yp[e]);
+          acc[pass] = fmaf(xf.x, yf.x, acc[pass]);
+          acc[pass] = fmaf(xf.y, yf.y, acc[pass]);
         }
-        const float p = expf(s - mr[i]) * lir[i];
-        sc[j][e] = p * (dp[j][e] - dr[i]);
-      }
-    // dq += ds k: ds rounded to bf16, straight from the registers
-#pragma unroll
-    for (int kc = 0; kc < BK / 16; ++kc) {
-      uint32_t da[4];
-      pack_a(da, sc[2 * kc], sc[2 * kc + 1]);
-#pragma unroll
-      for (int j = 0; j < NO; ++j) {
-        if (8 * j >= D) continue;  // padding slice of an odd-8 head dim
-        uint32_t bk[2];
-        load_b(bk, kt + (8 * j + g) * T_LD + 16 * kc + 2 * t);
-        mma_16816(acc[j], da, bk);
       }
     }
+#pragma unroll
+    for (int pass = 0; pass < 4; ++pass) {
+      const int r = 16 * pass + (tid >> 3), s = q0 + r;
+      const bool in = s < a.Sq;
+      const float d = sum_xor(acc[pass], 8);
+      if (part == 0) {
+        dl_s[r] = in ? d : 0.f;
+        m_s[r] = mv[pass];
+        li_s[r] = 1.f / lv[pass];
+        if (in) a.delta[so + s] = d;
+      }
+    }
+    named_barrier(1, CONSUMERS);
   }
-
+  const int r0 = 16 * (tid >> 5) + g;  // this lane's rows: r0, r0 + 8
+  const int qrow[2] = {q0 + r0, q0 + r0 + 8};
+  const bool elem_bias = bias_bh != nullptr && !row_bias;
+  float mr[2], lir[2], dr[2];
+  const float* brow[2];  // rows of a per-element bias (clamped to Sq)
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    if (qrow[i] >= a.Sq) continue;
-    bf16* row = dqb + qrow[i] * st.dq[2];
-#pragma unroll
-    for (int j = 0; j < NO; ++j) {
-      const int d = 8 * j + 2 * t;
-      if (d < D)
-        *reinterpret_cast<__nv_bfloat162*>(row + d) = __floats2bfloat162_rn(
-            acc[j][2 * i] * a.scale, acc[j][2 * i + 1] * a.scale);
-    }
+    mr[i] = m_s[r0 + 8 * i];
+    lir[i] = li_s[r0 + 8 * i];
+    dr[i] = dl_s[r0 + 8 * i];
+    brow[i] = elem_bias ? bias_bh + min(qrow[i], a.Sq - 1) * st.bias[2]
+                        : nullptr;
   }
+  float dq[NB][32];
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) dq[nb][e] = 0.f;
+  mbar_wait(own_bar, 0);
+  const uint32_t q_addr = smem_u32(base), do_addr = q_addr + Lay::TILE;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = stage_of(t), kv0 = 64 * t;
+    mbar_wait(&full[s], full_parity(t));
+    unsigned char* stg = ring + s * Lay::STAGE;
+    const uint32_t k_addr = smem_u32(stg), v_addr = k_addr + Lay::TILE;
+    const float* bias_row = reinterpret_cast<const float*>(stg + 2 * Lay::TILE);
+    float sc[32], dp[32];
+    two_score_products<NB>(sc, dp, q_addr, k_addr, do_addr, v_addr);
+    if (elem_bias)
+      dq_tile_ds<true>(sc, dp, bias_row, brow, kv0, a.Skv, a.scale, mr,
+                       lir, dr);
+    else
+      dq_tile_ds<false>(sc, dp, bias_row, brow, kv0, a.Skv, a.scale, mr,
+                        lir, dr);
+    // dq += ds k: ds rounded to bf16 as the register A operand, k read
+    // MN-major from the ring
+    uint32_t da[4][4];
+    pack_acc(da, sc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+        wgmma_rs_mn(dq[nb], da[kk],
+                    mnmajor_desc(k_addr + nb * BOX_BYTES, kk));
+    wg_commit();
+    wg_wait_all();
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) fence_acc(dq[nb]);
+    mbar_arrive(&empty[s]);
+  }
+  bf16* dqb = static_cast<bf16*>(a.dq) + b * st.dq[0] + h * st.dq[1];
+  store_rows<NB>(dqb, st.dq[2], qrow, a.Sq, a.D, a.scale, dq);
 }
 
-template <int NK>
-__global__ void __launch_bounds__(T_THREADS) bwd_dkv_bf16_kernel(Args a) {
-  constexpr int DP = 16 * NK;
-  constexpr int LDH = DP + 8;
-  constexpr int NS = BQ / 8;  // 8-column (q) slices of the s^T tile
-  constexpr int NO = 2 * NK;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ float m_s[BQ], li_s[BQ], dl_s[BQ];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // [BK][LDH]
-  bf16* vs = ks + BK * LDH;                      // [BK][LDH]
-  bf16* qs = vs + BK * LDH;                      // [BQ][LDH]
-  bf16* dos = qs + BQ * LDH;                     // [BQ][LDH]
-  bf16* qt = dos + BQ * LDH;                     // [DP][T_LD]: q^T
-  bf16* dot = qt + DP * T_LD;                    // [DP][T_LD]: dO^T
+template <int NB, int MIN_BLOCKS>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+    bwd_dkv_sm90_kernel(const __grid_constant__ Maps maps, const Args a) {
+  using Lay = WLayout<NB>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align_smem(smem_raw);
+  unsigned char* ring = base + Lay::RING;
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + Lay::BARS);
+  uint64_t* empty = full + STAGES;
+  uint64_t* own_bar = empty + STAGES;
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int kv0 = blockIdx.x * BK, h = blockIdx.y, b = blockIdx.z;
-  const int D = a.D;
+  const int kv0 = blockIdx.x * ROWS, h = blockIdx.y, b = blockIdx.z;
   const Strides& st = a.st;
-  const bf16* qb = static_cast<const bf16*>(a.q) + b * st.q[0] + h * st.q[1];
-  const bf16* kb = static_cast<const bf16*>(a.k) + b * st.k[0] + h * st.k[1];
-  const bf16* vb = static_cast<const bf16*>(a.v) + b * st.v[0] + h * st.v[1];
-  const bf16* dob =
-      static_cast<const bf16*>(a.dout) + b * st.dout[0] + h * st.dout[1];
+  const int n_tiles = (a.Sq + 63) / 64;
+  const float* bias_bh =
+      a.bias == nullptr ? nullptr : a.bias + b * st.bias[0] + h * st.bias[1];
+  const bool row_bias = bias_bh != nullptr && st.bias[2] == 0;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 32);
+      mbar_init(&empty[s], CONSUMERS);
+    }
+    mbar_init(own_bar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  // producer warp: k, v once; q, dO through the ring
+  if (warp_uniform_index() >= CONSUMERS / 32) {
+    if (threadIdx.x == CONSUMERS)
+      load_own<NB>(base, own_bar, &maps.k, &maps.v, kv0, h, b);
+    const int lane = threadIdx.x & 31;
+    const long long so = ((long long)b * a.H + h) * a.Sq;
+    for (int t = 0; t < n_tiles; ++t) {
+      const int q0 = 64 * t;
+      produce<NB>(t, ring, full, empty, &maps.q, &maps.dout, q0, h, b,
+                  [&](float* rows) {  // m, l, delta of the tile's rows
+                    for (int r = lane; r < 64; r += 32) {
+                      const long long i = so + min(q0 + r, a.Sq - 1);
+                      const bool in = q0 + r < a.Sq;
+                      cp_async_4(rows + r, a.m + i, in);
+                      cp_async_4(rows + 64 + r, a.l + i, in);
+                      cp_async_4(rows + 128 + r, a.delta + i, in);
+                    }
+                  });
+    }
+    return;
+  }
+
+  // consumers: the warpgroup owns kv rows kv0 .. kv0 + 63
+  const int tid = threadIdx.x, g = (tid & 31) >> 2;
+  const int r0 = 16 * (tid >> 5) + g;  // this lane's rows: r0, r0 + 8
+  const int kvrow[2] = {kv0 + r0, kv0 + r0 + 8};
+  float bk[2] = {0.f, 0.f};  // the padding-mask row at this lane's kv rows
+  if (row_bias)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (kvrow[i] < a.Skv) bk[i] = bias_bh[kvrow[i]];
+  float dk[NB][32], dv[NB][32];
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) dk[nb][e] = dv[nb][e] = 0.f;
+  mbar_wait(own_bar, 0);
+  const uint32_t k_addr = smem_u32(base), v_addr = k_addr + Lay::TILE;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = stage_of(t), q0 = 64 * t;
+    mbar_wait(&full[s], full_parity(t));
+    unsigned char* stg = ring + s * Lay::STAGE;
+    const uint32_t q_addr = smem_u32(stg), do_addr = q_addr + Lay::TILE;
+    const float* m_t = reinterpret_cast<const float*>(stg + 2 * Lay::TILE);
+    // s^T = k q^T and (dO v^T)^T = v dO^T: rows kv, columns q
+    float sc[32], dp[32];
+    two_score_products<NB>(sc, dp, k_addr, q_addr, v_addr, do_addr);
+    if (bias_bh != nullptr && !row_bias)
+      dkv_tile_p_ds<true>(sc, dp, m_t, bk, bias_bh, st.bias[2], kvrow, q0,
+                          a.Sq, a.Skv, a.scale);
+    else
+      dkv_tile_p_ds<false>(sc, dp, m_t, bk, bias_bh, st.bias[2], kvrow, q0,
+                           a.Sq, a.Skv, a.scale);
+    // dv += p^T dO, dk += ds^T q: register A operands, dO and q read
+    // MN-major from the ring
+    uint32_t pa[4][4], da[4][4];
+    pack_acc(pa, sc);
+    pack_acc(da, dp);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+        wgmma_rs_mn(dv[nb], pa[kk],
+                    mnmajor_desc(do_addr + nb * BOX_BYTES, kk));
+        wgmma_rs_mn(dk[nb], da[kk],
+                    mnmajor_desc(q_addr + nb * BOX_BYTES, kk));
+      }
+    wg_commit();
+    wg_wait_all();
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+      fence_acc(dk[nb]);
+      fence_acc(dv[nb]);
+    }
+    mbar_arrive(&empty[s]);
+  }
   bf16* dkb = static_cast<bf16*>(a.dk) + b * st.dk[0] + h * st.dk[1];
   bf16* dvb = static_cast<bf16*>(a.dv) + b * st.dv[0] + h * st.dv[1];
-  const float* bb =
-      a.bias == nullptr ? nullptr : a.bias + b * st.bias[0] + h * st.bias[1];
-  const long long so = ((long long)b * a.H + h) * a.Sq;
+  store_rows<NB>(dkb, st.dk[2], kvrow, a.Skv, a.D, a.scale, dk);
+  store_rows<NB>(dvb, st.dv[2], kvrow, a.Skv, a.D, 1.f, dv);
+}
 
-  load_tile<DP, LDH>(ks, nullptr, kb, st.k[2], kv0, a.Skv, D);
-  load_tile<DP, LDH>(vs, nullptr, vb, st.v[2], kv0, a.Skv, D);
+// The four operand maps, or false for a layout TMA does not take.
+bool make_maps(Maps& maps, const Args& a, int B) {
+  return make_tile_map(&maps.q, a.q, a.D, a.Sq, a.H, B, a.st.q) &&
+         make_tile_map(&maps.k, a.k, a.D, a.Skv, a.H, B, a.st.k) &&
+         make_tile_map(&maps.v, a.v, a.D, a.Skv, a.H, B, a.st.v) &&
+         make_tile_map(&maps.dout, a.dout, a.D, a.Sq, a.H, B, a.st.dout);
+}
 
-  const int rk = warp * 16 + g;  // this lane's kv rows: rk and rk + 8
-  const int kvrow[2] = {kv0 + rk, kv0 + rk + 8};
-  float dk[NO][4], dv[NO][4];
-#pragma unroll
-  for (int j = 0; j < NO; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+template <typename Kernel>
+cudaError_t launch_sm90(Kernel kernel, size_t smem, int n_rows, int B,
+                        const Maps& maps, const Args& a, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return err;
+  dim3 grid((n_rows + ROWS - 1) / ROWS, a.H, B);
+  kernel<<<grid, THREADS, smem, stream>>>(maps, a);
+  return cudaGetLastError();
+}
 
-  for (int q0 = 0; q0 < a.Sq; q0 += BQ) {
-    __syncthreads();  // every warp is done with the previous q tile
-    load_tile<DP, LDH>(qs, qt, qb, st.q[2], q0, a.Sq, D);
-    load_tile<DP, LDH>(dos, dot, dob, st.dout[2], q0, a.Sq, D);
-    if (threadIdx.x < BQ) {
-      const int s = q0 + threadIdx.x;
-      const bool in = s < a.Sq;
-      m_s[threadIdx.x] = in ? a.m[so + s] : 0.f;
-      li_s[threadIdx.x] = in ? 1.f / a.l[so + s] : 1.f;
-      dl_s[threadIdx.x] = in ? a.delta[so + s] : 0.f;
-    }
-    __syncthreads();
-
-    // s^T = k q^T and (dO v^T)^T = v dO^T: rows = kv, columns = q
-    float sc[NS][4], dp[NS][4];
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int kc = 0; kc < NK; ++kc) {
-      uint32_t ka[4], va[4];
-      load_a(ka, ks + rk * LDH + 16 * kc + 2 * t, LDH);
-      load_a(va, vs + rk * LDH + 16 * kc + 2 * t, LDH);
-#pragma unroll
-      for (int j = 0; j < NS; ++j) {
-        uint32_t bq[2], bdo[2];
-        load_b(bq, qs + (8 * j + g) * LDH + 16 * kc + 2 * t);
-        load_b(bdo, dos + (8 * j + g) * LDH + 16 * kc + 2 * t);
-        mma_16816(sc[j], ka, bq);
-        mma_16816(dp[j], va, bdo);
-      }
-    }
-    // p^T in place of s^T, ds^T in place of dp^T
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = kvrow[e >> 1];
-        const int rl = 8 * j + 2 * t + (e & 1), r = q0 + rl;
-        float p = 0.f;  // outside either sequence
-        if (r < a.Sq && c < a.Skv) {
-          float s = sc[j][e] * a.scale;
-          if (bb != nullptr) s += bb[r * st.bias[2] + c];
-          p = expf(s - m_s[rl]) * li_s[rl];
-        }
-        sc[j][e] = p;
-        dp[j][e] = p * (dp[j][e] - dl_s[rl]);
-      }
-    // dv += p^T dO, dk += ds^T q: A operands straight from the registers
-#pragma unroll
-    for (int kc = 0; kc < BQ / 16; ++kc) {
-      uint32_t pa[4], da[4];
-      pack_a(pa, sc[2 * kc], sc[2 * kc + 1]);
-      pack_a(da, dp[2 * kc], dp[2 * kc + 1]);
-#pragma unroll
-      for (int j = 0; j < NO; ++j) {
-        if (8 * j >= D) continue;  // padding slice of an odd-8 head dim
-        uint32_t bdo[2], bq[2];
-        load_b(bdo, dot + (8 * j + g) * T_LD + 16 * kc + 2 * t);
-        load_b(bq, qt + (8 * j + g) * T_LD + 16 * kc + 2 * t);
-        mma_16816(dv[j], pa, bdo);
-        mma_16816(dk[j], da, bq);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (kvrow[i] >= a.Skv) continue;
-    bf16* krow = dkb + kvrow[i] * st.dk[2];
-    bf16* vrow = dvb + kvrow[i] * st.dv[2];
-#pragma unroll
-    for (int j = 0; j < NO; ++j) {
-      const int d = 8 * j + 2 * t;
-      if (d < D) {
-        *reinterpret_cast<__nv_bfloat162*>(krow + d) = __floats2bfloat162_rn(
-            dk[j][2 * i] * a.scale, dk[j][2 * i + 1] * a.scale);
-        *reinterpret_cast<__nv_bfloat162*>(vrow + d) =
-            __floats2bfloat162_rn(dv[j][2 * i], dv[j][2 * i + 1]);
-      }
-    }
-  }
+// Blocks an SM, measured on the H100 (PERF.md): one consumer
+// warpgroup a block beat two, since a block's latency chain is long and
+// more, smaller blocks overlap better; K2 fits three blocks an SM, K3
+// (five 32-register accumulators) two: at three it spills and ptxas
+// serialises its products. D > 64 doubles the accumulators: one block.
+cudaError_t launch_bf16(bool dq, int B, const Args& a, cudaStream_t s) {
+  Maps maps;
+  if (!make_maps(maps, a, B)) return cudaErrorInvalidValue;
+  if (a.D > 64)
+    return dq ? launch_sm90(bwd_dq_sm90_kernel<2, 1>, WLayout<2>::BYTES, a.Sq,
+                            B, maps, a, s)
+              : launch_sm90(bwd_dkv_sm90_kernel<2, 1>, WLayout<2>::BYTES,
+                            a.Skv, B, maps, a, s);
+  return dq ? launch_sm90(bwd_dq_sm90_kernel<1, 3>, WLayout<1>::BYTES, a.Sq, B,
+                          maps, a, s)
+            : launch_sm90(bwd_dkv_sm90_kernel<1, 2>, WLayout<1>::BYTES, a.Skv,
+                          B, maps, a, s);
 }
 
 template <typename Kernel>
@@ -715,23 +934,15 @@ cudaError_t launch(Kernel kernel, size_t smem, int threads, int n_tiles,
 }
 
 template <int N>
-cudaError_t launch_dq(int dtype, int B, const Args& a, cudaStream_t s) {
-  const int tiles = (a.Sq + BQ - 1) / BQ;
-  if (dtype == 1)
-    return launch(bwd_dq_bf16_kernel<N>, dq_bf16_smem_bytes<N>(), T_THREADS,
-                  tiles, B, a, s);
+cudaError_t launch_dq_f32(int B, const Args& a, cudaStream_t s) {
   return launch(bwd_dq_f32_kernel<N>, dq_f32_smem_bytes(a.D), F_THREADS,
-                tiles, B, a, s);
+                (a.Sq + BQ - 1) / BQ, B, a, s);
 }
 
 template <int N>
-cudaError_t launch_dkv(int dtype, int B, const Args& a, cudaStream_t s) {
-  const int tiles = (a.Skv + BK - 1) / BK;
-  if (dtype == 1)
-    return launch(bwd_dkv_bf16_kernel<N>, dkv_bf16_smem_bytes<N>(),
-                  T_THREADS, tiles, B, a, s);
+cudaError_t launch_dkv_f32(int B, const Args& a, cudaStream_t s) {
   return launch(bwd_dkv_f32_kernel<N>, dkv_f32_smem_bytes(a.D), F_THREADS,
-                tiles, B, a, s);
+                (a.Skv + BK - 1) / BK, B, a, s);
 }
 
 // Validates the arguments shared by both entry points and fills `a`.
@@ -764,7 +975,7 @@ extern "C" {
 // q, k, v, o, dout, dq, dk, dv and bias in that order; the head dim is
 // contiguous in all. m, l, delta: contiguous float32 [B, H, Sq]. bfloat16
 // inputs need 16-byte aligned pointers and strides that are multiples of
-// 8. Each launches on `stream`, allocates nothing and returns
+// 8, positive on every dim longer than 1 (the TMA maps carry them). Each launches on `stream`, allocates nothing and returns
 // cudaGetLastError() (or cudaErrorInvalidValue / cudaErrorMisalignedAddress
 // for arguments the kernels do not take).
 
@@ -784,13 +995,15 @@ int mmf_flash_attention_bwd_dq(const void* q, const void* k, const void* v,
   if (B == 0 || H == 0 || Sq == 0) return 0;
   if (dtype == 1 &&
       (!aligned16(q, a.st.q) || !aligned16(k, a.st.k) ||
-       !aligned16(v, a.st.v) || !aligned16(dout, a.st.dout)))
+       !aligned16(v, a.st.v) || !aligned16(o, a.st.o) ||
+       !aligned16(dout, a.st.dout)))
     return int(cudaErrorMisalignedAddress);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) return int(launch_bf16(true, B, a, s));
   switch ((D + 15) / 16) {
 #define MMF_CASE(n) \
   case n:           \
-    return int(launch_dq<n>(dtype, B, a, s));
+    return int(launch_dq_f32<n>(B, a, s));
     MMF_CASE(1) MMF_CASE(2) MMF_CASE(3) MMF_CASE(4)
     MMF_CASE(5) MMF_CASE(6) MMF_CASE(7) MMF_CASE(8)
 #undef MMF_CASE
@@ -817,15 +1030,22 @@ int mmf_flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
        !aligned16(v, a.st.v) || !aligned16(dout, a.st.dout)))
     return int(cudaErrorMisalignedAddress);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) return int(launch_bf16(false, B, a, s));
   switch ((D + 15) / 16) {
 #define MMF_CASE(n) \
   case n:           \
-    return int(launch_dkv<n>(dtype, B, a, s));
+    return int(launch_dkv_f32<n>(B, a, s));
     MMF_CASE(1) MMF_CASE(2) MMF_CASE(3) MMF_CASE(4)
     MMF_CASE(5) MMF_CASE(6) MMF_CASE(7) MMF_CASE(8)
 #undef MMF_CASE
   }
   return int(cudaErrorInvalidValue);
+}
+
+// Dynamic shared memory of a bf16 K2 or K3 block at head dim D (both
+// kernels share the layout), for reports.
+int mmf_flash_attention_bwd_smem_bytes(int D) {
+  return D <= 64 ? WLayout<1>::BYTES : WLayout<2>::BYTES;
 }
 
 const char* mmf_cuda_error_string(int code) {

@@ -1,6 +1,6 @@
 // Device helpers shared by the flash-attention forward (K1) and backward
-// (K2, K3) kernels: warp reductions, the bf16 tensor-core product
-// mma.sync m16n8k16 and its fragment packing.
+// (K2, K3) kernels: warp reductions, bf16 packing, the forward's
+// tensor-core product mma.sync m16n8k16 and the bf16 alignment check.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 with .bf16): lane (g = lane / 4,
 // t = lane % 4) holds
@@ -12,7 +12,8 @@
 //   C/D (16 x 8, f32): rows g (c0, c1) and g + 8 (c2, c3), columns 2 t,
 //     2 t + 1.
 // Two neighbouring C fragments (columns 16 kc .. 16 kc + 15) therefore
-// repack in place into the A fragment of the next product (pack_a).
+// repack in place (pack_bf16) into the A fragment of the next product;
+// wgmma's register A operand (hopper.cuh) has the same layout per warp.
 
 #pragma once
 
@@ -53,32 +54,6 @@ __device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// A fragment of a 16 x 16 tile stored row-major at `p` (row g, column 2 t
-// already added) with row length `ld`.
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* p,
-                                       int ld) {
-  a[0] = ld_pair(p);
-  a[1] = ld_pair(p + 8 * ld);
-  a[2] = ld_pair(p + 8);
-  a[3] = ld_pair(p + 8 * ld + 8);
-}
-
-// B fragment from a [n][k] tile at `p` (row g, column 2 t already added).
-__device__ __forceinline__ void load_b(uint32_t (&b)[2], const bf16* p) {
-  b[0] = ld_pair(p);
-  b[1] = ld_pair(p + 8);
-}
-
-// A fragment of columns 16 kc .. 16 kc + 15 from two f32 C fragments,
-// rounded to bf16.
-__device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&c0)[4],
-                                       const float (&c1)[4]) {
-  a[0] = pack_bf16(c0[0], c0[1]);
-  a[1] = pack_bf16(c0[2], c0[3]);
-  a[2] = pack_bf16(c1[0], c1[1]);
-  a[3] = pack_bf16(c1[2], c1[3]);
 }
 
 inline bool aligned16(const void* p, const long long* strides) {

@@ -1,5 +1,5 @@
-// Flash-attention forward for Hopper (sm_90a): K1, in its inference form
-// and its stats form.
+// Flash-attention forward for Hopper (sm_90a): K1, in its inference form,
+// its stats form and its raw-stats form.
 //
 // Replaces the Pallas TPU kernel mmf_tpu/ops/attention.py::_flash_kernel
 // (launched from _flash_forward). Same function: softmax(q k^T * scale +
@@ -10,6 +10,10 @@
 // and the normalizer l, f32 [B, H, Sq], separately and not as m + log l:
 // at the -0.7 * f32max mask value log l would be absorbed. A row with
 // l == 0 stores m = 0 and l = 1, so exp(s - m) / l is exactly 0 there.
+// The raw-stats form (raw_stats=True, the ring attention's block state)
+// writes the unnormalized f32 accumulator sum_k exp(s - m) v and the raw
+// m and l, none of them parked or divided: a row with no finite score
+// gives m = -inf, l = 0, acc = 0, which a merge treats as empty.
 //
 // What bounds it on the H100: at the main path's shape (B<=64, H=12,
 // S=228, D=64) attention is ~4*S*S*D FLOPs per (b, h) against ~4*S*D
@@ -77,7 +81,8 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v,
                      const float* __restrict__ bias, float* __restrict__ o,
                      float* __restrict__ m_out, float* __restrict__ l_out,
-                     int Sq, int Skv, int D, float scale, Strides st) {
+                     int Sq, int Skv, int D, float scale, Strides st,
+                     bool raw) {
   extern __shared__ float smem[];
   float* qt = smem;          // [D][F_LD]: q^T * scale
   float* kt = qt + D * F_LD;  // [D][F_LD]: k^T
@@ -198,7 +203,8 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int r = q0 + ty + 16 * i;
     if (r >= Sq) continue;
-    const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;  // l == 0: zeros
+    // raw form: the unnormalized accumulator; l == 0: zeros
+    const float inv = raw ? 1.f : l[i] > 0.f ? 1.f / l[i] : 0.f;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int d = tx + 16 * j;
@@ -206,8 +212,8 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     if (m_out != nullptr && tx == 0) {  // the 16 lanes of a row agree
       const long long idx = ((long long)b * gridDim.y + h) * Sq + r;
-      m_out[idx] = l[i] > 0.f ? m[i] : 0.f;
-      l_out[idx] = l[i] > 0.f ? l[i] : 1.f;
+      m_out[idx] = raw ? m[i] : l[i] > 0.f ? m[i] : 0.f;
+      l_out[idx] = raw ? l[i] : l[i] > 0.f ? l[i] : 1.f;
     }
   }
 }
@@ -239,7 +245,8 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v,
                       const float* __restrict__ bias, bf16* __restrict__ o,
                       float* __restrict__ m_out, float* __restrict__ l_out,
-                      int Sq, int Skv, int D, float scale, Strides st) {
+                      int Sq, int Skv, int D, float scale, Strides st,
+                      float* __restrict__ acc_out) {
   constexpr int DP = 16 * NK;
   constexpr int LDH = DP + 8;  // padded rows: conflict-free fragment loads
   constexpr int VEC = DP / 8;  // 16-byte vectors per padded row
@@ -396,6 +403,22 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     if (qrow[i] >= Sq) continue;
+    if (acc_out != nullptr) {  // raw form: f32 accumulator, raw m and l
+      float* arow = acc_out + b * st.o[0] + h * st.o[1] + qrow[i] * st.o[2];
+#pragma unroll
+      for (int j = 0; j < NO; ++j) {
+        const int d = 8 * j + 2 * t;
+        if (d < D)
+          *reinterpret_cast<float2*>(arow + d) =
+              make_float2(acc[j][2 * i], acc[j][2 * i + 1]);
+      }
+      if (t == 0) {
+        const long long idx = ((long long)b * gridDim.y + h) * Sq + qrow[i];
+        m_out[idx] = m[i];
+        l_out[idx] = l[i];
+      }
+      continue;
+    }
     const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;  // l == 0: zeros
     bf16* orow = ob + qrow[i] * st.o[2];
 #pragma unroll
@@ -417,7 +440,8 @@ template <int NJ>
 cudaError_t launch_f32(const void* q, const void* k, const void* v,
                        const void* bias, void* o, float* m_out,
                        float* l_out, int B, int H, int Sq, int Skv, int D,
-                       float scale, const Strides& st, cudaStream_t stream) {
+                       float scale, const Strides& st, bool raw,
+                       cudaStream_t stream) {
   const size_t smem = f32_smem_bytes(D);
   auto kernel = flash_fwd_f32_kernel<NJ>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -427,7 +451,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
   kernel<<<grid, F_THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(bias),
-      static_cast<float*>(o), m_out, l_out, Sq, Skv, D, scale, st);
+      static_cast<float*>(o), m_out, l_out, Sq, Skv, D, scale, st, raw);
   return cudaGetLastError();
 }
 
@@ -435,7 +459,8 @@ template <int NK>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         const void* bias, void* o, float* m_out,
                         float* l_out, int B, int H, int Sq, int Skv, int D,
-                        float scale, const Strides& st, cudaStream_t stream) {
+                        float scale, const Strides& st, bool raw,
+                        cudaStream_t stream) {
   const size_t smem = bf16_smem_bytes<NK>();
   auto kernel = flash_fwd_bf16_kernel<NK>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -445,7 +470,8 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
   kernel<<<grid, T_THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const float*>(bias),
-      static_cast<bf16*>(o), m_out, l_out, Sq, Skv, D, scale, st);
+      raw ? nullptr : static_cast<bf16*>(o), m_out, l_out, Sq, Skv, D, scale,
+      st, raw ? static_cast<float*>(o) : nullptr);
   return cudaGetLastError();
 }
 
@@ -462,12 +488,13 @@ extern "C" {
 // multiples of 8. Launches on `stream`, allocates nothing, returns
 // cudaGetLastError() (or cudaErrorInvalidValue / cudaErrorMisalignedAddress
 // for arguments the kernels do not take).
-int mmf_flash_attention_fwd(const void* q, const void* k, const void* v,
-                            const void* bias, void* o, float* m_out,
-                            float* l_out, int dtype, int B, int H, int Sq,
-                            int Skv, int D, const long long* strides,
-                            float scale, void* stream) {
-  if ((m_out == nullptr) != (l_out == nullptr) || D <= 0 || D > MAX_D ||
+static int forward(const void* q, const void* k, const void* v,
+                   const void* bias, void* o, float* m_out, float* l_out,
+                   int dtype, int B, int H, int Sq, int Skv, int D,
+                   const long long* strides, float scale, bool raw,
+                   void* stream) {
+  if ((m_out == nullptr) != (l_out == nullptr) || (raw && m_out == nullptr) ||
+      D <= 0 || D > MAX_D ||
       D % 8 != 0 || B > 65535 || H > 65535 || (dtype != 0 && dtype != 1))
     return int(cudaErrorInvalidValue);
   if (B == 0 || H == 0 || Sq == 0) return 0;
@@ -488,7 +515,7 @@ int mmf_flash_attention_fwd(const void* q, const void* k, const void* v,
 #define MMF_CASE(n)                                                         \
   case n:                                                                   \
     return int(launch_bf16<n>(q, k, v, bias, o, m_out, l_out, B, H, Sq, Skv, \
-                              D, scale, st, s));
+                              D, scale, st, raw, s));
       MMF_CASE(1) MMF_CASE(2) MMF_CASE(3) MMF_CASE(4)
       MMF_CASE(5) MMF_CASE(6) MMF_CASE(7) MMF_CASE(8)
 #undef MMF_CASE
@@ -498,13 +525,36 @@ int mmf_flash_attention_fwd(const void* q, const void* k, const void* v,
 #define MMF_CASE(n)                                                        \
   case n:                                                                  \
     return int(launch_f32<n>(q, k, v, bias, o, m_out, l_out, B, H, Sq, Skv, \
-                             D, scale, st, s));
+                             D, scale, st, raw, s));
       MMF_CASE(1) MMF_CASE(2) MMF_CASE(3) MMF_CASE(4)
       MMF_CASE(5) MMF_CASE(6) MMF_CASE(7) MMF_CASE(8)
 #undef MMF_CASE
     }
   }
   return int(cudaErrorInvalidValue);
+}
+
+int mmf_flash_attention_fwd(const void* q, const void* k, const void* v,
+                            const void* bias, void* o, float* m_out,
+                            float* l_out, int dtype, int B, int H, int Sq,
+                            int Skv, int D, const long long* strides,
+                            float scale, void* stream) {
+  return forward(q, k, v, bias, o, m_out, l_out, dtype, B, H, Sq, Skv, D,
+                 strides, scale, false, stream);
+}
+
+// The raw-stats form (the TPU kernel's raw_stats=True, the ring's block
+// state): acc, float32 with the strides given for o, is the unnormalized
+// sum_k exp(s - m) v; m_out and l_out (required) the raw row max and
+// normalizer. A row with no finite score gives m = -inf, l = 0, acc = 0.
+int mmf_flash_attention_fwd_raw(const void* q, const void* k, const void* v,
+                                const void* bias, float* acc, float* m_out,
+                                float* l_out, int dtype, int B, int H,
+                                int Sq, int Skv, int D,
+                                const long long* strides, float scale,
+                                void* stream) {
+  return forward(q, k, v, bias, acc, m_out, l_out, dtype, B, H, Sq, Skv, D,
+                 strides, scale, true, stream);
 }
 
 const char* mmf_cuda_error_string(int code) {

@@ -36,12 +36,17 @@ def _rel_err(got, want):
 
 def _case(name):
     """(q, k, v, mask-or-bias, dout) numpy inputs of one named case."""
-    shapes = {"padding_mask": (2, 3, 12, 12, 16),
-              "sq_ne_skv": (2, 2, 9, 21, 8),
-              "user_masked_row": (2, 2, 6, 6, 8),
-              "d16_ragged_37": (1, 2, 37, 37, 16)}
-    b, h, sq, skv, d = shapes[name]
-    rng = np.random.RandomState(sorted(shapes).index(name))
+    shapes = {  # name: ((B, H, Sq, Skv, D), seed)
+        "padding_mask": ((2, 3, 12, 12, 16), 1),
+        "sq_ne_skv": ((2, 2, 9, 21, 8), 2),
+        "user_masked_row": ((2, 2, 6, 6, 8), 3),
+        "d16_ragged_37": ((1, 2, 37, 37, 16), 0),
+        # the bf16 kernels' tile edges: past two 64-row tiles, and a 64-row
+        # q tile against a ragged kv ring
+        "edge_130": ((1, 2, 130, 130, 64), 4),
+        "q64_kv200_d32": ((1, 2, 64, 200, 32), 5)}
+    (b, h, sq, skv, d), seed = shapes[name]
+    rng = np.random.RandomState(seed)
     q = rng.randn(b, h, sq, d).astype(np.float32)
     k = rng.randn(b, h, skv, d).astype(np.float32)
     v = rng.randn(b, h, skv, d).astype(np.float32)
@@ -58,7 +63,8 @@ def _case(name):
     return q, k, v, mask, dout
 
 
-CASES = ["padding_mask", "sq_ne_skv", "user_masked_row", "d16_ragged_37"]
+CASES = ["padding_mask", "sq_ne_skv", "user_masked_row", "d16_ragged_37",
+         "edge_130", "q64_kv200_d32"]
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 

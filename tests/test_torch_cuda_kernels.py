@@ -106,9 +106,13 @@ def _bwd_case(card, dtype, b, h, sq, skv, d, seed=0):
     return q, k, v, bias, dout
 
 
+# the main path's shape, ragged shapes, and the bf16 kernels' tile edges
+# (128-row blocks, 64-row ring tiles)
 BWD_SHAPES = [(2, 12, 228, 228, 64), (2, 3, 128, 100, 64),
               (1, 2, 37, 70, 8), (2, 2, 9, 130, 16), (1, 2, 70, 45, 24),
-              (1, 2, 70, 70, 128)]
+              (1, 2, 70, 70, 128), (1, 2, 127, 127, 64),
+              (1, 2, 129, 129, 64), (1, 2, 256, 256, 64),
+              (1, 2, 257, 257, 64), (1, 2, 64, 300, 64)]
 
 
 @pytest.fixture
@@ -149,6 +153,70 @@ def test_flash_stats_and_backward_match_plain(card, no_tf32, dtype, shape):
     if b > 1:  # the -inf batch: zero gradients, not NaN
         assert (dq[-1] == 0).all() and (dk[-1] == 0).all()
         assert (dv[-1] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 3, 100, 150, 64), (1, 2, 70, 45, 128)])
+def test_backward_with_a_per_row_bias(card, no_tf32, dtype, shape):
+    """A [B,1,Sq,Skv] bias (no stride 0 over q), with -inf entries: the
+    kernels read it per element."""
+    b, h, sq, skv, d = shape
+    q, k, v, _, dout = _bwd_case(card, dtype, *shape, seed=5)
+    g = torch.Generator(device=card).manual_seed(6)
+    bias = torch.randn(b, 1, sq, skv, device=card, generator=g)
+    bias[:, :, :, 1::7] = float("-inf")
+    out, m, l = A.flash_attention_with_stats(q, k, v, bias)
+    dq, delta = A.flash_attention_bwd_dq(q, k, v, bias, out, m, l, dout)
+    dk, dv = A.flash_attention_bwd_dkv(q, k, v, bias, dout, m, l, delta)
+    torch.cuda.synchronize()
+    want = A.flash_backward_reference(q, k, v, bias, out, m, l, dout)
+    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        _assert_rel(got, ref, GRAD_REL[dtype], name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_is_bit_equal_across_calls(card, dtype):
+    """No atomics: two calls on the same inputs give the same bits."""
+    q, k, v, bias, dout = _bwd_case(card, dtype, 2, 12, 228, 228, 64, seed=7)
+    out, m, l = A.flash_attention_with_stats(q, k, v, bias)
+    first = A.flash_attention_bwd_dq(q, k, v, bias, out, m, l, dout)
+    first += A.flash_attention_bwd_dkv(q, k, v, bias, dout, m, l, first[1])
+    second = A.flash_attention_bwd_dq(q, k, v, bias, out, m, l, dout)
+    second += A.flash_attention_bwd_dkv(q, k, v, bias, dout, m, l, second[1])
+    torch.cuda.synchronize()
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", BWD_SHAPES[:4])
+def test_raw_stats_form_matches_plain_and_merges(card, no_tf32, dtype, shape):
+    """K1's raw-stats form against its plain version; the merged states of
+    two kv blocks against K1 over the whole kv; an all -inf row gives
+    (m = -inf, l = 0, acc = 0)."""
+    b, h, sq, skv, d = shape
+    q, k, v, bias, _ = _bwd_case(card, dtype, *shape, seed=8)
+    before = A.flash_attention_block.launches
+    acc, m, l = A.flash_attention_block(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert A.flash_attention_block.launches == before + 1
+    ref = A.flash_attention_block_reference(q, k, v, bias)
+    assert acc.dtype == m.dtype == l.dtype == torch.float32
+    torch.testing.assert_close(m, ref[1], atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(l, ref[2], atol=1e-4, rtol=1e-4)
+    _assert_rel(acc, ref[0], 1e-5 if dtype == torch.float32 else 1e-2, "acc")
+    half = skv // 2
+    states = [A.flash_attention_block(q, k[:, :, sl], v[:, :, sl],
+                                      bias[..., sl])
+              for sl in (slice(0, half), slice(half, skv))]
+    macc, _, ml = A.merge_block_states(states)
+    merged = macc / torch.where(ml == 0, torch.ones_like(ml), ml)[..., None]
+    torch.testing.assert_close(merged.to(dtype), A.flash_attention(q, k, v,
+                                                                   bias),
+                               **TOL[dtype])
+    if b > 1:  # the batch whose every column is -inf
+        assert torch.isneginf(m[-1]).all() and (l[-1] == 0).all()
+        assert (acc[-1] == 0).all()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
