@@ -10,24 +10,26 @@ the script exits non-zero without a result line):
               from this checkout's sources, all started together: nvcc
               for the CUDA flash-attention forward (K1) and backward (K2,
               K3) and the int8 GEMM (K5), Triton's JIT for the LayerNorm
-              (K4), with build times, and the backward kernels' registers,
-              spills and shared memory from ptxas.
+              (K4), with build times, and the wgmma kernels' registers,
+              spills and shared memory (K1, K2, K3, K5) and ptxas's
+              C75xx notes (a serialised wgmma shows there).
 2. kernels  - each kernel against its plain PyTorch version on the card
               at the main paths' shapes, with stated tolerances, and both
-              timed with CUDA events (best of several runs): K1 in its
-              inference, stats and raw-stats forms (the raw states of the
-              two kv halves merged against K1 over the whole kv), K2 and
-              K3 (also against autograd through mha_reference; two calls
-              bit-equal; device time by device_ms beside the events, and
-              the wrappers' host time per call; B=64 S=228, B=8 Sq=128
-              Skv=100 and a long-kv case B=8 S=1024), K4, and K5 at the
-              MMBT trunk's and
-              pooler's shapes (M = 131 and 1) and VisualBERT's bucket 32
-              (M = 7296). F.scaled_dot_product_attention (forward and
-              backward), F.layer_norm and torch._int_mm are timed beside
-              them for information; each kernel's bound (bytes over the
-              memory rate, operations over the peak rate) is computed
-              from its shapes.
+              timed (best of several runs): K1 in its inference, stats
+              and raw-stats forms (the raw states of the two kv halves
+              merged against K1 over the whole kv), K2 and K3 (also
+              against autograd through mha_reference; two calls
+              bit-equal; B=64 S=228, B=8 Sq=128 Skv=100 and a long-kv
+              case B=8 S=1024), all five by device_ms with CUDA events
+              over back-to-back calls beside them, and the wrappers' host
+              time per call; K4; and K5 at the MMBT trunk's and pooler's
+              shapes (M = 131 and 1) and VisualBERT's bucket 32 (M =
+              7296), by device_ms, with its wrapper's host time.
+              F.scaled_dot_product_attention (forward, forward with the
+              rows' logsumexp, backward; by device_ms), F.layer_norm and
+              torch._int_mm are timed beside them for information; each
+              kernel's bound (bytes over the memory rate, operations over
+              the peak rate) is computed from its shapes.
 3. serving  - VisualBERT-base at full width (12 x 768, 12 heads, 3129
               answers, bf16 compute; weights from a seeded
               torch.Generator) behind ServingEngine(max_batch_size=32) and
@@ -36,7 +38,9 @@ the script exits non-zero without a result line):
               status, shape and finiteness; the kernels' launch counts
               checked against the model's structure; one request's scores
               checked against the same weights' f32 forward on the CPU
-              (plain versions); samples/s at bucket 32 and request latency.
+              (plain versions); samples/s at bucket 32, request latency,
+              and the bucket-32 forward's time (CUDA events) and device
+              time by kind of kernel (torch.profiler).
 4. training - VisualBERT-base at full width (f32 parameters, bf16
               compute, hidden dropout 0.1 from the step's generator,
               attention-probability dropout 0) trained with the VQA2
@@ -62,7 +66,11 @@ the script exits non-zero without a result line):
               the ResNet features under cuDNN's TF32 default against f32.
 6. vb-int8  - the serving phase's VisualBERT-base with quant: int8 at
               bucket 32: K5 launches per forward, forward time beside
-              bf16's, and one sample against the int8 CPU forward.
+              bf16's, and one sample against the int8 CPU forward; K5 at
+              every shape the forward launches it at (recorded from a
+              forward), against its plain version, by device_ms beside
+              torch._int_mm, with launches per shape and the K5 total per
+              forward.
 
 Then one JSON line describing the kernels, the nvidia-smi line, and the
 last line {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -283,6 +291,20 @@ def read_counts():
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
+def _short_name(mangled):
+    """A kernel's short name with its template arguments, e.g.
+    ``flash_fwd_sm90_kernel<1,0,3>`` or ``int8_gemm_sm90_kernel<1,64,4,4,
+    bf16,3>``."""
+    short = re.search(r"\d((?:bwd_d|flash_fwd_|int8_)\w*?_kernel)(I.*?E)?Ev",
+                      mangled)
+    if short is None:
+        return mangled[-40:]
+    args = ["bf16" if t == "13__nv_bfloat16" else "f32" if t == "f" else n
+            for n, t in re.findall(r"Li(\d+)E|(13__nv_bfloat16|f)",
+                                   short.group(2) or "")]
+    return short.group(1) + (f"<{','.join(args)}>" if args else "")
+
+
 def ptxas_report(log):
     """[(kernel, registers, spill store bytes, static smem bytes)] from
     nvcc's -Xptxas -v output, kernels demangled to their short names."""
@@ -290,10 +312,7 @@ def ptxas_report(log):
     for ln in log.splitlines():
         m = re.search(r"entry function '([^']+)'", ln)
         if m:
-            short = re.search(r"\d((?:bwd_d|flash_fwd_|int8_)\w*?_kernel)"
-                              r"(?:ILi(\d+)E)?", m.group(1))
-            name = m.group(1)[-40:] if short is None else short.group(1) + (
-                f"<{short.group(2)}>" if short.group(2) else "")
+            name = _short_name(m.group(1))
             spill = 0
         m = re.search(r"(\d+) bytes spill stores", ln)
         if m:
@@ -343,25 +362,30 @@ def phase_build(card):
     if errors:
         raise errors[0]
     wall = time.perf_counter() - t0
-    parts, reports = [], []
+    parts, reports = [], {}
     for name in ("flash_attention_fwd", "flash_attention_bwd", "int8_gemm"):
         info, _ = done[name]
         kernels = ptxas_report(info["ptxas"])
+        notes = re.findall(r"\((C75\d\d)\)", info["ptxas"])
         parts.append(f"{name} nvcc {info['build_s']:.1f}s ({len(kernels)} "
                      f"kernels, {sum(k[2] > 0 for k in kernels)} with "
-                     "spills)")
-        if name == "flash_attention_bwd":
-            reports = kernels
-    smem = A._bwd_lib()[0].mmf_flash_attention_bwd_smem_bytes(HEAD_DIM)
+                     "spills; ptxas notes " + (", ".join(
+                         f"{c} x{notes.count(c)}" for c in sorted(set(
+                             notes))) or "none") + ")")
+        reports[name] = [k for k in kernels if "sm90" in k[0]]
+    smem = (A._fwd_lib()[0].mmf_flash_attention_fwd_smem_bytes(HEAD_DIM),
+            A._bwd_lib()[0].mmf_flash_attention_bwd_smem_bytes(HEAD_DIM))
     parts.append(f"layer_norm triton jit {done['layer_norm'][1]:.1f}s")
     print(f"phase build: ok card='{card}' torch={torch.__version__} "
           f"cuda={torch.version.cuda}; built in parallel in {wall:.1f}s: "
           + "; ".join(parts))
-    print("  backward kernels (ptxas: registers, spill store bytes, static "
-          "smem bytes; bf16 K2 and K3 take their ring as dynamic smem, "
-          f"{smem} B a block at D={HEAD_DIM}): " + "; ".join(
-              f"{n} {r} regs, {sp} B spills, {sm} B" for n, r, sp, sm in
-              reports))
+    print("  wgmma kernels (ptxas: registers, spill store bytes; C7510, "
+          "C7515 and C7520 would mean serialised products; bf16 K1 takes "
+          f"{smem[0]} B of dynamic smem a block at D={HEAD_DIM}, K2 and K3 "
+          f"{smem[1]} B):")
+    for name, kernels in reports.items():
+        print(f"    {name}: " + "; ".join(
+            f"{n} {r} regs, {sp} B spills" for n, r, sp, _ in kernels))
 
 
 # -- phase 2 ---------------------------------------------------------------
@@ -497,22 +521,28 @@ def phase_kernels(card):
         def k1_raw():
             return A.flash_attention_block(q, k, v, bias)
 
+        def k1():
+            return A.flash_attention(q, k, v, bias)
+
+        def k1_stats():
+            return A.flash_attention_with_stats(q, k, v, bias)
+
         plain_fwd = lambda: A.mha_reference(q, k, v, bias)  # noqa: E731
         t = {  # CUDA events around back-to-back calls
-            "flash_attention_fwd": time_ms(
-                lambda: A.flash_attention(q, k, v, bias)),
-            "flash_attention_fwd_stats": time_ms(
-                lambda: A.flash_attention_with_stats(q, k, v, bias)),
+            "flash_attention_fwd": time_ms(k1),
+            "flash_attention_fwd_stats": time_ms(k1_stats),
             "flash_attention_bwd_dq": time_ms(k2),
             "flash_attention_bwd_dkv": time_ms(k3),
         }
         dev = {  # device time per call, calls queued behind a spin kernel
+            "flash_attention_fwd": device_ms(k1),
+            "flash_attention_fwd_stats": device_ms(k1_stats),
             "flash_attention_fwd_raw": device_ms(k1_raw),
             "flash_attention_bwd_dq": device_ms(k2),
             "flash_attention_bwd_dkv": device_ms(k3),
         }
         host = {n: host_us(fn) for n, fn in (
-            ("K1-stats", lambda: A.flash_attention_with_stats(q, k, v, bias)),
+            ("K1", k1), ("K1-stats", k1_stats), ("K1-raw", k1_raw),
             ("K2", k2), ("K3", k3))}
         plain = {
             "flash_attention_fwd": time_ms(plain_fwd),
@@ -526,12 +556,15 @@ def phase_kernels(card):
                                                    l, dout), iters=10),
         }
         plain["flash_attention_bwd_dkv"] = plain["flash_attention_bwd_dq"]
-        sdpa = time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=bias))
+        def sdpa_fn():
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=bias)
+
+        sdpa_lse_fn = _sdpa_with_lse(q, k, v, bias)
+        sdpa, sdpa_dev = time_ms(sdpa_fn), device_ms(sdpa_fn)
+        sdpa_lse, sdpa_lse_dev = time_ms(sdpa_lse_fn), device_ms(sdpa_lse_fn)
         sdpa_bwd_fn = _sdpa_backward(q, k, v, bias, dout)
         sdpa_bwd = time_ms(sdpa_bwd_fn, iters=10)
         sdpa_bwd_dev = device_ms(sdpa_bwd_fn, iters=10)
-        sdpa_lse = time_ms(_sdpa_with_lse(q, k, v, bias))
         if (b, sq, dt) == (64, S, torch.bfloat16):
             qkvo = 4 * _nbytes(q)
             st = _nbytes(m)  # one f32 [B,H,Sq] row statistic
@@ -557,8 +590,14 @@ def phase_kernels(card):
                 r["bound_ms"], r["bound_by"] = bound(nb, fl, dt)
                 if name in t and name in dev:
                     r["events_ms"] = t[name]
-            results["flash_attention_fwd"]["library_ms"] = sdpa
-            results["flash_attention_fwd_stats"]["library_ms"] = sdpa_lse
+            for name, lib_dev, lib_ev, wrapper in (
+                    ("flash_attention_fwd", sdpa_dev, sdpa, "K1"),
+                    ("flash_attention_fwd_stats", sdpa_lse_dev, sdpa_lse,
+                     "K1-stats")):
+                results[name].update(library_ms=lib_dev,
+                                     library_events_ms=lib_ev,
+                                     host_us=host[wrapper])
+            results["flash_attention_fwd_raw"]["host_us"] = host["K1-raw"]
             # no PyTorch call returns the unnormalized state
             results["flash_attention_fwd_raw"]["library_ms"] = None
             # the SDPA backward computes dq, dk and dv together: one
@@ -571,20 +610,23 @@ def phase_kernels(card):
             f"{str(dt)[6:]}: max_abs_err fwd {err:.3g}, stats {err_s:.3g}, "
             f"raw {err_r:.3g}, merged halves vs K1 {err_merge:.3g}, "
             f"dq {errs[0]:.3g}, dk {errs[1]:.3g}, dv {errs[2]:.3g}; "
-            "backward bit-equal across calls; device ms (spin-queued) "
+            "backward bit-equal across calls; device ms (spin-queued) K1 "
+            f"{dev['flash_attention_fwd']:.4f}, K1-stats "
+            f"{dev['flash_attention_fwd_stats']:.4f}, "
             f"K1-raw {dev['flash_attention_fwd_raw']:.4f}, K2 "
             f"{dev['flash_attention_bwd_dq']:.4f}, K3 "
             f"{dev['flash_attention_bwd_dkv']:.4f}, K2+K3 "
             f"{dev['flash_attention_bwd_dq'] + dev['flash_attention_bwd_dkv']:.4f}"
-            f", sdpa bwd {sdpa_bwd_dev:.4f}; events ms K1 "
+            f", sdpa fwd {sdpa_dev:.4f}, sdpa fwd+lse {sdpa_lse_dev:.4f}, "
+            f"sdpa bwd {sdpa_bwd_dev:.4f}; events ms K1 "
             f"{t['flash_attention_fwd']:.4f}, K1-stats "
             f"{t['flash_attention_fwd_stats']:.4f}, K2 "
             f"{t['flash_attention_bwd_dq']:.4f}, K3 "
-            f"{t['flash_attention_bwd_dkv']:.4f}; plain fwd "
+            f"{t['flash_attention_bwd_dkv']:.4f}, plain fwd "
             f"{plain['flash_attention_fwd']:.4f}, plain fwd+stats "
             f"{plain['flash_attention_fwd_stats']:.4f}, plain raw "
             f"{plain['flash_attention_fwd_raw']:.4f}, plain bwd "
-            f"{plain['flash_attention_bwd_dq']:.4f}; sdpa fwd {sdpa:.4f}, "
+            f"{plain['flash_attention_bwd_dq']:.4f}, sdpa fwd {sdpa:.4f}, "
             f"sdpa fwd+lse {sdpa_lse:.4f}, sdpa bwd {sdpa_bwd:.4f}; host us "
             "per wrapper call " + ", ".join(
                 f"{n} {us:.1f}" for n, us in host.items()))
@@ -690,6 +732,7 @@ def _k5_cases(g, lines):
 
         kern = device_ms(kern_fn)
         wrapper_ms = time_ms(kern_fn)
+        wrapper_us = host_us(kern_fn)
         plain = device_ms(lambda: Q.dequant_gemm_reference(
             x8, w8, xs, ws, bias, dt), iters=5)
         w8t = w8.t()  # [K, N], column-major: cuBLASLt's int8 layout
@@ -700,7 +743,7 @@ def _k5_cases(g, lines):
         b_ms, b_by = bound(nbytes, 2 * m * n * k, torch.int8)
         if ((m, k, n), dt) == (K5_HEADLINE, torch.bfloat16):
             row.update(ms=kern, plain_ms=plain, library_ms=lib,
-                       bound_ms=b_ms, bound_by=b_by)
+                       bound_ms=b_ms, bound_by=b_by, host_us=wrapper_us)
         if (m, k, n) in K5_MMBT:
             per_forward += K5_MMBT[(m, k, n)] * kern
         lines.append(
@@ -709,8 +752,9 @@ def _k5_cases(g, lines):
             f"({2e-9 * m * n * k / kern:.1f} TOP/s), plain {plain:.4f}, "
             f"torch._int_mm (int32 product alone) "
             f"{'n/a' if lib is None else f'{lib:.4f}'}; bound {b_ms:.4f} "
-            f"by {b_by}; back-to-back calls through the wrapper (CUDA "
-            f"events) {wrapper_ms:.4f} ms each")
+            f"by {b_by}; {Q.k5_tile(m, n)}-wide tiles; "
+            f"back-to-back calls through the wrapper (CUDA events) "
+            f"{wrapper_ms:.4f} ms each, host {wrapper_us:.1f} us a call")
     lines.append(f"  int8_gemm per MMBT forward at batch 1 (73 launches): "
                  f"{per_forward:.4f} ms of kernel device time")
     return row
@@ -833,9 +877,12 @@ def phase_serving(card):
         arrays, _ = engine_lib._split_static(
             engine_lib._stack_samples(batch32))
         dev_batch = engine_lib._to_device(arrays, DEV)
-        with torch.inference_mode():
-            fwd_ms = time_ms(lambda: engine.model(dev_batch), iters=5,
-                             repeats=3)
+        def forward():
+            with torch.inference_mode():
+                engine.model(dev_batch)
+
+        fwd_ms = time_ms(forward, iters=5, repeats=3)
+        dev_ms, by_category = _device_ms(forward, 3)
     finally:
         server.shutdown()
     print(f"phase serving: ok VisualBERT-base {n_params / 1e6:.1f}M params "
@@ -849,6 +896,10 @@ def phase_serving(card):
           f"p50 {p50_ms:.1f} ms (client side, {N_REQUESTS} requests, "
           f"JSON of ~{len(bodies[0]) / 1e6:.1f} MB each); batcher p50 "
           f"{stats1['latency_ms']['p50']:.1f} ms")
+    print(f"  bf16 forward at bucket 32: device time {dev_ms:.3f} ms "
+          "(torch.profiler, 3 forwards): " + "; ".join(
+              f"{cat} {ms:.3f} x{cnt:.0f}" for cat, (ms, cnt) in
+              sorted(by_category.items(), key=lambda kv: -kv[1][0])))
     return launches, {"state": cpu_state, "batch32": batch32,
                       "fwd_ms": fwd_ms, "probe": probe, "ref_f32": ref}
 
@@ -887,7 +938,7 @@ def _norm_rel(got, want):
 DEVICE_CATEGORIES = (  # kernel-name fragment -> category, first match
     (("flash_fwd", "bwd_dq_", "bwd_dkv_"), "attention K1/K2/K3"),
     (("_ln_fwd_kernel",), "LayerNorm K4"),
-    (("int8_gemm_kernel",), "int8 GEMM K5"),
+    (("int8_gemm",), "int8 GEMM K5"),
     (("fprop", "conv", "winograd", "implicit_gemm", "cudnn"),
      "convolutions (cuDNN)"),
     (("bn_fw", "batch_norm"), "BatchNorm"),
@@ -1231,7 +1282,8 @@ def phase_vb_int8(card, serving):
           == VB_K5, "QuantDense modules")
     engine = ServingEngine(model, device=DEV, max_batch_size=32)
     batch32 = serving["batch32"]
-    engine.predict_many(batch32)
+    with _k5_shapes() as shapes:  # K5's shapes, from the warm-up forward
+        engine.predict_many(batch32)
     torch.cuda.synchronize()
     reset_counts()  # the main path, counted from zero
     outs = engine.predict_many(batch32)
@@ -1261,6 +1313,8 @@ def phase_vb_int8(card, serving):
     info = float(np.abs(got - serving["ref_f32"]).max())
     model.cpu()
     torch.cuda.empty_cache()
+    check(sum(shapes.values()) == VB_K5, f"K5 shapes {shapes}")
+    k5_lines, k5_total = _k5_per_shape(shapes)
     print(f"phase vb-int8: ok VisualBERT-base quant: int8 at bucket 32; "
           f"launches {launches} (exact per forward); one request's scores "
           f"vs the int8 CPU forward (plain versions) max_abs_err "
@@ -1273,7 +1327,59 @@ def phase_vb_int8(card, serving):
           "forwards): " + "; ".join(
               f"{cat} {ms:.3f} x{cnt:.0f}" for cat, (ms, cnt) in
               sorted(by_category.items(), key=lambda kv: -kv[1][0])))
-    return launches
+    print(f"  K5 at the shapes of one VisualBERT int8 forward at bucket 32 "
+          f"(device_ms, each against its plain version): {k5_total:.4f} ms "
+          "per forward (launches x ms)")
+    print("\n".join(k5_lines))
+    return launches, k5_total
+
+
+@contextlib.contextmanager
+def _k5_shapes():
+    """Records K5's calls by (M, K, N, output dtype) while active."""
+    shapes, kernel = {}, Q.dequant_gemm
+
+    def recording(x8, w8, xs, ws, bias, out_dtype=torch.float32):
+        key = (x8.shape[0], x8.shape[1], w8.shape[0], out_dtype)
+        shapes[key] = shapes.get(key, 0) + 1
+        Q.dequant_gemm = kernel  # the wrapper counts on its own name
+        try:
+            return kernel(x8, w8, xs, ws, bias, out_dtype)
+        finally:
+            Q.dequant_gemm = recording
+
+    Q.dequant_gemm = recording
+    try:
+        yield shapes
+    finally:
+        Q.dequant_gemm = kernel
+
+
+def _k5_per_shape(shapes):
+    """K5 at each recorded shape: checked against its plain version, timed
+    by device_ms beside torch._int_mm; (report lines, ms per forward)."""
+    g = torch.Generator(device=DEV).manual_seed(5)
+    lines, total = [], 0.0
+    for (m, k, n, dt), count in sorted(shapes.items(), key=lambda kv: (
+            -kv[1], kv[0][:3])):
+        x8, w8, xs, ws, bias = _k5_operands(m, k, n, g)
+        out = Q.dequant_gemm(x8, w8, xs, ws, bias, dt)
+        torch.cuda.synchronize()
+        err = k5_error(out, x8, w8, xs, ws, bias, dt, f"K5 {m}x{k}x{n} {dt}")
+        kern = device_ms(lambda: Q.dequant_gemm(x8, w8, xs, ws, bias, dt))
+        w8t = w8.t()
+        lib = (device_ms(lambda: torch._int_mm(x8, w8t)) if m > 16
+               else None)
+        b_ms, b_by = bound(_nbytes(x8, w8, xs, ws, bias, out),
+                           2 * m * n * k, torch.int8)
+        total += count * kern
+        lines.append(
+            f"    M={m} K={k} N={n} -> {str(dt)[6:]} x{count}: max_abs_err "
+            f"{err:.3g}; kernel {kern:.4f} ms "
+            f"({2e-9 * m * n * k / kern:.1f} TOP/s), torch._int_mm "
+            f"{'n/a' if lib is None else f'{lib:.4f}'}, bound {b_ms:.4f} by "
+            f"{b_by}; {Q.k5_tile(m, n)}-wide tiles")
+    return lines, total
 
 
 SOURCES = {  # name -> (route, source, the TPU kernel it replaces)
@@ -1330,7 +1436,8 @@ def main():
     served, serving = phase_serving(card)
     trained = phase_training(card)
     mmbt = phase_mmbt(card)
-    vb_int8 = phase_vb_int8(card, serving)
+    vb_int8, k5_vb_ms = phase_vb_int8(card, serving)
+    results["int8_dequant_gemm"]["vb_int8_forward_ms"] = k5_vb_ms
     kernels = []
     for name, (route, source, replaces) in SOURCES.items():
         r = results[name]
@@ -1349,8 +1456,8 @@ def main():
             # one PyTorch call computing the same function: LIBRARY says
             # which
             "library_ms": r["library_ms"], "library": LIBRARY[name],
-            **{k: r[k] for k in ("events_ms", "library_events_ms")
-               if k in r},
+            **{k: r[k] for k in ("events_ms", "library_events_ms", "host_us",
+                                 "vb_int8_forward_ms") if k in r},
         })
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -197,6 +197,7 @@ def _fwd_lib():
             [_P] * 7 + _DIMS + [_STRIDES, _F, _P],
         "mmf_flash_attention_fwd_raw":
             [_P] * 7 + _DIMS + [_STRIDES, _F, _P],
+        "mmf_flash_attention_fwd_smem_bytes": [_I],
     })
 
 

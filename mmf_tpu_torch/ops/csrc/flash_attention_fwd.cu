@@ -17,42 +17,55 @@
 //
 // What bounds it on the H100: at the main path's shape (B<=64, H=12,
 // S=228, D=64) attention is ~4*S*S*D FLOPs per (b, h) against ~4*S*D
-// elements of q/k/v/o, i.e. ~S FLOPs per element: compute dominates and
-// the [S, S] score matrix is the traffic to avoid. Design:
-//   - one block per (b, h, 64-row q tile); it loops over 64-column kv
-//     tiles held in shared memory, so scores never reach device memory;
-//   - the running row max m, normalizer l and output accumulator stay in
-//     registers, in f32, for the whole kv loop;
-//   - bfloat16 inputs multiply on the tensor cores (mma.sync m16n8k16,
-//     f32 accumulation): each of 4 warps owns 16 q rows; the q k^T
-//     accumulator fragments hold the scores for the f32 online softmax
-//     and are repacked in place, rounded to bf16 (as the plain version
-//     rounds probabilities to v's dtype), as the A operand of p v;
+// elements of q/k/v/o, i.e. ~S FLOPs per element: close to the line
+// between bytes and tensor-core operations, with the [S, S] score matrix
+// the traffic to avoid. A block's work is short (four 64-row kv tiles), so
+// the latency of its chain of loads, products and softmax, and how many
+// blocks overlap on an SM, decide the time. Design of the bfloat16 kernel
+// (the block, ring and layouts of flash_attention_sm90.cuh, which the
+// backward K2 shares):
+//   - one block per (b, h, 64 q rows): one consumer warpgroup and one
+//     producer warp. q is loaded once by TMA; k and v tiles of 64 kv rows
+//     stream through a 3-stage shared-memory ring filled by TMA, with the
+//     tile's padding-mask bias row beside them (cp.async); mbarriers count
+//     the bytes, so loads overlap the products;
+//   - s = q k^T runs on wgmma from shared memory (both K-major); the
+//     online softmax stays in the accumulator registers, f32, branch-free:
+//     kv columns at or past Skv get p = 0 by a select (a zero-filled k row
+//     would score 0 + bias, not -inf), the kind of bias (a row, or per
+//     element) is chosen once per tile, exp is exp2 with the subtraction
+//     first; the row max is reduced over the 4 lanes of a row every tile,
+//     the normalizer only once at the end;
+//   - p is rounded to bf16 (as the plain version rounds probabilities to
+//     v's dtype) into wgmma's register A operand, and o += p v reads v
+//     MN-major from the ring: no transposed copy;
+//   - the three forms are one kernel with a template parameter; the
+//     output goes out through the given strides, so the [B, S, H, D]
+//     layout the next projection reads is written in place. Three blocks
+//     an SM at D <= 64, one at D up to 128;
 //   - float32 inputs multiply with plain f32 FMAs (a 4x4 register tile
-//     per thread for q k^T, 4 x D/16 for p v), to keep f32 parity;
-//   - wgmma, TMA and warp specialisation are later work;
-//   - the additive bias is read in f32 through its own strides: stride 0
-//     broadcasts a [B,1,1,Skv] padding-mask row over heads and q rows
-//     without materialising [B,H,Sq,Skv];
-//   - ragged q rows and kv columns are masked in the kernel: columns past
-//     Skv are excluded exactly (score -inf), the same meaning as the true
-//     -inf padding of the TPU kernel, and no padded copies are made.
-// q/k/v/o are addressed through (batch, head, seq) strides with a
-// contiguous head dim, so the [B,S,H,D] -> [B,H,S,D] view of a projection
-// output is read in place and the output can be written straight into the
-// [B,S,H,D] layout the next projection wants.
+//     per thread for q k^T, 4 x D/16 for p v), to keep f32 parity; no
+//     served or trained path runs f32.
+// The bias is read in f32 through its own strides: stride 0 broadcasts a
+// [B,1,1,Skv] padding-mask row over heads and q rows without
+// materialising [B,H,Sq,Skv]. q/k/v/o are addressed through (batch, head,
+// seq) strides with a contiguous head dim (the bf16 tensor maps carry
+// them), so the [B,S,H,D] -> [B,H,S,D] view of a projection output is
+// read in place.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (mmf_tpu_torch/ops/_build.py); plain C entry
-//        point loaded with ctypes.
+//        points loaded with ctypes. TMA descriptors are encoded per call
+//        with cuTensorMapEncodeTiled, reached through the runtime's
+//        cudaGetDriverEntryPoint, so the library needs no -lcuda.
 
 #include <math.h>
 
-#include "flash_attention_common.cuh"
+#include "flash_attention_sm90.cuh"
 
 namespace {
 
-using namespace mmf_flash;
+using namespace mmf_flash_sm90;
 constexpr int BQ = 64;  // q rows per block
 constexpr int BK = 64;  // kv columns per shared-memory tile
 constexpr int MAX_D = 128;
@@ -219,219 +232,206 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16: tensor-core kernel on mma.sync m16n8k16 (bf16 in, f32 out).
-// 4 warps; warp w owns q rows 16 w .. 16 w + 15. In the PTX fragment
-// layouts, lane (g = lane / 4, t = lane % 4) holds rows g and g + 8 of
-// every 16-row tile, at columns 2 t, 2 t + 1 of each 8-column slice, so
-// row statistics reduce over the 4 lanes of a group, and the score
-// accumulator of q k^T is reused in place as the A operand of p v.
+// bfloat16: the warp-specialised wgmma kernel. FORM: 0 inference (bf16
+// out), 1 stats (bf16 out, parked m and l), 2 raw (f32 accumulator out,
+// raw m and l).
 // ---------------------------------------------------------------------------
-constexpr int T_WARPS = 4;
-constexpr int T_THREADS = 32 * T_WARPS;
-constexpr int V_LD = BK + 8;  // row length of the transposed v tile
+enum { INFERENCE = 0, STATS = 1, RAW = 2 };
 
-template <int NK>
-size_t bf16_smem_bytes() {
-  // q [BQ][16 NK + 8], k [BK][16 NK + 8], v^T [16 NK][V_LD]
-  return sizeof(bf16) *
-         (size_t(BQ + BK) * (16 * NK + 8) + size_t(16 * NK) * V_LD);
+struct Maps {
+  CUtensorMap q, k, v;
+};
+
+struct Args {
+  const float* bias;   // null: no bias
+  void* o;             // bf16 output, or the f32 accumulator (raw form)
+  float *m, *l;        // [B, H, Sq]; null in the inference form
+  int H, Sq, Skv, D;
+  float scale;
+  Strides st;
+};
+
+// s = A B^T over the head dim, both K-major (the block's q rows times a
+// ring tile of k).
+template <int NB>
+__device__ __forceinline__ void score_product(float (&s)[32], uint32_t a,
+                                              uint32_t bt) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = 0.f;
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4 * NB; ++kk)
+    wgmma_ss(s, kmajor_desc(a, kk), kmajor_desc(bt, kk), 1);
+  wg_commit();
+  wg_wait_all();
+  fence_acc(s);
 }
 
-// NK = ceil(D / 16): 16-wide slices of the head dim (zero-padded in
-// shared memory when D is an odd multiple of 8).
-template <int NK>
-__global__ void __launch_bounds__(T_THREADS)
-flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v,
-                      const float* __restrict__ bias, bf16* __restrict__ o,
-                      float* __restrict__ m_out, float* __restrict__ l_out,
-                      int Sq, int Skv, int D, float scale, Strides st,
-                      float* __restrict__ acc_out) {
-  constexpr int DP = 16 * NK;
-  constexpr int LDH = DP + 8;  // padded rows: conflict-free fragment loads
-  constexpr int VEC = DP / 8;  // 16-byte vectors per padded row
-  constexpr int NS = BK / 8;   // 8-column score slices per kv tile
-  constexpr int NO = 2 * NK;   // 8-column output slices
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [BQ][LDH]
-  bf16* ks = qs + BQ * LDH;                      // [BK][LDH]
-  bf16* vt = ks + BK * LDH;                      // [DP][V_LD]: v^T
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const bf16* qb = q + b * st.q[0] + h * st.q[1];
-  const bf16* kb = k + b * st.k[0] + h * st.k[1];
-  const bf16* vb = v + b * st.v[0] + h * st.v[1];
-  bf16* ob = o + b * st.o[0] + h * st.o[1];
-  const int rq = warp * 16 + g;  // this lane's rows: rq and rq + 8
-  const int qrow[2] = {q0 + rq, q0 + rq + 8};
-  const float* brow[2];
-  for (int i = 0; i < 2; ++i)
-    brow[i] = (bias != nullptr && qrow[i] < Sq)
-                  ? bias + b * st.bias[0] + h * st.bias[1] +
-                        qrow[i] * st.bias[2]
-                  : nullptr;
-
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  for (int idx = threadIdx.x; idx < BQ * VEC; idx += T_THREADS) {
-    const int rr = idx / VEC, c8 = (idx % VEC) * 8;
-    const int s = q0 + rr;
-    *reinterpret_cast<uint4*>(qs + rr * LDH + c8) =
-        (s < Sq && c8 < D)
-            ? *reinterpret_cast<const uint4*>(qb + s * st.q[2] + c8)
-            : zero;
+// One kv tile of the online softmax for this lane's rows `i`: the scores
+// become p = exp(s - m_new) in place, the running max m moves to m_new,
+// and this lane's share of the normalizer l and the output rows o are
+// rescaled by exp(m - m_new) and l gains the tile's p. Columns past Skv
+// get p = 0; the bias is the tile's row (`bias_row`, zeros without a
+// bias) or, with ELEM_BIAS, read per element from the rows `brow`. A row
+// with no finite score yet keeps p = 0 (its max is taken as 0).
+template <int NB, bool ELEM_BIAS>
+__device__ __forceinline__ void softmax_tile(
+    float (&sc)[32], float (&o)[NB][32], float (&m)[2], float (&l)[2],
+    const float* bias_row, const float* const (&brow)[2], int kv0, int Skv,
+    float scale) {
+  const int t4 = threadIdx.x & 3;
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    const int i = (e >> 1) & 1, c = 8 * (e >> 2) + 2 * t4 + (e & 1);
+    const float bias =
+        ELEM_BIAS ? brow[i][min(kv0 + c, Skv - 1)] : bias_row[c];
+    const float x = fmaf(sc[e], scale, bias);
+    sc[e] = kv0 + c < Skv ? x : -INFINITY;
+    mx[i] = fmaxf(mx[i], sc[e]);
   }
-  __syncthreads();
-  uint32_t qf[NK][4];  // A fragments of this warp's 16 q rows
-#pragma unroll
-  for (int kc = 0; kc < NK; ++kc) {
-    const bf16* p = qs + rq * LDH + 16 * kc + 2 * t;
-    qf[kc][0] = ld_pair(p);
-    qf[kc][1] = ld_pair(p + 8 * LDH);
-    qf[kc][2] = ld_pair(p + 8);
-    qf[kc][3] = ld_pair(p + 8 * LDH + 8);
-  }
-
-  float acc[NO][4];
-#pragma unroll
-  for (int j = 0; j < NO; ++j)
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-
-  for (int kv0 = 0; kv0 < Skv; kv0 += BK) {
-    __syncthreads();  // every warp is done with the previous ks/vt
-    for (int idx = threadIdx.x; idx < BK * VEC; idx += T_THREADS) {
-      const int rr = idx / VEC, c8 = (idx % VEC) * 8;
-      const int s = kv0 + rr;
-      *reinterpret_cast<uint4*>(ks + rr * LDH + c8) =
-          (s < Skv && c8 < D)
-              ? *reinterpret_cast<const uint4*>(kb + s * st.k[2] + c8)
-              : zero;
-    }
-    for (int idx = threadIdx.x; idx < BK * VEC; idx += T_THREADS) {
-      // kv fastest, so neighbouring lanes store neighbouring columns
-      const int rr = idx % BK, c8 = (idx / BK) * 8;
-      const int s = kv0 + rr;
-      uint4 val = (s < Skv && c8 < D)
-                      ? *reinterpret_cast<const uint4*>(vb + s * st.v[2] + c8)
-                      : zero;
-      const bf16* e = reinterpret_cast<const bf16*>(&val);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) vt[(c8 + i) * V_LD + rr] = e[i];
-    }
-    __syncthreads();
-
-    // scores: 16 rows x 64 kv columns, f32 in registers
-    float sc[NS][4];
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
-#pragma unroll
-      for (int kc = 0; kc < NK; ++kc) {
-        const bf16* p = ks + (8 * j + g) * LDH + 16 * kc + 2 * t;
-        const uint32_t bk[2] = {ld_pair(p), ld_pair(p + 8)};
-        mma_16816(sc[j], qf[kc], bk);
-      }
-    }
-
-    // online softmax over this tile for rows rq (i = 0) and rq + 8 (i = 1)
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1, kc = kv0 + 8 * j + 2 * t + (e & 1);
-        float s = sc[j][e] * scale;
-        if (kc >= Skv) {
-          s = -INFINITY;  // outside the sequence: excluded exactly
-        } else if (brow[i] != nullptr) {
-          s += brow[i][kc];
-        }
-        sc[j][e] = s;
-        mx[i] = fmaxf(mx[i], s);
-      }
-    float alpha[2], m_use[2], rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = max_xor(mx[i], 4);  // the 4 lanes of a group share the row
-      const float m_new = fmaxf(m[i], mx[i]);
-      // a row with no finite score yet keeps p = 0 instead of NaN
-      m_use[i] = m_new == -INFINITY ? 0.f : m_new;
-      alpha[i] = expf(m[i] - m_use[i]);
-      m[i] = m_new;
-    }
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = expf(sc[j][e] - m_use[e >> 1]);
-        sc[j][e] = p;
-        rs[e >> 1] += p;
-      }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + sum_xor(rs[i], 4);
-#pragma unroll
-    for (int j = 0; j < NO; ++j) {
-      acc[j][0] *= alpha[0];
-      acc[j][1] *= alpha[0];
-      acc[j][2] *= alpha[1];
-      acc[j][3] *= alpha[1];
-    }
-
-    // p v: probabilities rounded to bf16 (as the plain version rounds
-    // them to v's dtype), straight from the score registers
-#pragma unroll
-    for (int kc = 0; kc < BK / 16; ++kc) {
-      const uint32_t pa[4] = {
-          pack_bf16(sc[2 * kc][0], sc[2 * kc][1]),
-          pack_bf16(sc[2 * kc][2], sc[2 * kc][3]),
-          pack_bf16(sc[2 * kc + 1][0], sc[2 * kc + 1][1]),
-          pack_bf16(sc[2 * kc + 1][2], sc[2 * kc + 1][3])};
-#pragma unroll
-      for (int j = 0; j < NO; ++j) {
-        if (8 * j >= D) continue;  // padding slice of an odd-8 head dim
-        const bf16* p = vt + (8 * j + g) * V_LD + 16 * kc + 2 * t;
-        const uint32_t bv[2] = {ld_pair(p), ld_pair(p + 8)};
-        mma_16816(acc[j], pa, bv);
-      }
-    }
-  }
-
+  float m_use[2], alpha[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    if (qrow[i] >= Sq) continue;
-    if (acc_out != nullptr) {  // raw form: f32 accumulator, raw m and l
-      float* arow = acc_out + b * st.o[0] + h * st.o[1] + qrow[i] * st.o[2];
+    const float m_new = fmaxf(m[i], max_xor(mx[i], 4));
+    m_use[i] = m_new == -INFINITY ? 0.f : m_new;
+    alpha[i] = exp2f((m[i] - m_use[i]) * LOG2E);
+    m[i] = m_new;
+    l[i] *= alpha[i];
+  }
 #pragma unroll
-      for (int j = 0; j < NO; ++j) {
-        const int d = 8 * j + 2 * t;
-        if (d < D)
-          *reinterpret_cast<float2*>(arow + d) =
-              make_float2(acc[j][2 * i], acc[j][2 * i + 1]);
-      }
-      if (t == 0) {
-        const long long idx = ((long long)b * gridDim.y + h) * Sq + qrow[i];
-        m_out[idx] = m[i];
-        l_out[idx] = l[i];
-      }
-      continue;
-    }
-    const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;  // l == 0: zeros
-    bf16* orow = ob + qrow[i] * st.o[2];
+  for (int e = 0; e < 32; ++e) {
+    const int i = (e >> 1) & 1;
+    sc[e] = exp2f((sc[e] - m_use[i]) * LOG2E);
+    l[i] += sc[e];
+  }
 #pragma unroll
-    for (int j = 0; j < NO; ++j) {
-      const int d = 8 * j + 2 * t;
-      if (d < D)
-        *reinterpret_cast<__nv_bfloat162*>(orow + d) = __floats2bfloat162_rn(
-            acc[j][2 * i] * inv, acc[j][2 * i + 1] * inv);
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) o[nb][e] *= alpha[(e >> 1) & 1];
+}
+
+template <int NB, int FORM, int MIN_BLOCKS>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+    flash_fwd_sm90_kernel(const __grid_constant__ Maps maps, const Args a) {
+  using Lay = WLayout<NB, 1>;  // one own operand: q
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align_smem(smem_raw);
+  unsigned char* ring = base + Lay::RING;
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + Lay::BARS);
+  uint64_t* empty = full + STAGES;
+  uint64_t* own_bar = empty + STAGES;
+
+  const int q0 = blockIdx.x * ROWS, h = blockIdx.y, b = blockIdx.z;
+  const Strides& st = a.st;
+  const int n_tiles = (a.Skv + 63) / 64;
+  const float* bias_bh =
+      a.bias == nullptr ? nullptr : a.bias + b * st.bias[0] + h * st.bias[1];
+  const bool row_bias = bias_bh != nullptr && st.bias[2] == 0;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 32);
+      mbar_init(&empty[s], CONSUMERS);
     }
-    if (m_out != nullptr && t == 0) {  // the 4 lanes of a group agree
-      const long long idx = ((long long)b * gridDim.y + h) * Sq + qrow[i];
-      m_out[idx] = l[i] > 0.f ? m[i] : 0.f;
-      l_out[idx] = l[i] > 0.f ? l[i] : 1.f;
+    mbar_init(own_bar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  // producer warp: q once; k, v through the ring
+  if (warp_uniform_index() >= CONSUMERS / 32) {
+    if (threadIdx.x == CONSUMERS)
+      load_own<NB, 1>(base, own_bar, &maps.q, nullptr, q0, h, b);
+    const int lane = threadIdx.x & 31;
+    // a valid global address for the copies that read nothing
+    const float* dummy = static_cast<const float*>(a.o);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int kv0 = 64 * t;
+      produce<NB>(t, ring, full, empty, &maps.k, &maps.v, kv0, h, b,
+                  [&](float* rows) {  // the tile's padding-mask row, or 0
+                    for (int c = lane; c < 64; c += 32) {
+                      const bool in = row_bias && kv0 + c < a.Skv;
+                      cp_async_4(rows + c, in ? bias_bh + kv0 + c : dummy,
+                                 in);
+                    }
+                  });
+    }
+    return;
+  }
+
+  // consumers: the warpgroup owns q rows q0 .. q0 + 63
+  const int tid = threadIdx.x, g = (tid & 31) >> 2;
+  const int r0 = 16 * (tid >> 5) + g;  // this lane's rows: r0, r0 + 8
+  const int qrow[2] = {q0 + r0, q0 + r0 + 8};
+  const bool elem_bias = bias_bh != nullptr && !row_bias;
+  const float* brow[2];  // rows of a per-element bias (clamped to Sq)
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    brow[i] = elem_bias ? bias_bh + min(qrow[i], a.Sq - 1) * st.bias[2]
+                        : nullptr;
+  float o[NB][32];
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) o[nb][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  mbar_wait(own_bar, 0);
+  const uint32_t q_addr = smem_u32(base);
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = stage_of(t), kv0 = 64 * t;
+    mbar_wait(&full[s], full_parity(t));
+    unsigned char* stg = ring + s * Lay::STAGE;
+    const uint32_t k_addr = smem_u32(stg), v_addr = k_addr + Lay::TILE;
+    const float* bias_row = reinterpret_cast<const float*>(stg + 2 * Lay::TILE);
+    float sc[32];
+    score_product<NB>(sc, q_addr, k_addr);
+    if (elem_bias)
+      softmax_tile<NB, true>(sc, o, m, l, bias_row, brow, kv0, a.Skv,
+                             a.scale);
+    else
+      softmax_tile<NB, false>(sc, o, m, l, bias_row, brow, kv0, a.Skv,
+                              a.scale);
+    // o += p v: p rounded to bf16 as the register A operand, v read
+    // MN-major from the ring
+    uint32_t pa[4][4];
+    pack_acc(pa, sc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+        wgmma_rs_mn(o[nb], pa[kk], mnmajor_desc(v_addr + nb * BOX_BYTES, kk));
+    wg_commit();
+    wg_wait_all();
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) fence_acc(o[nb]);
+    mbar_arrive(&empty[s]);
+  }
+
+  // the normalizer: the 4 lanes of a row hold its partial sums
+#pragma unroll
+  for (int i = 0; i < 2; ++i) l[i] = sum_xor(l[i], 4);
+  const long long so = ((long long)b * a.H + h) * a.Sq;
+  if (FORM == RAW) {
+    const float one[2] = {1.f, 1.f};
+    store_rows<NB, float>(
+        static_cast<float*>(a.o) + b * st.o[0] + h * st.o[1], st.o[2], qrow,
+        a.Sq, a.D, one, o);
+  } else {
+    float inv[2];  // l == 0 (no finite score): zeros
+#pragma unroll
+    for (int i = 0; i < 2; ++i) inv[i] = l[i] > 0.f ? 1.f / l[i] : 0.f;
+    store_rows<NB, bf16>(static_cast<bf16*>(a.o) + b * st.o[0] + h * st.o[1],
+                         st.o[2], qrow, a.Sq, a.D, inv, o);
+  }
+  if (FORM != INFERENCE && (tid & 3) == 0) {  // the 4 lanes of a row agree
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (qrow[i] >= a.Sq) continue;
+      const bool parked = FORM == STATS && !(l[i] > 0.f);
+      a.m[so + qrow[i]] = parked ? 0.f : m[i];
+      a.l[so + qrow[i]] = parked ? 1.f : l[i];
     }
   }
 }
@@ -455,24 +455,26 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <int NK>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v,
-                        const void* bias, void* o, float* m_out,
-                        float* l_out, int B, int H, int Sq, int Skv, int D,
-                        float scale, const Strides& st, bool raw,
+template <int NB, int FORM>
+cudaError_t launch_sm90(const Maps& maps, const Args& a, int B,
                         cudaStream_t stream) {
-  const size_t smem = bf16_smem_bytes<NK>();
-  auto kernel = flash_fwd_bf16_kernel<NK>;
+  // three blocks an SM at D <= 64 (shared memory: ~61 KB a block), one at
+  // D up to 128
+  auto kernel = flash_fwd_sm90_kernel<NB, FORM, NB == 1 ? 3 : 1>;
+  const int smem = WLayout<NB, 1>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  kernel<<<grid, T_THREADS, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const float*>(bias),
-      raw ? nullptr : static_cast<bf16*>(o), m_out, l_out, Sq, Skv, D, scale,
-      st, raw ? static_cast<float*>(o) : nullptr);
+  dim3 grid((a.Sq + ROWS - 1) / ROWS, a.H, B);
+  kernel<<<grid, THREADS, smem, stream>>>(maps, a);
   return cudaGetLastError();
+}
+
+template <int FORM>
+cudaError_t launch_bf16(const Maps& maps, const Args& a, int B,
+                        cudaStream_t s) {
+  return a.D > 64 ? launch_sm90<2, FORM>(maps, a, B, s)
+                  : launch_sm90<1, FORM>(maps, a, B, s);
 }
 
 }  // namespace
@@ -485,7 +487,8 @@ extern "C" {
 // m_out / l_out: both null (inference form) or both contiguous float32
 // [B, H, Sq] (stats form).
 // bfloat16 q/k/v need 16-byte aligned pointers and strides that are
-// multiples of 8. Launches on `stream`, allocates nothing, returns
+// multiples of 8, positive on every dim longer than 1 (the TMA maps carry
+// them). Launches on `stream`, allocates nothing, returns
 // cudaGetLastError() (or cudaErrorInvalidValue / cudaErrorMisalignedAddress
 // for arguments the kernels do not take).
 static int forward(const void* q, const void* k, const void* v,
@@ -507,29 +510,30 @@ static int forward(const void* q, const void* k, const void* v,
     st.bias[i] = strides[12 + i];
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int n16 = (D + 15) / 16;
   if (dtype == 1) {
     if (!aligned16(q, st.q) || !aligned16(k, st.k) || !aligned16(v, st.v))
       return int(cudaErrorMisalignedAddress);
-    switch (n16) {
-#define MMF_CASE(n)                                                         \
-  case n:                                                                   \
-    return int(launch_bf16<n>(q, k, v, bias, o, m_out, l_out, B, H, Sq, Skv, \
-                              D, scale, st, raw, s));
-      MMF_CASE(1) MMF_CASE(2) MMF_CASE(3) MMF_CASE(4)
-      MMF_CASE(5) MMF_CASE(6) MMF_CASE(7) MMF_CASE(8)
-#undef MMF_CASE
-    }
-  } else {
-    switch (n16) {
+    Args a{};
+    a.bias = static_cast<const float*>(bias), a.o = o;
+    a.m = m_out, a.l = l_out;
+    a.H = H, a.Sq = Sq, a.Skv = Skv, a.D = D, a.scale = scale, a.st = st;
+    Maps maps;
+    if (!make_tile_map(&maps.q, q, D, Sq, H, B, st.q) ||
+        !make_tile_map(&maps.k, k, D, Skv, H, B, st.k) ||
+        !make_tile_map(&maps.v, v, D, Skv, H, B, st.v))
+      return int(cudaErrorInvalidValue);
+    if (raw) return int(launch_bf16<RAW>(maps, a, B, s));
+    return int(m_out == nullptr ? launch_bf16<INFERENCE>(maps, a, B, s)
+                                : launch_bf16<STATS>(maps, a, B, s));
+  }
+  switch ((D + 15) / 16) {
 #define MMF_CASE(n)                                                        \
   case n:                                                                  \
     return int(launch_f32<n>(q, k, v, bias, o, m_out, l_out, B, H, Sq, Skv, \
                              D, scale, st, raw, s));
-      MMF_CASE(1) MMF_CASE(2) MMF_CASE(3) MMF_CASE(4)
-      MMF_CASE(5) MMF_CASE(6) MMF_CASE(7) MMF_CASE(8)
+    MMF_CASE(1) MMF_CASE(2) MMF_CASE(3) MMF_CASE(4)
+    MMF_CASE(5) MMF_CASE(6) MMF_CASE(7) MMF_CASE(8)
 #undef MMF_CASE
-    }
   }
   return int(cudaErrorInvalidValue);
 }
@@ -555,6 +559,11 @@ int mmf_flash_attention_fwd_raw(const void* q, const void* k, const void* v,
                                 void* stream) {
   return forward(q, k, v, bias, acc, m_out, l_out, dtype, B, H, Sq, Skv, D,
                  strides, scale, true, stream);
+}
+
+// Dynamic shared memory of a bf16 K1 block at head dim D, for reports.
+int mmf_flash_attention_fwd_smem_bytes(int D) {
+  return D <= 64 ? WLayout<1, 1>::BYTES : WLayout<2, 1>::BYTES;
 }
 
 const char* mmf_cuda_error_string(int code) {

@@ -7,168 +7,219 @@
 // with int8 operands, an exact int32 sum (|sum| <= K * 127^2 < 2^31 for the
 // K the entry point takes), f32 per-row activation scales xs, f32
 // per-output-channel weight scales ws, an optional f32 bias, and a bfloat16
-// or float32 output. The weight is the port's [N, K] layout (K contiguous),
-// which is exactly the B operand of mma.sync ... .row.col: no transposed
-// copy is made.
+// or float32 output. x8 [M, K] and the port's [N, K] weight are both
+// K-major, the only layout the s8 wgmma takes: no copy is made.
 //
-// What bounds it on the H100: at the trunk's shapes (K, N in {768, 3072})
-// with M = 131 (MMBT, batch 1) each weight byte is used by at most 131 rows,
-// under the ~590 int8 operations per byte at which the 1979 TOP/s tensor
-// cores overtake the 3.35 TB/s memory: the weight read bounds it. At M =
-// 7296 (VisualBERT, bucket 32) the operations bound it. Design (a simple
-// kernel that is right; wgmma for s8, TMA and a pipelined ring are later
-// work):
-//   - one block of 4 warps per 64 x 64 output tile; it loops over K in
-//     64-byte slabs, each staged through shared memory with 16-byte loads
-//     (rows padded to 80 bytes, so the fragment loads below are free of
-//     bank conflicts);
-//   - each warp owns a 32 x 32 sub-tile: 2 x 4 mma.sync m16n8k32 (s8 x s8
-//     -> s32) per 32-byte step of K, int32 accumulators in registers;
+// What bounds it on the H100: at M = 7296 (VisualBERT, bucket 32) the
+// int8 operations against the 1979 TOP/s tensor cores (bf16 output) or
+// the output's bytes (f32), and in practice the traffic from L2 into
+// shared memory; at M = 131 and 1 (MMBT at batch 1) each weight byte is
+// used by at most 131 rows, under the ~590 operations per byte at which
+// the tensor cores overtake the 3.35 TB/s memory, so the weight read
+// bounds it, and a launch is a few microseconds of latency. Design
+// (warp-specialised; layouts in hopper.cuh):
+//   - a block is WG consumer warpgroups (64 output rows each) and one
+//     producer warp; the producer streams 128-byte slabs of K of the x8
+//     and w8 tiles through a ring of shared-memory stages by TMA (128-byte
+//     swizzle, zeros outside the matrices, so ragged M, N and K need no
+//     masks in the main loop); mbarriers count the bytes;
+//   - the consumers run wgmma m64nNk32 s8 x s8 -> s32 from shared memory,
+//     keeping one stage's products in flight while the next stage's are
+//     issued, and free a stage when its products are done;
+//   - large M: 128 x 128 output tiles, two consumer warpgroups, a 3-stage
+//     ring, two blocks an SM; small M (where those tiles would leave SMs
+//     idle): 64 x 64 tiles, one consumer warpgroup, a 4-stage ring, three
+//     blocks an SM. The wrapper (ops/quant.py, k5_tile) chooses from the
+//     shapes. Measured and dropped: 128 x 256 tiles (slower at every
+//     VisualBERT shape) and a split of K over the blocks of a thread-block
+//     cluster at small M (the cluster launch cost more than the shorter
+//     K loop saved at every MMBT shape);
 //   - the epilogue converts each int32 sum to f32 and applies the scales
 //     and the bias in the plain version's order, y * (xs * ws) + b, with
 //     round-to-nearest intrinsics so that no multiply-add is contracted,
-//     and writes the output dtype straight from registers;
-//   - ragged M and N edges are masked in the kernel (zero-filled operand
-//     rows, no stores outside the output); K must be a multiple of 16
-//     (whole 16-byte vectors), and a ragged last slab is zero-filled.
+//     into a padded row-major tile in shared memory (the idle ring), then
+//     copies it out in 16-byte chunks, masked at the ragged edges (writing
+//     straight from the accumulator layout left each 32-byte sector half
+//     written in bf16). No atomics: two runs give the same bits.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (mmf_tpu_torch/ops/_build.py); plain C entry
-//        point loaded with ctypes.
+//        point loaded with ctypes. TMA descriptors are encoded per call
+//        with cuTensorMapEncodeTiled through the runtime's
+//        cudaGetDriverEntryPoint, so the library needs no -lcuda.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int BM = 64;        // output rows per block
-constexpr int BN = 64;        // output columns per block
-constexpr int BK = 64;        // bytes of K per shared-memory slab
-constexpr int LDS = BK + 16;  // padded slab row, bytes
-constexpr int THREADS = 128;  // 4 warps, 2 x 2 over the tile
-constexpr int VECS = BK / 16;  // 16-byte vectors per slab row
+using namespace mmf_hopper;
 
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
-                                       const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+constexpr int SLAB = 128;    // bytes of K a stage holds (one swizzled row)
+constexpr int ALIGN = 1024;  // swizzled boxes start on 1 KB
+
+struct Args {
+  const float *xs, *ws, *bias;  // bias: null for none
+  void* out;
+  int M, N, K;
+};
+
+__device__ __forceinline__ void store_out2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_out2(__nv_bfloat16* p, float a,
+                                           float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-__device__ __forceinline__ uint32_t ld32(const int8_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);  // four int8, 4-byte aligned
+// The epilogue of one element, in the plain version's order.
+__device__ __forceinline__ float dequant(int y, float sx, float sw,
+                                         const float* bias, int col) {
+  const float v = __fmul_rn(__int2float_rn(y), __fmul_rn(sx, sw));
+  return bias == nullptr ? v : __fadd_rn(v, bias[col]);
 }
 
-__device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
+template <int WG, int BN, int STAGES>
+struct Layout {
+  static constexpr int BM = 64 * WG;
+  static constexpr int CONSUMERS = 128 * WG;
+  static constexpr int THREADS = CONSUMERS + 32;
+  static constexpr int A_BYTES = BM * SLAB;
+  static constexpr int STAGE = A_BYTES + BN * SLAB;
+  static constexpr int BARS = STAGES * STAGE;
+  static constexpr int BYTES = BARS + 2 * STAGES * 8 + ALIGN;
+};
 
-// Fragment layouts (PTX ISA, mma.m16n8k32 with .s8): lane (g = lane / 4,
-// t = lane % 4) holds
-//   A (16 x 32, row-major): a0 row g, bytes 4t..4t+3; a1 row g + 8, the
-//     same bytes; a2 row g, bytes 16 + 4t..; a3 row g + 8, bytes 16 + 4t..;
-//   B (32 x 8, "col"): column g, bytes 4t.. (b0) and 16 + 4t.. (b1) of K,
-//     so B is read from a [n][k] tile, contiguous in k;
-//   C/D (16 x 8, s32): rows g (c0, c1) and g + 8 (c2, c3), columns 2t,
-//     2t + 1.
-template <typename OutT>
-__global__ void __launch_bounds__(THREADS)
-int8_gemm_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-                 const float* __restrict__ xs, const float* __restrict__ ws,
-                 const float* __restrict__ bias, OutT* __restrict__ out,
-                 int M, int N, int K) {
-  __shared__ __align__(16) int8_t as[BM * LDS];
-  __shared__ __align__(16) int8_t bs[BN * LDS];
+// One block: output rows m0 .. m0 + BM - 1, columns n0 .. n0 + BN - 1.
+template <int WG, int BN, int STAGES, typename OutT, int MIN_BLOCKS>
+__global__ void __launch_bounds__(Layout<WG, BN, STAGES>::THREADS, MIN_BLOCKS)
+    int8_gemm_sm90_kernel(const __grid_constant__ CUtensorMap xmap,
+                          const __grid_constant__ CUtensorMap wmap,
+                          const Args a) {
+  using Lay = Layout<WG, BN, STAGES>;
+  constexpr int NACC = BN / 2;  // s32 accumulators a thread
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base =
+      smem_raw + ((ALIGN - smem_u32(smem_raw) % ALIGN) % ALIGN);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + Lay::BARS);
+  uint64_t* empty = full + STAGES;
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-
-  int acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0;
-
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    __syncthreads();  // every warp is done with the previous slab
-    for (int idx = threadIdx.x; idx < BM * VECS; idx += THREADS) {
-      const int r = idx / VECS, c = (idx % VECS) * 16;
-      const int kk = k0 + c;
-      const int gm = m0 + r, gn = n0 + r;
-      *reinterpret_cast<uint4*>(as + r * LDS + c) =
-          (gm < M && kk < K)
-              ? *reinterpret_cast<const uint4*>(x + (long long)gm * K + kk)
-              : zero;
-      *reinterpret_cast<uint4*>(bs + r * LDS + c) =
-          (gn < N && kk < K)
-              ? *reinterpret_cast<const uint4*>(w + (long long)gn * K + kk)
-              : zero;
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * Lay::BM;
+  const int n_t = (a.K + SLAB - 1) / SLAB;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], Lay::CONSUMERS);
     }
-    __syncthreads();
+    mbar_init_fence();
+  }
+  __syncthreads();
 
-#pragma unroll
-    for (int kc = 0; kc < BK; kc += 32) {
-      uint32_t af[2][4], bf[4][2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int8_t* p = as + (wm + 16 * i + g) * LDS + kc + 4 * t;
-        af[i][0] = ld32(p);
-        af[i][1] = ld32(p + 8 * LDS);
-        af[i][2] = ld32(p + 16);
-        af[i][3] = ld32(p + 8 * LDS + 16);
+  // producer warp: lane 0 keeps the ring filled
+  if (warp_uniform_index() >= Lay::CONSUMERS / 32) {
+    if ((threadIdx.x & 31) == 0)
+      for (int t = 0; t < n_t; ++t) {
+        const int s = t % STAGES;
+        if (t >= STAGES) mbar_wait(&empty[s], ((t / STAGES) - 1) & 1);
+        unsigned char* st = base + s * Lay::STAGE;
+        mbar_arrive_expect_tx(&full[s], Lay::STAGE);
+        tma_load_2d(st, &xmap, &full[s], t * SLAB, m0);
+        tma_load_2d(st + Lay::A_BYTES, &wmap, &full[s], t * SLAB, n0);
       }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int8_t* p = bs + (wn + 8 * j + g) * LDS + kc + 4 * t;
-        bf[j][0] = ld32(p);
-        bf[j][1] = ld32(p + 16);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_s8(acc[i][j], af[i], bf[j]);
-    }
+    return;
   }
 
+  // consumers: warpgroup wg owns output rows m0 + 64 wg .. + 63
+  const int tid = threadIdx.x, wg = tid >> 7;
+  int acc[NACC];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < NACC; ++i) acc[i] = 0;
+  for (int t = 0; t < n_t; ++t) {
+    const int s = t % STAGES;
+    mbar_wait(&full[s], (t / STAGES) & 1);
+    const uint32_t a_addr = smem_u32(base + s * Lay::STAGE) + wg * BOX_BYTES;
+    const uint32_t b_addr = smem_u32(base + s * Lay::STAGE + Lay::A_BYTES);
+    wg_fence();
 #pragma unroll
-    for (int e2 = 0; e2 < 2; ++e2) {
-      const int row = m0 + wm + 16 * i + g + 8 * e2;
-      if (row >= M) continue;
-      const float sx = xs[row];
-      OutT* orow = out + (long long)row * N;
+    for (int kk = 0; kk < SLAB / 32; ++kk)
+      wgmma_s8(acc, kmajor_desc(a_addr, kk), kmajor_desc(b_addr, kk));
+    wg_commit();
+    // the previous stage's products are done: free its stage
+    wg_wait<1>();
+    if (t > 0) mbar_arrive(&empty[(t - 1) % STAGES]);
+  }
+  wg_wait<0>();
+  fence_acc(acc);
+
+  // epilogue: dequantise this lane's rows (r, r + 8; column pairs
+  // 8 j + 2 t4) into shared memory, a padded row-major tile in the output
+  // dtype (the ring is idle once every consumer's products are done), then
+  // copy it out in 16-byte chunks, whole rows of a warp at a time
+  named_barrier(1, Lay::CONSUMERS);
+  constexpr int CH = 16 / sizeof(OutT);  // elements a chunk
+  constexpr int LDO = BN + CH;           // padded row: conflict-free pairs
+  static_assert(Lay::BM * LDO * sizeof(OutT) <= Lay::BARS,
+                "the output tile fits in the ring");
+  OutT* tile = reinterpret_cast<OutT*>(base);
+  const int g = (tid & 31) >> 2, t4 = tid & 3;
+  const int r_loc = 64 * wg + 16 * ((tid >> 5) & 3) + g;
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+  for (int i = 0; i < 2; ++i) {
+    const int rl = r_loc + 8 * i;
+    const float sx = a.xs[min(m0 + rl, a.M - 1)];  // rows past M: unused
 #pragma unroll
-        for (int e1 = 0; e1 < 2; ++e1) {
-          const int col = n0 + wn + 8 * j + 2 * t + e1;
-          if (col >= N) continue;
-          float v = __fmul_rn(__int2float_rn(acc[i][j][2 * e2 + e1]),
-                              __fmul_rn(sx, ws[col]));
-          if (bias != nullptr) v = __fadd_rn(v, bias[col]);
-          store_out(orow + col, v);
-        }
+    for (int j = 0; j < BN / 8; ++j) {
+      const int c = 8 * j + 2 * t4;
+      const int c0 = min(n0 + c, a.N - 1), c1 = min(n0 + c + 1, a.N - 1);
+      store_out2(tile + rl * LDO + c,
+                 dequant(acc[4 * j + 2 * i], sx, a.ws[c0], a.bias, c0),
+                 dequant(acc[4 * j + 2 * i + 1], sx, a.ws[c1], a.bias, c1));
     }
+  }
+  named_barrier(1, Lay::CONSUMERS);
+  constexpr int CPR = BN / CH;  // chunks a row
+  const bool whole = (a.N * sizeof(OutT)) % 16 == 0;  // aligned chunks
+  OutT* out = static_cast<OutT*>(a.out);
+  for (int idx = tid; idx < Lay::BM * CPR; idx += Lay::CONSUMERS) {
+    const int r = idx / CPR, c = (idx % CPR) * CH;
+    const int row = m0 + r, col = n0 + c;
+    if (row >= a.M || col >= a.N) continue;
+    const OutT* src = tile + r * LDO + c;
+    OutT* dst = out + (long long)row * a.N + col;
+    if (whole && col + CH <= a.N) {
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+    } else {
+      for (int e = 0; e < CH && col + e < a.N; ++e) dst[e] = src[e];
+    }
+  }
+}
+
+// tile 128: 128 x 128 output tiles; tile 64: 64 x 64
+template <int WG, int BN, int STAGES, typename OutT, int MIN_BLOCKS>
+cudaError_t launch(const void* x8, const void* w8, const Args& a,
+                   cudaStream_t stream) {
+  using Lay = Layout<WG, BN, STAGES>;
+  CUtensorMap xmap, wmap;
+  if (!make_int8_map(&xmap, x8, a.M, a.K, Lay::BM) ||
+      !make_int8_map(&wmap, w8, a.N, a.K, BN))
+    return cudaErrorInvalidValue;
+  auto kernel = int8_gemm_sm90_kernel<WG, BN, STAGES, OutT, MIN_BLOCKS>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Lay::BYTES);
+  if (err != cudaSuccess) return err;
+  dim3 grid((a.N + BN - 1) / BN, (a.M + Lay::BM - 1) / Lay::BM);
+  kernel<<<grid, Lay::THREADS, Lay::BYTES, stream>>>(xmap, wmap, a);
+  return cudaGetLastError();
 }
 
 template <typename OutT>
-cudaError_t launch(const void* x, const void* w, const float* xs,
-                   const float* ws, const float* bias, void* out, int M,
-                   int N, int K, cudaStream_t stream) {
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  int8_gemm_kernel<OutT><<<grid, THREADS, 0, stream>>>(
-      static_cast<const int8_t*>(x), static_cast<const int8_t*>(w), xs, ws,
-      bias, static_cast<OutT*>(out), M, N, K);
-  return cudaGetLastError();
+cudaError_t launch_tile(int tile, const void* x8, const void* w8,
+                        const Args& a, cudaStream_t s) {
+  return tile == 128 ? launch<2, 128, 3, OutT, 2>(x8, w8, a, s)
+                     : launch<1, 64, 4, OutT, 3>(x8, w8, a, s);
 }
 
 }  // namespace
@@ -179,24 +230,28 @@ extern "C" {
 // channel); xs: f32 [M]; ws: f32 [N]; bias: f32 [N] or null; out: [M, N]
 // row-major, float32 (out_dtype 0) or bfloat16 (out_dtype 1). K must be a
 // positive multiple of 16 with K * 127^2 < 2^31, and x8, w8 16-byte
-// aligned. Launches on `stream`, allocates nothing, returns
-// cudaGetLastError() (or cudaErrorInvalidValue /
-// cudaErrorMisalignedAddress for arguments the kernel does not take).
+// aligned. tile: 128 (128 x 128 output tiles) or 64 (64 x 64). Launches
+// on `stream`, allocates nothing, returns cudaGetLastError() (or
+// cudaErrorInvalidValue / cudaErrorMisalignedAddress for arguments the
+// kernel does not take).
 int mmf_int8_gemm(const void* x8, const void* w8, const float* xs,
                   const float* ws, const float* bias, void* out,
-                  int out_dtype, int M, int N, int K, void* stream) {
+                  int out_dtype, int M, int N, int K, int tile,
+                  void* stream) {
   if (M < 0 || N < 0 || K <= 0 || K % 16 != 0 ||
       (long long)K * 127 * 127 >= (1LL << 31) ||
-      (M + BM - 1) / BM > 65535 || (out_dtype != 0 && out_dtype != 1))
+      (tile != 64 && tile != 128) || (M + tile - 1) / tile > 65535 ||
+      (out_dtype != 0 && out_dtype != 1))
     return int(cudaErrorInvalidValue);
   if (reinterpret_cast<uintptr_t>(x8) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(w8) % 16 != 0)
     return int(cudaErrorMisalignedAddress);
   if (M == 0 || N == 0) return 0;
+  Args a{xs, ws, bias, out, M, N, K};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (out_dtype == 1)
-    return int(launch<__nv_bfloat16>(x8, w8, xs, ws, bias, out, M, N, K, s));
-  return int(launch<float>(x8, w8, xs, ws, bias, out, M, N, K, s));
+    return int(launch_tile<__nv_bfloat16>(tile, x8, w8, a, s));
+  return int(launch_tile<float>(tile, x8, w8, a, s));
 }
 
 const char* mmf_cuda_error_string(int code) {

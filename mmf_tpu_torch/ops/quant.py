@@ -20,8 +20,10 @@ Pieces:
   ``ops/csrc/int8_gemm.cu`` (K5), which replaces the Pallas kernel
   ``mmf_tpu/ops/quant.py::_dequant_gemm_kernel``. CUDA tensors only: it
   launches or raises, and counts its launches. Unlike the TPU kernel it
-  takes any M and N (ragged edges are masked in the kernel) and any K
-  that is a multiple of 16 with K * 127^2 < 2^31; other K raise.
+  takes any M and N (ragged edges are zero-filled by TMA and masked in
+  the epilogue) and any K that is a multiple of 16 with K * 127^2 <
+  2^31; other K raise. ``k5_tile`` picks the kernel's output tile from
+  the shapes.
 - ``dequant_gemm_reference``: the plain version. The int32 product is
   computed exactly through a float64 matmul (|sum| < 2^53), then the
   epilogue runs as JAX's XLA path does: ``y * (xs * ws) + bias``.
@@ -46,6 +48,7 @@ quantised projection launches K5.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -54,6 +57,27 @@ from torch import nn
 # |sum_k x8 w8| <= K * 127^2 must stay below 2^31 for the int32 sum
 MAX_K = (2 ** 31 - 1) // (127 * 127)
 _OUT_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# K5's output tiles: 128 x 128 (two consumer warpgroups) where those
+# alone give every SM a block, else 64 x 64 (one warpgroup)
+K5_LARGE, K5_SMALL = 128, 64
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def k5_tile(m: int, n: int, sms: int = 132) -> int:
+    """K5's output tile (128 or 64 rows and columns) for an [m, n] output
+    on a card with ``sms`` SMs: 128 x 128 tiles when there are at least
+    as many of them as SMs, else 64 x 64 tiles, four times as many
+    blocks."""
+    return (K5_LARGE if _cdiv(m, K5_LARGE) * _cdiv(n, K5_LARGE) >= sms
+            else K5_SMALL)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def quantize_rows(x: torch.Tensor, eps: float = 1e-6):
@@ -87,7 +111,7 @@ def _lib():
     lib, info = load_library("int8_gemm", ["int8_gemm.cu"])
     if not getattr(lib, "_mmf_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.mmf_int8_gemm.argtypes = [p] * 6 + [i] * 4 + [p]
+        lib.mmf_int8_gemm.argtypes = [p] * 6 + [i] * 5 + [p]
         lib.mmf_int8_gemm.restype = ctypes.c_int
         lib.mmf_cuda_error_string.argtypes = [ctypes.c_int]
         lib.mmf_cuda_error_string.restype = ctypes.c_char_p
@@ -152,12 +176,13 @@ def dequant_gemm(x8: torch.Tensor, w8: torch.Tensor, xs: torch.Tensor,
     if out.numel() == 0:
         return out
     lib, _ = _lib()
+    tile = k5_tile(m, n, _sm_count(x8.device.index))
     with torch.cuda.device(x8.device):
         stream = torch.cuda.current_stream(x8.device).cuda_stream
         rc = lib.mmf_int8_gemm(
             x8.data_ptr(), w8.data_ptr(), xs.data_ptr(), ws.data_ptr(),
             None if bias is None else bias.data_ptr(), out.data_ptr(),
-            _OUT_CODE[out_dtype], m, n, k, stream,
+            _OUT_CODE[out_dtype], m, n, k, tile, stream,
         )
     if rc != 0:
         raise RuntimeError(

@@ -311,11 +311,16 @@ def test_training_forward_routes_attention_dropout_to_plain(card):
         assert not torch.equal(scores(1), scores(2))
 
 
-# K5 shapes (M, K, N): MMBT's pooler and trunk at batch 1, VisualBERT at
-# bucket 32, and ragged edges (M, N not multiples of the 64 x 64 tile, K
-# not a multiple of the 64-byte slab)
-K5_SHAPES = [(1, 768, 768), (131, 768, 3072), (131, 3072, 768),
-             (7296, 768, 3072), (37, 48, 70), (65, 16, 9)]
+# K5 shapes (M, K, N) with the output tile k5_tile picks: MMBT's pooler and
+# trunk at batch 1 (M = 1, 131) on 64 x 64 tiles, VisualBERT at bucket 32
+# (M = 7296, and its visual projection's M = 3200) on 128 x 128; ragged
+# edges: M, N not multiples of the tiles (odd N included: no 16-byte chunks
+# in the epilogue's copy), K = 16 and 48 (one partial 128-byte slab)
+K5_SHAPES = [((1, 768, 768), 64), ((131, 768, 3072), 64),
+             ((131, 3072, 768), 64), ((7296, 768, 3072), 128),
+             ((37, 48, 70), 64), ((65, 16, 9), 64), ((64, 48, 70), 64),
+             ((131, 768, 768), 64), ((131, 256, 130), 64),
+             ((3200, 2048, 768), 128), ((7296, 3072, 771), 128)]
 
 
 def _k5_bound(ref_scaled, bias, ref, out_dtype):
@@ -330,9 +335,12 @@ def _k5_bound(ref_scaled, bias, ref, out_dtype):
 
 
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", K5_SHAPES)
-def test_int8_gemm_matches_plain(card, out_dtype, shape):
+@pytest.mark.parametrize("shape,tile", K5_SHAPES)
+def test_int8_gemm_matches_plain(card, out_dtype, shape, tile):
+    """K5 at both output tiles against its plain version; one launch a
+    call; a second call gives the same bits."""
     m, k, n = shape
+    assert Q.k5_tile(m, n) == tile
     g = torch.Generator(device=card).manual_seed(m + k + n)
     x = torch.randn(m, k, device=card, generator=g)
     w = 0.02 * torch.randn(n, k, device=card, generator=g)
@@ -342,8 +350,10 @@ def test_int8_gemm_matches_plain(card, out_dtype, shape):
     for bias in (None, 0.1 * torch.randn(n, device=card, generator=g)):
         before = Q.dequant_gemm.launches
         out = Q.dequant_gemm(x8, w8, xs, ws, bias, out_dtype)
+        again = Q.dequant_gemm(x8, w8, xs, ws, bias, out_dtype)
         torch.cuda.synchronize()
-        assert Q.dequant_gemm.launches == before + 1
+        assert Q.dequant_gemm.launches == before + 2
+        assert torch.equal(out, again)
         assert out.dtype == out_dtype and out.shape == (m, n)
         ref = Q.dequant_gemm_reference(x8, w8, xs, ws, bias, out_dtype)
         scaled = Q.dequant_gemm_reference(x8, w8, xs, ws, None,
@@ -404,3 +414,72 @@ def test_quant_dense_runs_k5_on_the_card(card):
                                rtol=1e-5, atol=1e-4)
     torch.testing.assert_close(xg.grad.cpu().float(), xc.grad.float(),
                                rtol=1e-2, atol=1e-3)
+
+
+# K1's three forms at the head dims the wgmma kernel boxes differently
+# (D = 16 zero-padded to one 64-column box, 64 one box, 128 two), Sq != Skv
+# with ragged tiles, and a long kv; a padding-mask row (stride 0 over
+# heads and q rows) or a per-element bias, each with rows that have no
+# finite score at all
+FWD_SHAPES = [(2, 3, 100, 150, 16), (2, 3, 100, 150, 64),
+              (2, 3, 100, 150, 128), (1, 2, 1024, 1024, 16),
+              (1, 2, 1024, 1024, 64), (1, 2, 1024, 1024, 128)]
+
+
+def _fwd_case(card, dtype, shape, bias_kind, seed=11):
+    b, h, sq, skv, d = shape
+    q, k, v, _, _ = _bwd_case(card, dtype, b, h, sq, skv, d, seed=seed)
+    g = torch.Generator(device=card).manual_seed(seed + 1)
+    if bias_kind == "row":
+        mask = (torch.rand(b, skv, device=card, generator=g) > 0.3).int()
+        mask[:, 0] = 1
+        bias = A.make_attention_bias(mask)
+        bias[-1] = float("-inf")  # the last batch attends to nothing
+        empty = torch.zeros(b, h, sq, dtype=torch.bool, device=card)
+        empty[-1] = True
+    else:
+        bias = torch.randn(b, 1, sq, skv, device=card, generator=g)
+        bias[..., 1::5] = float("-inf")
+        bias[:, :, 3] = float("-inf")  # q row 3 attends to nothing
+        empty = torch.zeros(b, h, sq, dtype=torch.bool, device=card)
+        empty[:, :, 3] = True
+    return q, k, v, bias, empty
+
+
+@pytest.mark.parametrize("bias_kind", ["row", "element"])
+@pytest.mark.parametrize("shape", FWD_SHAPES)
+def test_flash_forward_forms_match_plain(card, no_tf32, shape, bias_kind):
+    """K1's inference, stats and raw-stats forms (bf16, the wgmma kernel)
+    against their plain versions; rows with no finite score give zeros
+    (inference), parked m = 0, l = 1 (stats) and m = -inf, l = 0, acc = 0
+    (raw); a second call gives the same bits."""
+    dtype = torch.bfloat16
+    q, k, v, bias, empty = _fwd_case(card, dtype, shape, bias_kind)
+    counts = (A.flash_attention.launches,
+              A.flash_attention_with_stats.launches,
+              A.flash_attention_block.launches)
+    runs = [[A.flash_attention(q, k, v, bias),
+             *A.flash_attention_with_stats(q, k, v, bias),
+             *A.flash_attention_block(q, k, v, bias)] for _ in range(2)]
+    torch.cuda.synchronize()
+    assert (A.flash_attention.launches,
+            A.flash_attention_with_stats.launches,
+            A.flash_attention_block.launches) == tuple(c + 2 for c in counts)
+    for first, second in zip(*runs):
+        assert torch.equal(first, second)
+    out, out_s, m, l, acc, m_raw, l_raw = runs[0]
+    ref_out, ref_m, ref_l = A.flash_forward_reference(q, k, v, bias)
+    assert not torch.isnan(out).any()
+    torch.testing.assert_close(out, ref_out, **TOL[dtype])
+    assert torch.equal(out, out_s)
+    torch.testing.assert_close(m, ref_m, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(l, ref_l, atol=1e-4, rtol=1e-4)
+    ref_acc, ref_mr, ref_lr = A.flash_attention_block_reference(q, k, v, bias)
+    torch.testing.assert_close(m_raw, ref_mr, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(l_raw, ref_lr, atol=1e-4, rtol=1e-4)
+    _assert_rel(acc, ref_acc, 1e-2, "acc")
+    assert empty.any()
+    assert (out.float()[empty] == 0).all()
+    assert (m[empty] == 0).all() and (l[empty] == 1).all()
+    assert torch.isneginf(m_raw[empty]).all() and (l_raw[empty] == 0).all()
+    assert (acc[empty] == 0).all()

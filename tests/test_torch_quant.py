@@ -165,3 +165,21 @@ def test_quant_knob_keeps_every_state_dict_key(monkeypatch):
         # the classifier stays a plain Dense, as in JAX
         assert type(model.classifier_logits if name == "visual_bert"
                     else model.classifier) is Dense
+
+
+@pytest.mark.parametrize("m,n,tile", [
+    # 128 x 128 tiles once they alone give each of the 132 SMs a block
+    (7296, 3072, 128), (7296, 768, 128), (3200, 768, 128), (1408, 1536, 128),
+    # else 64 x 64 tiles: MMBT's trunk and pooler, VisualBERT's pooler
+    (131, 3072, 64), (131, 768, 64), (1, 768, 64), (32, 768, 64),
+    (1408, 1408, 64), (64, 70, 64), (1, 9, 64),
+])
+def test_k5_tile_follows_the_output_shape(m, n, tile):
+    assert tq.k5_tile(m, n) == tile
+
+
+def test_k5_tile_follows_the_sm_count():
+    assert tq.k5_tile(1024, 1024, sms=64) == 128
+    assert tq.k5_tile(1024, 1024, sms=65) == 64
+    assert tq.k5_tile(131, 3072, sms=48) == 128
+    assert tq.k5_tile(131, 3072, sms=49) == 64
