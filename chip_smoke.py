@@ -9,10 +9,11 @@ the script exits non-zero without a result line):
               build of every kernel on the serving and training paths
               from this checkout's sources, all started together: nvcc
               for the CUDA flash-attention forward (K1) and backward (K2,
-              K3) and the int8 GEMM (K5), Triton's JIT for the LayerNorm
-              (K4), with build times, and the wgmma kernels' registers,
-              spills and shared memory (K1, K2, K3, K5) and ptxas's
-              C75xx notes (a serialised wgmma shows there).
+              K3), the int8 GEMM (K5) and the LayerNorm backward
+              (K4-bwd), Triton's JIT for the LayerNorm (K4), with build
+              times, and the registers and spills of the wgmma kernels
+              (K1, K2, K3, K5, with their shared memory) and of K4-bwd's,
+              and ptxas's C75xx notes (a serialised wgmma shows there).
 2. kernels  - each kernel against its plain PyTorch version on the card
               at the main paths' shapes, with stated tolerances, and both
               timed (best of several runs): K1 in its inference, stats
@@ -22,12 +23,18 @@ the script exits non-zero without a result line):
               bit-equal; B=64 S=228, B=8 Sq=128 Skv=100 and a long-kv
               case B=8 S=1024), all five by device_ms with CUDA events
               over back-to-back calls beside them, and the wrappers' host
-              time per call; K4; and K5 at the MMBT trunk's and pooler's
-              shapes (M = 131 and 1) and VisualBERT's bucket 32 (M =
-              7296), by device_ms, with its wrapper's host time.
+              time per call; K4 in its four forms (bf16, f32, with and
+              without the residual) at [14592, 768] and bf16 at bucket
+              32's [7296, 768], and K4-bwd in the four forms at [14592,
+              768] (two calls bit-equal), by device_ms over input sets
+              rotated so that every call reads device memory, with the
+              wrappers' host time; and K5 at the MMBT trunk's and
+              pooler's shapes (M = 131 and 1) and VisualBERT's bucket 32
+              (M = 7296), by device_ms, with its wrapper's host time.
               F.scaled_dot_product_attention (forward, forward with the
-              rows' logsumexp, backward; by device_ms), F.layer_norm and
-              torch._int_mm are timed beside them for information; each
+              rows' logsumexp, backward; by device_ms), F.layer_norm
+              (forward and backward, by device_ms) and torch._int_mm are
+              timed beside them for information; each
               kernel's bound (bytes over the memory rate, operations over
               the peak rate) is computed from its shapes.
 3. serving  - VisualBERT-base at full width (12 x 768, 12 heads, 3129
@@ -47,8 +54,9 @@ the script exits non-zero without a result line):
               config (AdamW lr 5e-5, BERT no-decay groups, warmup_cosine
               with its warmup cut to 2 updates, logit_bce) on B=64 VQA2
               batches: 1 warm-up and 6 timed steps, finite losses, exact
-              launch counts per step, ms per step, samples/s, peak memory
-              and device time; then 3 steps through the kernels against
+              launch counts per step (K4-bwd included), ms per step,
+              samples/s, peak memory and device time by kind of kernel;
+              then 3 steps through the kernels against
               3 steps through the plain versions from the same weights and
               batch at dropout 0, with each side's launches counted (the
               losses, the last after an update at lr > 0; per-parameter
@@ -77,6 +85,7 @@ last line {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
 import contextlib
+import itertools
 import json
 import math
 import os
@@ -132,6 +141,18 @@ STATS_TOL = dict(atol=1e-4, rtol=1e-4)
 # each tile's running max (the plain version rounds them at the final max)
 RAW_REL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 LONG_S = 1024  # the long-kv case: B=8, Sq = Skv = 1024
+# K4-bwd against its plain backward, relative to the largest entry: dx in
+# f32 the same formulas in other summation orders, in bf16 rounded to bf16
+# (one ulp is 2^-8 relative); dscale and dbias are f32 sums of the same
+# f32 products in both dtypes
+LN_DX_REL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+LN_PARAM_REL = 1e-5
+# LayerNorm timings rotate over input sets that together hold at least
+# this many bytes of what a call reads (L2 holds 50 MB), cut from a pool
+# of LN_POOL [14592, 768] tensors each of x, residual and dy
+ROTATE_BYTES = 150e6
+LN_POOL = 7
+SERVE_B = 32  # the serving phase's bucket
 TRAIN_B, TRAIN_STEPS = 64, 6
 # training step through the kernels vs through the plain versions, same
 # weights and batch, dropout 0, bf16 compute: both round activations to
@@ -277,6 +298,7 @@ KERNELS = {  # name in the report -> the wrapper that counts launches
     "flash_attention_bwd_dq": A.flash_attention_bwd_dq,
     "flash_attention_bwd_dkv": A.flash_attention_bwd_dkv,
     "layer_norm": L.layer_norm_kernel,
+    "layer_norm_bwd": L.layer_norm_backward_kernel,
     "int8_dequant_gemm": Q.dequant_gemm,
 }
 ZERO_COUNTS = {name: 0 for name in KERNELS}
@@ -295,12 +317,13 @@ def _short_name(mangled):
     """A kernel's short name with its template arguments, e.g.
     ``flash_fwd_sm90_kernel<1,0,3>`` or ``int8_gemm_sm90_kernel<1,64,4,4,
     bf16,3>``."""
-    short = re.search(r"\d((?:bwd_d|flash_fwd_|int8_)\w*?_kernel)(I.*?E)?Ev",
-                      mangled)
+    short = re.search(r"\d((?:bwd_d|flash_fwd_|int8_|ln_bwd)\w*?_kernel)"
+                      r"(?:(I.*?E)?Ev|E)", mangled)
     if short is None:
         return mangled[-40:]
-    args = ["bf16" if t == "13__nv_bfloat16" else "f32" if t == "f" else n
-            for n, t in re.findall(r"Li(\d+)E|(13__nv_bfloat16|f)",
+    kinds = {"13__nv_bfloat16": "bf16", "6__half": "f16", "f": "f32"}
+    args = [kinds.get(t, n)
+            for n, t in re.findall(r"Li(\d+)E|(13__nv_bfloat16|6__half|f)",
                                    short.group(2) or "")]
     return short.group(1) + (f"<{','.join(args)}>" if args else "")
 
@@ -342,6 +365,7 @@ def phase_build(card):
     jobs = {"flash_attention_fwd": A.build_flash_attention,
             "flash_attention_bwd": A.build_flash_attention_bwd,
             "int8_gemm": Q.build_int8_gemm,
+            "layer_norm_bwd": L.build_layer_norm_bwd,
             "layer_norm": _ln_build}
     done, errors = {}, []
 
@@ -363,7 +387,8 @@ def phase_build(card):
         raise errors[0]
     wall = time.perf_counter() - t0
     parts, reports = [], {}
-    for name in ("flash_attention_fwd", "flash_attention_bwd", "int8_gemm"):
+    for name in ("flash_attention_fwd", "flash_attention_bwd", "int8_gemm",
+                 "layer_norm_bwd"):
         info, _ = done[name]
         kernels = ptxas_report(info["ptxas"])
         notes = re.findall(r"\((C75\d\d)\)", info["ptxas"])
@@ -372,17 +397,19 @@ def phase_build(card):
                      "spills; ptxas notes " + (", ".join(
                          f"{c} x{notes.count(c)}" for c in sorted(set(
                              notes))) or "none") + ")")
-        reports[name] = [k for k in kernels if "sm90" in k[0]]
+        reports[name] = [k for k in kernels
+                         if "sm90" in k[0] or "ln_bwd" in k[0]]
     smem = (A._fwd_lib()[0].mmf_flash_attention_fwd_smem_bytes(HEAD_DIM),
             A._bwd_lib()[0].mmf_flash_attention_bwd_smem_bytes(HEAD_DIM))
     parts.append(f"layer_norm triton jit {done['layer_norm'][1]:.1f}s")
     print(f"phase build: ok card='{card}' torch={torch.__version__} "
           f"cuda={torch.version.cuda}; built in parallel in {wall:.1f}s: "
           + "; ".join(parts))
-    print("  wgmma kernels (ptxas: registers, spill store bytes; C7510, "
-          "C7515 and C7520 would mean serialised products; bf16 K1 takes "
-          f"{smem[0]} B of dynamic smem a block at D={HEAD_DIM}, K2 and K3 "
-          f"{smem[1]} B):")
+    print("  wgmma kernels and K4-bwd's (ptxas: registers, spill store "
+          "bytes; C7510, C7515 and C7520 would mean serialised products; "
+          f"bf16 K1 takes {smem[0]} B of dynamic smem a block at "
+          f"D={HEAD_DIM}, K2 and K3 {smem[1]} B; K4-bwd's template "
+          "arguments: dtype, 16-byte vectors a lane, warps a row):")
     for name, kernels in reports.items():
         print(f"    {name}: " + "; ".join(
             f"{n} {r} regs, {sp} B spills" for n, r, sp, _ in kernels))
@@ -448,7 +475,7 @@ def phase_kernels(card):
     g = torch.Generator(device=DEV).manual_seed(0)
     names = ("flash_attention_fwd", "flash_attention_fwd_stats",
              "flash_attention_fwd_raw", "flash_attention_bwd_dq",
-             "flash_attention_bwd_dkv", "layer_norm")
+             "flash_attention_bwd_dkv")
     results = {n: {"err": 0.0} for n in names}
     lines = []
     cases = [(b, S, S, dt) for b in (1, 64)
@@ -597,7 +624,10 @@ def phase_kernels(card):
                 results[name].update(library_ms=lib_dev,
                                      library_events_ms=lib_ev,
                                      host_us=host[wrapper])
-            results["flash_attention_fwd_raw"]["host_us"] = host["K1-raw"]
+            for name, wrapper in (("flash_attention_fwd_raw", "K1-raw"),
+                                  ("flash_attention_bwd_dq", "K2"),
+                                  ("flash_attention_bwd_dkv", "K3")):
+                results[name]["host_us"] = host[wrapper]
             # no PyTorch call returns the unnormalized state
             results["flash_attention_fwd_raw"]["library_ms"] = None
             # the SDPA backward computes dq, dk and dv together: one
@@ -630,54 +660,199 @@ def phase_kernels(card):
             f"sdpa fwd+lse {sdpa_lse:.4f}, sdpa bwd {sdpa_bwd:.4f}; host us "
             "per wrapper call " + ", ".join(
                 f"{n} {us:.1f}" for n, us in host.items()))
-    rows = 64 * S
-    for dt in (torch.bfloat16, torch.float32):
-        x = torch.randn(rows, HIDDEN, device=DEV, generator=g).to(dt)
-        res = torch.randn(rows, HIDDEN, device=DEV, generator=g).to(dt)
-        w = 1.0 + 0.1 * torch.randn(HIDDEN, device=DEV, generator=g)
-        bb = 0.1 * torch.randn(HIDDEN, device=DEV, generator=g)
-        dy = torch.randn(rows, HIDDEN, device=DEV, generator=g).to(dt)
-        for residual in (None, res):
-            out = L.layer_norm_kernel(x, w, bb, residual)
-            torch.cuda.synchronize()
-            err = max_err(out, L._ln_reference(x, residual, w, bb, 1e-12),
-                          dt)
-            r = results["layer_norm"]
-            r["err"] = max(r["err"], err)
-            kern = time_ms(lambda: L.layer_norm_kernel(x, w, bb, residual))
-            plain = time_ms(lambda: L._ln_reference(x, residual, w, bb,
-                                                    1e-12))
-            stock = time_ms(lambda: F.layer_norm(
-                x if residual is None else x + residual, (HIDDEN,),
-                w.to(dt), bb.to(dt), 1e-12))
-            # the backward (VJP of the plain version, as in JAX)
-            leaves = [t.detach().requires_grad_()
-                      for t in (x, residual, w, bb) if t is not None]
-            xi, *rest = leaves
-            ri = rest.pop(0) if residual is not None else None
-            y = L.layer_norm(xi, rest[0], rest[1], ri)
-            bwd = time_ms(lambda: torch.autograd.grad(
-                y, leaves, dy, retain_graph=True), iters=10)
-            if dt == torch.bfloat16 and residual is not None:
-                r["ms"], r["plain_ms"], r["library_ms"] = kern, plain, stock
-                r["bound_ms"], r["bound_by"] = bound(
-                    _nbytes(x, residual, w, bb, out), 8 * x.numel(), dt)
-                r["bwd_ms"] = bwd
-            lines.append(f"  layer_norm [{rows}, {HIDDEN}] {str(dt)[6:]} "
-                         f"residual={residual is not None}: "
-                         f"max_abs_err={err:.3g} kernel {kern:.4f} ms, "
-                         f"plain {plain:.4f} ms, F.layer_norm(+add) "
-                         f"{stock:.4f} ms; backward (plain VJP) "
-                         f"{bwd:.4f} ms")
+    results["layer_norm"], results["layer_norm_bwd"] = _layer_norm_cases(
+        g, lines)
     results["int8_dequant_gemm"] = _k5_cases(g, lines)
     print(f"phase kernels: ok (card '{card}'; tolerances f32 "
           f"{TOL[torch.float32]}, bf16 {TOL[torch.bfloat16]}; stats "
           f"{STATS_TOL}; gradients relative {GRAD_REL[torch.float32]} / "
           f"{GRAD_REL[torch.bfloat16]} of the largest entry, 1.5x that "
-          "against autograd through mha_reference; K5 f32 within 2 ulp of "
-          "its epilogue's operands, bf16 within 1 bf16 ulp)")
+          "against autograd through mha_reference; K4-bwd dx relative "
+          f"{LN_DX_REL[torch.float32]} / {LN_DX_REL[torch.bfloat16]}, "
+          f"dscale and dbias {LN_PARAM_REL}; "
+          "K5 f32 within 2 ulp of its epilogue's operands, bf16 within 1 "
+          "bf16 ulp)")
     print("\n".join(lines))
     return results
+
+
+def rotating(fn, sets):
+    """A callable that runs ``fn(*set)`` on the next of ``sets`` at each
+    call, so that calls timed back to back read device memory, not L2."""
+    it = itertools.cycle(sets)
+    return lambda: fn(*next(it))
+
+
+def _ln_sets(pool, rows, per_call_bytes):
+    """Input sets (x, residual, dy) of ``rows`` rows cut from ``pool``
+    ([n, R, H] tensors, R a multiple of ``rows``): at least three, and at
+    least ROTATE_BYTES of what one call reads in all."""
+    n = max(3, math.ceil(ROTATE_BYTES / per_call_bytes))
+    per = pool[0].shape[1] // rows
+    check(n <= pool[0].shape[0] * per, f"{n} LayerNorm input sets at {rows} "
+          "rows: the pool is too small")
+    return [tuple(t[i // per, (i % per) * rows:(i % per + 1) * rows]
+                  for t in pool) for i in range(n)]
+
+
+def _ln_library_backward(x, residual, w, bb, dy):
+    """One F.layer_norm forward after the residual add (weights in x's
+    dtype), and a callable running its backward alone: dx, dweight and
+    dbias (the add's backward launches nothing)."""
+    h = (x if residual is None else x + residual).detach().requires_grad_()
+    leaves = [h] + [t.detach().to(x.dtype, copy=True).requires_grad_()
+                    for t in (w, bb)]
+    y = F.layer_norm(h, (HIDDEN,), leaves[1], leaves[2], 1e-12)
+    return lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True)
+
+
+def _ln_plain_vjp(x, residual, w, bb, dy):
+    """The backward before K4-bwd (and JAX's): autograd's VJP of the plain
+    forward, recomputed. A callable running it."""
+    leaves = [t.detach().requires_grad_()
+              for t in (x, residual, w, bb) if t is not None]
+    xi, *rest = leaves
+    ri = rest.pop(0) if residual is not None else None
+    y = L._ln_reference(xi, ri, rest[0], rest[1], 1e-12)
+    return lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True)
+
+
+def _layer_norm_cases(g, lines):
+    """K4 in its four forms (bf16 and f32, with and without the residual)
+    at the training step's [14592, 768] and bf16 at bucket 32's [7296,
+    768], and K4-bwd in the four forms at [14592, 768]: each against its
+    plain version, bit-equal across two calls (K4-bwd), and timed by
+    device_ms over rotating input sets beside its plain version and
+    F.layer_norm (forward, or backward), with the wrapper's host time.
+    Returns the kernels line's rows of K4 and K4-bwd (bf16 with the
+    residual), each with all forms under "forms"."""
+    rows = TRAIN_B * S
+    fwd = {"err": 0.0, "forms": {}}
+    bwd = {"err": 0.0, "forms": {}}
+    for dt in (torch.bfloat16, torch.float32):
+        pool = [torch.randn(LN_POOL, rows, HIDDEN, device=DEV,
+                            generator=g).to(dt) for _ in range(3)]
+        w = 1.0 + 0.1 * torch.randn(HIDDEN, device=DEV, generator=g)
+        bb = 0.1 * torch.randn(HIDDEN, device=DEV, generator=g)
+        w_dt, bb_dt = w.to(dt), bb.to(dt)  # F.layer_norm's weights, cast once
+        elt = pool[0].element_size()
+        shapes = [rows] + ([SERVE_B * S] if dt == torch.bfloat16 else [])
+        for n_rows, with_res in ((r, wr) for r in shapes
+                                 for wr in (False, True)):
+            form = (f"{str(dt)[6:]} [{n_rows}, {HIDDEN}] "
+                    f"{'residual' if with_res else 'no residual'}")
+            row_bytes = n_rows * HIDDEN * elt
+            sets = _ln_sets(pool, n_rows, (2 if with_res else 1) * row_bytes)
+            x, res, dy = sets[0]
+            res = res if with_res else None
+            out = L.layer_norm_kernel(x, w, bb, res)
+            torch.cuda.synchronize()
+            err = max_err(out, L._ln_reference(x, res, w, bb, 1e-12), dt)
+            fwd["err"] = max(fwd["err"], err)
+
+            def kern(x_, r_, _dy):
+                return L.layer_norm_kernel(x_, w, bb, r_ if with_res else None)
+
+            def stock(x_, r_, _dy):
+                return F.layer_norm(x_ + r_ if with_res else x_, (HIDDEN,),
+                                    w_dt, bb_dt, 1e-12)
+
+            def plain(x_, r_, _dy):
+                return L._ln_reference(x_, r_ if with_res else None, w, bb,
+                                       1e-12)
+
+            f = {"ms": device_ms(rotating(kern, sets)),
+                 "library_ms": device_ms(rotating(stock, sets)),
+                 "plain_ms": device_ms(rotating(plain, sets), iters=5),
+                 "events_ms": time_ms(rotating(kern, sets)),
+                 "host_us": host_us(lambda: L.layer_norm_kernel(x, w, bb,
+                                                                res))}
+            f["bound_ms"], f["bound_by"] = bound(
+                _nbytes(x, res, w, bb, out), 8 * x.numel(), dt)
+            f["bound_share"] = f["bound_ms"] / f["ms"]
+            fwd["forms"][form] = f
+            lines.append(
+                f"  K4 {form}: max_abs_err {err:.3g}; device ms (rotating "
+                f"{len(sets)} input sets): kernel {f['ms']:.4f}, "
+                f"F.layer_norm{'(+add)' if with_res else ''} "
+                f"{f['library_ms']:.4f}, plain {f['plain_ms']:.4f}; bound "
+                f"{f['bound_ms']:.4f} by {f['bound_by']} (kernel at "
+                f"{100 * f['bound_share']:.0f}% of it); events over "
+                f"back-to-back calls {f['events_ms']:.4f}; host "
+                f"{f['host_us']:.1f} us a call"
+                + ("; UNDER THE BOUND: L2 was read" if f["ms"] < f["bound_ms"]
+                   else ""))
+            if n_rows != rows:
+                continue
+            # the backward: K4-bwd against the plain backward, two calls
+            # bit-equal, timed beside the plain backward, the old plain
+            # VJP and F.layer_norm's backward
+            sets = _ln_sets(pool, n_rows, (3 if with_res else 2) * row_bytes)
+            x, res, dy = sets[0]
+            res = res if with_res else None
+            got = L.layer_norm_backward_kernel(x, w, dy, res)
+            again = L.layer_norm_backward_kernel(x, w, dy, res)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"K4-bwd {form}: not bit-equal across calls")
+            want = L._ln_backward_reference(x, res, w, bb, dy, 1e-12)
+            errs = [rel_err(a, b, rel, f"K4-bwd {name} {form}")
+                    for name, a, b, rel in zip(
+                        ("dx", "dscale", "dbias"), got,
+                        (want[0], want[2], want[3]),
+                        (LN_DX_REL[dt], LN_PARAM_REL, LN_PARAM_REL))]
+            bwd["err"] = max(bwd["err"], *errs)
+
+            def kern_bwd(x_, r_, dy_):
+                return L.layer_norm_backward_kernel(
+                    x_, w, dy_, r_ if with_res else None)
+
+            def plain_bwd(x_, r_, dy_):
+                return L._ln_backward_reference(
+                    x_, r_ if with_res else None, w, bb, dy_, 1e-12)
+
+            lib = [_ln_library_backward(x_, r_ if with_res else None, w, bb,
+                                        dy_) for x_, r_, dy_ in sets]
+            vjp = [_ln_plain_vjp(x_, r_ if with_res else None, w, bb, dy_)
+                   for x_, r_, dy_ in sets]
+            b = {"ms": device_ms(rotating(kern_bwd, sets)),
+                 "library_ms": device_ms(rotating(lambda f_: f_(),
+                                                  [(f_,) for f_ in lib])),
+                 "plain_ms": device_ms(rotating(plain_bwd, sets), iters=5),
+                 "plain_vjp_ms": device_ms(rotating(
+                     lambda f_: f_(), [(f_,) for f_ in vjp]), iters=5),
+                 "events_ms": time_ms(rotating(kern_bwd, sets)),
+                 "host_us": host_us(lambda: L.layer_norm_backward_kernel(
+                     x, w, dy, res))}
+            del lib, vjp
+            b["bound_ms"], b["bound_by"] = bound(
+                _nbytes(x, res, w, dy, got[0], got[1], got[2]),
+                10 * x.numel(), dt)
+            b["bound_share"] = b["bound_ms"] / b["ms"]
+            bwd["forms"][form] = b
+            lines.append(
+                f"  K4-bwd {form}: max_abs_err dx {errs[0]:.3g}, dscale "
+                f"{errs[1]:.3g}, dbias {errs[2]:.3g}; bit-equal across "
+                f"calls; device ms (rotating {len(sets)} input sets): "
+                f"kernel {b['ms']:.4f}, F.layer_norm backward "
+                f"{b['library_ms']:.4f}, plain backward {b['plain_ms']:.4f},"
+                f" plain VJP (the backward before K4-bwd) "
+                f"{b['plain_vjp_ms']:.4f}; bound {b['bound_ms']:.4f} by "
+                f"{b['bound_by']} (kernel at "
+                f"{100 * b['bound_share']:.0f}% of it); events over "
+                f"back-to-back calls {b['events_ms']:.4f}; host "
+                f"{b['host_us']:.1f} us a call"
+                + ("; UNDER THE BOUND: L2 was read" if b["ms"] < b["bound_ms"]
+                   else ""))
+        del pool
+        torch.cuda.empty_cache()
+    headline = f"bfloat16 [{rows}, {HIDDEN}] residual"
+    for row in (fwd, bwd):
+        row.update({k: v for k, v in row["forms"][headline].items()
+                    if k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                             "bound_by", "host_us", "events_ms",
+                             "plain_vjp_ms")})
+    return fwd, bwd
 
 
 def k5_error(got, x8, w8, xs, ws, bias, out_dtype, what):
@@ -938,6 +1113,7 @@ def _norm_rel(got, want):
 DEVICE_CATEGORIES = (  # kernel-name fragment -> category, first match
     (("flash_fwd", "bwd_dq_", "bwd_dkv_"), "attention K1/K2/K3"),
     (("_ln_fwd_kernel",), "LayerNorm K4"),
+    (("ln_bwd_",), "LayerNorm backward K4-bwd"),
     (("int8_gemm",), "int8 GEMM K5"),
     (("fprop", "conv", "winograd", "implicit_gemm", "cudnn"),
      "convolutions (cuDNN)"),
@@ -1049,12 +1225,13 @@ def phase_training(card):
           and not bool(rep["nan_flag"]), f"losses {losses}")
     check(lrs[0] > 0.0, f"lr {lrs}")
     # per step: 12 attention calls (stats form forward, K2 and K3 in the
-    # backward, no inference form); 26 LayerNorm forwards (embedding, 24
-    # residual, classifier head), whose backward is the plain VJP
+    # backward, no inference form); 26 LayerNorms (embedding, 24 residual,
+    # classifier head), each a K4 forward and a K4-bwd backward
     want = dict(ZERO_COUNTS, flash_attention_fwd_stats=12 * TRAIN_STEPS,
                 flash_attention_bwd_dq=12 * TRAIN_STEPS,
                 flash_attention_bwd_dkv=12 * TRAIN_STEPS,
-                layer_norm=26 * TRAIN_STEPS)
+                layer_norm=26 * TRAIN_STEPS,
+                layer_norm_bwd=26 * TRAIN_STEPS)
     check(launches == want, f"training launches {launches}, want {want}")
 
     def one_step():
@@ -1400,6 +1577,9 @@ SOURCES = {  # name -> (route, source, the TPU kernel it replaces)
         "mmf_tpu/ops/attention.py:419"),
     "layer_norm": ("triton", "mmf_tpu_torch/ops/layernorm_triton.py",
                    "mmf_tpu/ops/layernorm.py:81"),
+    # JAX's backward is the VJP of _ln_reference (no Pallas kernel)
+    "layer_norm_bwd": ("cuda", "mmf_tpu_torch/ops/csrc/layer_norm_bwd.cu",
+                       "mmf_tpu/ops/layernorm.py:157"),
     "int8_dequant_gemm": ("cuda", "mmf_tpu_torch/ops/csrc/int8_gemm.cu",
                           "mmf_tpu/ops/quant.py:71"),
 }
@@ -1421,7 +1601,14 @@ LIBRARY = {  # name -> the PyTorch call timed as its library_ms
         "F.scaled_dot_product_attention backward: dq, dk, dv together "
         "(K2 + K3 combined); K2, K3 and it timed by device_ms, CUDA "
         "events over back-to-back calls beside them"),
-    "layer_norm": "F.layer_norm after the residual add",
+    "layer_norm": ("F.layer_norm after the residual add, weights in bf16 "
+                   "(device_ms over rotating input sets, as K4's ms); "
+                   "every form under 'forms'"),
+    "layer_norm_bwd": ("F.layer_norm's backward (dx, dweight, dbias) after "
+                       "the residual add, weights in bf16 (device_ms over "
+                       "rotating input sets, as K4-bwd's ms); plain_vjp_ms "
+                       "is the backward before K4-bwd, autograd's VJP of "
+                       "the plain forward; every form under 'forms'"),
     "int8_dequant_gemm": ("torch._int_mm on the same operands: the int32 "
                           "product alone, no dequantising epilogue (K5's "
                           "times are device_ms: calls queued behind a "
@@ -1445,7 +1632,8 @@ def main():
             "name": name, "route": route, "source": source,
             "replaces": replaces,
             # launches on the paths that run the kernel: serving (K1
-            # inference form, K4), training (K1 stats form, K2, K3, K4),
+            # inference form, K4), training (K1 stats form, K2, K3, K4,
+            # K4-bwd),
             # MMBT-grid at batch 1 (K1, K4, K5 under int8) and VisualBERT
             # under int8 (K1, K4, K5)
             "launches": (served[name] + trained[name] + mmbt[name]
@@ -1457,7 +1645,8 @@ def main():
             # which
             "library_ms": r["library_ms"], "library": LIBRARY[name],
             **{k: r[k] for k in ("events_ms", "library_events_ms", "host_us",
-                                 "vb_int8_forward_ms") if k in r},
+                                 "vb_int8_forward_ms", "plain_vjp_ms",
+                                 "forms") if k in r},
         })
     print(json.dumps({"kernels": kernels}))
     print(card_line())

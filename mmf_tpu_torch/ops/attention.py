@@ -31,8 +31,12 @@ additive and broadcastable to [B, H, Sq, Skv].
   give NaN.
 - ``dot_product_attention``: CUDA tensors go to the kernels, CPU tensors
   to the plain version. Attention-probability dropout goes to the plain
-  version on either device, as in JAX. No sequence-length crossover: the
-  TPU's ``PALLAS_MIN_SEQ`` numbers do not carry over.
+  version on either device, as in JAX. A head dim that is not a
+  multiple of 8 is zero-padded to one for the kernels (exact: the padded
+  q and k columns add nothing to the scores, the padded output columns
+  are cut off); head dims above 128 raise on the card. No
+  sequence-length crossover: the TPU's ``PALLAS_MIN_SEQ`` numbers do not
+  carry over.
 """
 
 from __future__ import annotations
@@ -255,6 +259,24 @@ def _check_qkv(what: str, q, k, v):
     if d % 8 != 0 or d > 128:
         raise ValueError(f"head dim {d} must be a multiple of 8 up to 128")
     return b, h, sq, skv, d
+
+
+def padded_head_dim(d: int) -> int:
+    """The head dim the kernels run a head dim ``d`` at: ``d`` rounded up
+    to a multiple of 8. The kernels take up to 128."""
+    if not 0 < d <= 128:
+        raise ValueError(f"the attention kernels take head dims 1 to 128, "
+                         f"got {d}")
+    return -(-d // 8) * 8
+
+
+def pad_head_dim(*tensors):
+    """The [..., D] tensors zero-padded to ``padded_head_dim(D)`` (the
+    tensors themselves where D is a multiple of 8)."""
+    pad = padded_head_dim(tensors[0].shape[-1]) - tensors[0].shape[-1]
+    if pad == 0:
+        return tensors
+    return tuple(torch.nn.functional.pad(t, (0, pad)) for t in tensors)
 
 
 def _kernel_bias(bias, q, b, h, sq, skv):
@@ -532,16 +554,22 @@ def dot_product_attention(
     tensors run the kernels: the stats form forward with K2/K3 as its
     backward when a gradient is wanted, the inference form otherwise.
     CPU tensors and active dropout run ``mha_reference`` (autograd
-    differentiates it)."""
+    differentiates it). On the card a head dim that is not a multiple of
+    8 runs zero-padded (``pad_head_dim``) with the scale of the true head
+    dim, and the output is cut back to it."""
     if dropout_rate > 0.0 and generator is not None:
         return mha_reference(q, k, v, bias, scale, dropout_rate, generator)
     if not q.is_cuda:
         return mha_reference(q, k, v, bias, scale)
+    d = q.shape[-1]
+    if scale is None:
+        scale = d ** -0.5
+    q, k, v = pad_head_dim(q, k, v)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        if scale is None:
-            scale = q.shape[-1] ** -0.5
-        return FlashAttentionFunction.apply(q, k, v, bias, scale)
-    return flash_attention(q, k, v, bias, scale)
+        out = FlashAttentionFunction.apply(q, k, v, bias, scale)
+    else:
+        out = flash_attention(q, k, v, bias, scale)
+    return out if out.shape[-1] == d else out[..., :d]
 
 
 def make_attention_bias(mask: torch.Tensor,

@@ -1,5 +1,5 @@
-"""LayerNorm(x [+ residual]): the hand-written Triton kernel and its plain
-PyTorch version.
+"""LayerNorm(x [+ residual]): the hand-written kernels (a Triton forward,
+a CUDA backward) and their plain PyTorch versions.
 
 Port of ``mmf_tpu/ops/layernorm.py``. Semantics: statistics and the
 affine transform in f32 whatever the input dtype, scale and bias f32, the
@@ -13,26 +13,44 @@ output in x's dtype.
   product; ~8 FLOPs per element against 4-6 bytes moved): one program
   reads one whole row (and its residual) once, keeps the sum and the
   centred sum of squares in registers, and writes only the output.
-- ``LayerNormFunction``: the autograd Function over the kernel, the
-  counterpart of the JAX ``_ln_pallas`` custom_vjp: the forward is the
-  Triton kernel; the backward recomputes through ``_ln_reference`` and
-  takes its VJP, as JAX does (JAX has no Pallas backward for LayerNorm).
-- ``_ln_reference``: the plain version, used for CPU tensors.
-- ``layer_norm``: CUDA tensors go to the kernel (through
+- ``layer_norm_backward_kernel``: wrapper of the CUDA C++ kernel
+  ``ops/csrc/layer_norm_bwd.cu`` (K4-bwd), the gradient of the above:
+  dx (= dresidual), dscale and dbias in one pass over x, the residual
+  and dy, the statistics recomputed, dscale and dbias reduced over the
+  rows without atomics (two calls give the same bits). It takes float32,
+  bfloat16 and float16 rows of any width (a width that is not whole
+  16-byte vectors is zero-padded to them). JAX has no Pallas backward
+  here: ``_ln_pallas_bwd`` takes the VJP of ``_ln_reference``. CUDA
+  tensors only: it launches or raises.
+- ``LayerNormFunction``: the autograd Function over the two kernels, the
+  counterpart of the JAX ``_ln_pallas`` custom_vjp. Its backward is
+  ``layer_norm_backward``: K4-bwd for CUDA tensors (other float dtypes,
+  and a residual in another dtype than x, run it in f32 on x + residual,
+  which is what the forward normalises), the plain backward for CPU
+  tensors.
+- ``_ln_reference`` and ``_ln_backward_reference``: the plain versions of
+  the forward and of the backward (the closed form of the VJP that JAX
+  takes).
+- ``layer_norm``: CUDA tensors go to the kernels (through
   ``LayerNormFunction`` when a gradient is wanted), CPU tensors to the
-  plain version. Unlike the JAX package, where the Pallas kernel is opt-in
-  (``MMF_TPU_LN``), the port always takes its kernel on the card; whether
-  it should is measured in ``PERF.md``.
+  plain forward, which autograd differentiates. Unlike the JAX package,
+  where the Pallas kernel is opt-in (``MMF_TPU_LN``), the port always
+  takes its kernels on the card; whether it should is measured in
+  ``PERF.md``.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import os
 from typing import Optional
 
 import torch
 
 from mmf_tpu_torch.ops._build import BUILD_ROOT
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def _ln_reference(x, residual, scale, bias, eps):
@@ -98,9 +116,190 @@ def layer_norm_kernel(
 layer_norm_kernel.launches = 0
 
 
+def _ln_backward_reference(x, residual, scale, bias, dy, eps):
+    """Plain version of K4-bwd: (dx in x's dtype, dresidual in the
+    residual's dtype or None, dscale, dbias in the parameters' dtypes),
+    the closed form of the VJP of ``_ln_reference``."""
+    hidden = x.shape[-1]
+    h = x.float()
+    if residual is not None:
+        h = h + residual.float()
+    mean = h.mean(dim=-1, keepdim=True)
+    var = torch.square(h - mean).mean(dim=-1, keepdim=True)
+    rstd = torch.rsqrt(var + eps)
+    xhat = (h - mean) * rstd
+    d = dy.float()
+    g = d * scale.float()
+    dh = rstd * (g - g.mean(dim=-1, keepdim=True)
+                 - xhat * (g * xhat).mean(dim=-1, keepdim=True))
+    dscale = (d * xhat).reshape(-1, hidden).sum(dim=0)
+    dbias = d.reshape(-1, hidden).sum(dim=0)
+    return (dh.to(x.dtype),
+            None if residual is None else dh.to(residual.dtype),
+            dscale.to(scale.dtype), dbias.to(bias.dtype))
+
+
+def _bwd_lib():
+    from mmf_tpu_torch.ops._build import load_library
+
+    lib, info = load_library("layer_norm_bwd", ["layer_norm_bwd.cu"])
+    if not getattr(lib, "_mmf_typed", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.mmf_layer_norm_bwd.argtypes = [p] * 8 + [i] * 4 + [
+            ctypes.c_float, i, p]
+        lib.mmf_layer_norm_bwd.restype = i
+        lib.mmf_layer_norm_bwd_geometry.argtypes = [
+            i, i, ctypes.POINTER(i), ctypes.POINTER(i)]
+        lib.mmf_layer_norm_bwd_geometry.restype = i
+        lib.mmf_cuda_error_string.argtypes = [i]
+        lib.mmf_cuda_error_string.restype = ctypes.c_char_p
+        lib._mmf_typed = True
+    return lib, info
+
+
+def build_layer_norm_bwd() -> dict:
+    """Build (or reuse) K4-bwd's library; returns its build info."""
+    return _bwd_lib()[1]
+
+
+def _check_rc(lib, rc, what):
+    if rc != 0:
+        raise RuntimeError(
+            f"{what} failed: {lib.mmf_cuda_error_string(rc).decode()} "
+            f"(cudaError {rc})"
+        )
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_geometry(code: int, ld: int, index: int):
+    """(blocks the card holds at once, rows a block takes per step) of
+    K4-bwd's main kernel for rows of ``ld`` elements of dtype ``code`` on
+    card ``index``."""
+    lib, _ = _bwd_lib()
+    per_sm, step = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(index):
+        rc = lib.mmf_layer_norm_bwd_geometry(code, ld, ctypes.byref(per_sm),
+                                             ctypes.byref(step))
+    _check_rc(lib, rc, "layer_norm_backward_kernel's occupancy query")
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return max(per_sm.value, 1) * sms, step.value
+
+
+def row_stride(hidden: int, dtype: torch.dtype) -> int:
+    """The row length K4-bwd reads: ``hidden`` rounded up to whole
+    16-byte vectors of ``dtype``."""
+    per = 16 // torch.empty((), dtype=dtype).element_size()
+    return -(-hidden // per) * per
+
+
+def _rows(t: torch.Tensor, hidden: int, ld: int) -> torch.Tensor:
+    """``t`` as [rows, ld], contiguous with a 16-byte aligned start, the
+    columns past ``hidden`` zero (``contiguous()`` would keep the offset
+    of a view)."""
+    t = t.reshape(-1, hidden)
+    if ld != hidden:
+        return torch.nn.functional.pad(t, (0, ld - hidden))
+    if t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def layer_norm_backward_kernel(
+    x: torch.Tensor,
+    scale: torch.Tensor,
+    dy: torch.Tensor,
+    residual: Optional[torch.Tensor] = None,
+    eps: float = 1e-12,
+):
+    """K4-bwd on the card: ``(dx, dscale, dbias)`` of LayerNorm(x [+
+    residual]) for the output gradient ``dy``. dx has x's shape and dtype
+    and is also the residual's gradient; dscale and dbias are f32
+    [hidden]. x, residual and dy of one shape and one dtype (float32,
+    bfloat16 or float16), any hidden size; scale [hidden]."""
+    for name, t in (("x", x), ("scale", scale), ("dy", dy),
+                    ("residual", residual)):
+        if t is not None and not t.is_cuda:
+            raise RuntimeError(
+                f"layer_norm_backward_kernel is a CUDA kernel: {name} is on "
+                f"{t.device}. CPU tensors go through _ln_backward_reference "
+                "(layer_norm_backward dispatches by device)."
+            )
+        if t is not None and t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+    if x.dtype not in _DTYPE_CODE or (residual is not None
+                                      and residual.dtype != x.dtype):
+        raise TypeError(
+            f"layer_norm_backward_kernel takes float32, bfloat16 or float16, "
+            f"the residual in x's dtype; got x {x.dtype}, residual "
+            f"{None if residual is None else residual.dtype} "
+            "(layer_norm_backward runs other dtypes in float32)"
+        )
+    hidden = x.shape[-1]
+    for name, t in (("dy", dy), ("residual", residual)):
+        if t is not None and t.shape != x.shape:
+            raise ValueError(f"{name} {tuple(t.shape)} does not match x "
+                             f"{tuple(x.shape)}")
+    if scale.shape != (hidden,):
+        raise ValueError(f"scale must be [{hidden}], got {tuple(scale.shape)}")
+    if x.numel() == 0:
+        zero = torch.zeros(hidden, dtype=torch.float32, device=x.device)
+        return torch.empty_like(x), zero, zero.clone()
+    ld = row_stride(hidden, x.dtype)
+    x2d = _rows(x, hidden, ld)
+    r2d = None if residual is None else _rows(residual, hidden, ld)
+    dy2d = _rows(dy.to(x.dtype), hidden, ld)
+    w = _rows(scale.to(torch.float32), hidden, ld).view(ld)
+    rows = x2d.shape[0]
+    dx = torch.empty_like(x2d)
+    dscale = torch.empty(ld, dtype=torch.float32, device=x.device)
+    dbias = torch.empty_like(dscale)
+    lib, _ = _bwd_lib()
+    blocks, step = _bwd_geometry(_DTYPE_CODE[x.dtype], ld, x.device.index)
+    grid = min(blocks, -(-rows // step))
+    part = torch.empty((2, grid, ld), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.mmf_layer_norm_bwd(
+            x2d.data_ptr(), None if r2d is None else r2d.data_ptr(),
+            w.data_ptr(), dy2d.data_ptr(), dx.data_ptr(), part.data_ptr(),
+            dscale.data_ptr(), dbias.data_ptr(), _DTYPE_CODE[x.dtype], rows,
+            hidden, ld, float(eps), grid, stream,
+        )
+    _check_rc(lib, rc, "layer_norm_backward_kernel launch")
+    layer_norm_backward_kernel.launches += 1
+    return dx[:, :hidden].view(x.shape), dscale[:hidden], dbias[:hidden]
+
+
+layer_norm_backward_kernel.launches = 0
+
+
+def kernel_operands(x, residual, dy):
+    """(x, residual, dy) as K4-bwd reads them: unchanged where x is
+    float32, bfloat16 or float16 and the residual (if any) in x's dtype;
+    else h = x + residual in f32, no residual, and dy in f32, which is
+    what the forward normalises and what its gradient is taken of."""
+    if x.dtype in _DTYPE_CODE and (residual is None
+                                   or residual.dtype == x.dtype):
+        return x, residual, dy
+    h = x.float() if residual is None else x.float() + residual.float()
+    return h, None, dy.float()
+
+
+def layer_norm_backward(x, residual, scale, bias, dy, eps):
+    """(dx, dresidual or None, dscale, dbias) of LayerNorm(x [+ residual]):
+    K4-bwd for CUDA tensors (its one dx tensor is the residual's gradient
+    too where the dtypes agree), the plain backward for CPU tensors."""
+    if not x.is_cuda:
+        return _ln_backward_reference(x, residual, scale, bias, dy, eps)
+    kx, kr, kdy = kernel_operands(x, residual, dy)
+    dh, dscale, dbias = layer_norm_backward_kernel(kx, scale, kdy, kr, eps)
+    return (dh.to(x.dtype), None if residual is None else dh.to(
+        residual.dtype), dscale.to(scale.dtype), dbias.to(bias.dtype))
+
+
 class LayerNormFunction(torch.autograd.Function):
-    """Forward: the Triton kernel. Backward: the VJP of ``_ln_reference``
-    recomputed from the saved inputs (``_ln_pallas_bwd`` in JAX)."""
+    """Forward: the Triton kernel. Backward: ``layer_norm_backward`` on the
+    saved inputs (K4-bwd on the card), the statistics recomputed."""
 
     @staticmethod
     def forward(ctx, x, residual, scale, bias, eps):
@@ -109,17 +308,12 @@ class LayerNormFunction(torch.autograd.Function):
         return layer_norm_kernel(x, scale, bias, residual, eps)
 
     @staticmethod
+    @torch.autograd.function.once_differentiable
     def backward(ctx, grad):
-        saved = ctx.saved_tensors
-        leaves = [None if t is None else t.detach().requires_grad_()
-                  for t in saved]
-        x, residual, scale, bias = leaves
-        with torch.enable_grad():
-            y = _ln_reference(x, residual, scale, bias, ctx.eps)
-        inputs = [t for t in leaves if t is not None]
-        grads = iter(torch.autograd.grad(y, inputs, grad))
-        return (*(None if t is None else next(grads) for t in leaves),
-                None)
+        x, residual, scale, bias = ctx.saved_tensors
+        grads = layer_norm_backward(x, residual, scale, bias, grad, ctx.eps)
+        return (*(g if need else None
+                  for g, need in zip(grads, ctx.needs_input_grad)), None)
 
 
 def layer_norm(

@@ -30,7 +30,9 @@ Pieces:
 - ``Int8DenseFunction`` / ``int8_dense`` / ``int8_matmul``: the
   straight-through autograd Function (backward is the exact f32 matmul
   VJP, as JAX's custom_vjp) and its entry points. CUDA inputs run K5,
-  CPU inputs the plain version.
+  CPU inputs the plain version. On the card a K that is not a multiple
+  of 16 runs K5 on operands zero-padded to one (``pad_k``: the int32 sums
+  are unchanged); a K above ``MAX_K`` raises, as K5 does.
 - ``QuantDense``: ``Dense`` with the matmul routed through ``int8_dense``;
   the same parameter names and shapes (``weight`` [out, in] f32,
   ``bias`` [out] f32), so the knob never changes a ``state_dict`` key.
@@ -93,6 +95,17 @@ def quantize_cols(w: torch.Tensor, eps: float = 1e-11):
     ``(q [k, n] int8, scale [1, n] f32)``."""
     q, scale = quantize_rows(w.t(), eps)
     return q.t(), scale.t()
+
+
+def pad_k(x8: torch.Tensor, w8: torch.Tensor):
+    """x8 [M, K] and w8 [N, K] with K zero-padded to a multiple of 16, the
+    whole 16-byte vectors K5 reads: every product with a padded column is
+    0, so the int32 sums are those of the unpadded operands."""
+    pad = -x8.shape[-1] % 16
+    if pad == 0:
+        return x8, w8
+    return (nn.functional.pad(x8, (0, pad)),
+            nn.functional.pad(w8, (0, pad)))
 
 
 def dequant_gemm_reference(x8, w8, xs, ws, bias, out_dtype):
@@ -201,9 +214,12 @@ def _int8_dense_forward(x, weight, bias, out_dtype):
     # per output row of the [N, K] weight == JAX's quantize_cols on [K, N]
     w8, ws = quantize_rows(weight, eps=1e-11)
     lead, k, n = x.shape[:-1], x.shape[-1], weight.shape[0]
-    args = (x8.reshape(-1, k), w8, xs.reshape(-1), ws.reshape(-1),
-            bias.float(), out_dtype)
-    y = dequant_gemm(*args) if x.is_cuda else dequant_gemm_reference(*args)
+    x8 = x8.reshape(-1, k)
+    args = (xs.reshape(-1), ws.reshape(-1), bias.float(), out_dtype)
+    if x.is_cuda:
+        y = dequant_gemm(*pad_k(x8, w8), *args)
+    else:
+        y = dequant_gemm_reference(x8, w8, *args)
     return y.reshape(*lead, n)
 
 

@@ -161,3 +161,39 @@ def test_dropout_routes_to_plain_version_and_uses_the_generator():
         tattn.dot_product_attention(tq, tk, tv, dropout_rate=0.5), plain,
         rtol=0, atol=0,
     )
+
+
+@pytest.mark.parametrize("d,padded", [(1, 8), (4, 8), (8, 8), (12, 16),
+                                      (64, 64), (121, 128), (128, 128),
+                                      (0, None), (136, None), (256, None)])
+def test_padded_head_dim(d, padded):
+    """The head dim the kernels run a head dim at (a multiple of 8), and
+    the head dims they refuse."""
+    if padded is None:
+        with pytest.raises(ValueError, match="head dims 1 to 128"):
+            tattn.padded_head_dim(d)
+    else:
+        assert tattn.padded_head_dim(d) == padded
+
+
+@pytest.mark.parametrize("d", [12, 36])
+def test_zero_padded_head_dim_matches_jax(d, monkeypatch):
+    """What the card computes for a head dim that is not a multiple of 8:
+    the plain version on q, k and v zero-padded by ``pad_head_dim``, at
+    the scale of the true head dim, cut back to it, against JAX at the
+    true head dim (the padded columns add nothing to the scores)."""
+    monkeypatch.setenv("MMF_TPU_ATTENTION_LOGITS", "f32")
+    rng, q, k, v = _inputs(5, 2, 2, 9, 11, d)
+    bias_np = (1.0 - _padding_mask(rng, 2, 11)[:, None, None, :]) * -1e9
+    bias_np = bias_np.astype(np.float32)
+    want = np.asarray(jattn.dot_product_attention(
+        *map(jnp.asarray, (q, k, v, bias_np)), impl="xla"))
+    padded = tattn.pad_head_dim(*map(torch.from_numpy, (q, k, v)))
+    assert all(t.shape[-1] == tattn.padded_head_dim(d) for t in padded)
+    assert all(not t[..., d:].any() for t in padded)
+    got = tattn.mha_reference(*padded, torch.from_numpy(bias_np),
+                              d ** -0.5)[..., :d].numpy()
+    np.testing.assert_allclose(got, want, atol=F32_ATOL, rtol=0)
+    np.testing.assert_allclose(tattn.dot_product_attention(
+        *map(torch.from_numpy, (q, k, v, bias_np))).numpy(), want,
+        atol=F32_ATOL, rtol=0)

@@ -262,14 +262,209 @@ def test_layer_norm_autograd_matches_plain(card, dtype, with_residual):
         fn(xi, rest[0], rest[1], ri).backward(dy)
         return [t.grad for t in leaves]
 
-    before = L.layer_norm_kernel.launches
+    before = (L.layer_norm_kernel.launches,
+              L.layer_norm_backward_kernel.launches)
     got = grads(lambda x_, w_, b_, r_: L.layer_norm(x_, w_, b_, r_))
     torch.cuda.synchronize()
-    assert L.layer_norm_kernel.launches == before + 1
+    # one forward (K4) and one backward (K4-bwd) launch
+    assert (L.layer_norm_kernel.launches,
+            L.layer_norm_backward_kernel.launches) == (before[0] + 1,
+                                                       before[1] + 1)
     want = grads(lambda x_, w_, b_, r_: L._ln_reference(x_, r_, w_, b_,
                                                          1e-12))
-    for a, b_ in zip(got, want):
-        torch.testing.assert_close(a, b_, rtol=1e-5, atol=1e-5)
+    # autograd through the plain forward: other formulas, other summation
+    # orders; dx (and dresidual) round to x's dtype, dscale and dbias are
+    # f32 in both dtypes
+    names = ["dx"] + (["dresidual"] if with_residual else []) + [
+        "dscale", "dbias"]
+    for name, a, b_ in zip(names, got, want):
+        assert a.dtype == b_.dtype
+        _assert_rel(a, b_, _ln_rel(name, dtype), name)
+
+
+# K4-bwd against its plain version, relative to the largest entry. dx: f32
+# the same formulas in other summation orders, bf16 and f16 rounded to
+# their dtype (one ulp is 2^-8 and 2^-11 relative). dscale and dbias are
+# f32 sums of the same f32 products in every dtype
+LN_DX_REL = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float16: 1e-3,
+             torch.float64: 1e-5}
+LN_PARAM_REL = 1e-5
+
+
+def _ln_rel(name, dtype):
+    return LN_PARAM_REL if name in ("dscale", "dbias") else LN_DX_REL[dtype]
+
+
+def _ln_case(card, dtype, shape, with_residual, seed=3):
+    g = torch.Generator(device=card).manual_seed(seed)
+    hidden = shape[-1]
+    x = (2.0 * torch.randn(*shape, device=card, generator=g) + 0.5).to(dtype)
+    res = (torch.randn(*shape, device=card, generator=g).to(dtype)
+           if with_residual else None)
+    w = 1.0 + 0.1 * torch.randn(hidden, device=card, generator=g)
+    bias = 0.1 * torch.randn(hidden, device=card, generator=g)
+    dy = torch.randn(*shape, device=card, generator=g).to(dtype)
+    return x, res, w, bias, dy
+
+
+# the main path's width (one warp a row, 3 or 6 vectors a lane), 1024 (4
+# or 8), lanes without a vector (200), widths that end inside a 16-byte
+# vector (204, 37), rows held by 4 and 8 warps, rows wider than 8192 (one
+# block a row, in passes; the last also ragged), and the training step's
+# 14592 rows
+LN_BWD_SHAPES = [(4, 57, 768), (4, 57, 1024), (3, 41, 200), (3, 7, 204),
+                 (2, 5, 37), (5, 33, 4096), (2, 9, 8192), (3, 5, 12288),
+                 (2, 3, 20002), (14592, 768)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("with_residual", [False, True])
+@pytest.mark.parametrize("shape", LN_BWD_SHAPES)
+def test_layer_norm_backward_kernel_matches_plain(card, dtype, with_residual,
+                                                  shape):
+    """K4-bwd at any width: dx, dscale and dbias against the plain
+    backward; one launch a call; a second call gives the same bits (no
+    atomics)."""
+    x, res, w, bias, dy = _ln_case(card, dtype, shape, with_residual)
+    before = L.layer_norm_backward_kernel.launches
+    dx, dw, db = L.layer_norm_backward_kernel(x, w, dy, res)
+    again = L.layer_norm_backward_kernel(x, w, dy, res)
+    torch.cuda.synchronize()
+    assert L.layer_norm_backward_kernel.launches == before + 2
+    for first, second in zip((dx, dw, db), again):
+        assert torch.equal(first, second)
+    want = L._ln_backward_reference(x, res, w, bias, dy, 1e-12)
+    assert dx.dtype == dtype and dx.shape == x.shape
+    assert dw.dtype == db.dtype == torch.float32
+    for name, got, ref in zip(("dx", "dscale", "dbias"), (dx, dw, db),
+                              (want[0], want[2], want[3])):
+        _assert_rel(got, ref, _ln_rel(name, dtype), name)
+
+
+@pytest.mark.parametrize("dtype,residual_dtype", [
+    (torch.float64, None), (torch.float64, torch.float32),
+    (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16),
+    (torch.float16, torch.float16)])
+def test_layer_norm_autograd_takes_any_float_dtypes(card, dtype,
+                                                    residual_dtype):
+    """layer_norm's backward on the card at a ragged width (204) in dtypes
+    K4-bwd does not read natively (it then runs in f32 on x + residual)
+    and in f16: one K4-bwd launch, the gradients of the plain backward in
+    each input's dtype."""
+    x, _, w, bias, dy = _ln_case(card, dtype, (3, 7, 204), False)
+    res = None
+    if residual_dtype is not None:
+        res = torch.randn(x.shape, device=card, dtype=residual_dtype,
+                          generator=torch.Generator(card).manual_seed(4))
+    leaves = [t.detach().clone().requires_grad_()
+              for t in (x, res, w, bias) if t is not None]
+    xi, *rest = leaves
+    ri = rest.pop(0) if res is not None else None
+    before = L.layer_norm_backward_kernel.launches
+    L.layer_norm(xi, rest[0], rest[1], ri).backward(dy)
+    torch.cuda.synchronize()
+    assert L.layer_norm_backward_kernel.launches == before + 1
+    want = [g for g in L._ln_backward_reference(x, res, w, bias, dy, 1e-12)
+            if g is not None]
+    names = ["dx"] + (["dresidual"] if res is not None else []) + [
+        "dscale", "dbias"]
+    dtypes = {"dx": dtype, "dresidual": residual_dtype}
+    for name, leaf, ref in zip(names, leaves, want):
+        assert leaf.grad.dtype == ref.dtype
+        _assert_rel(leaf.grad, ref, _ln_rel(name, dtypes.get(name)), name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layer_norm_backward_with_a_shared_residual(card, no_tf32, dtype):
+    """The trunk's pattern: ``hidden`` is both the residual of the output
+    LayerNorm and the input of the projections, so autograd adds the
+    backward's dresidual (the dx tensor itself) to the projections'
+    gradients. hidden's gradient against the same graph through the plain
+    forward."""
+    g = torch.Generator(device=card).manual_seed(9)
+    hidden = torch.randn(4, 33, 768, device=card, generator=g).to(dtype)
+    proj = 0.05 * torch.randn(768, 768, device=card, generator=g).to(dtype)
+    w = 1.0 + 0.1 * torch.randn(768, device=card, generator=g)
+    bias = 0.1 * torch.randn(768, device=card, generator=g)
+    dy = torch.randn(4, 33, 768, device=card, generator=g).to(dtype)
+
+    def hidden_grad(ln):
+        h = hidden.detach().clone().requires_grad_()
+        q = h @ proj  # a projection that reads hidden
+        out = ln(q @ proj.t(), w, bias, h)  # residual = hidden
+        (out.float() * dy.float()).sum().backward(
+            inputs=[h], retain_graph=False)
+        return h.grad
+
+    before = L.layer_norm_backward_kernel.launches
+    got = hidden_grad(L.layer_norm)
+    torch.cuda.synchronize()
+    assert L.layer_norm_backward_kernel.launches == before + 1
+    want = hidden_grad(lambda x_, w_, b_, r_: L._ln_reference(
+        x_, r_, w_, b_, 1e-12))
+    # two products and the LayerNorm's gradient added: bf16 rounds each
+    _assert_rel(got, want, 1e-4 if dtype == torch.float32 else 2e-2,
+                "d hidden")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [12, 36, 100])
+def test_attention_pads_the_head_dim(card, no_tf32, dtype, d):
+    """A head dim that is not a multiple of 8 runs the kernels zero-padded
+    (K1 without a gradient; K1-stats, K2 and K3 with one), against the
+    plain version at the true head dim."""
+    q, k, v, bias, dout = _bwd_case(card, dtype, 2, 3, 40, 70, d, seed=4)
+    before = A.flash_attention.launches
+    out = A.dot_product_attention(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert A.flash_attention.launches == before + 1
+    assert out.shape == q.shape
+    torch.testing.assert_close(out, A.mha_reference(q, k, v, bias),
+                               **TOL[dtype])
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    counts = (A.flash_attention_with_stats.launches,
+              A.flash_attention_bwd_dq.launches,
+              A.flash_attention_bwd_dkv.launches)
+    A.dot_product_attention(*leaves, bias).backward(dout)
+    torch.cuda.synchronize()
+    assert (A.flash_attention_with_stats.launches,
+            A.flash_attention_bwd_dq.launches,
+            A.flash_attention_bwd_dkv.launches) == tuple(c + 1 for c in counts)
+    ref_leaves = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    A.mha_reference(*ref_leaves, bias).backward(dout.float())
+    for name, got, want in zip("qkv", leaves, ref_leaves):
+        assert got.grad.shape == want.grad.shape
+        _assert_rel(got.grad, want.grad, 1.5 * GRAD_REL[dtype], "d" + name)
+
+
+def test_attention_refuses_head_dims_over_128(card):
+    q = torch.randn(1, 2, 9, 136, device=card)
+    with pytest.raises(ValueError, match="head dims 1 to 128"):
+        A.dot_product_attention(q, q, q)
+
+
+@pytest.mark.parametrize("k", [40, 100, 776])
+def test_int8_dense_pads_k(card, k):
+    """A K that is not a multiple of 16 runs K5 on zero-padded operands:
+    one launch, the plain version's result on the unpadded ones."""
+    g = torch.Generator(device=card).manual_seed(k)
+    x = torch.randn(37, k, device=card, generator=g)
+    wt = 0.05 * torch.randn(24, k, device=card, generator=g)
+    b = torch.randn(24, device=card, generator=g)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        before = Q.dequant_gemm.launches
+        out = Q.int8_dense(x, wt, b, out_dtype)
+        torch.cuda.synchronize()
+        assert Q.dequant_gemm.launches == before + 1
+        x8, xs = Q.quantize_rows(x)
+        w8, ws = Q.quantize_rows(wt, eps=1e-11)
+        scaled = Q.dequant_gemm_reference(x8, w8, xs.reshape(-1),
+                                          ws.reshape(-1), None, torch.float32)
+        ref = Q.dequant_gemm_reference(x8, w8, xs.reshape(-1),
+                                       ws.reshape(-1), b, out_dtype)
+        err = (out.float() - ref.float()).abs()
+        assert (err <= _k5_bound(scaled, b, ref, out_dtype)).all()
 
 
 def test_training_forward_routes_attention_dropout_to_plain(card):

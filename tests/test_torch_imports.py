@@ -97,6 +97,10 @@ def test_kernel_entries_refuse_cpu_tensors():
     with pytest.raises(RuntimeError, match="GPU kernel"):
         layernorm.layer_norm_kernel(x, torch.ones(16), torch.zeros(16))
     assert layernorm.layer_norm_kernel.launches == before
+    before = layernorm.layer_norm_backward_kernel.launches
+    with pytest.raises(RuntimeError, match="CUDA kernel"):
+        layernorm.layer_norm_backward_kernel(x, torch.ones(16), x)
+    assert layernorm.layer_norm_backward_kernel.launches == before
 
     x8 = torch.zeros(4, 16, dtype=torch.int8)
     before = quant.dequant_gemm.launches
@@ -109,6 +113,9 @@ def test_kernel_entries_refuse_cpu_tensors():
     attention.dot_product_attention(q, q, q)
     layernorm.layer_norm(x, torch.ones(16), torch.zeros(16))
     quant.int8_dense(x, torch.ones(16, 16))
+    layernorm.layer_norm_backward(x, None, torch.ones(16), torch.zeros(16),
+                                  x, 1e-12)
     assert attention.flash_attention.launches == 0
     assert layernorm.layer_norm_kernel.launches == 0
+    assert layernorm.layer_norm_backward_kernel.launches == 0
     assert quant.dequant_gemm.launches == 0

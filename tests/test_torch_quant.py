@@ -183,3 +183,36 @@ def test_k5_tile_follows_the_sm_count():
     assert tq.k5_tile(1024, 1024, sms=65) == 64
     assert tq.k5_tile(131, 3072, sms=48) == 128
     assert tq.k5_tile(131, 3072, sms=49) == 64
+
+
+@pytest.mark.parametrize("k", [1, 15, 16, 40, 768, 776])
+def test_pad_k_keeps_the_int32_sums(k):
+    """``pad_k`` gives whole 16-byte vectors along K with zero columns,
+    and the plain version on the padded operands gives the same bits."""
+    g = torch.Generator().manual_seed(k)
+    x8 = torch.randint(-127, 128, (5, k), generator=g, dtype=torch.int8)
+    w8 = torch.randint(-127, 128, (7, k), generator=g, dtype=torch.int8)
+    xs, ws, b = torch.rand(5, generator=g), torch.rand(7, generator=g), \
+        torch.randn(7, generator=g)
+    px, pw = tq.pad_k(x8, w8)
+    assert px.shape == (5, -(-k // 16) * 16) and pw.shape[1] == px.shape[1]
+    assert not px[:, k:].any() and not pw[:, k:].any()
+    assert torch.equal(px[:, :k], x8) and torch.equal(pw[:, :k], w8)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        assert torch.equal(
+            tq.dequant_gemm_reference(px, pw, xs, ws, b, out_dtype),
+            tq.dequant_gemm_reference(x8, w8, xs, ws, b, out_dtype))
+
+
+def test_int8_dense_at_a_ragged_k_matches_jax():
+    """K = 40 (not whole 16-byte vectors; the card zero-pads it for K5)
+    against JAX, whose XLA path takes any K."""
+    rng = np.random.RandomState(6)
+    x = rng.randn(7, 40).astype(np.float32)
+    w = (rng.randn(40, 24) * 0.05).astype(np.float32)
+    b = rng.randn(24).astype(np.float32)
+    want = np.asarray(jq.int8_dense(jnp.asarray(x), jnp.asarray(w),
+                                    jnp.asarray(b)))
+    got = tq.int8_dense(torch.from_numpy(x), torch.from_numpy(w.T.copy()),
+                        torch.from_numpy(b))
+    np.testing.assert_allclose(got.numpy(), want, **TOL["float32"])
