@@ -79,12 +79,40 @@ the script exits non-zero without a result line):
               forward), against its plain version, by device_ms beside
               torch._int_mm, with launches per shape and the K5 total per
               forward.
+7. pretrain - VisualBERT-base masked-LM pretraining at full width with
+              the masked_coco config (AdamW lr 5e-5, warmup_linear with
+              its warmup cut to 2 updates, hidden dropout 0.1,
+              attention-probability dropout 0) on B=64 batches with about
+              15% of the text positions labelled: 1 warm-up and 4 timed
+              steps, finite losses, exact launches per step, ms per step,
+              samples/s, peak memory and device time by kind of kernel
+              (the MLM decoder's GEMMs and the f32 log_softmax on their
+              own); 2 steps through the kernels against 2 through the
+              plain versions at dropout 0 (the training phase's bounds);
+              the checkpoint round trip (Checkpoint.save at update 2, a
+              third step; a fresh model, optimizer and schedule resumed
+              from current.ckpt: parameters, optimizer state and step
+              bit-equal, the same third loss; file size, save and load
+              times); one MMBT-grid pretraining step at B=8 through the
+              kernels against the plain versions, with exact launches.
+8. serve-ckpt - the training phase's VisualBERT-base written by
+              Checkpoint.finalize with its config.yaml, served by
+              mmf_serve (cli/serve.py build_server, port 0): 32
+              concurrent /v1/predict requests checked for status, shape
+              and finiteness, exact launches per forward, each answer
+              against a ServingEngine on the same weights in memory
+              (within batching noise; the served engine bit-equal to it
+              at the same bucket), the time from build_server
+              to the first answer; then with quant=int8: K5 launches per
+              bucket-32 forward and one answer against the int8 CPU
+              forward.
 
 Then one JSON line describing the kernels, the nvidia-smi line, and the
 last line {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
 import contextlib
+import dataclasses
 import itertools
 import json
 import math
@@ -92,8 +120,10 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import threading
 import time
+import types
 import urllib.request
 
 import numpy as np
@@ -113,7 +143,9 @@ from mmf_tpu_torch.serving import ServingEngine  # noqa: E402
 from mmf_tpu_torch.serving import engine as engine_lib  # noqa: E402
 from mmf_tpu_torch.serving.server import ServingServer  # noqa: E402
 from mmf_tpu_torch.trainers.core import train_state  # noqa: E402
+from mmf_tpu_torch.trainers.core.train_state import StepTrainer  # noqa: E402
 from mmf_tpu_torch.utils import flagship  # noqa: E402
+from mmf_tpu_torch.utils.checkpoint import Checkpoint  # noqa: E402
 
 DEV = torch.device("cuda")
 SEQ, REGIONS, VDIM, HEADS, HEAD_DIM, HIDDEN = 128, 100, 2048, 12, 64, 768
@@ -126,6 +158,12 @@ TOL = {torch.float32: dict(atol=1e-5, rtol=1e-5),
 # layers of bf16 activations; random-init scores have |s| ~ 0.5-2
 SERVE_ATOL = 0.1
 SERVE_MIN_COSINE = 0.999
+# served bf16 scores vs the same kernels and weights in another batch:
+# rows padded into another bucket, or put at another place in it, may take
+# another summation order in a GEMM and flip a bf16 rounding, which the
+# later layers carry on. Bound in bf16 ulps at the largest score's binade
+SERVE_BATCH_ULPS = 4
+SERVE_BATCH_MIN_COSINE = 0.99999
 N_REQUESTS = 8
 # backward kernels: max abs error over the largest entry of the plain
 # version's gradient. f32: same formulas, other summation order (TF32 off);
@@ -190,6 +228,16 @@ MMBT_K5 = 73
 # pooler and the head transform (the answer logits stay a plain Dense)
 VB_K5 = 75
 LATENCY_CALLS = 50
+# masked-LM pretraining (VisualBERT-base, the masked_coco config) at
+# TRAIN_B: timed steps, and steps of its kernel-vs-plain comparison
+# (warmup_linear runs update 0 at lr 0: both at the initial weights)
+VOCAB = 30522
+PRETRAIN_STEPS, PRETRAIN_COMPARED = 4, 2
+# a resumed step's loss against the uninterrupted one: the same weights,
+# optimizer state, step (so the same dropout masks) and kernels
+RESUME_LOSS_RTOL = 1e-6
+MMBT_PRETRAIN_B = 8
+MMBT_PRETRAIN_META = {"dataset_name": "hateful_memes", "dataset_type": "train"}
 # served outputs against a CPU forward of the same weights (plain
 # versions): max abs error of scores and pooled features (|f| <= 1, tanh),
 # and the pooled features' cosine. bf16 vs f32: twelve layers of bf16
@@ -1120,6 +1168,9 @@ DEVICE_CATEGORIES = (  # kernel-name fragment -> category, first match
     (("bn_fw", "batch_norm"), "BatchNorm"),
     (("nvjet", "gemm", "cutlass", "sm90_", "xmma"), "GEMMs"),
     (("multi_tensor_apply",), "optimizer"),
+    # the masked-LM loss's f32 log_softmax over the vocabulary (attention's
+    # softmax runs inside K1)
+    (("SoftMax",), "log_softmax (MLM loss, f32)"),
 )
 
 
@@ -1130,13 +1181,29 @@ def _category(name):
     return "elementwise, reductions, copies"
 
 
-def _device_ms(step_fn, n):
+def _op_device_ms(prof, n, dim):
+    """(ms per step, calls per step) of the GEMM operators that have an
+    operand dimension ``dim``, from their recorded input shapes."""
+    ms = calls = 0.0
+    for e in prof.key_averages(group_by_input_shape=True):
+        if e.key in ("aten::mm", "aten::addmm") and any(
+                dim in (shape or []) for shape in e.input_shapes):
+            total = getattr(e, "device_time_total", None)
+            ms += (e.cuda_time_total if total is None else total) / 1e3 / n
+            calls += e.count / n
+    return ms, calls
+
+
+def _device_ms(step_fn, n, gemm_dim=None):
     """Device time per step from torch.profiler over ``n`` steps: the sum
-    of the kernels' self time, and that sum by category of kernel."""
+    of the kernels' self time, and that sum by category of kernel. With
+    ``gemm_dim`` the GEMMs whose operands have that dimension (the MLM
+    decoder's vocabulary) are a category of their own, taken out of
+    "GEMMs" through the operators' recorded shapes."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=gemm_dim is not None) as prof:
         for _ in range(n):
             step_fn()
         torch.cuda.synchronize()
@@ -1153,21 +1220,27 @@ def _device_ms(step_fn, n):
         cat = _category(e.key)
         total, count = by_category.get(cat, (0.0, 0.0))
         by_category[cat] = (total + ms, count + e.count / n)
+    if gemm_dim is not None:
+        ms, calls = _op_device_ms(prof, n, gemm_dim)
+        total, count = by_category.get("GEMMs", (0.0, 0.0))
+        by_category["GEMMs"] = (total - ms, count - calls)
+        by_category[f"MLM decoder GEMMs (x {gemm_dim})"] = (ms, calls)
     return sum(v[0] for v in by_category.values()), by_category
 
 
-def _compared_steps(cfg, state_dict, batch):
-    """COMPARED_STEPS steps at dropout 0 from ``state_dict``: (losses,
+def _compared_steps(cfg, state_dict, batch, steps=COMPARED_STEPS,
+                    trainer=flagship.vqa2_trainer):
+    """``steps`` steps at dropout 0 from ``state_dict``: (losses,
     gradients of the first step, parameter updates after all, launch
     counts). The schedule's update 0 runs at lr 0, so the first two
     losses are taken at the initial weights and the third after an
     update at lr > 0."""
     model = flagship.vqa2_visual_bert(cfg, {"hidden_dropout_prob": 0.0})
     model.load_state_dict(state_dict, strict=True)
-    state, step = flagship.vqa2_trainer(model, cfg, seed=1)
+    state, step = trainer(model, cfg, seed=1)
     losses, grads = [], None
     reset_counts()
-    for _ in range(COMPARED_STEPS):
+    for _ in range(steps):
         state, rep = step(state, batch)
         losses.append(float(rep["total_loss"]))
         if grads is None:
@@ -1177,6 +1250,34 @@ def _compared_steps(cfg, state_dict, batch):
     updates = {n: p.detach().cpu() - state_dict[n]
                for n, p in model.named_parameters()}
     return losses, grads, updates, launches
+
+
+def _check_losses(k_losses, p_losses):
+    """The largest relative difference of the kernels' losses from the
+    plain versions', checked against TRAIN_LOSS_RTOL."""
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(k_losses, p_losses))
+    check(loss_rel <= TRAIN_LOSS_RTOL,
+          f"kernel vs plain losses {k_losses} / {p_losses}")
+    return loss_rel
+
+
+def _check_gradients(k_grads, p_grads):
+    """Per-parameter cosine and norm-relative error of the kernels'
+    gradients against the plain versions', checked against their bounds:
+    (names compared, cosines, errors, worst cosine's name, worst error's
+    name). The key bias's true gradient is 0 (softmax is shift-invariant
+    along keys): both sides hold rounding noise there, so it is left
+    out."""
+    compared = [n for n in k_grads if not n.endswith("key.bias")]
+    g_cos = {n: _cosine(k_grads[n], p_grads[n]) for n in compared}
+    g_rel = {n: _norm_rel(k_grads[n], p_grads[n]) for n in compared}
+    worst_g = min(g_cos, key=g_cos.get)
+    worst_r = max(g_rel, key=g_rel.get)
+    check(g_cos[worst_g] >= TRAIN_MIN_GRAD_COSINE,
+          f"gradient cosine {g_cos[worst_g]} at {worst_g}")
+    check(g_rel[worst_r] <= TRAIN_MAX_GRAD_REL,
+          f"gradient norm-relative error {g_rel[worst_r]} at {worst_r}")
+    return compared, g_cos, g_rel, worst_g, worst_r
 
 
 def phase_training(card):
@@ -1240,6 +1341,8 @@ def phase_training(card):
 
     dev_ms, by_category = _device_ms(one_step, 2)
     best_ms = min(step_ms)
+    trained = {k: v.detach().cpu().clone()
+               for k, v in model.state_dict().items()}
     del state, step, model, rep
     torch.cuda.empty_cache()
 
@@ -1254,22 +1357,11 @@ def phase_training(card):
     check(p_launches == ZERO_COUNTS, f"plain side launches {p_launches}")
     check(k_losses[1] == k_losses[0] and k_losses[2] != k_losses[1],
           f"update 0 at lr 0 and update 1 above it: losses {k_losses}")
-    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(k_losses, p_losses))
-    # the key bias's true gradient is 0 (softmax is shift-invariant along
-    # keys): both sides hold rounding noise there, so it is left out
-    compared = [n for n in k_grads if not n.endswith("key.bias")]
-    g_cos = {n: _cosine(k_grads[n], p_grads[n]) for n in compared}
-    g_rel = {n: _norm_rel(k_grads[n], p_grads[n]) for n in compared}
+    loss_rel = _check_losses(k_losses, p_losses)
+    compared, g_cos, g_rel, worst_g, worst_r = _check_gradients(k_grads,
+                                                                p_grads)
     u_cos = {n: _cosine(k_upd[n], p_upd[n]) for n in compared}
-    worst_g = min(g_cos, key=g_cos.get)
-    worst_r = max(g_rel, key=g_rel.get)
     worst_u = min(u_cos, key=u_cos.get)
-    check(loss_rel <= TRAIN_LOSS_RTOL,
-          f"kernel vs plain losses {k_losses} / {p_losses}")
-    check(g_cos[worst_g] >= TRAIN_MIN_GRAD_COSINE,
-          f"gradient cosine {g_cos[worst_g]} at {worst_g}")
-    check(g_rel[worst_r] <= TRAIN_MAX_GRAD_REL,
-          f"gradient norm-relative error {g_rel[worst_r]} at {worst_r}")
     check(u_cos[worst_u] >= TRAIN_MIN_UPDATE_COSINE,
           f"update cosine {u_cos[worst_u]} at {worst_u}")
 
@@ -1298,7 +1390,7 @@ def phase_training(card):
           f"steps min {u_cos[worst_u]:.6f} at {worst_u} (bound "
           f"{TRAIN_MIN_UPDATE_COSINE}); {len(compared)} of {len(k_grads)} "
           "parameters compared (attention key biases left out)")
-    return launches
+    return launches, {"config": cfg, "state": trained}
 
 
 # -- phase 5 ---------------------------------------------------------------
@@ -1559,6 +1651,403 @@ def _k5_per_shape(shapes):
     return lines, total
 
 
+# -- phase 7 ---------------------------------------------------------------
+def _pretrain_config(*opts):
+    return flagship.masked_coco_config([
+        # the flash kernel has no probabilities to drop (as in JAX)
+        "model_config.visual_bert.attention_probs_dropout_prob=0.0",
+        # so that the lr is above 0 within the run
+        "scheduler.params.num_warmup_steps=2", *opts])
+
+
+def _pretrainer(cfg, state_dict, seed=0):
+    """A StepTrainer for VisualBERT-base pretraining on the card, from
+    ``state_dict`` (or fresh seeded weights when None)."""
+    model = flagship.vqa2_visual_bert(cfg)
+    if state_dict is None:
+        model.init_weights(torch.Generator().manual_seed(seed))
+    else:
+        model.load_state_dict(state_dict, strict=True)
+    state, step = flagship.masked_coco_trainer(model, cfg, seed=0)
+    return StepTrainer(cfg, state, step)
+
+
+def _training_state(trainer):
+    """The parameters, the optimizer state and the step, on the CPU."""
+    opt = trainer.optimizer.state_dict()["state"]
+    return ({k: v.detach().cpu().clone()
+             for k, v in trainer.model.state_dict().items()},
+            {i: {k: v.detach().cpu().clone() for k, v in st.items()}
+             for i, st in opt.items()},
+            trainer.train_state.step)
+
+
+def _without_dropout(model):
+    """MMBT's config names no dropout rate (its trunk takes the
+    TransformerConfig default of 0.1, as in JAX, and attention-probability
+    dropout routes attention to the plain version): both rates to 0 on
+    the built modules, as the VisualBERT phases set them by config."""
+    for m in model.modules():
+        if isinstance(getattr(m, "config", None), T.TransformerConfig):
+            m.config = dataclasses.replace(
+                m.config, hidden_dropout_prob=0.0,
+                attention_probs_dropout_prob=0.0)
+        if isinstance(m, T.Dropout):
+            m.rate = 0.0
+    return model
+
+
+def _mmbt_pretrain_step(cfg, state_dict, batch):
+    """One MMBT-grid pretraining step from ``state_dict`` at dropout 0:
+    (loss, gradients, launch counts)."""
+    model = _without_dropout(flagship.mmbt_grid(
+        {"training_head_type": "pretraining"}))
+    model.load_state_dict(state_dict, strict=True)
+    state, step = flagship.vqa2_trainer(model, cfg, seed=1,
+                                        meta=MMBT_PRETRAIN_META)
+    reset_counts()
+    state, rep = step(state, batch)
+    loss = float(rep["total_loss"])
+    launches = read_counts()
+    grads = {n: p.grad.detach().float().cpu()
+             for n, p in model.named_parameters()}
+    del state, step, model
+    torch.cuda.empty_cache()
+    return loss, grads, launches
+
+
+def phase_pretrain(card):
+    cfg = _pretrain_config()
+    mc = cfg["model_config"]["visual_bert"]
+    check((mc["training_head_type"], mc["hidden_size"],
+           mc["num_hidden_layers"], mc["num_attention_heads"],
+           mc["vocab_size"], mc["dtype"], mc["hidden_dropout_prob"],
+           mc["attention_probs_dropout_prob"], cfg["optimizer"]["type"],
+           cfg["scheduler"]["type"]) == (
+        "pretraining", HIDDEN, 12, HEADS, VOCAB, "bfloat16", 0.1, 0.0,
+        "adam_w", "warmup_linear"), dict(mc))
+    trainer = _pretrainer(cfg, None)
+    init = {k: v.detach().cpu().clone()
+            for k, v in trainer.model.state_dict().items()}
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    host_batch = flagship.masked_coco_train_batch(TRAIN_B, SEQ, REGIONS,
+                                                  VDIM, VOCAB, seed=0)
+    labelled = int((host_batch["lm_label_ids"] != -1).sum())
+    batch = train_state._to_device(host_batch, DEV)
+
+    t0 = time.perf_counter()
+    warm_loss = float(trainer.train(batch)["total_loss"])  # warm-up
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+
+    # the main path, counted from zero
+    reset_counts()
+    losses, step_ms = [], []
+    for _ in range(PRETRAIN_STEPS):
+        t0 = time.perf_counter()
+        rep = trainer.train(batch)
+        losses.append(float(rep["total_loss"]))  # synchronises
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    launches = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(all(math.isfinite(x) for x in [warm_loss] + losses)
+          and not bool(rep["nan_flag"]), f"pretraining losses {losses}")
+    check(list(rep["losses"]) == ["train/masked_coco/masked_lm_loss"],
+          f"loss keys {list(rep['losses'])}")
+    # per step: 12 attention calls (stats form, K2 and K3, no inference
+    # form); 26 LayerNorms (embedding, 24 residual, the MLM head's
+    # transform), each a K4 forward and a K4-bwd backward
+    per_step = dict(ZERO_COUNTS, flash_attention_fwd_stats=12,
+                    flash_attention_bwd_dq=12, flash_attention_bwd_dkv=12,
+                    layer_norm=26, layer_norm_bwd=26)
+    want = {k: v * PRETRAIN_STEPS for k, v in per_step.items()}
+    check(launches == want, f"pretraining launches {launches}, want {want}")
+
+    def one_step():
+        trainer.train(batch)
+
+    dev_ms, by_category = _device_ms(one_step, 2, gemm_dim=VOCAB)
+    best_ms = min(step_ms)
+    del trainer, rep
+    torch.cuda.empty_cache()
+
+    # kernels vs plain versions: same weights, same batch, dropout 0
+    k_losses, k_grads, _, k_launches = _compared_steps(
+        cfg, init, batch, PRETRAIN_COMPARED, flagship.masked_coco_trainer)
+    with plain_versions():
+        p_losses, p_grads, _, p_launches = _compared_steps(
+            cfg, init, batch, PRETRAIN_COMPARED,
+            flagship.masked_coco_trainer)
+    want_k = {k: v * PRETRAIN_COMPARED for k, v in per_step.items()}
+    check(k_launches == want_k, f"kernel side launches {k_launches}")
+    check(p_launches == ZERO_COUNTS, f"plain side launches {p_launches}")
+    loss_rel = _check_losses(k_losses, p_losses)
+    compared, g_cos, g_rel, worst_g, worst_r = _check_gradients(k_grads,
+                                                                p_grads)
+    del k_grads, p_grads
+    torch.cuda.empty_cache()
+
+    # checkpoint round trip: save at update 2, a third step; a fresh
+    # model, optimizer and schedule resumed from current.ckpt take the
+    # same third step
+    with tempfile.TemporaryDirectory() as save_dir:
+        cfg_a = _pretrain_config(f"env.save_dir={save_dir}")
+        trainer = _pretrainer(cfg_a, init)
+        for _ in range(2):
+            trainer.train(batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        Checkpoint(trainer).save(2)
+        save_s = time.perf_counter() - t0
+        saved = _training_state(trainer)
+        ckpt_bytes = os.path.getsize(os.path.join(save_dir, "current.ckpt"))
+        loss3 = float(trainer.train(batch)["total_loss"])
+        del trainer
+        torch.cuda.empty_cache()
+
+        cfg_b = _pretrain_config(f"env.save_dir={save_dir}",
+                                 "checkpoint.resume=true")
+        resumed = _pretrainer(cfg_b, None, seed=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        Checkpoint(resumed).load_state_dict()
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        got = _training_state(resumed)
+        check(got[2] == saved[2] == 2 and resumed.num_updates == 2,
+              f"resumed step {got[2]}, num_updates {resumed.num_updates}")
+        for k, v in saved[0].items():
+            check(torch.equal(got[0][k], v), f"resumed parameter {k}")
+        check(saved[1].keys() == got[1].keys(), "resumed optimizer state")
+        for i, st in saved[1].items():
+            for k, v in st.items():
+                check(torch.equal(got[1][i][k], v),
+                      f"resumed optimizer state {i}/{k}")
+        resumed_loss3 = float(resumed.train(batch)["total_loss"])
+        del resumed
+        torch.cuda.empty_cache()
+    resume_rel = abs(resumed_loss3 - loss3) / abs(loss3)
+    check(resume_rel <= RESUME_LOSS_RTOL,
+          f"resumed third loss {resumed_loss3} vs {loss3}")
+
+    # MMBT-grid pretraining, one step through the kernels and one through
+    # the plain versions from the same weights
+    mmbt = flagship.mmbt_grid({"training_head_type": "pretraining"})
+    mmbt.init_weights(torch.Generator().manual_seed(0))
+    mmbt_state = {k: v.clone() for k, v in mmbt.state_dict().items()}
+    del mmbt
+    hm = flagship.hateful_memes_example_batch(MMBT_PRETRAIN_B, seed=0)
+    rng = np.random.RandomState(1)
+    hm["lm_label_ids"] = np.where(rng.rand(*hm["input_ids"].shape) < 0.15,
+                                  hm["input_ids"], -1).astype(np.int32)
+    hm_batch = train_state._to_device(hm, DEV)
+    mk_loss, mk_grads, mk_launches = _mmbt_pretrain_step(cfg, mmbt_state,
+                                                         hm_batch)
+    with plain_versions():
+        mp_loss, mp_grads, mp_launches = _mmbt_pretrain_step(
+            cfg, mmbt_state, hm_batch)
+    # per step: the trunk's 12 attention calls; 27 LayerNorms (the
+    # embedding LayerNorm on the modal and the text span, 24 residual,
+    # the MLM head's transform)
+    want_m = dict(per_step, layer_norm=27, layer_norm_bwd=27)
+    check(mk_launches == want_m, f"MMBT pretraining launches {mk_launches}, "
+          f"want {want_m}")
+    check(mp_launches == ZERO_COUNTS, f"MMBT plain launches {mp_launches}")
+    mmbt_rel = _check_losses([mk_loss], [mp_loss])
+    # the loss is the forward's: the gradients hold K2, K3 and K4-bwd at
+    # MMBT's shapes against the plain versions
+    m_compared, m_cos, m_rel, m_worst_g, m_worst_r = _check_gradients(
+        mk_grads, mp_grads)
+    del mk_grads, mp_grads
+    launches = {k: launches[k] + mk_launches[k] for k in launches}
+
+    print(f"phase pretrain: ok VisualBERT-base masked LM {n_params / 1e6:.1f}M "
+          f"f32 params, bf16 compute, B={TRAIN_B} ({labelled} labelled text "
+          f"positions), masked_coco config (AdamW, warmup_linear cut to 2 "
+          f"updates); warm-up step {warm_s:.1f}s loss {warm_loss:.4f}; "
+          f"{PRETRAIN_STEPS} steps, losses {[round(x, 4) for x in losses]} "
+          f"all finite; launches {launches} (exact per step, MMBT's step "
+          "included)")
+    print(f"  pretraining on '{card}': ms per step "
+          f"{[round(x, 2) for x in step_ms]} (best {best_ms:.2f}), "
+          f"{TRAIN_B * 1e3 / best_ms:.1f} samples/s at best, "
+          f"{TRAIN_B * 1e3 * PRETRAIN_STEPS / sum(step_ms):.1f} mean; device "
+          f"time {dev_ms:.2f} ms per step (torch.profiler, 2 steps) against "
+          f"{best_ms:.2f} ms wall; max_memory_allocated {peak_gb:.2f} GB")
+    print("  device time per pretraining step by kind of kernel (ms, "
+          "launches; the decoder GEMMs' count is of operators): "
+          + "; ".join(f"{cat} {ms:.2f} x{cnt:.0f}" for cat, (ms, cnt) in
+                      sorted(by_category.items(), key=lambda kv: -kv[1][0])))
+    print(f"  kernels vs plain versions, {PRETRAIN_COMPARED} steps at dropout "
+          f"0 (launches {k_launches} vs {p_launches}): losses {k_losses} vs "
+          f"{p_losses} (max rel {loss_rel:.3g}, bound {TRAIN_LOSS_RTOL}); "
+          f"first-step gradients: cosine min {g_cos[worst_g]:.6f} at "
+          f"{worst_g} (bound {TRAIN_MIN_GRAD_COSINE}), |g_k - g_p| / |g_p| "
+          f"max {g_rel[worst_r]:.3g} at {worst_r} (bound "
+          f"{TRAIN_MAX_GRAD_REL}); {len(compared)} parameters compared")
+    print(f"  checkpoint round trip: current.ckpt {ckpt_bytes / 1e6:.1f} MB "
+          f"(model, AdamW state, schedule, counts, step, config); "
+          f"Checkpoint.save {save_s:.2f}s, Checkpoint.load_state_dict into "
+          f"a fresh model on the card {load_s:.2f}s (host clock); "
+          "parameters, optimizer state and step bit-equal; third-step loss "
+          f"{loss3!r} uninterrupted vs {resumed_loss3!r} resumed (rel "
+          f"{resume_rel:.3g}, bound {RESUME_LOSS_RTOL}; bit-equal: "
+          f"{resumed_loss3 == loss3})")
+    print(f"  MMBT-grid pretraining step at B={MMBT_PRETRAIN_B} (ResNet-152 "
+          f"at 224 px, 12 x {HIDDEN}, dropout 0): loss {mk_loss!r} through "
+          f"the kernels vs {mp_loss!r} through the plain versions (rel "
+          f"{mmbt_rel:.3g}, bound {TRAIN_LOSS_RTOL}); gradients: cosine min "
+          f"{m_cos[m_worst_g]:.6f} at {m_worst_g} (bound "
+          f"{TRAIN_MIN_GRAD_COSINE}), |g_k - g_p| / |g_p| max "
+          f"{m_rel[m_worst_r]:.3g} at {m_worst_r} (bound {TRAIN_MAX_GRAD_REL}); "
+          f"{len(m_compared)} parameters compared; launches {mk_launches}")
+    return launches
+
+
+# -- phase 8 ---------------------------------------------------------------
+def phase_serve_ckpt(card, trained):
+    from mmf_tpu_torch.cli import serve as serve_cli
+
+    cfg = trained["config"]
+    samples = flagship.split_samples(flagship.example_batch(
+        SERVE_B, SEQ, REGIONS, VDIM, seed=3))
+    probe = 5
+    samples[probe]["image_info_0"]["max_features"] = np.int32(37)
+    bodies = [_fields_body(s) for s in samples]
+    opts = ["port=0", f"max_batch_size={SERVE_B}"]
+    with tempfile.TemporaryDirectory() as save_dir:
+        cfg["env"]["save_dir"] = save_dir
+        model = flagship.vqa2_visual_bert(cfg)
+        model.load_state_dict(trained["state"], strict=True)
+        t0 = time.perf_counter()
+        Checkpoint(types.SimpleNamespace(config=cfg, model=model)).finalize()
+        final_s = time.perf_counter() - t0
+        files = sorted(os.listdir(save_dir))
+        check(files == ["config.yaml", "models", "visual_bert_final.pth"],
+              f"checkpoint folder {files}")
+        final_bytes = os.path.getsize(os.path.join(save_dir, files[-1]))
+        # the same weights served from memory
+        ref_engine = ServingEngine(model, device=DEV, max_batch_size=SERVE_B)
+        ref = ref_engine.predict_many(samples)
+
+        reset_counts()  # the main path, counted from zero
+        t0 = time.perf_counter()
+        server = serve_cli.build_server(serve_cli.parse_opts(
+            [f"checkpoint={save_dir}", *opts])).start()
+        try:
+            replies, done_at = [None] * SERVE_B, [None] * SERVE_B
+
+            def send(i):
+                replies[i] = _request(server.port, bodies[i])
+                done_at[i] = time.perf_counter()
+
+            threads = [threading.Thread(target=send, args=(i,))
+                       for i in range(SERVE_B)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            torch.cuda.synchronize()
+            launches = read_counts()
+            check(not any(t.is_alive() for t in threads), "a request hung")
+            first_s = min(done_at) - t0
+            batches = server.stats()["batcher"]["batches"]
+            # the same bucket as the engine in memory
+            same_bucket = server.engine.predict_many(samples)
+        finally:
+            server.shutdown()
+        want = dict(ZERO_COUNTS, flash_attention_fwd=12 * batches,
+                    layer_norm=26 * batches)
+        check(batches >= 1 and launches == want,
+              f"served-checkpoint launches {launches}, want {want} for "
+              f"{batches} batch(es)")
+        errs, coss, ulps = [], [], []
+        for (status, payload, _), r in zip(replies, ref):
+            check(status == 200, payload)
+            got = np.asarray(payload["scores"], np.float32)
+            check(got.shape == (3129,) and np.isfinite(got).all(),
+                  f"scores shape {got.shape}")
+            want_s = np.asarray(r["scores"], np.float32)
+            errs.append(float(np.abs(got - want_s).max()))
+            # bf16 keeps 8 significant bits
+            ulp = 2.0 ** (math.floor(math.log2(np.abs(want_s).max())) - 7)
+            ulps.append(errs[-1] / ulp)
+            coss.append(float(got @ want_s / (np.linalg.norm(got)
+                                              * np.linalg.norm(want_s))))
+        check(max(ulps) <= SERVE_BATCH_ULPS
+              and min(coss) >= SERVE_BATCH_MIN_COSINE,
+              f"served checkpoint vs in-memory engine: max_abs_err "
+              f"{max(errs)} ({max(ulps)} bf16 ulps of the largest score), "
+              f"cosine {min(coss)}")
+        http_equal = max(errs) == 0.0
+        # the same samples in the same order at the same bucket: the
+        # weights loaded from the file are the ones in memory, bit for bit
+        bucket_equal = all(np.array_equal(a["scores"], b["scores"])
+                           for a, b in zip(same_bucket, ref))
+        check(bucket_equal, "the served engine at bucket 32 is not "
+              "bit-equal to the in-memory engine on the same samples")
+        del server, ref_engine, model, same_bucket
+        torch.cuda.empty_cache()
+
+        # the same checkpoint under quant=int8 (mmf_serve sets
+        # MMF_TPU_QUANT before the model is built)
+        prior = os.environ.get("MMF_TPU_QUANT")
+        try:
+            server = serve_cli.build_server(serve_cli.parse_opts(
+                [f"checkpoint={save_dir}", "quant=int8", *opts])).start()
+            try:
+                check(sum(isinstance(m, Q.QuantDense)
+                          for m in server.engine.model.modules()) == VB_K5,
+                      "QuantDense modules")
+                server.engine.predict_many(samples)  # warm-up
+                torch.cuda.synchronize()
+                reset_counts()
+                outs8 = server.engine.predict_many(samples)
+                torch.cuda.synchronize()
+                launches8 = read_counts()
+            finally:
+                server.shutdown()
+        finally:
+            if prior is None:
+                os.environ.pop("MMF_TPU_QUANT", None)
+            else:
+                os.environ["MMF_TPU_QUANT"] = prior
+    want8 = dict(ZERO_COUNTS, flash_attention_fwd=12, layer_norm=26,
+                 int8_dequant_gemm=VB_K5)
+    check(launches8 == want8, f"int8 served-checkpoint launches "
+          f"{launches8}, want {want8}")
+    ref_model = flagship.vqa2_visual_bert(cfg, {"quant": "int8"})
+    ref_model.load_state_dict(trained["state"], strict=True)
+    ref8 = cpu_forward(ref_model, samples[probe])["scores"]
+    got8 = np.asarray(outs8[probe]["scores"], np.float32)
+    err8 = float(np.abs(got8 - ref8).max())
+    cos8 = float(got8 @ ref8 / (np.linalg.norm(got8) * np.linalg.norm(ref8)))
+    check(err8 <= SERVE_ATOL and cos8 >= SERVE_MIN_COSINE,
+          f"int8 served checkpoint vs int8 CPU: max_abs_err {err8}, "
+          f"cosine {cos8}")
+    del server, outs8
+    torch.cuda.empty_cache()
+    print(f"phase serve-ckpt: ok the training phase's VisualBERT-base "
+          f"through Checkpoint.finalize ({final_bytes / 1e6:.1f} MB "
+          f"visual_bert_final.pth and config.yaml, {final_s:.2f}s) and "
+          f"mmf_serve (cli/serve.py build_server, port 0, max_batch_size "
+          f"{SERVE_B}); {SERVE_B} concurrent requests all 200, scores "
+          f"[3129] finite, {batches} batch(es); launches {launches} (exact "
+          f"per forward); vs a ServingEngine on the same weights in memory: "
+          f"max_abs_err {max(errs):.4g} ({max(ulps):g} bf16 ulps of the "
+          f"largest score), cosine min {min(coss):.6f} (bounds "
+          f"{SERVE_BATCH_ULPS} ulps / {SERVE_BATCH_MIN_COSINE}; HTTP answers "
+          f"bit-equal: {http_equal}; bit-equal at the same bucket 32: "
+          f"{bucket_equal})")
+    print(f"  mmf_serve on '{card}': build_server to the first answer "
+          f"{first_s:.2f}s (host clock: config and weights loaded, model "
+          "moved and cast, first forward); quant=int8: launches at bucket "
+          f"32 {launches8} (exact); one answer vs the int8 CPU forward "
+          f"max_abs_err {err8:.4g} cosine {cos8:.6f} (bounds {SERVE_ATOL} / "
+          f"{SERVE_MIN_COSINE})")
+    return {k: launches[k] + launches8[k] for k in launches}
+
+
 SOURCES = {  # name -> (route, source, the TPU kernel it replaces)
     "flash_attention_fwd": ("cuda",
                             "mmf_tpu_torch/ops/csrc/flash_attention_fwd.cu",
@@ -1621,9 +2110,11 @@ def main():
     phase_build(card)
     results = phase_kernels(card)
     served, serving = phase_serving(card)
-    trained = phase_training(card)
+    trained, training = phase_training(card)
     mmbt = phase_mmbt(card)
     vb_int8, k5_vb_ms = phase_vb_int8(card, serving)
+    pretrained = phase_pretrain(card)
+    served_ckpt = phase_serve_ckpt(card, training)
     results["int8_dequant_gemm"]["vb_int8_forward_ms"] = k5_vb_ms
     kernels = []
     for name, (route, source, replaces) in SOURCES.items():
@@ -1632,12 +2123,13 @@ def main():
             "name": name, "route": route, "source": source,
             "replaces": replaces,
             # launches on the paths that run the kernel: serving (K1
-            # inference form, K4), training (K1 stats form, K2, K3, K4,
-            # K4-bwd),
-            # MMBT-grid at batch 1 (K1, K4, K5 under int8) and VisualBERT
-            # under int8 (K1, K4, K5)
+            # inference form, K4), training and pretraining (K1 stats
+            # form, K2, K3, K4, K4-bwd), MMBT-grid at batch 1 (K1, K4, K5
+            # under int8), VisualBERT under int8 (K1, K4, K5) and the
+            # served checkpoint (K1, K4; K5 under int8)
             "launches": (served[name] + trained[name] + mmbt[name]
-                         + vb_int8[name]),
+                         + vb_int8[name] + pretrained[name]
+                         + served_ckpt[name]),
             "max_abs_err": r["err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],

@@ -5,19 +5,20 @@ output projected into BERT's token space, with optional start and end
 tokens borrowed from the text word-embedding table) are concatenated
 before the text tokens, and the whole sequence runs through one BERT
 trunk (the shared ``TransformerEncoder``: attention kernel K1, LayerNorm
-kernel K4, and the int8 GEMM K5 under ``quant: int8``). Head ported:
-classification (with ``fused_feature_only``); the ``pretraining`` head
-needs ``MLMHead``, which is not ported yet, and raises.
+kernel K4, and the int8 GEMM K5 under ``quant: int8``). Heads:
+classification (with ``fused_feature_only``) and ``pretraining`` (masked
+LM over the text part of the sequence, labels ``lm_label_ids``).
 
 Input contract (the JAX model's): ``image`` [B, 3, H, W] (encoded by the
 modal encoder, ResNet-152 grid features by default) or
 ``input_modal``/``image_feature_0`` when ``direct_features_input``;
 ``input_ids``, ``input_mask``, ``segment_ids``. Outputs ``scores``
 (float32) and, with ``fused_feature_only``, ``fused_feature`` (the
-pooled output).
+pooled output); pretraining outputs ``scores`` (the vocabulary logits as
+[-1, vocab], compute dtype) and ``losses``.
 
 Module names mirror the flax scopes: ``bert.*`` for the trunk,
-``classifier``, and the image encoder under flax's auto-generated scope
+``classifier`` (or ``cls``, the masked-LM head), and the image encoder under flax's auto-generated scope
 name (``ResNet152ImageEncoder_0``).
 """
 
@@ -35,11 +36,13 @@ from mmf_tpu_torch.modules.transformer import (
     Dense,
     Dropout,
     Embed,
+    MLMHead,
     Pooler,
     ResidualLayerNorm,
     TransformerConfig,
     TransformerEncoder,
     apply_padding_idx,
+    masked_lm_loss,
 )
 from mmf_tpu_torch.ops.attention import make_attention_bias
 
@@ -109,11 +112,6 @@ class MMBT(BaseModel):
         super().__init__(config)
         cfg = self._tcfg()
         self.head = self.config.get("training_head_type", "classification")
-        if self.head == "pretraining":
-            raise NotImplementedError(
-                "the MMBT pretraining head needs MLMHead, which is not "
-                "ported yet; use training_head_type=classification"
-            )
         self.direct = self.config.get("direct_features_input", False)
         self.encoder_name = None
         if not self.direct:
@@ -123,6 +121,9 @@ class MMBT(BaseModel):
             self.encoder_name = f"{type(encoder).__name__}_0"
             self.add_module(self.encoder_name, encoder)
         self.bert = MMBTTrunk(cfg, self.config.get("modal_hidden_size", 2048))
+        if self.head == "pretraining":
+            self.cls = MLMHead(cfg)
+            return
         self.dropout = Dropout(cfg.hidden_dropout_prob)
         self.num_labels = self.config.get("num_labels", 2)
         self.classifier = Dense(cfg.hidden_size, self.num_labels, cfg.dtype)
@@ -201,8 +202,15 @@ class MMBT(BaseModel):
 
         modal_type = self._modal_token_type(
             segment_ids, self._text_params().get("num_segments", 2))
-        _, pooled, _ = self.bert(modal_tokens, input_ids, input_mask,
-                                 segment_ids, modal_type, start, end)
+        seq, pooled, m_len = self.bert(modal_tokens, input_ids, input_mask,
+                                       segment_ids, modal_type, start, end)
+        if self.head == "pretraining":
+            logits = self.cls(seq[:, m_len:])
+            loss = masked_lm_loss(logits, sample_list["lm_label_ids"])
+            name = sample_list.get("dataset_name", "unknown")
+            split = sample_list.get("dataset_type", "train")
+            return {"scores": logits.reshape(-1, logits.shape[-1]),
+                    "losses": {f"{split}/{name}/masked_lm_loss": loss}}
 
         output: Dict[str, Any] = {}
         if self.config.get("fused_feature_only", False):

@@ -2,16 +2,21 @@
 
 Port of ``mmf_tpu/models/visual_bert.py``: text tokens and projected
 region features are concatenated into one sequence and run through the
-shared BERT trunk. Heads ported: classification with
-``pooler_strategy: default | vqa`` and ``nlvr2`` pair pooling, in eval and
-training mode (dropout from the generator that
-``modules.transformer.dropout_generator`` installs). The ``pretraining``
-head (masked-LM loss) is not ported yet.
+shared BERT trunk. Heads: classification with
+``pooler_strategy: default | vqa`` and ``nlvr2`` pair pooling, and
+``pretraining`` (masked LM over the whole sequence, the visual positions
+labelled -1, plus the ``seq_relationship`` score), in eval and training
+mode (dropout from the generator that
+``modules.transformer.dropout_generator`` installs).
 
 Input contract (same SampleList fields as the JAX model): ``input_ids``,
 ``input_mask``, ``segment_ids`` (optional), ``image_feature_0``,
-``image_info_0.max_features`` (optional), ``img0``/``img1`` nests for
-nlvr2. Outputs ``scores`` (float32) and ``pooled_output``.
+``image_info_0.max_features`` (optional), ``lm_label_ids`` for
+pretraining, ``img0``/``img1`` nests for nlvr2. Classification outputs
+``scores`` (float32) and ``pooled_output``; pretraining outputs
+``scores`` (the vocabulary logits as [-1, vocab], compute dtype),
+``seq_relationship_score`` and ``losses``
+(``{dataset_type}/{dataset_name}/masked_lm_loss``).
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from mmf_tpu_torch.modules.transformer import (
     Dense,
     Dropout,
     Embed,
+    MLMHead,
     Pooler,
     PredictionHeadTransform,
     ResidualLayerNorm,
@@ -34,6 +40,7 @@ from mmf_tpu_torch.modules.transformer import (
     TransformerEncoder,
     _dense,
     apply_padding_idx,
+    masked_lm_loss,
 )
 from mmf_tpu_torch.ops.attention import make_attention_bias
 
@@ -110,15 +117,16 @@ class VisualBERT(BaseModel):
         super().__init__(config)
         cfg = self._tcfg()
         self.head = self.config.get("training_head_type", "classification")
-        if self.head == "pretraining":
-            raise NotImplementedError(
-                "the VisualBERT pretraining (masked-LM) head is not ported "
-                "yet; use training_head_type=classification|nlvr2"
-            )
         self.pooler_strategy = self.config.get("pooler_strategy", "default")
         self.bert = VisualBertBase(
             cfg, self.config.get("visual_embedding_dim", 2048)
         )
+        if self.head == "pretraining":
+            self.cls = MLMHead(cfg)
+            # flax nn.Dense(2) without a dtype: float32 on the pooled
+            # output, under bf16 compute too
+            self.seq_relationship = Dense(cfg.hidden_size, 2, torch.float32)
+            return
         self.dropout = Dropout(cfg.hidden_dropout_prob)
         in_features = cfg.hidden_size
         if self.head == "nlvr2" and self.pooler_strategy != "vqa":
@@ -196,7 +204,7 @@ class VisualBERT(BaseModel):
         image_mask = (regions[None, :] < dims.reshape(-1, 1)).to(
             input_mask.dtype
         )
-        return {
+        out = {
             "input_ids": input_ids,
             "input_mask": input_mask,
             "token_type_ids": token_type_ids,
@@ -204,6 +212,14 @@ class VisualBERT(BaseModel):
             "visual_embeddings_type": torch.zeros_like(image_mask),
             "attention_mask": torch.cat([input_mask, image_mask], dim=-1),
         }
+        if self.head == "pretraining":
+            # the visual positions carry no label
+            lm = sample_list["lm_label_ids"]
+            pad = torch.full(
+                (lm.shape[0], out["attention_mask"].shape[1] - lm.shape[1]),
+                -1, dtype=lm.dtype, device=lm.device)
+            out["masked_lm_labels"] = torch.cat([lm, pad], dim=-1)
+        return out
 
     def forward(self, sample_list: Dict[str, Any]):
         inputs = self._prepare_inputs(sample_list)
@@ -214,6 +230,17 @@ class VisualBERT(BaseModel):
             inputs["visual_embeddings"],
             inputs["visual_embeddings_type"],
         )
+        if self.head == "pretraining":
+            logits = self.cls(sequence_output)
+            loss = masked_lm_loss(logits, inputs["masked_lm_labels"])
+            name = sample_list.get("dataset_name", "unknown")
+            split = sample_list.get("dataset_type", "train")
+            return {
+                "seq_relationship_score": self.seq_relationship(
+                    pooled_output),
+                "scores": logits.reshape(-1, logits.shape[-1]),
+                "losses": {f"{split}/{name}/masked_lm_loss": loss},
+            }
         if self.head == "nlvr2":
             b = pooled_output.shape[0]
             pooled_output = torch.cat(

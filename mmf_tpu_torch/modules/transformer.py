@@ -25,8 +25,7 @@ kernel (K5) on the card, its plain version on the CPU.
 Not ported yet: remat, MoE, sequence and pipeline parallelism (the config
 fields are accepted; ``moe_experts > 0`` raises), the encoder's
 ``output_hidden_states`` / ``prefix_kvs`` / ``return_kv`` (the
-attention block has ``prefix_kv`` and ``return_kv``),
-``TextEmbeddings``/``TransformerModel`` and ``MLMHead``.
+attention block has ``prefix_kv`` and ``return_kv``).
 Dense weights start at zero: ``BaseModel.init_weights`` fills them from
 an explicit ``torch.Generator``.
 """
@@ -43,7 +42,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mmf_tpu_torch.ops.attention import dot_product_attention
+from mmf_tpu_torch.ops.attention import (
+    dot_product_attention,
+    make_attention_bias,
+)
 from mmf_tpu_torch.ops.layernorm import layer_norm
 
 
@@ -380,3 +382,102 @@ class PredictionHeadTransform(nn.Module):
     def forward(self, hidden):
         x = ACT2FN[self.config.hidden_act](self.dense(hidden))
         return self.layer_norm(x)
+
+
+class TextEmbeddings(nn.Module):
+    """BERT word/position/token-type embeddings + LayerNorm + dropout."""
+
+    def __init__(self, config: TransformerConfig):
+        super().__init__()
+        self.config = config
+        hs, dt = config.hidden_size, config.dtype
+        self.word_embeddings = Embed(config.vocab_size, hs, dt)
+        self.position_embeddings = Embed(config.max_position_embeddings, hs,
+                                         dt)
+        self.token_type_embeddings = Embed(config.type_vocab_size, hs, dt)
+        self.layer_norm = ResidualLayerNorm(hs, config.layer_norm_eps)
+        self.dropout = Dropout(config.hidden_dropout_prob)
+
+    def forward(self, input_ids, token_type_ids=None, position_ids=None,
+                inputs_embeds=None):
+        if inputs_embeds is None:
+            inputs_embeds = apply_padding_idx(
+                self.word_embeddings(input_ids.long()), input_ids,
+                self.config.pad_token_id)
+        device = inputs_embeds.device
+        if position_ids is None:
+            position_ids = torch.arange(inputs_embeds.shape[1],
+                                        device=device)[None]
+        if token_type_ids is None:
+            token_type_ids = torch.zeros(inputs_embeds.shape[:2],
+                                         dtype=torch.long, device=device)
+        x = (inputs_embeds + self.position_embeddings(position_ids.long())
+             + self.token_type_embeddings(token_type_ids.long()))
+        return self.dropout(self.layer_norm(x))
+
+
+class TransformerModel(nn.Module):
+    """Full BERT-style model: embeddings -> encoder -> pooler."""
+
+    def __init__(self, config: TransformerConfig,
+                 add_pooling_layer: bool = True):
+        super().__init__()
+        self.config = config
+        self.embeddings = TextEmbeddings(config)
+        self.encoder = TransformerEncoder(config)
+        self.pooler = Pooler(config) if add_pooling_layer else None
+
+    def forward(self, input_ids=None, attention_mask=None,
+                token_type_ids=None, position_ids=None, inputs_embeds=None):
+        x = self.embeddings(input_ids, token_type_ids, position_ids,
+                            inputs_embeds)
+        bias = None
+        if attention_mask is not None:
+            bias = make_attention_bias(attention_mask, self.config.dtype)
+        x = self.encoder(x, bias=bias)
+        return x, (self.pooler(x) if self.pooler is not None else None)
+
+
+class MLMHead(nn.Module):
+    """Masked-LM head: transform + decoder to the vocabulary. Untied, a
+    ``decoder`` Dense; ``tied``, the logits are x . E^T plus a float32
+    ``bias``, in the compute dtype, with E the ``shared_embedding``
+    passed to ``forward`` (flax creates whichever the call takes; here
+    the form is chosen at construction). The decoder stays a plain
+    Dense under ``quant: int8``, as in JAX."""
+
+    def __init__(self, config: TransformerConfig, tied: bool = False):
+        super().__init__()
+        self.config = config
+        self.transform = PredictionHeadTransform(config)
+        self.tied = tied
+        if tied:
+            self.bias = nn.Parameter(torch.zeros(config.vocab_size))
+        else:
+            self.decoder = Dense(config.hidden_size, config.vocab_size,
+                                 config.dtype)
+
+    def forward(self, hidden, shared_embedding=None):
+        x = self.transform(hidden)
+        if self.tied != (shared_embedding is not None):
+            raise ValueError(
+                "a tied MLMHead needs shared_embedding, an untied one "
+                "takes none")
+        if not self.tied:
+            return self.decoder(x)
+        dt = self.config.dtype
+        logits = x.to(dt) @ shared_embedding.to(dt).t()
+        return logits + self.bias.to(dt)
+
+
+def masked_lm_loss(logits, labels):
+    """Mean negative log-likelihood of the labelled positions: a float32
+    log_softmax over the vocabulary, positions labelled -1 left out, the
+    sum divided by max(count, 1), so no labelled position gives 0 (as in
+    JAX; ``F.cross_entropy(ignore_index=-1)`` would give NaN)."""
+    valid = labels != -1
+    safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
+    logprobs = torch.log_softmax(logits.float(), dim=-1)
+    picked = logprobs.gather(-1, safe[..., None])[..., 0]
+    total = torch.where(valid, picked, torch.zeros_like(picked)).sum()
+    return -total / valid.sum().clamp(min=1)

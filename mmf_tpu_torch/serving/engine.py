@@ -19,8 +19,11 @@ and the outputs are copied back asynchronously; ``finalize()`` waits for
 that copy before it hands back numpy arrays (bfloat16 outputs come back
 as float32, since numpy has no bfloat16).
 
-Not ported yet: ``mesh=`` (multi-card serving), ``from_checkpoint`` and
-``from_export``.
+``from_checkpoint`` builds the engine from a checkpoint folder (the
+model rebuilt from its config snapshot, the weights loaded). Not ported
+yet: ``mesh=`` (multi-card serving) and ``from_export`` (``torch.export``
+cannot trace the kernels' ctypes launches until they are registered as
+``torch.library`` custom ops with fake implementations).
 """
 
 from __future__ import annotations
@@ -222,6 +225,17 @@ def _trim_split(tree, n: int, batch: int):
     return [arr] * n
 
 
+def _serving_device(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "ServingEngine serves on the card by default, and this "
+            "machine has no CUDA device; pass device='cpu' to serve "
+            "through the plain versions on the CPU"
+        )
+    return device
+
+
 class ServingEngine:
     """Bucket-padded batched inference. Thread-compatible: forwards are
     serialized with an internal lock, so the engine can sit behind a
@@ -236,13 +250,7 @@ class ServingEngine:
         postprocess: Optional[Callable[[Dict[str, Any]], Any]] = None,
         output_fields: Optional[Sequence[str]] = None,
     ):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "ServingEngine serves on the card by default, and this "
-                "machine has no CUDA device; pass device='cpu' to serve "
-                "through the plain versions on the CPU"
-            )
+        self.device = _serving_device(device)
         # top-level output keys to return (None = all); unused fields
         # are never copied back to the host
         self.output_fields = (
@@ -258,6 +266,20 @@ class ServingEngine:
         self.postprocess = postprocess
         self._lock = threading.Lock()
         self._schema: Optional[Dict[str, Any]] = None
+
+    @classmethod
+    def from_checkpoint(cls, checkpoint_path: str, device: Any = "cuda",
+                        **kwargs):
+        """Build from an MMF checkpoint folder (the model rebuilt from
+        the snapshot config, weights loaded; processors exposed on the
+        engine). Serves on the card unless ``device="cpu"``."""
+        from mmf_tpu_torch.utils.inference import Inference
+
+        _serving_device(device)  # before the model is built
+        pipeline = Inference(checkpoint_path=checkpoint_path)
+        engine = cls(pipeline.model, device=device, **kwargs)
+        engine.processors = pipeline.processor
+        return engine
 
     def _bucket(self, n: int) -> int:
         for b in self.buckets:

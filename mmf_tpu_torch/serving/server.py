@@ -8,8 +8,8 @@ Port of ``mmf_tpu/serving/server.py``. Endpoints:
 
 Request JSON for /v1/predict:
   {"fields": {name: nested-list-or-scalar, ...}}   # array inputs
-(``text`` requests need the text processors of the checkpoint port and
-are answered 400.)
+(``text`` requests need the dataset's text processors, which the port
+does not have yet, and are answered 400.)
 
 Response JSON: every output field as nested lists, plus "label" and
 "confidence" (softmax over "scores") when the model emits scores.
@@ -58,7 +58,7 @@ def default_prepare(engine: ServingEngine,
         raise ValueError("request body must be a JSON object")
     if request.get("text") is not None:
         raise ValueError(
-            "request has 'text' but the engine exposes no text_processor; "
+            "request has 'text', and the port has no text processors yet; "
             "send pre-processed 'fields' instead"
         )
     sample = {k: _to_array(v)

@@ -24,6 +24,10 @@ Port of ``mmf_tpu/trainers/core/train_state.py``, with the same contract:
 PyTorch modules hold their parameters, so the step updates the model and
 optimizer in place and returns a state whose ``step`` has advanced. The
 report's values stay on the device: reading them synchronises.
+
+``StepTrainer`` holds a state and its step with the counts beside them:
+the attribute surface of MMF's trainer that ``utils.checkpoint.
+Checkpoint`` reads and restores (the full trainer is not ported yet).
 """
 
 from __future__ import annotations
@@ -198,3 +202,39 @@ def make_eval_step(losses_fn: Optional[Callable] = None,
         return output
 
     return eval_step
+
+
+class StepTrainer:
+    """What a checkpoint needs of a trainer: ``config``, ``model``,
+    ``optimizer``, ``lr_scheduler``, the counts ``current_iteration``,
+    ``num_updates`` and ``current_epoch``, ``early_stop_callback``
+    (None here), and ``train_state``, whose ``step`` seeds the dropout
+    stream (``fold_in(seed, step)``), so a resume must restore it too.
+    ``train(batch)`` runs one update and advances the counts."""
+
+    def __init__(self, config, state: TrainState, train_step: Callable):
+        self.config = config
+        self.train_state = state
+        self.train_step = train_step
+        self.current_iteration = 0
+        self.num_updates = 0
+        self.current_epoch = 0
+        self.early_stop_callback = None
+
+    @property
+    def model(self) -> torch.nn.Module:
+        return self.train_state.model
+
+    @property
+    def optimizer(self) -> torch.optim.Optimizer:
+        return self.train_state.optimizer
+
+    @property
+    def lr_scheduler(self):
+        return self.train_state.lr_scheduler
+
+    def train(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+        self.train_state, report = self.train_step(self.train_state, batch)
+        self.num_updates += 1
+        self.current_iteration += 1
+        return report

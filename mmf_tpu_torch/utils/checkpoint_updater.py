@@ -1,4 +1,5 @@
-"""Weights carried across from the JAX package.
+"""Weights carried across from the JAX package and from reference MMF
+checkpoints.
 
 ``params_from_jax`` maps a flax ``variables["params"]`` tree (as numpy
 arrays) onto the port's ``state_dict``. The port's parameter names mirror
@@ -15,16 +16,31 @@ and, from a ``variables["batch_stats"]`` tree, BatchNorm ``mean`` ->
 ``num_batches_tracked`` beside them (flax keeps no such counter), so
 ``load_state_dict(strict=True)`` takes the result.
 
-Loading MMF/HF zoo checkpoints (composing ``HF_BERT_KEY_MAP`` of the JAX
-package with this naming) waits for the checkpoint port.
+``convert_reference_state_dict`` maps a reference-named torch state_dict
+(``model.bert.encoder.layer.0.attention.self.query.weight``, ...) onto
+the port's names. It is the JAX package's ``convert_torch_state_dict``
+with the port's naming as its target: the same key maps (regex renames,
+then the model's ``format_state_key``), the same leaf rules (LayerNorm
+``weight`` -> scale, Linear and Embedding ``weight`` -> kernel or
+embedding, BatchNorm leaves verbatim), the same fuzzy match (lower case,
+underscores dropped) and the same ``matched / missed / shape_mismatch``
+counts. Both sides keep torch's layout, so nothing is transposed; a key
+that is already one of the port's names is taken as it is.
+``reference_key_map(model)`` composes the maps as the JAX package's
+``tools/scripts/convert_checkpoint.py`` does. The port keeps its own copy
+of the maps, for the families it has.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import logging
+import re
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+logger = logging.getLogger(__name__)
 
 _LEAF = {"kernel": "weight", "embedding": "weight", "scale": "weight",
          "bias": "bias"}
@@ -78,3 +94,150 @@ def params_from_jax(
             put(".".join(path[:-1] + ("num_batches_tracked",)),
                 np.zeros((), np.int64))
     return state
+
+
+def is_model_only_checkpoint(ckpt: Dict[str, Any]) -> bool:
+    """(reference checkpoint_updater.py:21)"""
+    return "model" in ckpt and "optimizer" not in ckpt
+
+
+def get_pretrained_state_mapping_checkpoint(checkpoint, model, mapping):
+    """(reference checkpoint_updater.py:62): filter a checkpoint down to
+    keys covered by the pretrained_state_mapping."""
+    out = {}
+    for own_attr, pretrained_attr in mapping.items():
+        for key, value in checkpoint.items():
+            if key.startswith(pretrained_attr):
+                out[key.replace(pretrained_attr, own_attr, 1)] = value
+    return out
+
+
+# canonical rename maps (HF BERT -> the shared trunk's names)
+HF_BERT_KEY_MAP = {
+    r"embeddings\.word_embeddings": "embeddings.word_embeddings",
+    r"embeddings\.LayerNorm": "embeddings.layer_norm",
+    r"encoder\.layer\.(\d+)\.attention\.self\.query":
+        r"encoder.layer_\1.attention.query",
+    r"encoder\.layer\.(\d+)\.attention\.self\.key":
+        r"encoder.layer_\1.attention.key",
+    r"encoder\.layer\.(\d+)\.attention\.self\.value":
+        r"encoder.layer_\1.attention.value",
+    r"encoder\.layer\.(\d+)\.attention\.output\.dense":
+        r"encoder.layer_\1.attention.output_dense",
+    r"encoder\.layer\.(\d+)\.attention\.output\.LayerNorm":
+        r"encoder.layer_\1.attention.output_layer_norm",
+    r"encoder\.layer\.(\d+)\.intermediate\.dense":
+        r"encoder.layer_\1.ffn.intermediate_dense",
+    r"encoder\.layer\.(\d+)\.output\.dense":
+        r"encoder.layer_\1.ffn.output_dense",
+    r"encoder\.layer\.(\d+)\.output\.LayerNorm":
+        r"encoder.layer_\1.ffn.output_layer_norm",
+    r"pooler\.dense": "pooler.dense",
+}
+
+# MMBT zoo checkpoints (MMBTModel: shared-embedding multimodal BERT)
+MMBT_KEY_MAP = {
+    r"transformer\.embeddings\.word_embeddings": "word_embeddings",
+    r"transformer\.embeddings\.position_embeddings": "position_embeddings",
+    r"transformer\.embeddings\.token_type_embeddings":
+        "token_type_embeddings",
+    r"transformer\.embeddings\.LayerNorm": "embeddings_layer_norm",
+    r"transformer\.encoder": "encoder",
+    r"transformer\.pooler\.dense": "pooler.dense",
+    r"modal_encoder\.proj_embeddings": "proj_embeddings",
+    r"modal_encoder\.word_embeddings": "word_embeddings",
+    r"modal_encoder\.position_embeddings": "position_embeddings",
+    r"modal_encoder\.token_type_embeddings": "token_type_embeddings",
+    r"modal_encoder\.LayerNorm": "embeddings_layer_norm",
+}
+
+VISUAL_BERT_KEY_MAP = {
+    # NSP head: torch key cls.seq_relationship -> a top-level module here
+    r"cls\.seq_relationship": "seq_relationship",
+}
+
+# the families the port has
+MODEL_KEY_MAPS: Dict[str, Dict[str, str]] = {
+    "visual_bert": VISUAL_BERT_KEY_MAP,
+    "mmbt": MMBT_KEY_MAP,
+}
+
+
+def reference_key_map(model_name: Optional[str]) -> Dict[str, str]:
+    """The renames for a reference MMF state_dict of ``model_name``, in
+    the JAX converter CLI's order: the ``model.`` wrapper prefix
+    stripped, the family's map, then the HF-BERT patterns."""
+    key_map = {r"^model\.": ""}
+    key_map.update(MODEL_KEY_MAPS.get(model_name, {}))
+    key_map.update(HF_BERT_KEY_MAP)
+    return key_map
+
+
+def _torch_key_to_path(key: str) -> Tuple[Tuple[str, ...], str]:
+    """A torch dotted key -> (module path, kind), kind in {kernel, bias,
+    scale, other} (the JAX converter's ``_torch_key_to_flax_path``)."""
+    parts = key.split(".")
+    leaf = parts[-1]
+    body = parts[:-1]
+    body_l = [p.lower() for p in body]
+    if body and ("layernorm" in body_l[-1] or "layer_norm" in body_l[-1]
+                 or body[-1] == "LayerNorm"):
+        return tuple(body), "scale" if leaf == "weight" else "bias"
+    if body and re.fullmatch(r"bn\d*|.*batch_?norm\d*", body_l[-1]):
+        return tuple(body + [leaf]), "other"
+    if leaf == "weight":
+        return tuple(body), "kernel"
+    if leaf == "bias":
+        return tuple(body), "bias"
+    return tuple(body + [leaf]), "other"
+
+
+# the port's leaf for each kind: flax's kernel, embedding and scale are
+# all torch's ``weight``
+_KIND_LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias"}
+
+
+def _normalise(path) -> Tuple[str, ...]:
+    return tuple(p.lower().replace("_", "") for p in path)
+
+
+def convert_reference_state_dict(
+    state_dict: Dict[str, Any],
+    own_state: Dict[str, torch.Tensor],
+    key_map: Optional[Dict[str, str]] = None,
+    format_state_key=None,
+) -> Tuple[Dict[str, torch.Tensor], Dict[str, int]]:
+    """Name-matched conversion of ``state_dict`` onto the port's
+    ``own_state`` names: (the matched entries under the port's names, in
+    ``own_state``'s dtypes, and the counts)."""
+    key_map = key_map or {}
+    index = {_normalise(k.split(".")): k for k in own_state}
+    stats = {"matched": 0, "missed": 0, "shape_mismatch": 0}
+    out: Dict[str, torch.Tensor] = {}
+    for tkey, value in state_dict.items():
+        target = tkey if tkey in own_state else None
+        if target is None:
+            key = tkey
+            for pattern, repl in key_map.items():
+                key = re.sub(pattern, repl, key)
+            if format_state_key is not None:
+                key = format_state_key(key)
+            path, kind = _torch_key_to_path(key)
+            if kind in _KIND_LEAF:
+                path = path + (_KIND_LEAF[kind],)
+            target = index.get(_normalise(path))
+        if target is None:
+            stats["missed"] += 1
+            continue
+        value = torch.as_tensor(value)
+        if tuple(value.shape) != tuple(own_state[target].shape):
+            stats["shape_mismatch"] += 1
+            continue
+        out[target] = value.to(own_state[target].dtype)
+        stats["matched"] += 1
+    logger.info(
+        f"reference -> port conversion: {stats['matched']} matched, "
+        f"{stats['missed']} missed, {stats['shape_mismatch']} shape "
+        "mismatches"
+    )
+    return out, stats

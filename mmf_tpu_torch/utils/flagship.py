@@ -15,6 +15,13 @@ package's ``config/defaults.yaml`` (both read as data),
 ``vqa2_trainer`` builds the optimizer, schedule, losses and train step
 from that config, as ``MMFTrainer`` does.
 
+For masked-LM pretraining: ``masked_coco_config`` reads
+``projects/visual_bert/configs/masked_coco/pretrain.yaml`` the same way
+(VisualBERT with the ``pretraining`` head, AdamW lr 5e-5,
+``warmup_linear``), ``masked_coco_train_batch`` adds ``lm_label_ids`` to
+``example_batch``, and ``masked_coco_trainer`` builds the step as
+``vqa2_trainer`` does (the model returns its own losses).
+
 For Hateful Memes at batch 1 (the JAX package's latency metric,
 ``tools/benchmarks/bench_latency.py``): ``mmbt_grid`` builds MMBT-grid
 (ResNet-152 grid features, 12 x 768 trunk, 2 labels, bf16 compute) from
@@ -31,6 +38,8 @@ import numpy as np
 VQA2_NUM_LABELS = 3129
 VQA2_CONFIG = "projects/visual_bert/configs/vqa2/defaults.yaml"
 VQA2_META = {"dataset_name": "vqa2", "dataset_type": "train"}
+MASKED_COCO_CONFIG = "projects/visual_bert/configs/masked_coco/pretrain.yaml"
+MASKED_COCO_META = {"dataset_name": "masked_coco", "dataset_type": "train"}
 HATEFUL_MEMES_META = {"dataset_name": "hateful_memes", "dataset_type": "test"}
 
 
@@ -117,21 +126,40 @@ def split_samples(batch: Dict[str, Any]) -> List[Dict[str, Any]]:
     return [take(batch, i) for i in range(n)]
 
 
-def vqa2_config(opts: Optional[List[str]] = None):
-    """The VQA2 VisualBERT config merged over the root defaults, then
-    ``opts`` (``a.b.c=value`` overrides) applied."""
+def _project_config(path: str, dataset: str, opts: Optional[List[str]]):
+    """A project config merged over the root defaults, ``model`` and
+    ``datasets`` set as the command line sets them, then ``opts``
+    (``a.b.c=value`` overrides) applied."""
     from mmf_tpu_torch.config import omega
     from mmf_tpu_torch.config.configuration import load_yaml
 
-    cfg = omega.merge(load_yaml("config/defaults.yaml"),
-                      load_yaml(VQA2_CONFIG))
-    omega.merge_with_dotlist(cfg, list(opts or []))
+    cfg = omega.merge(load_yaml("config/defaults.yaml"), load_yaml(path))
+    omega.merge_with_dotlist(cfg, ["model=visual_bert", f"datasets={dataset}"]
+                             + list(opts or []))
+    return cfg
+
+
+def vqa2_config(opts: Optional[List[str]] = None):
+    """The VQA2 VisualBERT config merged over the root defaults, then
+    ``opts`` applied."""
+    return _project_config(VQA2_CONFIG, "vqa2", opts)
+
+
+def masked_coco_config(opts: Optional[List[str]] = None):
+    """The masked-COCO VisualBERT pretraining config merged over the
+    root defaults, then ``opts`` applied. The YAML quotes
+    ``num_training_steps`` ('11000'); it is read as the number it names,
+    since the schedule does arithmetic on it."""
+    cfg = _project_config(MASKED_COCO_CONFIG, "masked_coco", opts)
+    params = cfg["scheduler"]["params"]
+    params["num_training_steps"] = int(params["num_training_steps"])
     return cfg
 
 
 def vqa2_visual_bert(config, model_overrides: Optional[Dict[str, Any]] = None):
-    """VisualBERT from the config's ``model_config.visual_bert`` with
-    ``model_overrides`` on a copy."""
+    """VisualBERT from the config's ``model_config.visual_bert`` (whichever
+    head it names: the masked-COCO config's too) with ``model_overrides``
+    on a copy."""
     from mmf_tpu_torch.common.registry import registry
     from mmf_tpu_torch.config import omega
     from mmf_tpu_torch.utils.env import setup_imports
@@ -161,13 +189,34 @@ def vqa2_train_batch(batch_size: int = 8, seq_len: int = 128,
     return batch
 
 
-def vqa2_trainer(model, config, seed: int = 0, device: Any = "cuda"):
+def masked_coco_train_batch(batch_size: int = 8, seq_len: int = 128,
+                            regions: int = 100, vdim: int = 2048,
+                            vocab_size: int = 30522,
+                            mask_probability: float = 0.15,
+                            seed: int = 0) -> Dict[str, Any]:
+    """``example_batch`` plus ``lm_label_ids`` [B, seq_len]: each valid
+    text position is labelled with its token id with probability
+    ``mask_probability`` (the masked_token processor's 0.15) and -1
+    otherwise, drawn from ``np.random.RandomState(seed + 1)``."""
+    batch = example_batch(batch_size, seq_len, regions, vdim, vocab_size,
+                          seed)
+    rng = np.random.RandomState(seed + 1)
+    masked = (rng.rand(batch_size, seq_len) < mask_probability) & (
+        batch["input_mask"] > 0)
+    batch["lm_label_ids"] = np.where(masked, batch["input_ids"],
+                                     -1).astype(np.int32)
+    return batch
+
+
+def vqa2_trainer(model, config, seed: int = 0, device: Any = "cuda",
+                 meta: Optional[Dict[str, Any]] = None):
     """``(state, train_step)`` for ``model``, moved to ``device``, as
     ``MMFTrainer`` builds them: the model's weight-decay mask and lr
     multipliers as optimizer groups, the configured schedule as a
     ``LambdaLR``, clipping from ``training``, the model's losses, and
-    the VQA2 meta fields. Trains on the card unless the caller passes
-    ``device="cpu"``; raises where there is no card."""
+    the meta fields (VQA2's unless ``meta`` is given). Trains on the
+    card unless the caller passes ``device="cpu"``; raises where there
+    is no card."""
     import torch
 
     from mmf_tpu_torch.modules.optimizers import build_optimizer
@@ -199,6 +248,13 @@ def vqa2_trainer(model, config, seed: int = 0, device: Any = "cuda"):
         model.build_losses(),
         update_frequency=config["training"].get("update_frequency", 1),
         max_grad_norm=clip_gradients_config(config),
-        meta=VQA2_META,
+        meta=VQA2_META if meta is None else meta,
     )
     return create_train_state(model, optimizer, seed, lr_scheduler), step
+
+
+def masked_coco_trainer(model, config, seed: int = 0, device: Any = "cuda"):
+    """``vqa2_trainer`` with the masked-COCO meta fields: pretraining has
+    no ``targets``; the model returns its own ``losses``, which the train
+    step prefers."""
+    return vqa2_trainer(model, config, seed, device, MASKED_COCO_META)

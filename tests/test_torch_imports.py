@@ -38,6 +38,10 @@ SLICE_MODULES = [
     "mmf_tpu_torch.serving.batcher",
     "mmf_tpu_torch.serving.engine",
     "mmf_tpu_torch.serving.server",
+    "mmf_tpu_torch.cli.serve",
+    "mmf_tpu_torch.utils.checkpoint",
+    "mmf_tpu_torch.utils.distributed",
+    "mmf_tpu_torch.utils.inference",
 ]
 
 _PROBE = """
@@ -53,7 +57,7 @@ model = mmbt_grid({{"quant": "int8", "text_encoder": {{"params": {{
     "intermediate_size": 64}}}}}})
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
-                                    "mmf_tpu"))
+                                    "orbax", "mmf_tpu"))
 print(json.dumps(bad))
 """
 

@@ -268,8 +268,11 @@ def test_mmbt_grid_and_hateful_memes_batch():
     assert (text["hidden_size"], text["num_attention_heads"],
             model.config["num_labels"], model.config["dtype"]) == (
         768, 12, 2, "bfloat16")
-    with pytest.raises(NotImplementedError, match="MLMHead"):
-        mmbt_grid({"training_head_type": "pretraining"})
+    pretraining = mmbt_grid({"training_head_type": "pretraining",
+                             "text_encoder": {"params": {
+                                 "num_hidden_layers": 1}}})
+    assert hasattr(pretraining, "cls") and not hasattr(pretraining,
+                                                       "classifier")
     b = hateful_memes_example_batch(2, seed=0)
     rng = np.random.RandomState(0)  # bench_latency.py's draws
     np.testing.assert_array_equal(b["input_ids"],
