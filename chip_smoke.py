@@ -107,6 +107,27 @@ the script exits non-zero without a result line):
               bucket-32 forward and one answer against the int8 CPU
               forward.
 
+9. mmf-run  - mmf_run (cli/run.py's run(opts), in the process) trains,
+              evaluates and predicts VisualBERT-base at full width with
+              the VQA2 config on a synthetic VQA2 layout written from a
+              seed (tests/torch_vqa2_layout.py: MMF's imdb files, 640 /
+              128 / 64 questions over 160 images, [100, 2048] f32
+              region features a file, 3129 answers, a 30522-entry
+              WordPiece vocabulary): B=64, 4 loader workers, pinned
+              batches, 8 updates, evaluation and checkpoints every 4,
+              then the val and test prediction reports. Checks: 8
+              updates with finite losses, exact launches per update and
+              per eval forward, the losses equal to the train step's
+              (flagship.vqa2_trainer) on the same initial weights and
+              the loader's same batches, 128 val samples scored with
+              vqa_accuracy in [0, 1], the run folder's checkpoints and
+              one report row a test question. Printed: the CLI's train
+              samples/s beside the training phase's, the loader's
+              batches/s alone, the host split of an update (the
+              profiling mixin's points), device time per update and the
+              idle share (torch.profiler, 2 updates), eval samples/s,
+              the time to the first update and peak memory.
+
 Then one JSON line describing the kernels, the nvidia-smi line, and the
 last line {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -129,7 +150,9 @@ import urllib.request
 import numpy as np
 import torch
 
-if not torch.cuda.is_available():
+# the loader's worker processes import this file again as __mp_main__:
+# they never ask for the card
+if __name__ == "__main__" and not torch.cuda.is_available():
     sys.exit("chip_smoke: torch.cuda.is_available() is False; this run "
              "needs an NVIDIA card")
 
@@ -138,10 +161,12 @@ import torch.nn.functional as F  # noqa: E402
 from mmf_tpu_torch.modules import transformer as T  # noqa: E402
 from mmf_tpu_torch.ops import attention as A  # noqa: E402
 from mmf_tpu_torch.ops import layernorm as L  # noqa: E402
+from mmf_tpu_torch.common.sample import SampleList  # noqa: E402
 from mmf_tpu_torch.ops import quant as Q  # noqa: E402
 from mmf_tpu_torch.serving import ServingEngine  # noqa: E402
 from mmf_tpu_torch.serving import engine as engine_lib  # noqa: E402
 from mmf_tpu_torch.serving.server import ServingServer  # noqa: E402
+from mmf_tpu_torch.trainers.callbacks.base import Callback  # noqa: E402
 from mmf_tpu_torch.trainers.core import train_state  # noqa: E402
 from mmf_tpu_torch.trainers.core.train_state import StepTrainer  # noqa: E402
 from mmf_tpu_torch.utils import flagship  # noqa: E402
@@ -1207,6 +1232,12 @@ def _device_ms(step_fn, n, gemm_dim=None):
         for _ in range(n):
             step_fn()
         torch.cuda.synchronize()
+    return _by_category(prof, n, gemm_dim)
+
+
+def _by_category(prof, n, gemm_dim=None):
+    """(device ms per step, {category: (ms, launches) per step}) of a
+    finished torch.profiler capture of ``n`` steps (``_device_ms``)."""
     by_category = {}
     for e in prof.key_averages():
         # device-side kernels only; user annotations (the optimizer's
@@ -1390,7 +1421,9 @@ def phase_training(card):
           f"steps min {u_cos[worst_u]:.6f} at {worst_u} (bound "
           f"{TRAIN_MIN_UPDATE_COSINE}); {len(compared)} of {len(k_grads)} "
           "parameters compared (attention key biases left out)")
-    return launches, {"config": cfg, "state": trained}
+    return launches, {"config": cfg, "state": trained,
+                      "samples_per_s": TRAIN_B * 1e3 * TRAIN_STEPS
+                      / sum(step_ms)}
 
 
 # -- phase 5 ---------------------------------------------------------------
@@ -2048,6 +2081,301 @@ def phase_serve_ckpt(card, trained):
     return {k: launches[k] + launches8[k] for k in launches}
 
 
+# -- phase 9 ---------------------------------------------------------------
+RUN_B = 64
+RUN_UPDATES = 8
+RUN_EVAL_INTERVAL = 4
+RUN_SPLITS = {"train": 640, "val": 128, "test": 64}
+RUN_IMAGES = 160
+RUN_ANSWERS = 3129
+RUN_WORKERS = 4
+# the CLI's update is the train step's: bit-equal losses expected
+RUN_LOSS_RTOL = 1e-6
+RUN_LOSS_KEY = "train/vqa2/logit_bce"
+
+
+RUN_POINTS = ("Batch load time", "Batch prepare time", "Step dispatch time",
+              "Finished update")  # the profiling mixin's, in loop order
+
+
+class _RunProbe(Callback):
+    """A user callback of the ``mmf-run`` phase (registered as
+    ``chip_smoke_probe``): the initial weights, when each update's loss
+    reached the host, the profiling mixin's latest timing points at each
+    update, the validations' meters, and a torch.profiler capture of
+    updates 2 and 3. It moves itself to the head of the callbacks, so
+    that it hears ``on_update_end`` before the checkpoint callback
+    writes."""
+
+    def __init__(self, config, trainer):
+        super().__init__(config, trainer)
+        self.loss_read = {}
+        self.points = {}
+        self.val_meters = []
+        self.initial = None
+        self.prof = None
+        self.prof_window = None
+
+    def on_init_end(self, **kwargs):
+        self.initial = {k: v.detach().to("cpu", copy=True)
+                        for k, v in self.trainer.model.state_dict().items()}
+        self.trainer.callbacks.remove(self)
+        self.trainer.callbacks.insert(0, self)
+
+    def on_update_end(self, **kwargs):
+        n = self.trainer.num_updates
+        meters = self.trainer.profile_meter.meters
+        self.points[n] = {k: meters[k].get_latest() for k in RUN_POINTS
+                          if meters[k].averaged_value_deque}
+        if n == 1:
+            from torch.profiler import ProfilerActivity, profile
+
+            self.prof = profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA])
+            self.prof.__enter__()
+            self.prof_window = [time.perf_counter()]
+        elif n == 3:
+            torch.cuda.synchronize()
+            self.prof_window.append(time.perf_counter())
+            self.prof.__exit__(None, None, None)
+        # log_interval 1: the loss was read, so the device is done
+        self.loss_read[n] = time.perf_counter()
+
+    def on_validation_end(self, **kwargs):
+        self.val_meters.append(kwargs["meter"])
+
+
+def _run_opts(root, save_dir):
+    from tests.torch_vqa2_layout import layout_opts
+
+    return [
+        "config=projects/visual_bert/configs/vqa2/defaults.yaml",
+        "model=visual_bert", "dataset=vqa2",
+        f"env.save_dir={save_dir}", f"training.batch_size={RUN_B}",
+        f"training.max_updates={RUN_UPDATES}",
+        f"training.evaluation_interval={RUN_EVAL_INTERVAL}",
+        f"training.checkpoint_interval={RUN_EVAL_INTERVAL}",
+        "training.log_interval=1", f"training.num_workers={RUN_WORKERS}",
+        "training.pin_memory=true", "training.seed=1",
+        "scheduler.params.num_warmup_steps=2",
+        # the flash kernel has no probabilities to drop (as in JAX)
+        "model_config.visual_bert.attention_probs_dropout_prob=0.0",
+        "run_type=train_val_inference", "evaluation.predict=true",
+        "training.callbacks=[{type: chip_smoke_probe}]",
+    ] + layout_opts(root)
+
+
+def phase_mmf_run(card, training):
+    """``mmf_run`` (``cli.run.run``, in the process) trains, evaluates and
+    predicts VisualBERT-base on the synthetic VQA2 layout."""
+    import shutil
+
+    from mmf_tpu_torch.cli.run import run
+    from mmf_tpu_torch.common.registry import registry
+    from tests.torch_vqa2_layout import write_layout
+
+    registry.register_callback("chip_smoke_probe")(_RunProbe)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mmf_run_")
+    trainer = None
+    try:
+        t0 = time.perf_counter()
+        write_layout(tmp, n_train=RUN_SPLITS["train"],
+                     n_val=RUN_SPLITS["val"], n_test=RUN_SPLITS["test"],
+                     n_images=RUN_IMAGES, regions=REGIONS, feature_dim=VDIM,
+                     num_answers=RUN_ANSWERS, vocab_size=VOCAB, seed=0)
+        layout_s = time.perf_counter() - t0
+        save_dir = os.path.join(tmp, "save")
+
+        # the main path, counted from zero
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        trainer = run(_run_opts(tmp, save_dir))
+        run_s = time.perf_counter() - t0
+        launches = read_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        probe = next(cb for cb in trainer.callbacks
+                     if isinstance(cb, _RunProbe))
+        return _mmf_run_checks(card, training, trainer, probe, launches,
+                               t0, run_s, layout_s, peak_gb, save_dir)
+    finally:
+        # the phase iterated the loaders again after the run
+        if trainer is not None:
+            trainer.teardown()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _mmf_run_checks(card, training, trainer, probe, launches, t0, run_s,
+                    layout_s, peak_gb, save_dir):
+    import glob
+
+    from tests.torch_vqa2_layout import SPLITS
+
+    # updates 6 and 7 run clear of the profiler, the validations and the
+    # checkpoint writes; a point of update n is the latest at its end,
+    # but "Finished update" is recorded after it, so it is read at n + 1
+    split = {k: 1e3 * float(np.mean([
+        probe.points[n + (k == "Finished update")][k] for n in (6, 7)]))
+        for k in RUN_POINTS}
+    mc = trainer.config["model_config"]["visual_bert"]
+    check((mc["hidden_size"], mc["num_hidden_layers"],
+           mc["num_attention_heads"], mc["num_labels"], mc["dtype"])
+          == (HIDDEN, 12, HEADS, RUN_ANSWERS, "bfloat16"), dict(mc))
+    losses = list(trainer.meter.meters[RUN_LOSS_KEY].averaged_value_deque)
+    check(sorted(probe.loss_read) == list(range(1, RUN_UPDATES + 1))
+          and len(losses) == RUN_UPDATES
+          and all(math.isfinite(x) for x in losses),
+          f"updates {sorted(probe.loss_read)}, losses {losses}")
+
+    # per update 12 K1-lse, 12 K2, 12 K3, 26 K4, 26 K4-bwd; per eval
+    # forward 12 K1 and 26 K4: two validations and the val prediction
+    # report over 128 questions (2 batches each) and the test one over 64
+    val_batches = -(-RUN_SPLITS["val"] // RUN_B)
+    forwards = (2 * val_batches + val_batches
+                + -(-RUN_SPLITS["test"] // RUN_B))
+    want = dict(ZERO_COUNTS, flash_attention_fwd=12 * forwards,
+                flash_attention_fwd_stats=12 * RUN_UPDATES,
+                flash_attention_bwd_dq=12 * RUN_UPDATES,
+                flash_attention_bwd_dkv=12 * RUN_UPDATES,
+                layer_norm=26 * (RUN_UPDATES + forwards),
+                layer_norm_bwd=26 * RUN_UPDATES)
+    check(launches == want, f"mmf-run launches {launches}, want {want}")
+
+    # the run folder and the reports
+    files = {os.path.relpath(f, save_dir) for f in glob.glob(
+        os.path.join(save_dir, "**"), recursive=True)}
+    for name in ("config.yaml", "current.ckpt", "best.ckpt",
+                 "models/model_4.ckpt", "models/model_8.ckpt",
+                 "visual_bert_final.pth"):
+        check(name in files, f"{name} missing from the run folder {files}")
+    check(any(f.startswith("logs/train_") for f in files), f"logs {files}")
+    reports = {split: json.load(open(f)) for split in ("val", "test")
+               for f in glob.glob(os.path.join(save_dir, "reports",
+                                               f"vqa2_*_{split}_*.json"))}
+    test_ids = [int(r["question_id"]) for r in np.load(os.path.join(
+        save_dir, "..", "datasets", "vqa2", "defaults", "annotations",
+        SPLITS["test"]), allow_pickle=True)[1:]]
+    check(sorted(int(r["question_id"]) for r in reports["test"])
+          == sorted(test_ids), f"test report {len(reports['test'])} rows")
+    check(len(reports["val"]) == RUN_SPLITS["val"],
+          f"val report {len(reports['val'])} rows")
+    accuracy = [m.meters["val/vqa2/vqa_accuracy"].global_avg
+                for m in probe.val_meters]
+    check(len(accuracy) == RUN_UPDATES // RUN_EVAL_INTERVAL
+          and all(0.0 <= a <= 1.0 for a in accuracy), f"accuracy {accuracy}")
+
+    # the loader alone: epoch 1's first batches, the ones the run took,
+    # once its workers run again (the run stopped them at its end; a
+    # restarted epoch keeps them); then one batch's work in this process:
+    # its samples (the region features' reads apart) and their collation
+    loader = trainer.train_loader
+    t1 = time.perf_counter()
+    next(iter(loader))
+    restart_s = time.perf_counter() - t1
+    loader.seed_sampler(1)
+    t1 = time.perf_counter()
+    batches = [b for _, b in zip(range(RUN_UPDATES), loader)]
+    loader_bps = RUN_UPDATES / (time.perf_counter() - t1)
+    dataset = trainer.dataset_loader.datamodules["vqa2"].train_dataset
+    t1 = time.perf_counter()
+    samples = [dataset[i] for i in range(RUN_B)]
+    t2 = time.perf_counter()
+    SampleList(samples)
+    t3 = time.perf_counter()
+    for i in range(RUN_B, 2 * RUN_B):
+        dataset.features_db[i]
+    t4 = time.perf_counter()
+    batch_ms = {"samples": 1e3 * (t2 - t1), "collate": 1e3 * (t3 - t2),
+                "features alone": 1e3 * (t4 - t3)}
+
+    # the CLI's evaluation loop alone, on the trained model, its loader's
+    # workers running
+    next(iter(trainer.val_loader))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    report, _ = trainer.evaluation_loop("val")
+    eval_sps = report.batch_size / (time.perf_counter() - t1)
+    check(report.batch_size == RUN_SPLITS["val"]
+          and report["scores"].shape == (RUN_SPLITS["val"], RUN_ANSWERS),
+          f"val scored {report.batch_size} samples")
+
+    # the trainer adds nothing: the train step alone on the same weights
+    # and batches gives the same losses
+    cfg = trainer.config
+    seed = int(cfg["training"]["seed"])
+    model = flagship.vqa2_visual_bert(cfg)
+    model.load_state_dict(probe.initial, strict=True)
+    state, step = flagship.vqa2_trainer(model, cfg, seed=seed, device=DEV)
+    step_losses = []
+    for batch in batches:
+        state, rep = step(state, batch.pytree())
+        step_losses.append(float(rep["losses"][RUN_LOSS_KEY]))
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, step_losses))
+    check(loss_rel <= RUN_LOSS_RTOL,
+          f"mmf_run losses {losses} vs the train step's {step_losses}")
+    del state, step, model, rep, batches
+    torch.cuda.empty_cache()
+
+    # update n's time: from update n-1's loss on the host to update n's
+    # (batch load, H2D, dispatch, device, loss read); updates 2 and 3 are
+    # profiled, and update 5's interval holds update 4's checkpoint
+    # writes and validation, so the rate is over updates 4, 6, 7 and 8
+    t = probe.loss_read
+    interval = {n: t[n] - t[n - 1] for n in range(2, RUN_UPDATES + 1)}
+    steady = [n for n in range(4, RUN_UPDATES + 1)
+              if (n - 1) % RUN_EVAL_INTERVAL]
+    cli_sps = RUN_B * len(steady) / sum(interval[n] for n in steady)
+    update_ms = 1e3 * sum(interval[n] for n in steady) / len(steady)
+    # the device time of updates 2 and 3 (profiled: the profiler's own
+    # host cost slows their wall time, so the idle share is taken
+    # against the unprofiled updates' mean time)
+    dev_ms, by_category = _by_category(probe.prof, 2)
+    profiled_ms = 1e3 * (probe.prof_window[1] - probe.prof_window[0]) / 2
+
+    print(f"phase mmf-run: ok python -m mmf_tpu_torch.cli.run's run(opts) "
+          f"in the process, VisualBERT-base (12 x 768, 12 heads, 3129 "
+          f"answers, bf16 compute), B={RUN_B}, {RUN_WORKERS} loader workers, "
+          f"pinned; synthetic VQA2 layout ({RUN_SPLITS} questions over "
+          f"{RUN_IMAGES} images, [{REGIONS}, {VDIM}] f32 features a "
+          f"region file, written in {layout_s:.1f}s); {RUN_UPDATES} updates, "
+          f"losses {[round(x, 4) for x in losses]} all finite; launches "
+          f"{launches} (exact: 12/12/12/26/26 an update, 12 K1 + 26 K4 in "
+          f"each of {forwards} eval forwards); val vqa_accuracy "
+          f"{[round(a, 4) for a in accuracy]}; reports {len(reports['val'])} "
+          f"val and {len(reports['test'])} test rows; run folder complete; "
+          f"the train step alone on the CLI's weights and batches: losses "
+          f"{step_losses} (max rel {loss_rel:.3g}, bound {RUN_LOSS_RTOL})")
+    print(f"  mmf-run on '{card}': train {cli_sps:.1f} samples/s over "
+          f"updates {steady} (their intervals "
+          f"{[round(1e3 * interval[n], 1) for n in steady]} ms; update 5's "
+          f"{1e3 * interval[5]:.0f} ms holds update 4's checkpoint writes "
+          f"and validation) beside the training phase's "
+          f"{training['samples_per_s']:.1f} samples/s (its mean, this run); "
+          f"train loader alone {loader_bps:.1f} batches/s "
+          f"({RUN_B * loader_bps:.0f} samples/s; {RUN_WORKERS} workers "
+          f"forked anew and their first batch {restart_s:.2f}s; one batch "
+          f"in this process, "
+          f"ms: " + ", ".join(f"{k} {v:.1f}" for k, v in batch_ms.items())
+          + f"); host split of an update "
+          f"(ms, mean of updates 6 and 7, TrainerProfilingMixin): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in split.items())
+          + f"; device time {dev_ms:.2f} ms an update (torch.profiler, "
+          f"updates 2-3, whose wall time under the profiler was "
+          f"{profiled_ms:.2f} ms) in the unprofiled updates' "
+          f"{update_ms:.2f} ms: idle {100 * (1 - dev_ms / update_ms):.1f}%; "
+          f"eval {eval_sps:.1f} "
+          f"samples/s (the evaluation loop over {RUN_SPLITS['val']} val "
+          f"questions); first "
+          f"update's loss on the host {probe.loss_read[1] - t0:.1f}s after "
+          f"run() began (cold: config, datasets, model build and init, "
+          f"workers, first step); whole run {run_s:.1f}s; "
+          f"max_memory_allocated {peak_gb:.2f} GB")
+    print("  device time per update by kind of kernel (ms, launches): "
+          + "; ".join(f"{cat} {ms:.2f} x{cnt:.0f}" for cat, (ms, cnt) in
+                      sorted(by_category.items(), key=lambda kv: -kv[1][0])))
+    return launches
+
+
 SOURCES = {  # name -> (route, source, the TPU kernel it replaces)
     "flash_attention_fwd": ("cuda",
                             "mmf_tpu_torch/ops/csrc/flash_attention_fwd.cu",
@@ -2115,6 +2443,7 @@ def main():
     vb_int8, k5_vb_ms = phase_vb_int8(card, serving)
     pretrained = phase_pretrain(card)
     served_ckpt = phase_serve_ckpt(card, training)
+    mmf_run = phase_mmf_run(card, training)
     results["int8_dequant_gemm"]["vb_int8_forward_ms"] = k5_vb_ms
     kernels = []
     for name, (route, source, replaces) in SOURCES.items():
@@ -2125,11 +2454,12 @@ def main():
             # launches on the paths that run the kernel: serving (K1
             # inference form, K4), training and pretraining (K1 stats
             # form, K2, K3, K4, K4-bwd), MMBT-grid at batch 1 (K1, K4, K5
-            # under int8), VisualBERT under int8 (K1, K4, K5) and the
-            # served checkpoint (K1, K4; K5 under int8)
+            # under int8), VisualBERT under int8 (K1, K4, K5), the
+            # served checkpoint (K1, K4; K5 under int8) and mmf_run
+            # (the training path's kernels, and K1 and K4 in evaluation)
             "launches": (served[name] + trained[name] + mmbt[name]
                          + vb_int8[name] + pretrained[name]
-                         + served_ckpt[name]),
+                         + served_ckpt[name] + mmf_run[name]),
             "max_abs_err": r["err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],

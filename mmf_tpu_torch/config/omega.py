@@ -1,7 +1,8 @@
 """Minimal OmegaConf-like config engine (no external dependency).
 
-Copied unchanged from ``mmf_tpu/config/omega.py``, which is framework
-free, so the port reads the same YAML trees with the same semantics.
+Copied from ``mmf_tpu/config/omega.py``, which is framework free, so
+the port reads the same YAML trees with the same semantics; a
+``ConfigNode`` also pickles here (the loader's workers need it).
 
 Implements the subset of OmegaConf the reference relies on
 (mmf/utils/configuration.py): nested attr-dict nodes, recursive merge,
@@ -161,7 +162,9 @@ class ConfigNode(dict):
         return node
 
     def __reduce__(self):
-        return (_rebuild_confignode, (self.to_dict(),))
+        # the loader's worker processes receive the dataset's config by
+        # pickle (JAX's copy calls a to_dict that does not exist)
+        return (_rebuild_confignode, (to_container(self),))
 
 
 def _rebuild_confignode(d):

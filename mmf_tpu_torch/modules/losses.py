@@ -2,10 +2,10 @@
 
 Port of part of ``mmf_tpu/modules/losses.py``: the containers ``Losses``
 and ``MMFLoss`` (the ``<dataset_type>/<dataset_name>/<loss>`` key
-contract), ``sigmoid_bce_with_logits``, and the ``logit_bce`` (VQA2) and
-``cross_entropy`` (nlvr2 head) losses. The other losses are not ported
-yet. Every loss is ``loss(sample_list, model_output) -> scalar | dict``
-on tensors, differentiable by autograd.
+contract), ``sigmoid_bce_with_logits``, and the ``logit_bce`` (VQA2),
+``cross_entropy`` (nlvr2 head) and ``mse`` losses. The other losses are
+not ported yet. Every loss is ``loss(sample_list, model_output) ->
+scalar | dict`` on tensors, differentiable by autograd.
 """
 
 from __future__ import annotations
@@ -141,3 +141,12 @@ class CrossEntropyLoss:
         picked = torch.gather(logprobs, -1, safe[..., None])[..., 0]
         picked = torch.where(valid, picked, torch.zeros_like(picked))
         return -picked.sum() / valid.sum().clamp(min=1)
+
+
+@registry.register_loss("mse")
+class MSELoss:
+    """Mean squared error between the scores and the targets."""
+
+    def __call__(self, sample_list, model_output):
+        diff = model_output["scores"] - sample_list["targets"]
+        return torch.mean(diff ** 2)

@@ -7,9 +7,12 @@ Port of ``mmf_tpu/serving/server.py``. Endpoints:
 (``/v1/profile`` answers 404 until the tracing port.)
 
 Request JSON for /v1/predict:
-  {"fields": {name: nested-list-or-scalar, ...}}   # array inputs
-(``text`` requests need the dataset's text processors, which the port
-does not have yet, and are answered 400.)
+  {"fields": {name: nested-list-or-scalar, ...},   # array inputs
+   "text": "..."}                                  # optional; through the
+                                                   # served checkpoint's
+                                                   # text_processor
+(An engine with no ``text_processor``, one built in memory, answers a
+``text`` request 400.)
 
 Response JSON: every output field as nested lists, plus "label" and
 "confidence" (softmax over "scores") when the model emits scores.
@@ -51,20 +54,42 @@ def _to_array(v):
     return arr
 
 
-def default_prepare(engine: ServingEngine,
-                    request: Dict[str, Any]) -> Dict[str, Any]:
-    """Request JSON -> sample dict of arrays; ``fields`` pass through."""
-    if not isinstance(request, dict):
-        raise ValueError("request body must be a JSON object")
-    if request.get("text") is not None:
+_TEXT_PROCESSOR_LOCK = threading.Lock()
+
+
+def _text_processor(engine: ServingEngine):
+    """The engine's text processor, built once from the served
+    checkpoint's ``processors`` config (the handler threads share it)."""
+    processors = getattr(engine, "processors", None)
+    if not processors or "text_processor" not in processors:
         raise ValueError(
-            "request has 'text', and the port has no text processors yet; "
+            "request has 'text' but the engine exposes no text_processor; "
             "send pre-processed 'fields' instead"
         )
+    with _TEXT_PROCESSOR_LOCK:
+        if getattr(engine, "_text_processor", None) is None:
+            from mmf_tpu_torch.datasets.processors.processors import Processor
+
+            engine._text_processor = Processor(processors["text_processor"])
+    return engine._text_processor
+
+
+def default_prepare(engine: ServingEngine,
+                    request: Dict[str, Any]) -> Dict[str, Any]:
+    """Request JSON -> sample dict of arrays: ``fields`` pass through;
+    ``text`` runs the engine's text processor, whose array outputs
+    (``input_ids``, ``input_mask``, ...) join the sample."""
+    if not isinstance(request, dict):
+        raise ValueError("request body must be a JSON object")
     sample = {k: _to_array(v)
               for k, v in (request.get("fields") or {}).items()}
+    text = request.get("text")
+    if text is not None:
+        out = _text_processor(engine)({"text": text})
+        sample.update((k, v) for k, v in out.items()
+                      if isinstance(v, np.ndarray))
     if not sample:
-        raise ValueError("empty request: provide 'fields'")
+        raise ValueError("empty request: provide 'fields' and/or 'text'")
     return sample
 
 

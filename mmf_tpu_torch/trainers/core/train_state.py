@@ -27,7 +27,8 @@ report's values stay on the device: reading them synchronises.
 
 ``StepTrainer`` holds a state and its step with the counts beside them:
 the attribute surface of MMF's trainer that ``utils.checkpoint.
-Checkpoint`` reads and restores (the full trainer is not ported yet).
+Checkpoint`` reads and restores, for driving the step by hand; the full
+trainer is ``trainers/mmf_trainer.py``, around the same step.
 """
 
 from __future__ import annotations

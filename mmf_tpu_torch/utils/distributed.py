@@ -1,14 +1,17 @@
-"""Process-group helpers the checkpoint layer calls.
+"""Process-group helpers.
 
-Port of the part of ``mmf_tpu/utils/distributed.py`` that
-``utils/checkpoint.py`` uses: ``get_rank``, ``get_world_size``,
+Port of the part of ``mmf_tpu/utils/distributed.py`` that the
+checkpoint layer and ``mmf_run`` use: ``get_rank``, ``get_world_size``,
 ``is_main`` and ``synchronize``, over ``torch.distributed`` when a
-process group is initialised and trivial when none is (one process).
-The rest of that module (broadcasts, gathers, the mesh) is not ported
-yet.
+process group is initialised and trivial when none is (one process);
+``infer_init_method`` and ``suppress_output``. The rest of that module
+(broadcasts, gathers, the mesh) is not ported yet.
 """
 
 from __future__ import annotations
+
+import os
+import warnings
 
 import torch.distributed as dist
 
@@ -35,3 +38,39 @@ def synchronize(message: str = "sync-workers"):
     if get_world_size() == 1:
         return
     dist.barrier()
+
+
+def infer_init_method(config):
+    """``distributed.init_method`` from the torchrun variables
+    (``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``) when all
+    four are set; left as it is otherwise (one process)."""
+    if config["distributed"].get("init_method", None) is not None:
+        return
+    if all(key in os.environ
+           for key in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")):
+        config["distributed"]["init_method"] = "env://"
+        config["distributed"]["world_size"] = int(os.environ["WORLD_SIZE"])
+        config["distributed"]["rank"] = int(os.environ["RANK"])
+
+
+def suppress_output(is_main_proc: bool):
+    """Mute print and warnings on a process that is not the main one,
+    unless called with ``force=True`` (reference distributed.py:393-430)."""
+    if is_main_proc:
+        return
+    import builtins
+
+    builtin_print = builtins.print
+
+    def print_(*args, **kwargs):
+        if kwargs.pop("force", False):
+            builtin_print(*args, **kwargs)
+
+    builtins.print = print_
+    builtin_warn = warnings.warn
+
+    def warn(*args, **kwargs):
+        if kwargs.pop("force", False):
+            builtin_warn(*args, **kwargs)
+
+    warnings.warn = warn

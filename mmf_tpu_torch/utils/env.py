@@ -1,11 +1,14 @@
-"""Auto-registration imports and user plugins.
+"""Environment setup: seeding, auto-registration imports, user plugins,
+the run folder.
 
-Port of ``mmf_tpu/utils/env.py::setup_imports`` and
-``import_user_module``: ``setup_imports`` imports every module under the
-port's ``models/``, ``modules/`` and ``common/`` so their
-``@registry.register_*`` decorators run; ``import_user_module`` imports a
-user plugin directory (``env.user_dir``) that extends the registry from
-outside the package.
+Port of ``mmf_tpu/utils/env.py``: ``set_seed`` seeds Python's, numpy's
+and torch's generators; ``setup_imports`` imports every module under the
+port's ``models/``, ``modules/``, ``common/``, ``datasets/`` and
+``trainers/`` so their ``@registry.register_*`` decorators run;
+``import_user_module`` imports a user plugin directory (``env.user_dir``)
+that extends the registry from outside the package;
+``setup_run_folder`` makes the save and log folders. JAX's
+``setup_compilation_cache`` is XLA's and has no counterpart.
 """
 
 from __future__ import annotations
@@ -14,9 +17,26 @@ import glob
 import importlib
 import logging
 import os
+import random
 import sys
+from datetime import datetime
 
 logger = logging.getLogger(__name__)
+
+
+def set_seed(seed):
+    """Seed Python's, numpy's and torch's generators; -1 draws a seed
+    (reference env.py:16). Returns the seed in effect."""
+    if seed:
+        if seed == -1:
+            seed = random.randint(1, 1000000)
+        random.seed(seed)
+        import numpy as np
+        import torch
+
+        np.random.seed(seed % (2 ** 32))
+        torch.manual_seed(seed)
+    return seed
 
 
 def setup_imports():
@@ -25,7 +45,7 @@ def setup_imports():
     if registry.get("imports_setup", no_warning=True):
         return
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    for sub in ("models", "modules", "common"):
+    for sub in ("models", "modules", "common", "datasets", "trainers"):
         pattern = os.path.join(root, sub, "**", "*.py")
         for f in sorted(glob.glob(pattern, recursive=True)):
             if f.endswith("__init__.py"):
@@ -84,3 +104,19 @@ def import_user_module(user_dir: str):
     imported.add(user_dir)
     registry.register("__mmf_user_dir_imported__", imported)
     registry.register("user_dir", user_dir)
+
+
+def setup_run_folder(config):
+    """Make ``env.save_dir`` and the log folder (``env.log_dir``, else
+    ``<save_dir>/logs``); returns (save_dir, log_dir, report_dir)."""
+    save_dir = config["env"]["save_dir"]
+    log_dir = config["env"]["log_dir"] or os.path.join(save_dir, "logs")
+    report_dir = config["env"]["report_dir"] or os.path.join(save_dir,
+                                                             "reports")
+    os.makedirs(save_dir, exist_ok=True)
+    os.makedirs(log_dir, exist_ok=True)
+    return save_dir, log_dir, report_dir
+
+
+def get_run_timestamp() -> str:
+    return datetime.now().strftime("%Y_%m_%dT%H_%M_%S")

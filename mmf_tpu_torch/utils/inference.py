@@ -8,9 +8,11 @@ checkpoint's weights (the port's names, or a reference MMF state_dict's
 through the key maps; an entry the checkpoint leaves unfilled raises), and
 the dataset's processors config is exposed.
 
-Not ported yet: ``forward`` (it tokenizes the question with the dataset
-processors, ROADMAP A.5) and ``_region_features`` (the FRCNN detector,
-ROADMAP A.6); both raise.
+Not ported yet: ``forward`` (it decodes the image and runs the FRCNN
+detector for its region features; the card's machine has no image
+decoder, ROADMAP A.5, and FRCNN is ROADMAP A.6) and
+``_region_features``; both raise. A served checkpoint's ``text``
+requests go through its ``text_processor`` in ``serving/server.py``.
 """
 
 from __future__ import annotations
@@ -69,7 +71,9 @@ class Inference:
 
     def forward(self, image_path: str, text: dict, image_format: str = "path"):
         raise NotImplementedError(
-            "Inference.forward tokenizes the question with the dataset "
-            "processors, which the port does not have yet (ROADMAP A.5); "
-            "serve pre-processed fields through ServingEngine instead"
+            "Inference.forward needs an image decoder and the FRCNN "
+            "detector for the image's region features, which the port does "
+            "not have yet (image processors: ROADMAP A.5; FRCNN: ROADMAP "
+            "A.6); send the question as 'text' and the region features as "
+            "'fields' to mmf_serve instead"
         )

@@ -217,7 +217,56 @@ def test_inference_forward_waits_for_the_processors(tmp_path):
     pipeline = Inference(_save_checkpoint(tmp_path,
                                           port_visual_bert(MODEL)))
     assert "text_processor" in pipeline.processor
-    with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
+    with pytest.raises(NotImplementedError,
+                       match="image decoder and the FRCNN"):
         pipeline.forward("image.jpg", {"text": "what is this?"})
     with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
         pipeline._region_features("image.jpg")
+
+
+def test_text_requests_go_through_the_served_text_processor(tmp_path):
+    """A served checkpoint tokenizes a request's ``text`` with its
+    ``text_processor``: the fields equal JAX's ``default_prepare`` on the
+    same config, and the server answers it."""
+    from mmf_tpu.serving.server import default_prepare as jax_prepare
+    from mmf_tpu.utils.env import setup_imports as jax_setup_imports
+    from mmf_tpu_torch.serving.server import default_prepare
+    from tests.torch_port_utils import port_visual_bert
+
+    vocab = tmp_path / "vocab.txt"
+    vocab.write_text("\n".join(
+        ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", "?", "is", "there",
+         "a", "dog", "cat", "##s"]) + "\n")
+    model = port_visual_bert(MODEL)
+    model.init_weights(torch.Generator().manual_seed(1))
+    prefix = "dataset_config.vqa2.processors.text_processor.params."
+    folder = _save_checkpoint(tmp_path / "save", model, extra_opts=[
+        prefix + f"tokenizer_config.params.vocab_file={vocab}",
+        prefix + "max_seq_length=8"])
+    server = tserve.build_server(tserve.parse_opts(
+        [f"checkpoint={folder}", "port=0", "device=cpu",
+         "max_batch_size=4", "max_wait_ms=1"])).start()
+    try:
+        jax_setup_imports()
+        feats = tiny_batch(1)["image_feature_0"][0]
+        request = {"text": "Is there a DOG, or cats?",
+                   "fields": {"image_feature_0": feats.tolist()}}
+        got = default_prepare(server.engine, request)
+        want = jax_prepare(types.SimpleNamespace(
+            processors=server.engine.processors), request)
+        assert sorted(got) == sorted(want) == sorted(
+            ["image_feature_0", "input_ids", "input_mask", "segment_ids",
+             "lm_label_ids"])
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+            assert got[k].dtype == want[k].dtype, k
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{server.port}/v1/predict",
+            data=json.dumps(request).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=60) as r:
+            body = json.loads(r.read())
+        assert r.status == 200
+        assert len(body["scores"]) == MODEL["num_labels"]
+    finally:
+        server.shutdown()
