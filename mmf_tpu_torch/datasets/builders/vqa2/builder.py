@@ -1,7 +1,9 @@
-"""The VQA2 builder.
+"""The VQA2 builders.
 
-Port of ``VQA2Builder`` from ``mmf_tpu/datasets/builders/vqa2/
-builder.py``. The masked, OCR and train-val variants are not ported yet.
+Port of ``mmf_tpu/datasets/builders/vqa2/builder.py``: ``vqa2``,
+``vqa2_train_val`` (train on train2014 + val2014), ``masked_vqa2`` (the
+masked-LM and masked-region pretraining dataset) and ``masked_q_vqa2``
+(the question cloze). The OCR variant (``vqa2_ocr``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -46,3 +48,43 @@ class VQA2Builder(MMFDatasetBuilder):
                 self.dataset_name + "_answer_processor",
                 dataset.answer_processor,
             )
+
+
+@registry.register_builder("vqa2_train_val")
+class VQA2TrainValBuilder(VQA2Builder):
+    def __init__(self, dataset_name="vqa2_train_val", *args, **kwargs):
+        super().__init__(dataset_name)
+
+    @classmethod
+    def config_path(cls):
+        return "configs/datasets/vqa2/train_val.yaml"
+
+
+@registry.register_builder("masked_vqa2")
+class MaskedVQA2Builder(VQA2Builder):
+    """(reference vqa2/masked_builder.py:14-23)"""
+
+    def __init__(self, dataset_name="masked_vqa2", *args, **kwargs):
+        from mmf_tpu_torch.datasets.builders.vqa2.masked_dataset import (
+            MaskedVQA2Dataset,
+        )
+
+        super().__init__(dataset_name, dataset_class=MaskedVQA2Dataset)
+
+    @classmethod
+    def config_path(cls):
+        return "configs/datasets/vqa2/masked.yaml"
+
+
+@registry.register_builder("masked_q_vqa2")
+class MaskedQVQA2Builder(VQA2Builder):
+    def __init__(self, dataset_name="masked_q_vqa2", *args, **kwargs):
+        from mmf_tpu_torch.datasets.builders.vqa2.masked_dataset import (
+            MaskedQVQA2Dataset,
+        )
+
+        super().__init__(dataset_name, dataset_class=MaskedQVQA2Dataset)
+
+    @classmethod
+    def config_path(cls):
+        return "configs/datasets/vqa2/masked_q.yaml"

@@ -61,6 +61,20 @@ class MMFDataset(BaseDataset):
             )
         return features
 
+    def add_masked_features(self, idx, sample):
+        """The masked-pretraining feature path: the region features, the
+        box geometry processor over their info and, with
+        ``use_image_feature_masks``, the masked features and their
+        ``image_labels`` from ``masked_region_processor``."""
+        features = self._process_feature_info(self.features_db[idx])
+        if self.config.get("use_image_feature_masks", False):
+            masked, labels = self.masked_region_processor(
+                features["image_feature_0"])
+            features["image_feature_0"] = masked
+            sample["image_labels"] = labels
+        sample.update(features)
+        return sample
+
     def _get_path_based_on_index(self, config, attribute, index):
         """The ``index``-th path of this split's ``attribute`` list,
         under the dataset's ``data_dir`` (reference mmf_dataset.py:60-89)."""

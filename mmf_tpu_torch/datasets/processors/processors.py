@@ -1,17 +1,22 @@
 """Core processors.
 
 Port of the processors of ``mmf_tpu/datasets/processors/processors.py``
-that the VQA2 path builds: the ``Processor`` wrapper (type + params
-dispatch through the registry), ``vqa_answer`` (soft VQA-accuracy
-scores over the answer vocabulary), ``simple_word``,
-``simple_sentence`` and ``bbox``, and ``fasttext``'s constructor (the
-VQA2 defaults name it; calling it raises, since no fasttext model ships
-with the port). They run on the host and emit fixed-shape numpy arrays.
+that the VQA2 and masked-VQA2 paths build: the ``Processor`` wrapper
+(type + params dispatch through the registry), ``vqa_answer`` (soft
+VQA-accuracy scores over the answer vocabulary) and
+``multi_hot_answer_from_vocab``, ``vocab`` (words to indices through a
+vocabulary file), ``simple_word``, ``simple_sentence``, ``bbox``,
+``masked_region`` (region masks for masked-region pretraining, drawn
+from Python's ``random`` as in JAX) and ``transformer_bbox`` (normalised
+box geometry with the area), and ``fasttext``'s constructor (the VQA2
+defaults name it; calling it raises, since no fasttext model ships with
+the port). They run on the host and emit fixed-shape numpy arrays.
 """
 
 from __future__ import annotations
 
 import logging
+import random
 from collections import Counter
 
 import numpy as np
@@ -191,6 +196,72 @@ class VQAAnswerProcessor(BaseProcessor):
         return tokens
 
 
+@registry.register_processor("multi_hot_answer_from_vocab")
+class MultiHotAnswerFromVocabProcessor(VQAAnswerProcessor):
+    """A multi-hot target in place of the soft scores (reference
+    processors.py:948)."""
+
+    def compute_answers_scores(self, answers_indices):
+        scores = np.zeros(self.get_vocab_size(), np.float32)
+        scores[np.asarray(answers_indices, np.int64)] = 1
+        scores[self.answer_vocab.UNK_INDEX] = 0
+        return scores
+
+
+@registry.register_processor("vocab")
+class VocabProcessor(BaseProcessor):
+    """Words to a padded index array through a ``utils.vocab.Vocab``
+    (reference processors.py:207-342): ``{"text": indices, "tokens":
+    padded tokens, "length": n}``."""
+
+    MAX_LENGTH_DEFAULT = 50
+    PAD_TOKEN = "<pad>"
+
+    def __init__(self, config, *args, **kwargs):
+        from mmf_tpu_torch.utils.vocab import Vocab
+
+        if not config.get("vocab"):
+            raise AttributeError(
+                "VocabProcessor needs a 'vocab' block in its config")
+        self.vocab = Vocab(*args, **config["vocab"], **kwargs)
+        self.max_length = config.get("max_length", self.MAX_LENGTH_DEFAULT)
+        self.preprocessor = None
+        if "preprocessor" in config:
+            self.preprocessor = Processor(config["preprocessor"], *args,
+                                          **kwargs)
+
+    def __call__(self, item):
+        if not isinstance(item, dict):
+            raise TypeError("VocabProcessor input must be a dict carrying "
+                            "'text' or 'tokens'")
+        if "tokens" in item:
+            tokens = item["tokens"]
+        elif "text" in item:
+            if self.preprocessor is None:
+                raise AssertionError(
+                    "Raw 'text' input needs a configured preprocessor to "
+                    "tokenize it first")
+            tokens = self.preprocessor({"text": item["text"]})["text"]
+        else:
+            raise AssertionError(
+                "VocabProcessor input carries neither 'text' nor 'tokens'")
+        length = min(len(tokens), self.max_length)
+        indices = np.full(self.max_length, self.vocab.get_pad_index(),
+                          np.int64)
+        for idx, token in enumerate(tokens[:length]):
+            indices[idx] = self.vocab.stoi.get(token,
+                                               self.vocab.get_unk_index())
+        padded = [self.PAD_TOKEN] * self.max_length
+        padded[:length] = tokens[:length]
+        return {"text": indices, "tokens": padded, "length": np.int64(length)}
+
+    def get_pad_index(self):
+        return self.vocab.get_pad_index()
+
+    def get_vocab_size(self):
+        return self.vocab.get_size()
+
+
 @registry.register_processor("simple_word")
 class SimpleWordProcessor(BaseProcessor):
     """(reference processors.py:1054-1069)"""
@@ -226,3 +297,62 @@ class BBoxProcessor(BaseProcessor):
         n = min(len(info["bbox"]), self.max_length)
         bbox[:n] = np.asarray(info["bbox"], np.float32)[:n]
         return {"bbox": bbox}
+
+
+@registry.register_processor("masked_region")
+class MaskedRegionProcessor(BaseProcessor):
+    """Masks regions for masked-region pretraining (reference
+    processors.py:1637-1663): each region is picked with probability
+    ``mask_probability``; a picked region is labelled 1 and zeroed with
+    probability ``mask_region_probability``, the others are labelled -1.
+    The draws come from Python's ``random``, as in JAX, so a seeded run
+    masks the same regions in both packages. Returns (features, labels)."""
+
+    def __init__(self, config, *args, **kwargs):
+        self.mask_prob = config.get("mask_probability", 0.15)
+        self.mask_region_prob = config.get("mask_region_probability", 0.9)
+
+    def __call__(self, item):
+        image_feature = np.array(item, copy=True)
+        image_labels = []
+        for i in range(image_feature.shape[0]):
+            prob = random.random()
+            if prob < self.mask_prob:
+                prob /= self.mask_prob
+                if prob < self.mask_region_prob:
+                    image_feature[i] = 0
+                image_labels.append(1)
+            else:
+                image_labels.append(-1)
+        return image_feature, np.asarray(image_labels, np.int64)
+
+
+@registry.register_processor("transformer_bbox")
+class TransformerBboxProcessor(BaseProcessor):
+    """Box geometry for ViLBERT's location embedding (reference
+    processors.py:1666-1700): the info dict's boxes become [x1, y1, x2,
+    y2, area] normalised by the image's size. Returns a shallow copy with
+    ``bbox`` replaced: with ``fast_read`` one cached info dict serves
+    every question of an image, and an update in place would normalise
+    it again at each use."""
+
+    def __init__(self, config, *args, **kwargs):
+        self.bbox_key = config.get("bbox_key", "bbox")
+        self.image_width_key = config.get("image_width_key", "image_width")
+        self.image_height_key = config.get("image_height_key",
+                                           "image_height")
+
+    def __call__(self, item):
+        image_w = float(item[self.image_width_key])
+        image_h = float(item[self.image_height_key])
+        bbox = np.asarray(item[self.bbox_key], np.float32)
+        location = np.zeros((bbox.shape[0], 5), np.float32)
+        location[:, :4] = bbox[:, :4]
+        location[:, 4] = ((location[:, 3] - location[:, 1])
+                          * (location[:, 2] - location[:, 0])
+                          / (image_w * image_h))
+        location[:, (0, 2)] /= image_w
+        location[:, (1, 3)] /= image_h
+        out = dict(item)
+        out["bbox"] = location
+        return out

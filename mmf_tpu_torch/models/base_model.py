@@ -65,6 +65,15 @@ class BaseModel(nn.Module):
             loss_list = []
         return Losses(loss_list)
 
+    def has_uninitialized_params(self) -> bool:
+        """Whether a layer still waits for its input width (a
+        ``LazyDense``). A model with such a layer defines
+        ``materialize(sample_list)``, which sizes it from a batch as flax
+        does at init; call it before ``init_weights`` and before an
+        optimizer is built."""
+        return any(isinstance(p, nn.UninitializedParameter)
+                   for p in self.parameters())
+
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator,
                      std: float = 0.02) -> "BaseModel":

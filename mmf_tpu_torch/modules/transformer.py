@@ -242,6 +242,47 @@ def _dense(cfg: TransformerConfig, in_features: int,
     return Dense(in_features, features, cfg.dtype)
 
 
+class LazyDense(nn.modules.lazy.LazyModuleMixin, Dense):
+    """``Dense`` whose input width is taken from its first input, as a
+    flax ``nn.Dense`` takes it at init. The weight is materialised by the
+    first forward, by ``materialize(in_features)`` or by
+    ``load_state_dict``; the first forward makes the module a ``Dense``.
+    Materialise it before ``BaseModel.init_weights`` and before an
+    optimizer is built."""
+
+    cls_to_become = Dense
+
+    def __init__(self, out_features: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(0, out_features, dtype)
+        self.weight = nn.UninitializedParameter()
+        self.bias = nn.UninitializedParameter()
+
+    def initialize_parameters(self, x):
+        self.materialize(x.shape[-1])
+
+    @torch.no_grad()
+    def materialize(self, in_features: int):
+        if self.has_uninitialized_params():
+            self.in_features = int(in_features)
+            self.weight.materialize((self.out_features, self.in_features))
+            self.bias.materialize((self.out_features,))
+            self.reset_parameters()
+
+
+def attend(q, k, v, bias, dropout_prob: float, training: bool):
+    """``dot_product_attention`` with attention-probability dropout at
+    ``dropout_prob`` when ``training``. There are no probabilities to drop
+    inside the kernel: a nonzero rate in training routes to the plain
+    version, as the JAX dispatcher does."""
+    rate, generator = 0.0, None
+    if training and dropout_prob > 0.0:
+        rate = dropout_prob
+        generator = current_dropout_generator(rate)
+    return dot_product_attention(q, k, v, bias=bias, dropout_rate=rate,
+                                 generator=generator)
+
+
 class SelfAttention(nn.Module):
     """Multi-head attention block with output projection, dropout and the
     residual LayerNorm. Self- or cross-attention (``kv`` from another
@@ -279,14 +320,8 @@ class SelfAttention(nn.Module):
         if prefix_kv is not None:
             k = torch.cat([prefix_kv[0], k], dim=2)
             v = torch.cat([prefix_kv[1], v], dim=2)
-        rate, generator = 0.0, None
-        if self.training and cfg.attention_probs_dropout_prob > 0.0:
-            # no probabilities to drop inside the kernel: this routes to
-            # the plain version, as the JAX dispatcher does
-            rate = cfg.attention_probs_dropout_prob
-            generator = current_dropout_generator(rate)
-        ctx = dot_product_attention(q, k, v, bias=bias, dropout_rate=rate,
-                                    generator=generator)
+        ctx = attend(q, k, v, bias, cfg.attention_probs_dropout_prob,
+                     self.training)
         ctx = ctx.transpose(1, 2).reshape(
             hidden.shape[0], hidden.shape[1], cfg.hidden_size
         )

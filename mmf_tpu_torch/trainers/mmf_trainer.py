@@ -26,8 +26,10 @@ from __future__ import annotations
 
 import gc
 import logging
+import random
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 from mmf_tpu_torch.common.meter import Meter
@@ -116,6 +118,9 @@ class MMFTrainer(TrainerProfilingMixin, BaseTrainer):
             logger.info("training.fp16=true: using bf16 compute / f32 params")
 
         self.model = build_model(self.config)
+        if self.model.has_uninitialized_params():
+            # a layer sized by its input (flax infers it at init)
+            self.model.materialize(self._example_batch())
         if hasattr(self.model, "init_weights"):
             self.model.init_weights(
                 torch.Generator().manual_seed(int(self.seed or 0)))
@@ -123,6 +128,24 @@ class MMFTrainer(TrainerProfilingMixin, BaseTrainer):
         self.losses = self.model.build_losses()
         n_params = sum(p.numel() for p in self.model.parameters())
         logger.info(f"Model initialized: {n_params:,} parameters")
+
+    def _example_batch(self) -> Dict[str, Any]:
+        """The first sample of the first split that has data, as a batch
+        of one (the batch a lazily sized layer takes its width from)."""
+        for loader in (self.train_loader, self.val_loader, self.test_loader):
+            if loader is not None and loader.num_datasets > 0:
+                dataset = loader.first_loader.dataset
+                if len(dataset) > 0:
+                    # a masked dataset draws its masks from Python's and
+                    # numpy's generators: the run's own draws stay as
+                    # they would be without this sample
+                    states = random.getstate(), np.random.get_state()
+                    try:
+                        return SampleList([dataset[0]]).pytree()
+                    finally:
+                        random.setstate(states[0])
+                        np.random.set_state(states[1])
+        raise RuntimeError("no split has a sample to size the model by")
 
     def load_optimizer(self):
         logger.info("Loading optimizer")

@@ -156,10 +156,71 @@ VISUAL_BERT_KEY_MAP = {
     r"cls\.seq_relationship": "seq_relationship",
 }
 
+# ViLBERT zoo checkpoints (trunk under "bert."): the two-stream layers'
+# names onto the port's (models/vilbert.py). The patterns are unanchored,
+# so the same map works under wrapper prefixes.
+VILBERT_KEY_MAP = {
+    # pretraining ITM head (reference vilbert.py:865 bi_seq_relationship
+    # lives under cls.)
+    r"cls\.bi_seq_relationship": "bi_seq_relationship",
+    r"bert\.encoder\.layer\.(\d+)\.attention\.self\.": r"bert.layer_\1.",
+    r"bert\.encoder\.layer\.(\d+)\.attention\.output\.dense":
+        r"bert.layer_\1.attention_output_dense",
+    r"bert\.encoder\.layer\.(\d+)\.attention\.output\.LayerNorm":
+        r"bert.layer_\1.attention_ln",
+    r"bert\.encoder\.layer\.(\d+)\.intermediate\.dense":
+        r"bert.layer_\1.intermediate_dense",
+    r"bert\.encoder\.layer\.(\d+)\.output\.dense":
+        r"bert.layer_\1.output_dense",
+    r"bert\.encoder\.layer\.(\d+)\.output\.LayerNorm":
+        r"bert.layer_\1.output_ln",
+    r"bert\.encoder\.v_layer\.(\d+)\.attention\.self\.":
+        r"bert.v_layer_\1.attention_self.",
+    r"bert\.encoder\.v_layer\.(\d+)\.attention\.output\.dense":
+        r"bert.v_layer_\1.attention_output_dense",
+    r"bert\.encoder\.v_layer\.(\d+)\.attention\.output\.LayerNorm":
+        r"bert.v_layer_\1.attention_ln",
+    r"bert\.encoder\.v_layer\.(\d+)\.intermediate\.dense":
+        r"bert.v_layer_\1.intermediate_dense",
+    r"bert\.encoder\.v_layer\.(\d+)\.output\.dense":
+        r"bert.v_layer_\1.output_dense",
+    r"bert\.encoder\.v_layer\.(\d+)\.output\.LayerNorm":
+        r"bert.v_layer_\1.output_ln",
+    r"bert\.encoder\.c_layer\.(\d+)\.biattention\.": r"bert.c_layer_\1.",
+    r"bert\.encoder\.c_layer\.(\d+)\.biOutput\.dense1":
+        r"bert.c_layer_\1.biout_dense1",
+    r"bert\.encoder\.c_layer\.(\d+)\.biOutput\.LayerNorm1":
+        r"bert.c_layer_\1.biout_ln1",
+    r"bert\.encoder\.c_layer\.(\d+)\.biOutput\.dense2":
+        r"bert.c_layer_\1.biout_dense2",
+    r"bert\.encoder\.c_layer\.(\d+)\.biOutput\.LayerNorm2":
+        r"bert.c_layer_\1.biout_ln2",
+    r"bert\.encoder\.c_layer\.(\d+)\.v_intermediate\.dense":
+        r"bert.c_layer_\1.v_intermediate",
+    r"bert\.encoder\.c_layer\.(\d+)\.v_output\.dense":
+        r"bert.c_layer_\1.v_output",
+    r"bert\.encoder\.c_layer\.(\d+)\.v_output\.LayerNorm":
+        r"bert.c_layer_\1.v_output_ln",
+    r"bert\.encoder\.c_layer\.(\d+)\.t_intermediate\.dense":
+        r"bert.c_layer_\1.t_intermediate",
+    r"bert\.encoder\.c_layer\.(\d+)\.t_output\.dense":
+        r"bert.c_layer_\1.t_output",
+    r"bert\.encoder\.c_layer\.(\d+)\.t_output\.LayerNorm":
+        r"bert.c_layer_\1.t_output_ln",
+    r"bert\.v_embeddings\.image_embeddings": "bert.v_image_embeddings",
+    r"bert\.v_embeddings\.image_location_embeddings":
+        "bert.v_location_embeddings",
+    r"bert\.v_embeddings\.LayerNorm": "bert.v_embeddings_ln",
+    r"bert\.embeddings\.LayerNorm": "bert.embeddings.layer_norm",
+    r"bert\.t_pooler\.dense": "bert.t_pooler",
+    r"bert\.v_pooler\.dense": "bert.v_pooler",
+}
+
 # the families the port has
 MODEL_KEY_MAPS: Dict[str, Dict[str, str]] = {
     "visual_bert": VISUAL_BERT_KEY_MAP,
     "mmbt": MMBT_KEY_MAP,
+    "vilbert": VILBERT_KEY_MAP,
 }
 
 
@@ -230,10 +291,13 @@ def convert_reference_state_dict(
             stats["missed"] += 1
             continue
         value = torch.as_tensor(value)
-        if tuple(value.shape) != tuple(own_state[target].shape):
+        own = own_state[target]
+        # a lazily sized layer (``LazyDense``) takes the entry's shape
+        if not isinstance(own, torch.nn.UninitializedParameter) and \
+                tuple(value.shape) != tuple(own.shape):
             stats["shape_mismatch"] += 1
             continue
-        out[target] = value.to(own_state[target].dtype)
+        out[target] = value.to(own.dtype)
         stats["matched"] += 1
     logger.info(
         f"reference -> port conversion: {stats['matched']} matched, "

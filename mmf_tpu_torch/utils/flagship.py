@@ -22,6 +22,21 @@ For masked-LM pretraining: ``masked_coco_config`` reads
 ``example_batch``, and ``masked_coco_trainer`` builds the step as
 ``vqa2_trainer`` does (the model returns its own losses).
 
+ViLBERT-base (``configs/models/vilbert/defaults.yaml``: a 12 x 768 text
+stream, a 6 x 1024 image stream with 8 heads of 128, 6 co-attention
+layers at 1024, bf16 compute): ``vilbert`` with the VQA2 head;
+``vqa2_vilbert_config`` reads ``projects/vilbert/configs/vqa2/
+defaults.yaml`` and ``masked_vqa2_vilbert_config`` ``projects/vilbert/
+configs/masked_vqa2/pretrain.yaml``, each with the overrides those YAML
+files need to run (``VILBERT_VQA2_OVERRIDES``,
+``VILBERT_MASKED_VQA2_OVERRIDES``: the one place the chip run and the
+tests take them from); ``vqa2_vilbert`` builds the model of either
+config, sized by an example batch;
+``vilbert_example_batch`` adds normalised region boxes and ragged region
+counts to ``example_batch``, ``vilbert_train_batch`` VQA2 targets and
+``masked_vqa2_train_batch`` the masked-LM labels, masked-region labels
+and class probabilities.
+
 For Hateful Memes at batch 1 (the JAX package's latency metric,
 ``tools/benchmarks/bench_latency.py``): ``mmbt_grid`` builds MMBT-grid
 (ResNet-152 grid features, 12 x 768 trunk, 2 labels, bf16 compute) from
@@ -41,6 +56,31 @@ VQA2_META = {"dataset_name": "vqa2", "dataset_type": "train"}
 MASKED_COCO_CONFIG = "projects/visual_bert/configs/masked_coco/pretrain.yaml"
 MASKED_COCO_META = {"dataset_name": "masked_coco", "dataset_type": "train"}
 HATEFUL_MEMES_META = {"dataset_name": "hateful_memes", "dataset_type": "test"}
+VILBERT_VQA2_CONFIG = "projects/vilbert/configs/vqa2/defaults.yaml"
+VILBERT_MASKED_VQA2_CONFIG = "projects/vilbert/configs/masked_vqa2/pretrain.yaml"
+MASKED_VQA2_META = {"dataset_name": "masked_vqa2", "dataset_type": "train"}
+V_TARGET_SIZE = 1601  # the detector's classes (cls_prob's width)
+# what projects/vilbert/configs/vqa2/defaults.yaml lacks to run ViLBERT
+# (faults of the YAML, ROADMAP C): the dataset's GloVe ``vocab`` text
+# processor yields no ``input_ids``, so the question goes through
+# bert_tokenizer at 128 tokens, as VisualBERT's VQA2 config does; and
+# ``return_features_info: false`` gives no box locations, so the info is
+# returned and its boxes go through masked.yaml's transformer_bbox
+VILBERT_VQA2_OVERRIDES = [
+    "dataset_config.vqa2.processors.text_processor={type: bert_tokenizer, "
+    "params: {tokenizer_config: {type: bert-base-uncased, params: "
+    "{do_lower_case: true}}, max_seq_length: 128}}",
+    "dataset_config.vqa2.return_features_info=true",
+    "dataset_config.vqa2.processors.transformer_bbox_processor={type: "
+    "transformer_bbox, params: {bbox_key: bbox, image_width_key: "
+    "image_width, image_height_key: image_height}}",
+]
+# configs/datasets/vqa2/masked.yaml names a transformer_bbox processor
+# and the masked-region loss reads cls_prob, both from the features'
+# info, which its ``return_features_info: false`` leaves out
+VILBERT_MASKED_VQA2_OVERRIDES = [
+    "dataset_config.masked_vqa2.return_features_info=true",
+]
 
 
 def visual_bert(model_overrides: Optional[Dict[str, Any]] = None):
@@ -126,7 +166,8 @@ def split_samples(batch: Dict[str, Any]) -> List[Dict[str, Any]]:
     return [take(batch, i) for i in range(n)]
 
 
-def _project_config(path: str, dataset: str, opts: Optional[List[str]]):
+def _project_config(path: str, dataset: str, opts: Optional[List[str]],
+                    model: str = "visual_bert"):
     """A project config merged over the root defaults, ``model`` and
     ``datasets`` set as the command line sets them, then ``opts``
     (``a.b.c=value`` overrides) applied."""
@@ -134,7 +175,7 @@ def _project_config(path: str, dataset: str, opts: Optional[List[str]]):
     from mmf_tpu_torch.config.configuration import load_yaml
 
     cfg = omega.merge(load_yaml("config/defaults.yaml"), load_yaml(path))
-    omega.merge_with_dotlist(cfg, ["model=visual_bert", f"datasets={dataset}"]
+    omega.merge_with_dotlist(cfg, [f"model={model}", f"datasets={dataset}"]
                              + list(opts or []))
     return cfg
 
@@ -154,6 +195,76 @@ def masked_coco_config(opts: Optional[List[str]] = None):
     params = cfg["scheduler"]["params"]
     params["num_training_steps"] = int(params["num_training_steps"])
     return cfg
+
+
+def vqa2_vilbert_config(opts: Optional[List[str]] = None):
+    """The VQA2 ViLBERT config merged over the root defaults, then
+    ``VILBERT_VQA2_OVERRIDES`` and ``opts`` applied."""
+    return _project_config(VILBERT_VQA2_CONFIG, "vqa2",
+                           VILBERT_VQA2_OVERRIDES + list(opts or []),
+                           "vilbert")
+
+
+def masked_vqa2_vilbert_config(opts: Optional[List[str]] = None):
+    """The masked-VQA2 ViLBERT pretraining config (AdamW lr 1e-4,
+    ``warmup_linear``) merged over the root defaults, then
+    ``VILBERT_MASKED_VQA2_OVERRIDES`` and ``opts`` applied; the schedule's
+    ``num_training_steps`` is read as the number it names."""
+    cfg = _project_config(VILBERT_MASKED_VQA2_CONFIG, "masked_vqa2",
+                          VILBERT_MASKED_VQA2_OVERRIDES + list(opts or []),
+                          "vilbert")
+    params = cfg["scheduler"]["params"]
+    params["num_training_steps"] = int(params["num_training_steps"])
+    return cfg
+
+
+def _sized(model, example):
+    """``model`` with its lazily sized layers materialised by
+    ``example`` (numpy), or by ``vilbert_example_batch``'s layout."""
+    import torch
+
+    if example is None:
+        example = vilbert_example_batch(1, seq_len=1, regions=1, vdim=1)
+
+    def to_torch(tree):
+        if isinstance(tree, dict):
+            return {k: to_torch(v) for k, v in tree.items()}
+        return torch.from_numpy(np.asarray(tree))
+
+    return model.materialize(to_torch(example))
+
+
+def vilbert(model_overrides: Optional[Dict[str, Any]] = None,
+            example: Optional[Dict[str, Any]] = None):
+    """ViLBERT-base from ``configs/models/vilbert/defaults.yaml`` with the
+    classification head and VQA2's 3129 answers, then
+    ``model_overrides``; sized by ``example`` (see ``_sized``)."""
+    from mmf_tpu_torch.common.registry import registry
+    from mmf_tpu_torch.config import omega
+    from mmf_tpu_torch.config.configuration import load_yaml
+    from mmf_tpu_torch.utils.env import setup_imports
+
+    setup_imports()
+    mc = load_yaml("configs/models/vilbert/defaults.yaml")["model_config"][
+        "vilbert"]
+    mc["training_head_type"] = "classification"
+    mc["num_labels"] = VQA2_NUM_LABELS
+    mc = omega.merge(mc, model_overrides or {})
+    return _sized(registry.get_model_class("vilbert")(config=mc), example)
+
+
+def vqa2_vilbert(config, model_overrides: Optional[Dict[str, Any]] = None,
+                 example: Optional[Dict[str, Any]] = None):
+    """ViLBERT from the config's ``model_config.vilbert`` (whichever head
+    it names) with ``model_overrides`` on a copy, sized by ``example``."""
+    from mmf_tpu_torch.common.registry import registry
+    from mmf_tpu_torch.config import omega
+    from mmf_tpu_torch.utils.env import setup_imports
+
+    setup_imports()
+    mc = omega.merge(config["model_config"]["vilbert"],
+                     model_overrides or {})
+    return _sized(registry.get_model_class("vilbert")(config=mc), example)
 
 
 def vqa2_visual_bert(config, model_overrides: Optional[Dict[str, Any]] = None):
@@ -208,6 +319,69 @@ def masked_coco_train_batch(batch_size: int = 8, seq_len: int = 128,
     return batch
 
 
+def vilbert_example_batch(batch_size: int = 8, seq_len: int = 128,
+                          regions: int = 100, vdim: int = 2048,
+                          vocab_size: int = 30522,
+                          seed: int = 0) -> Dict[str, Any]:
+    """``example_batch`` with ViLBERT's region geometry, drawn from
+    ``np.random.RandomState(seed + 2)``: ``image_info_0.bbox`` [B, R, 5],
+    boxes [x1, y1, x2, y2] in [0, 1] and their area, as
+    ``transformer_bbox`` gives them, and ragged ``max_features`` from
+    half the regions to all of them."""
+    batch = example_batch(batch_size, seq_len, regions, vdim, vocab_size,
+                          seed)
+    rng = np.random.RandomState(seed + 2)
+    xy = 0.5 * rng.rand(batch_size, regions, 2)
+    wh = 0.5 * rng.rand(batch_size, regions, 2)
+    batch["image_info_0"]["bbox"] = np.concatenate(
+        [xy, xy + wh, wh.prod(-1, keepdims=True)], -1).astype(np.float32)
+    batch["image_info_0"]["max_features"] = rng.randint(
+        max(regions // 2, 1), regions + 1, batch_size).astype(np.int32)
+    return batch
+
+
+def vilbert_train_batch(batch_size: int = 8, seq_len: int = 128,
+                        regions: int = 100, vdim: int = 2048,
+                        vocab_size: int = 30522,
+                        num_labels: int = VQA2_NUM_LABELS,
+                        seed: int = 0) -> Dict[str, Any]:
+    """``vilbert_example_batch`` plus ``vqa2_train_batch``'s targets."""
+    batch = vilbert_example_batch(batch_size, seq_len, regions, vdim,
+                                  vocab_size, seed)
+    batch["targets"] = vqa2_train_batch(batch_size, 1, 1, 1, vocab_size,
+                                        num_labels, seed)["targets"]
+    return batch
+
+
+def masked_vqa2_train_batch(batch_size: int = 8, seq_len: int = 128,
+                            regions: int = 100, vdim: int = 2048,
+                            vocab_size: int = 30522,
+                            target_size: int = V_TARGET_SIZE,
+                            mask_probability: float = 0.15,
+                            seed: int = 0) -> Dict[str, Any]:
+    """``vilbert_example_batch`` plus the masked-VQA2 fields, drawn from
+    ``np.random.RandomState(seed + 3)``: ``lm_label_ids`` (each valid text
+    position labelled with its token with ``mask_probability``, else -1),
+    ``image_labels`` (each region 1 with ``mask_probability``, else -1,
+    the masked_region processor's labels) and ``image_info_0.cls_prob``
+    [B, R, target_size], the detector's class probabilities."""
+    batch = vilbert_example_batch(batch_size, seq_len, regions, vdim,
+                                  vocab_size, seed)
+    rng = np.random.RandomState(seed + 3)
+    masked = (rng.rand(batch_size, seq_len) < mask_probability) & (
+        batch["input_mask"] > 0)
+    batch["lm_label_ids"] = np.where(masked, batch["input_ids"],
+                                     -1).astype(np.int32)
+    batch["image_labels"] = np.where(
+        rng.rand(batch_size, regions) < mask_probability, 1, -1).astype(
+            np.int64)
+    logits = 3.0 * rng.randn(batch_size, regions, target_size)
+    probs = np.exp(logits - logits.max(-1, keepdims=True))
+    batch["image_info_0"]["cls_prob"] = (
+        probs / probs.sum(-1, keepdims=True)).astype(np.float32)
+    return batch
+
+
 def vqa2_trainer(model, config, seed: int = 0, device: Any = "cuda",
                  meta: Optional[Dict[str, Any]] = None):
     """``(state, train_step)`` for ``model``, moved to ``device``, as
@@ -237,6 +411,9 @@ def vqa2_trainer(model, config, seed: int = 0, device: Any = "cuda",
             "has no CUDA device; pass device='cpu' to train through the "
             "plain versions on the CPU"
         )
+    if model.has_uninitialized_params():
+        raise ValueError("a layer of the model waits for its input width: "
+                         "call model.materialize(batch) first")
     # before the optimizer is built: its groups hold the moved parameters
     model = model.to(device)
     optimizer = build_optimizer(
@@ -258,3 +435,9 @@ def masked_coco_trainer(model, config, seed: int = 0, device: Any = "cuda"):
     no ``targets``; the model returns its own ``losses``, which the train
     step prefers."""
     return vqa2_trainer(model, config, seed, device, MASKED_COCO_META)
+
+
+def masked_vqa2_trainer(model, config, seed: int = 0, device: Any = "cuda"):
+    """``vqa2_trainer`` with the masked-VQA2 meta fields (the model returns
+    its own masked-LM and masked-region losses)."""
+    return vqa2_trainer(model, config, seed, device, MASKED_VQA2_META)

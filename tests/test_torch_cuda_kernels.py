@@ -27,9 +27,16 @@ def card():
     return torch.device("cuda")
 
 
+# ViLBERT's attention calls at D = 128 (8 heads): image self-attention over
+# 100 regions, text queries over the regions, region queries over the text
+VILBERT_SHAPES = [(4, 8, 100, 100, 128), (4, 8, 128, 100, 128),
+                  (4, 8, 100, 128, 128)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(2, 12, 228, 228, 64), (1, 2, 37, 37, 64),
-                                   (2, 3, 9, 130, 16), (1, 2, 70, 70, 128)])
+                                   (2, 3, 9, 130, 16), (1, 2, 70, 70, 128)]
+                         + VILBERT_SHAPES)
 def test_flash_attention_matches_plain(card, dtype, shape):
     b, h, sq, skv, d = shape
     g = torch.Generator(device=card).manual_seed(0)
@@ -112,7 +119,7 @@ BWD_SHAPES = [(2, 12, 228, 228, 64), (2, 3, 128, 100, 64),
               (1, 2, 37, 70, 8), (2, 2, 9, 130, 16), (1, 2, 70, 45, 24),
               (1, 2, 70, 70, 128), (1, 2, 127, 127, 64),
               (1, 2, 129, 129, 64), (1, 2, 256, 256, 64),
-              (1, 2, 257, 257, 64), (1, 2, 64, 300, 64)]
+              (1, 2, 257, 257, 64), (1, 2, 64, 300, 64)] + VILBERT_SHAPES
 
 
 @pytest.fixture
@@ -618,7 +625,7 @@ def test_quant_dense_runs_k5_on_the_card(card):
 # finite score at all
 FWD_SHAPES = [(2, 3, 100, 150, 16), (2, 3, 100, 150, 64),
               (2, 3, 100, 150, 128), (1, 2, 1024, 1024, 16),
-              (1, 2, 1024, 1024, 64), (1, 2, 1024, 1024, 128)]
+              (1, 2, 1024, 1024, 64), (1, 2, 1024, 1024, 128)] + VILBERT_SHAPES
 
 
 def _fwd_case(card, dtype, shape, bias_kind, seed=11):
@@ -678,3 +685,45 @@ def test_flash_forward_forms_match_plain(card, no_tf32, shape, bias_kind):
     assert (m[empty] == 0).all() and (l[empty] == 1).all()
     assert torch.isneginf(m_raw[empty]).all() and (l_raw[empty] == 0).all()
     assert (acc[empty] == 0).all()
+
+
+def test_vilbert_forward_runs_the_kernels(card):
+    """A ViLBERT at full width with fewer layers (4 text, 2 image, 2
+    co-attention), bf16, through the kernels: per forward one K1 a text
+    and an image layer and two a co-attention layer (text queries over
+    the regions, region queries over the text, D = 128 with a padded
+    tail), and a LayerNorm (K4) for each of the 2 + 2 + 4 residual sums
+    of those layers, the text and image embeddings and the classifier
+    transform; the scores against the same weights' f32 forward on the
+    CPU (serving's bar: max abs 0.1, cosine 0.999)."""
+    from mmf_tpu_torch.utils import flagship
+
+    small = {"num_hidden_layers": 4, "v_num_hidden_layers": 2,
+             "v_biattention_id": [0, 1], "t_biattention_id": [2, 3]}
+    batch = flagship.vilbert_example_batch(4, seed=1)
+    batch["image_info_0"]["max_features"][:] = [100, 37, 64, 99]
+    model = flagship.vilbert(small)
+    model.init_weights(torch.Generator().manual_seed(0))
+    ref = flagship.vilbert(dict(small, dtype="float32"))
+    ref.load_state_dict(model.state_dict(), strict=True)
+
+    def to(tree, device):
+        if isinstance(tree, dict):
+            return {k: to(v, device) for k, v in tree.items()}
+        return torch.from_numpy(tree).to(device)
+
+    model = model.to(card).eval().to_compute_dtype()
+    counts = (A.flash_attention.launches, L.layer_norm_kernel.launches)
+    with torch.inference_mode():
+        got = model(to(batch, card))["scores"].float().cpu()
+        want = ref.eval()(to(batch, "cpu"))["scores"]
+    torch.cuda.synchronize()
+    assert (A.flash_attention.launches - counts[0],
+            L.layer_norm_kernel.launches - counts[1]) == (
+        4 + 2 + 2 * 2, 2 * 4 + 2 * 2 + 4 * 2 + 3)
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= 0.1
+    cos = float(torch.nn.functional.cosine_similarity(
+        got.flatten(), want.flatten(), dim=0))
+    assert cos >= 0.999
+

@@ -9,14 +9,20 @@ Under ``root`` (the run's ``env.data_dir``):
 
 - ``datasets/vqa2/defaults/annotations/imdb_{train2014,val2014,
   test2015}.npy``: MMF's imdb, a metadata row first, then one dict a
-  question with ``question``, ``question_id``, ``image_id``,
-  ``image_name``, ``feature_path`` and (not in test) ten ``answers``
-  drawn from the answer vocabulary, some of them outside it;
+  question with ``question`` (and the same as ``question_str``),
+  ``question_id``, ``image_id``, ``image_name``, ``feature_path`` and
+  (not in test) ten ``answers`` drawn from the answer vocabulary, some of
+  them outside it (and the same as ``all_answers``, which the masked
+  datasets read);
 - ``datasets/coco/defaults/features/{trainval2014,test2015}/<image>.npy``:
   region features [regions, feature_dim] float32, each with its
   ``<image>_info.npy`` (``bbox``, ``num_boxes``, ``image_height``,
-  ``image_width``); these stand for the config's LMDB files, which the
-  port does not read yet;
+  ``image_width`` and, with ``cls_prob_width``, the detector's class
+  probabilities ``cls_prob`` [num_boxes, cls_prob_width]); these stand
+  for the config's LMDB files, which the port does not read yet. An
+  image has between ``regions // 2`` and ``regions`` boxes, or exactly
+  ``regions`` with ``full_boxes`` (as MMF's VQA2 features have: the side
+  files' boxes then batch, which ViLBERT's box locations need);
 - ``datasets/vqa2/defaults/extras/vocabs/answers_vqa.txt``:
   ``num_answers`` answers, ``<unk>`` first;
 - ``vocab.txt``: a WordPiece vocabulary of ``vocab_size`` entries, BERT's
@@ -111,9 +117,14 @@ def _mark_built(path: str, version: str):
 def write_layout(root: str, n_train: int = 640, n_val: int = 128,
                  n_test: int = 64, n_images: int = 160, regions: int = 100,
                  feature_dim: int = 2048, num_answers: int = 3129,
-                 vocab_size: int = 30522, seed: int = 0) -> Dict[str, str]:
-    """Write the layout under ``root``; returns its main paths."""
+                 vocab_size: int = 30522, seed: int = 0,
+                 full_boxes: bool = False,
+                 cls_prob_width: int = 0) -> Dict[str, str]:
+    """Write the layout under ``root``; returns its main paths. The
+    class probabilities come from a second generator, so the other
+    fields are the same with and without them."""
     rng = np.random.RandomState(seed)
+    cls_rng = np.random.RandomState(seed + 1)
     datasets = os.path.join(root, "datasets")
     vqa2 = os.path.join(datasets, "vqa2", "defaults")
     coco = os.path.join(datasets, "coco", "defaults")
@@ -129,6 +140,8 @@ def write_layout(root: str, n_train: int = 640, n_val: int = 128,
         os.makedirs(out, exist_ok=True)
         for name in names:
             n_boxes = int(rng.randint(regions // 2, regions + 1))
+            if full_boxes:
+                n_boxes = regions
             feats = rng.randn(n_boxes, feature_dim).astype(np.float32)
             np.save(os.path.join(out, name + ".npy"), feats)
             height, width = int(rng.randint(200, 640)), int(
@@ -139,6 +152,11 @@ def write_layout(root: str, n_train: int = 640, n_val: int = 128,
                         np.float32),
                     "num_boxes": n_boxes, "image_height": height,
                     "image_width": width}
+            if cls_prob_width:
+                logits = 3.0 * cls_rng.randn(n_boxes, cls_prob_width)
+                probs = np.exp(logits - logits.max(1, keepdims=True))
+                info["cls_prob"] = (probs / probs.sum(1, keepdims=True)
+                                    ).astype(np.float32)
             np.save(os.path.join(out, name + "_info.npy"), info)
 
     os.makedirs(os.path.join(vqa2, "annotations"), exist_ok=True)
@@ -150,13 +168,15 @@ def write_layout(root: str, n_train: int = 640, n_val: int = 128,
                  "dataset_type": split, "has_answer": split != "test"}]
         for i in range(n):
             name = names[i % len(names)]
-            row = {"question": _question(rng),
+            question = _question(rng)
+            row = {"question": question, "question_str": question,
                    "question_id": question_id,
                    "image_id": int(name.rsplit("_", 1)[1]),
                    "image_name": name,
                    "feature_path": name + ".npy"}
             if split != "test":
                 row["answers"] = _answers(rng, answer_words)
+                row["all_answers"] = list(row["answers"])
             rows.append(row)
             question_id += 1
         np.save(os.path.join(vqa2, "annotations", SPLITS[split]),
@@ -177,13 +197,17 @@ def write_layout(root: str, n_train: int = 640, n_val: int = 128,
     return {"root": root, "vocab_file": vocab_file}
 
 
-def layout_opts(root: str) -> List[str]:
-    """The dotlist that points the VQA2 config at the layout."""
+def layout_opts(root: str, dataset: str = "vqa2",
+                text_processor: str = "text_processor") -> List[str]:
+    """The dotlist that points ``dataset``'s config (VQA2's, or one of
+    its variants') at the layout; ``text_processor`` names the processor
+    that reads the WordPiece vocabulary (``masked_token_processor`` for
+    ``masked_vqa2``)."""
     opts = [f"env.data_dir={root}"]
     for split, folder in FEATURES.items():
-        opts.append(f"dataset_config.vqa2.features.{split}="
+        opts.append(f"dataset_config.{dataset}.features.{split}="
                     f"[coco/defaults/features/{folder}]")
-    opts.append("dataset_config.vqa2.processors.text_processor.params."
-                "tokenizer_config.params.vocab_file="
+    opts.append(f"dataset_config.{dataset}.processors.{text_processor}."
+                "params.tokenizer_config.params.vocab_file="
                 + os.path.join(root, "vocab.txt"))
     return opts
