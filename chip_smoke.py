@@ -148,12 +148,44 @@ the script exits non-zero without a result line):
               it on masked VQA2 (3 updates), each run's losses equal to
               the train step's on the same batches; then mmf_serve on
               the finetuned folder against an in-memory engine.
+14. vilt-kernels - K1, K1-stats, K2 and K3 in f32 at ViLT's [64, 12,
+              617, 64] (40 text tokens masked by length, 577 image
+              tokens), K4 and K4-bwd in f32 without the residual at
+              [39488, 768], each against its plain version and timed
+              beside SDPA / F.layer_norm, with host time and the bound
+              (f32 operations over the FP32 non-tensor peak).
+15. vilt-serving - ViLT-base (f32, projects/vilt/configs/vqa2/defaults.yaml)
+              behind ServingEngine at buckets 1-32: exact launches (12 K1
+              and 27 K4 a forward), one sample against the f32 CPU
+              forward, the bucket-32 forward and its device time.
+16. vilt-training - the VQA2 finetuning step at B=64 (attention-
+              probability dropout cut to 0): exact launches, ms, device
+              time by kind and peak memory; 3 steps through the kernels
+              against 3 through the plain versions; then the MLM + ITM
+              pretraining step (masked_coco/pretrain.yaml, the second
+              masked encoder pass) at B=32, the same measurements and 2
+              compared steps.
+17. vilt-run - mmf_run finetunes ViLT-base on VQA2 over raw images (the
+              synthetic raw-image layout: PNG content decoded and resized
+              by the loader), its losses equal to the train step's; the
+              loader alone; mmf_serve on the run's folder.
+18. mmft-kernels - K1, K1-stats, K2 and K3 in bf16 at MMFT's
+              [64, 12, 114, 64] and [32, 12, 114, 64] (every token
+              valid, as its VQA2 inputs give) against their plain
+              versions, timed beside SDPA.
+19. mmft-run - mmf_run trains MMFTransformer (bf16, 14 + 100 tokens) on
+              VQA2 features with flagship.MMFT_VQA2_OVERRIDES, its losses
+              equal to the train step's; 3 steps from the run's initial
+              weights on its first batch through the kernels against 3
+              through the plain versions; the bucket-32 forward through
+              both; mmf_serve on the run's folder.
 
 Then one JSON line describing the kernels, the nvidia-smi line, and the
 last line {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
 import contextlib
+import copy
 import dataclasses
 import itertools
 import json
@@ -1285,10 +1317,10 @@ def _compared_steps(cfg, state_dict, batch, steps=COMPARED_STEPS,
                     build=flagship.vqa2_visual_bert,
                     no_dropout=(("hidden_dropout_prob", 0.0),)):
     """``steps`` steps at dropout 0 from ``state_dict``: (losses,
-    gradients of the first step, parameter updates after all, launch
-    counts). The schedule's update 0 runs at lr 0, so the first two
-    losses are taken at the initial weights and the third after an
-    update at lr > 0."""
+    gradients of the first step, None for a parameter that got none,
+    parameter updates after all, launch counts). The schedule's update 0
+    runs at lr 0, so the first two losses are taken at the initial
+    weights and the third after an update at lr > 0."""
     model = build(cfg, dict(no_dropout))
     model.load_state_dict(state_dict, strict=True)
     state, step = trainer(model, cfg, seed=1)
@@ -1298,7 +1330,8 @@ def _compared_steps(cfg, state_dict, batch, steps=COMPARED_STEPS,
         state, rep = step(state, batch)
         losses.append(float(rep["total_loss"]))
         if grads is None:
-            grads = {n: p.grad.detach().float().cpu()
+            grads = {n: None if p.grad is None else
+                     p.grad.detach().float().cpu()
                      for n, p in model.named_parameters()}
     launches = read_counts()
     updates = {n: p.detach().cpu() - state_dict[n]
@@ -1315,15 +1348,32 @@ def _check_losses(k_losses, p_losses):
     return loss_rel
 
 
+def _compared_names(k_grads, p_grads):
+    """The parameters whose gradients the two sides compare. Both must
+    hold the same parameters, and leave the same ones without a gradient
+    (a head the dataset does not call): those are printed and left out,
+    a gradient missing on one side only fails. The attention key biases'
+    true gradient is 0 (softmax is shift-invariant along keys): both
+    sides hold rounding noise there, so they are left out too."""
+    check(set(k_grads) == set(p_grads), "kernel vs plain parameters: "
+          f"{sorted(set(k_grads) ^ set(p_grads))}")
+    k_none = sorted(n for n, g in k_grads.items() if g is None)
+    p_none = sorted(n for n, g in p_grads.items() if g is None)
+    check(k_none == p_none, f"no gradient through the kernels {k_none}, "
+          f"through the plain versions {p_none}")
+    if k_none:
+        print(f"  no gradient on either side (left out): {k_none}")
+    return [n for n in k_grads if k_grads[n] is not None
+            and not re.search(r"key\d?\.bias$", n)]
+
+
 def _check_gradients(k_grads, p_grads, resolved=None):
     """Per-parameter cosine and norm-relative error of the kernels'
     gradients against the plain versions', checked against their bounds:
     (names compared, cosines, errors, worst cosine's name, worst error's
-    name). The key bias's true gradient is 0 (softmax is shift-invariant
-    along keys): both sides hold rounding noise there, so it is left
-    out. With ``resolved``, the norm-relative bound holds on those names
-    only (the cosine's on all)."""
-    compared = [n for n in k_grads if not n.endswith("key.bias")]
+    name), over ``_compared_names``. With ``resolved``, the norm-relative
+    bound holds on those names only (the cosine's on all)."""
+    compared = _compared_names(k_grads, p_grads)
     g_cos = {n: _cosine(k_grads[n], p_grads[n]) for n in compared}
     g_rel = {n: _norm_rel(k_grads[n], p_grads[n]) for n in compared}
     worst_g = min(g_cos, key=g_cos.get)
@@ -2433,14 +2483,15 @@ VILBERT_RUN_UPDATES = 8
 VILBERT_PRETRAIN_UPDATES = 3
 
 
-def _vilbert_kernel_case(name, b, sq, skv, g):
-    """K1, K1-stats, K2 and K3 at one of ViLBERT's shapes (bf16, 8 heads
-    of 128, a padding mask over the keys): errors against the plain
-    versions, device times beside SDPA's and the plain versions', and
-    the bound."""
-    dt = torch.bfloat16
-    q, k, v, bias, dout = _attention_inputs(b, sq, skv, dt, g, VB_HEADS,
-                                            VB_HEAD_DIM)
+def _attention_case(name, q, k, v, bias, dout, iters=20, plain_iters=20,
+                    repeats=5):
+    """K1, K1-stats, K2 and K3 on (q, k, v, bias, dO): errors against the
+    plain versions, device times (``iters`` calls, half for SDPA's
+    backward, best of ``repeats``) beside SDPA's and the plain versions'
+    (``plain_iters``), host time a call, and the bound."""
+    dt = q.dtype
+    b, heads, sq, head_dim = q.shape
+    skv = k.shape[2]
     out = A.flash_attention(q, k, v, bias)
     out_s, m, l = A.flash_attention_with_stats(q, k, v, bias)
     dq, delta = A.flash_attention_bwd_dq(q, k, v, bias, out_s, m, l, dout)
@@ -2456,6 +2507,7 @@ def _vilbert_kernel_case(name, b, sq, skv, g):
     ref = A.flash_backward_reference(q, k, v, bias, out_s, m, l, dout)
     errs = [rel_err(got, want, GRAD_REL[dt], f"{n} {name}")
             for n, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref)]
+    del ref, ref_out
     calls = {
         "K1": lambda: A.flash_attention(q, k, v, bias),
         "K1-stats": lambda: A.flash_attention_with_stats(q, k, v, bias),
@@ -2468,29 +2520,37 @@ def _vilbert_kernel_case(name, b, sq, skv, g):
         "sdpa fwd+lse": _sdpa_with_lse(q, k, v, bias),
         "sdpa bwd": _sdpa_backward(q, k, v, bias, dout),
     }
-    dev = {n: device_ms(fn, iters=10 if "bwd" in n else 20)
+    dev = {n: device_ms(fn, iters=max(iters // 2, 1) if n == "sdpa bwd"
+                        else iters, repeats=repeats)
            for n, fn in calls.items()}
-    plain = {"K1": time_ms(lambda: A.mha_reference(q, k, v, bias)),
+    host = {n: host_us(calls[n], iters=10)
+            for n in ("K1", "K1-stats", "K2", "K3")}
+    plain = {"K1": time_ms(lambda: A.mha_reference(q, k, v, bias),
+                           iters=plain_iters, repeats=repeats),
              "K1-stats": time_ms(
-                 lambda: A.flash_forward_reference(q, k, v, bias)),
+                 lambda: A.flash_forward_reference(q, k, v, bias),
+                 iters=plain_iters, repeats=repeats),
              "K2+K3": time_ms(lambda: A.flash_backward_reference(
                  q, k, v, bias, out_s, m, l, dout),
-                 iters=10)}
+                 iters=max(plain_iters // 2, 1), repeats=repeats)}
     # each input read once, each output written once; FLOPs of the
     # products (2 per multiply-add): QK^T and PV forward, QK^T, dO V^T and
-    # dS K for dq, QK^T, dO V^T, P^T dO and dS^T Q for dk and dv
+    # dS K for dq, QK^T, dO V^T, P^T dO and dS^T Q for dk and dv. f32 runs
+    # on the FMA units (TF32 would round the products' inputs): its
+    # operations go over the FP32 non-tensor peak
     sq_b, kv_b, st = _nbytes(q), _nbytes(k), _nbytes(m)
-    pairs = b * VB_HEADS * sq * skv * VB_HEAD_DIM
+    pairs = b * heads * sq * skv * head_dim
     work = {"K1": (2 * sq_b + 2 * kv_b + _nbytes(bias), 4 * pairs),
             "K1-stats": (2 * sq_b + 2 * kv_b + _nbytes(bias) + 2 * st,
                          4 * pairs),
             "K2": (4 * sq_b + 2 * kv_b + _nbytes(bias) + 3 * st, 6 * pairs),
             "K3": (2 * sq_b + 4 * kv_b + _nbytes(bias) + 3 * st, 8 * pairs)}
     bounds = {n: bound(nb, fl, dt) for n, (nb, fl) in work.items()}
-    return {"shape": [b, VB_HEADS, sq, skv, VB_HEAD_DIM],
+    return {"shape": [b, heads, sq, skv, head_dim],
             "max_abs_err": {"K1": err, "K1-stats": err_s, "K2": errs[0],
                             "K3": max(errs[1:])},
             "ms": {n: dev[n] for n in ("K1", "K1-stats", "K2", "K3")},
+            "host_us": host,
             "library_ms": {"K1": dev["sdpa fwd"],
                            "K1-stats": dev["sdpa fwd+lse"],
                            "K2+K3": dev["sdpa bwd"]},
@@ -2501,8 +2561,9 @@ def _vilbert_kernel_case(name, b, sq, skv, g):
 
 def phase_vilbert_kernels(card):
     g = torch.Generator(device=DEV).manual_seed(5)
-    rows = {name: _vilbert_kernel_case(name, *shape, g)
-            for name, shape in VILBERT_SHAPES.items()}
+    rows = {name: _attention_case(name, *_attention_inputs(
+                b, sq, skv, torch.bfloat16, g, VB_HEADS, VB_HEAD_DIM))
+            for name, (b, sq, skv) in VILBERT_SHAPES.items()}
     print(f"phase vilbert-kernels: ok K1, K1-stats, K2 and K3 at ViLBERT's "
           f"shapes (bf16, B={TRAIN_B}, H={VB_HEADS}, D={VB_HEAD_DIM}, a "
           "padding mask over the keys, Skv = 100 ragged against the 64-row "
@@ -2695,9 +2756,8 @@ def phase_vilbert_training(card):
                 no_dropout=VILBERT_NO_DROPOUT)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
-    k_grads = {n: v for n, v in k_grads.items()
-               if not re.search(r"key\d\.bias$", n)}
-    floor = {n: _norm_rel(p_grads[n], f_grads[n]) for n in k_grads}
+    floor = {n: _norm_rel(p_grads[n], f_grads[n])
+             for n in _compared_names(k_grads, p_grads)}
     resolved = {n for n, e in floor.items() if e <= TRAIN_MAX_GRAD_REL}
     compared, g_cos, g_rel, worst_g, worst_r = _check_gradients(
         k_grads, p_grads, resolved)
@@ -2783,31 +2843,6 @@ class _StepRecorder(Callback):
         self.loss_read[self.trainer.num_updates] = time.perf_counter()
 
 
-def _vilbert_run(root, save_dir, config, dataset, overrides, text, updates,
-                 *extra):
-    """``mmf_run`` of ViLBERT-base on the layout under ``root``, with the
-    recorder; (trainer, recorder, launches, seconds)."""
-    from mmf_tpu_torch.cli.run import run
-    from tests.torch_vqa2_layout import layout_opts
-
-    opts = [f"config={config}", "model=vilbert", f"dataset={dataset}",
-            f"env.save_dir={save_dir}", f"training.batch_size={RUN_B}",
-            f"training.max_updates={updates}", "training.log_interval=1",
-            f"training.num_workers={RUN_WORKERS}", "training.pin_memory=true",
-            "training.seed=1", "scheduler.params.num_warmup_steps=2",
-            "training.callbacks=[{type: chip_smoke_recorder}]",
-            *overrides, *VILBERT_CUTS, *extra,
-            *layout_opts(root, dataset, text)]
-    reset_counts()  # the main path, counted from zero
-    t0 = time.perf_counter()
-    trainer = run(opts)
-    seconds = time.perf_counter() - t0
-    launches = read_counts()
-    recorder = next(cb for cb in trainer.callbacks
-                    if isinstance(cb, _StepRecorder))
-    return trainer, recorder, launches, seconds
-
-
 def _steps_again(trainer, recorder, build, make_trainer, keys):
     """The train step alone from the run's initial weights on the batches
     it took: the largest relative difference of its losses from the
@@ -2836,16 +2871,175 @@ def _steps_again(trainer, recorder, build, make_trainer, keys):
     return rel, got
 
 
+def _served_folder(card, save_dir, model, samples, per_forward, meta,
+                   label):
+    """mmf_serve (cli/serve.py build_server, port 0) on a run's folder:
+    SERVE_B concurrent requests (their fields) against an in-memory engine
+    on the run's weights with the same meta fields, which predicts them
+    as one bucket-32 batch; the batcher waits up to SERVE_WAIT_MS for the
+    requests, so that they meet the model as one batch too (another
+    bucket takes other GEMM shapes, and bf16 the roundings those give).
+    ``per_forward`` the exact launches of one forward."""
+    from mmf_tpu_torch.cli import serve as serve_cli
+
+    bodies = [_fields_body(s) for s in samples]
+    ref = ServingEngine(model, device=DEV, max_batch_size=SERVE_B,
+                        meta=meta).predict_many(samples)
+    bf16 = str(model.config.get("dtype", "float32")) in ("bfloat16", "bf16")
+    del model
+    reset_counts()  # the main path, counted from zero
+    t0 = time.perf_counter()
+    server = serve_cli.build_server(serve_cli.parse_opts(
+        [f"checkpoint={save_dir}", "port=0", f"max_batch_size={SERVE_B}",
+         f"max_wait_ms={SERVE_WAIT_MS}"])).start()
+    try:
+        replies, done_at = [None] * len(samples), [None] * len(samples)
+
+        def send(i):
+            replies[i] = _request(server.port, bodies[i])
+            done_at[i] = time.perf_counter()
+
+        threads = [threading.Thread(target=send, args=(i,))
+                   for i in range(len(samples))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        check(not any(t.is_alive() for t in threads), "a request hung")
+        first_s = min(done_at) - t0
+        batches = server.stats()["batcher"]["batches"]
+    finally:
+        server.shutdown()
+    want = {k: v * batches for k, v in per_forward.items()}
+    check(batches >= 1 and launches == want, f"{label} served launches "
+          f"{launches}, want {want} for {batches} batch(es)")
+    errs, coss = [], []
+    for (status, payload, _), r in zip(replies, ref):
+        check(status == 200, payload)
+        got = np.asarray(payload["scores"], np.float32)
+        want_s = np.asarray(r["scores"], np.float32)
+        check(got.shape == want_s.shape and np.isfinite(got).all(),
+              f"{label} scores shape {got.shape}")
+        top = float(np.abs(want_s).max())
+        # bf16: ulps at the largest score's binade; f32: relative
+        unit = 2.0 ** (math.floor(math.log2(top)) - 7) if bf16 else top
+        errs.append(float(np.abs(got - want_s).max()) / unit)
+        coss.append(float(got @ want_s / (np.linalg.norm(got)
+                                          * np.linalg.norm(want_s))))
+    bound_err = SERVE_BATCH_ULPS if bf16 else SERVE_F32_REL
+    check(max(errs) <= bound_err and min(coss) >= SERVE_BATCH_MIN_COSINE,
+          f"{label} served checkpoint vs in-memory engine: error {max(errs)}"
+          f", cosine {min(coss)}")
+    torch.cuda.empty_cache()
+    unit = "bf16 ulps of the largest score" if bf16 else \
+        "of the largest score"
+    return launches, (
+        f"  mmf_serve on the run's folder (cli/serve.py build_server, port "
+        f"0): {len(samples)} concurrent requests all 200, {batches} "
+        f"batch(es), launches {launches} (exact per forward); vs an "
+        f"in-memory engine on the run's weights: max error {max(errs):.3g} "
+        f"{unit} (bound {bound_err}), cosine min {min(coss):.7f} (bound "
+        f"{SERVE_BATCH_MIN_COSINE}); build_server to the first answer "
+        f"{first_s:.2f}s (a batch goes when full or after "
+        f"{SERVE_WAIT_MS} ms) on '{card}'")
+
+
+def _cli_run(save_dir, config, model, dataset, updates, opts,
+             attention_cut=False):
+    """``mmf_run`` (``cli.run.run``) of ``model`` with the step recorder
+    (and, with ``attention_cut``, ``_AttentionCut``): (trainer, recorder,
+    launches, seconds). The processors an earlier run left in the
+    registry's state under ``dataset``'s name go first: a dataset takes
+    the ones registered under its name, as in JAX, and configs differ."""
+    from mmf_tpu_torch.cli.run import run
+    from mmf_tpu_torch.common.registry import registry
+
+    state = registry.mapping["state"]
+    for key in [k for k in state if k.startswith(f"{dataset}_")]:
+        del state[key]
+    callbacks = "{type: chip_smoke_recorder}" + (
+        ", {type: chip_smoke_attention_cut}" if attention_cut else "")
+    run_opts = [
+        f"config={config}", f"model={model}", f"dataset={dataset}",
+        f"env.save_dir={save_dir}", f"training.batch_size={RUN_B}",
+        f"training.max_updates={updates}", "training.log_interval=1",
+        f"training.num_workers={RUN_WORKERS}", "training.pin_memory=true",
+        "training.seed=1", "scheduler.params.num_warmup_steps=2",
+        f"training.callbacks=[{callbacks}]", *opts]
+    reset_counts()  # the main path, counted from zero
+    t0 = time.perf_counter()
+    trainer = run(run_opts)
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    recorder = next(cb for cb in trainer.callbacks
+                    if isinstance(cb, _StepRecorder))
+    return trainer, recorder, launches, seconds
+
+
+def _evaluated(updates):
+    """The options of a run that evaluates and checkpoints once, at its
+    end, and writes the val and test prediction reports."""
+    return [f"training.evaluation_interval={updates}",
+            f"training.checkpoint_interval={updates}",
+            "run_type=train_val_inference", "evaluation.predict=true"]
+
+
+def _run_checks(trainer, recorder, launches, updates, attention, ln,
+                build, key, label, test_file):
+    """A VQA2 run of ``_evaluated(updates)``: its exact launches, its
+    folder, a report row per test question (of ``test_file``, the test
+    imdb), val vqa_accuracy, and its losses against the train step alone
+    on the same batches: (rel, losses, val accuracy, train samples/s over
+    updates 3-N)."""
+    import glob
+
+    val_batches = -(-RUN_SPLITS["val"] // RUN_B)
+    forwards = 2 * val_batches + -(-RUN_SPLITS["test"] // RUN_B)
+    want = dict(ZERO_COUNTS, flash_attention_fwd=attention * forwards,
+                flash_attention_fwd_stats=attention * updates,
+                flash_attention_bwd_dq=attention * updates,
+                flash_attention_bwd_dkv=attention * updates,
+                layer_norm=ln * (updates + forwards),
+                layer_norm_bwd=ln * updates)
+    check(launches == want, f"{label} mmf-run launches {launches}, want "
+          f"{want}")
+    save_dir = trainer.config["env"]["save_dir"]
+    files = {os.path.relpath(f, save_dir) for f in glob.glob(
+        os.path.join(save_dir, "**"), recursive=True)}
+    model = trainer.config["model"]
+    for name in ("config.yaml", "current.ckpt", "best.ckpt",
+                 f"models/model_{updates}.ckpt", f"{model}_final.pth"):
+        check(name in files, f"{label}: {name} missing from {sorted(files)}")
+    reports = {split: json.load(open(f)) for split in ("val", "test")
+               for f in glob.glob(os.path.join(
+                   save_dir, "reports", f"vqa2_*_{split}_*.json"))}
+    test_ids = [int(r["question_id"]) for r in np.load(
+        test_file, allow_pickle=True)[1:]]
+    check(len(reports["val"]) == RUN_SPLITS["val"] and sorted(
+        int(r["question_id"]) for r in reports["test"]) == sorted(test_ids),
+        f"{label} reports {len(reports['val'])} / {len(reports['test'])}")
+    report, meter = trainer.evaluation_loop("val")
+    acc = meter.meters["val/vqa2/vqa_accuracy"].global_avg
+    check(report.batch_size == RUN_SPLITS["val"] and 0.0 <= acc <= 1.0,
+          f"{label} val scored {report.batch_size}, vqa_accuracy {acc}")
+    rel, got = _steps_again(trainer, recorder, build, flagship.vqa2_trainer,
+                            [key])
+    t = recorder.loss_read
+    sps = RUN_B * (updates - 2) / (t[updates] - t[2])
+    return rel, got[key], acc, sps
+
+
 def phase_vilbert_runs(card):
     """mmf_run finetunes ViLBERT-base on VQA2 (train, one evaluation, one
     checkpoint, the prediction reports) and pretrains it on masked VQA2,
     on a synthetic layout with full boxes and class probabilities; then
     mmf_serve serves the finetuned run's folder."""
-    import glob
     import shutil
 
     from mmf_tpu_torch.common.registry import registry
-    from tests.torch_vqa2_layout import SPLITS, write_layout
+    from tests.torch_vqa2_layout import SPLITS, layout_opts, write_layout
 
     registry.register_callback("chip_smoke_recorder")(_StepRecorder)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_vilbert_")
@@ -2860,50 +3054,20 @@ def phase_vilbert_runs(card):
         layout_s = time.perf_counter() - t0
 
         # VQA2 finetuning: train, evaluate and checkpoint once, predict
-        save_dir = os.path.join(tmp, "save_vqa2")
         u = VILBERT_RUN_UPDATES
-        trainer, recorder, launches, run_s = _vilbert_run(
-            tmp, save_dir, flagship.VILBERT_VQA2_CONFIG, "vqa2",
-            flagship.VILBERT_VQA2_OVERRIDES, "text_processor", u,
-            f"training.evaluation_interval={u}",
-            f"training.checkpoint_interval={u}",
-            "run_type=train_val_inference", "evaluation.predict=true")
+        trainer, recorder, launches, run_s = _cli_run(
+            os.path.join(tmp, "save_vqa2"), flagship.VILBERT_VQA2_CONFIG,
+            "vilbert", "vqa2", u, [
+                *flagship.VILBERT_VQA2_OVERRIDES, *VILBERT_CUTS,
+                *_evaluated(u), *layout_opts(tmp)])
         trainers.append(trainer)
         _check_vilbert_config(trainer.config["model_config"]["vilbert"])
-        val_batches = -(-RUN_SPLITS["val"] // RUN_B)
-        forwards = 2 * val_batches + -(-RUN_SPLITS["test"] // RUN_B)
-        want = dict(ZERO_COUNTS,
-                    flash_attention_fwd=VILBERT_ATTENTION * forwards,
-                    flash_attention_fwd_stats=VILBERT_ATTENTION * u,
-                    flash_attention_bwd_dq=VILBERT_ATTENTION * u,
-                    flash_attention_bwd_dkv=VILBERT_ATTENTION * u,
-                    layer_norm=VILBERT_LN * (u + forwards),
-                    layer_norm_bwd=VILBERT_LN * u)
-        check(launches == want, f"vilbert mmf-run launches {launches}, "
-              f"want {want}")
-        files = {os.path.relpath(f, save_dir) for f in glob.glob(
-            os.path.join(save_dir, "**"), recursive=True)}
-        for name in ("config.yaml", "current.ckpt", "best.ckpt",
-                     f"models/model_{u}.ckpt", "vilbert_final.pth"):
-            check(name in files, f"{name} missing from {sorted(files)}")
-        reports = {split: json.load(open(f)) for split in ("val", "test")
-                   for f in glob.glob(os.path.join(
-                       save_dir, "reports", f"vqa2_*_{split}_*.json"))}
-        test_ids = [int(r["question_id"]) for r in np.load(os.path.join(
-            tmp, "datasets", "vqa2", "defaults", "annotations",
-            SPLITS["test"]), allow_pickle=True)[1:]]
-        check(sorted(int(r["question_id"]) for r in reports["test"])
-              == sorted(test_ids), f"test report {len(reports['test'])}")
-        report, meter = trainer.evaluation_loop("val")
-        acc = meter.meters["val/vqa2/vqa_accuracy"].global_avg
-        check(report.batch_size == RUN_SPLITS["val"] and 0.0 <= acc <= 1.0,
-              f"val scored {report.batch_size}, vqa_accuracy {acc}")
         key = "train/vqa2/logit_bce"
-        rel, step_losses = _steps_again(
-            trainer, recorder, lambda c: flagship.vqa2_vilbert(c),
-            flagship.vqa2_trainer, [key])
-        t = recorder.loss_read
-        sps = RUN_B * (u - 2) / (t[u] - t[2])
+        rel, step_losses, acc, sps = _run_checks(
+            trainer, recorder, launches, u, VILBERT_ATTENTION, VILBERT_LN,
+            lambda c: flagship.vqa2_vilbert(c), key, "vilbert",
+            os.path.join(tmp, "datasets", "vqa2", "defaults", "annotations",
+                         SPLITS["test"]))
         trainer.teardown()
         vqa2_line = (
             f"phase vilbert-mmf-run: ok mmf_run (cli/run.py's run(opts)) "
@@ -2914,24 +3078,33 @@ def phase_vilbert_runs(card):
             f"({RUN_SPLITS} questions over {RUN_IMAGES} images, {REGIONS} "
             f"boxes of {VDIM} an image, cls_prob [{REGIONS}, "
             f"{flagship.V_TARGET_SIZE}], written in {layout_s:.1f}s): {u} "
-            f"updates, losses {step_losses[key]} equal to the train step's "
+            f"updates, losses {step_losses} equal to the train step's "
             f"on the same batches (max rel {rel:.3g}, bound {RUN_LOSS_RTOL}); "
             f"one evaluation and checkpoint; val vqa_accuracy {acc:.4f} over "
-            f"{report.batch_size} questions; reports "
-            f"{len(reports['val'])} val and {len(reports['test'])} test rows; "
-            f"launches {launches} (exact); run {run_s:.1f}s, train "
+            f"{RUN_SPLITS['val']} questions; a report row per val and test "
+            f"question; launches {launches} (exact); run {run_s:.1f}s, train "
             f"{sps:.1f} samples/s over updates 3-{u} on '{card}'")
-        served = _vilbert_serve(card, trainer, save_dir)
-        del trainer, recorder, report
+        model = flagship.vqa2_vilbert(trainer.config)
+        model.load_state_dict({k: v.cpu() for k, v in
+                               trainer.model.state_dict().items()},
+                              strict=True)
+        served_launches, served = _served_folder(
+            card, trainer.config["env"]["save_dir"], model,
+            flagship.split_samples(flagship.vilbert_example_batch(
+                SERVE_B, SEQ, REGIONS, VDIM, seed=9)),
+            dict(ZERO_COUNTS, flash_attention_fwd=VILBERT_ATTENTION,
+                 layer_norm=VILBERT_LN), None, "vilbert")
+        del trainer, recorder
         torch.cuda.empty_cache()
 
         # masked-VQA2 pretraining
-        save_dir = os.path.join(tmp, "save_masked")
         u = VILBERT_PRETRAIN_UPDATES
-        trainer, recorder, p_launches, p_run_s = _vilbert_run(
-            tmp, save_dir, flagship.VILBERT_MASKED_VQA2_CONFIG,
-            "masked_vqa2", flagship.VILBERT_MASKED_VQA2_OVERRIDES,
-            "masked_token_processor", u, "run_type=train")
+        trainer, recorder, p_launches, p_run_s = _cli_run(
+            os.path.join(tmp, "save_masked"),
+            flagship.VILBERT_MASKED_VQA2_CONFIG, "vilbert", "masked_vqa2", u,
+            [*flagship.VILBERT_MASKED_VQA2_OVERRIDES, *VILBERT_CUTS,
+             "run_type=train",
+             *layout_opts(tmp, "masked_vqa2", "masked_token_processor")])
         trainers.append(trainer)
         _check_vilbert_config(trainer.config["model_config"]["vilbert"],
                               "pretraining")
@@ -2963,87 +3136,710 @@ def phase_vilbert_runs(card):
               f"{RUN_LOSS_RTOL}); launches {p_launches} (exact: "
               f"{VILBERT_PRETRAIN_LN} LayerNorms an update with the two "
               f"heads'); run {p_run_s:.1f}s")
-        print(served["line"])
+        print(served)
     finally:
         for trainer in trainers:
             trainer.teardown()
         shutil.rmtree(tmp, ignore_errors=True)
-    return {k: launches[k] + p_launches[k] + served["launches"][k]
+    return {k: launches[k] + p_launches[k] + served_launches[k]
             for k in launches}
 
 
-def _vilbert_serve(card, trainer, save_dir):
-    """mmf_serve (cli/serve.py build_server, port 0) on the finetuned
-    run's folder: 32 concurrent requests against an in-memory engine on
-    the run's weights."""
-    from mmf_tpu_torch.cli import serve as serve_cli
+# -- phases 14-18: ViLT-base and the MMF Transformer --------------------------
+VILT_PATCHES = (flagship.VILT_IMAGE // 16) ** 2  # 576 patches of 16 px
+VILT_S = flagship.VILT_SEQ + VILT_PATCHES + 1  # 617: text, [CLS], patches
+VILT_ROWS = TRAIN_B * VILT_S  # the encoder's LayerNorm rows at B=64
+# per ViLT forward: 12 attention calls (one a pre-LN layer); 27 LayerNorms:
+# the text embeddings', two a layer, the encoder's last, the VQA2 MLP
+# head's. Pretraining encodes twice (the masked pass) and its heads add
+# the MLM transform's: 24 and 2 + 2 * 25 + 1
+VILT_ATTENTION, VILT_LN = 12, 1 + 2 * 12 + 1 + 1
+VILT_PRETRAIN_ATTENTION, VILT_PRETRAIN_LN = 24, 2 + 2 * 25 + 1
+VILT_STEPS = 4
+# the MLM + ITM step at the config's B=64 was reckoned at ~71 GB (two f32
+# encoder passes of ~25 GB of saved activations, the MLM logits, their
+# log_softmax and their gradients, [B * 617, 30522] f32 each): cut to 32
+VILT_PRETRAIN_B, VILT_PRETRAIN_STEPS, VILT_PRETRAIN_COMPARED = 32, 3, 2
+# its kernels-vs-plain steps take the batch's first 16 rows: the plain
+# attention keeps each call's [B, 12, 617, 617] f32 scores and
+# probabilities for the backward, 24 calls a step (at 32 rows, 76.8 GB)
+VILT_PRETRAIN_COMPARED_B = 16
+VILT_META = {"dataset_name": "vqa2", "dataset_type": "test"}
+# served f32 scores vs the f32 CPU forward on the same weights: the patch
+# convolution runs on cuDNN with TF32 (torch's default; 8.6e-4 relative
+# in ResNet's), every GEMM in f32; random-init scores have |s| ~ 1-3
+VILT_SERVE_ATOL = 1e-2
+VILT_SERVE_MIN_COSINE = 0.99999
+# served f32 scores vs the same kernels and weights in another batch:
+# other GEMM summation orders, relative to the largest score
+SERVE_F32_REL = 1e-4
+VILT_RUN_UPDATES = 8
+# the served folders' batching window: long enough for the 32 requests
+# (MB of JSON each) to fill one bucket-32 batch, as the in-memory engine
+# predicts them; a full batch goes at once
+SERVE_WAIT_MS = 10000
+MMFT_S = flagship.MMFT_SEQ + REGIONS  # 114
+# per MMFT forward: 12 attention calls; 28 LayerNorms: each modality's
+# embedding LayerNorm, the features' projection LayerNorm, two a layer,
+# the MLP head's
+MMFT_ATTENTION, MMFT_LN = 12, 2 + 1 + 2 * 12 + 1
+MMFT_RUN_UPDATES = 8
 
-    samples = flagship.split_samples(flagship.vilbert_example_batch(
-        SERVE_B, SEQ, REGIONS, VDIM, seed=9))
-    bodies = [_fields_body(s) for s in samples]
-    model = flagship.vqa2_vilbert(trainer.config)
-    model.load_state_dict({k: v.cpu() for k, v in
-                           trainer.model.state_dict().items()}, strict=True)
-    ref = ServingEngine(model, device=DEV,
-                        max_batch_size=SERVE_B).predict_many(samples)
-    del model
-    reset_counts()  # the main path, counted from zero
-    t0 = time.perf_counter()
-    server = serve_cli.build_server(serve_cli.parse_opts(
-        [f"checkpoint={save_dir}", "port=0",
-         f"max_batch_size={SERVE_B}"])).start()
-    try:
-        replies, done_at = [None] * SERVE_B, [None] * SERVE_B
 
-        def send(i):
-            replies[i] = _request(server.port, bodies[i])
-            done_at[i] = time.perf_counter()
+def _no_attention_dropout(model):
+    """Attention-probability dropout to 0 on the built modules: ViLT's and
+    MMFT's trunks take TransformerConfig's 0.1 (no config key reaches it,
+    in JAX too), and the flash kernels have no probabilities to drop. The
+    other dropouts stay."""
+    for m in model.modules():
+        if isinstance(getattr(m, "config", None), T.TransformerConfig):
+            m.config = dataclasses.replace(m.config,
+                                           attention_probs_dropout_prob=0.0)
+    return model
 
-        threads = [threading.Thread(target=send, args=(i,))
-                   for i in range(SERVE_B)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=600)
-        torch.cuda.synchronize()
-        launches = read_counts()
-        check(not any(t.is_alive() for t in threads), "a request hung")
-        first_s = min(done_at) - t0
-        batches = server.stats()["batcher"]["batches"]
-    finally:
-        server.shutdown()
-    want = dict(ZERO_COUNTS, flash_attention_fwd=VILBERT_ATTENTION * batches,
-                layer_norm=VILBERT_LN * batches)
-    check(batches >= 1 and launches == want, f"vilbert served launches "
-          f"{launches}, want {want} for {batches} batch(es)")
-    errs, ulps, coss = [], [], []
-    for (status, payload, _), r in zip(replies, ref):
-        check(status == 200, payload)
-        got = np.asarray(payload["scores"], np.float32)
-        check(got.shape == (3129,) and np.isfinite(got).all(),
-              f"scores shape {got.shape}")
-        want_s = np.asarray(r["scores"], np.float32)
-        errs.append(float(np.abs(got - want_s).max()))
-        ulp = 2.0 ** (math.floor(math.log2(np.abs(want_s).max())) - 7)
-        ulps.append(errs[-1] / ulp)
-        coss.append(float(got @ want_s / (np.linalg.norm(got)
-                                          * np.linalg.norm(want_s))))
-    check(max(ulps) <= SERVE_BATCH_ULPS
-          and min(coss) >= SERVE_BATCH_MIN_COSINE,
-          f"vilbert served checkpoint vs in-memory engine: max_abs_err "
-          f"{max(errs)} ({max(ulps)} bf16 ulps), cosine {min(coss)}")
-    del server
+
+class _AttentionCut(Callback):
+    """``_no_attention_dropout`` on an ``mmf_run``'s model, before its
+    first update (registered as ``chip_smoke_attention_cut``)."""
+
+    def on_init_end(self, **kwargs):
+        _no_attention_dropout(self.trainer.model)
+
+
+def _vilt_attention_inputs(b, g):
+    """q, k, v, dO f32 [b, 12, 617, 64] as the views the attention block
+    hands over, and ViLT's mask as a bias: questions of 6-40 tokens, every
+    patch valid."""
+    def proj():
+        return torch.randn(b, VILT_S, HEADS, HEAD_DIM, device=DEV,
+                           generator=g).transpose(1, 2)
+
+    lengths = torch.randint(6, flagship.VILT_SEQ + 1, (b,), device=DEV,
+                            generator=g)
+    mask = torch.ones(b, VILT_S, dtype=torch.int32, device=DEV)
+    mask[:, :flagship.VILT_SEQ] = (torch.arange(
+        flagship.VILT_SEQ, device=DEV)[None] < lengths[:, None]).int()
+    return (proj(), proj(), proj(),
+            A.make_attention_bias(mask, torch.float32), proj())
+
+
+def _mmft_attention_inputs(b, g):
+    """q, k, v, dO bf16 [b, 12, 114, 64] as the views the attention block
+    hands over, and MMFT's mask on VQA2 as a bias: every token valid (the
+    vocab processor gives no input_mask and the region features no
+    image_mask, so the model masks nothing; 114 = 64 + 50 rows)."""
+    def proj():
+        return torch.randn(b, MMFT_S, HEADS, HEAD_DIM, device=DEV,
+                           generator=g).to(torch.bfloat16).transpose(1, 2)
+
+    mask = torch.ones(b, MMFT_S, dtype=torch.int32, device=DEV)
+    return (proj(), proj(), proj(),
+            A.make_attention_bias(mask, torch.bfloat16), proj())
+
+
+def _vilt_layer_norm_case(g):
+    """K4 and K4-bwd in f32 without the residual at ViLT's [39488, 768]
+    (its pre-LN encoder's LayerNorms at B=64): against their plain
+    versions, by device_ms over rotating inputs beside F.layer_norm's
+    forward and backward, with host time and the bound."""
+    dt, rows = torch.float32, VILT_ROWS
+    xs = torch.randn(3, rows, HIDDEN, device=DEV, generator=g)
+    dys = torch.randn(3, rows, HIDDEN, device=DEV, generator=g)
+    w = 1.0 + 0.1 * torch.randn(HIDDEN, device=DEV, generator=g)
+    bb = 0.1 * torch.randn(HIDDEN, device=DEV, generator=g)
+    sets = [(xs[i], dys[i]) for i in range(3)]  # 3 x 121 MB read a call
+    x, dy = sets[0]
+    out = L.layer_norm_kernel(x, w, bb)
+    got = L.layer_norm_backward_kernel(x, w, dy)
+    torch.cuda.synchronize()
+    f_err = max_err(out, L._ln_reference(x, None, w, bb, 1e-12), dt)
+    want = L._ln_backward_reference(x, None, w, bb, dy, 1e-12)
+    b_err = max(rel_err(a, b_, rel, f"K4-bwd vilt {n}") for n, a, b_, rel in
+                zip(("dx", "dscale", "dbias"), got,
+                    (want[0], want[2], want[3]),
+                    (LN_DX_REL[dt], LN_PARAM_REL, LN_PARAM_REL)))
+    lib = [_ln_library_backward(x_, None, w, bb, dy_) for x_, dy_ in sets]
+    fwd = {"ms": device_ms(rotating(
+        lambda x_, _: L.layer_norm_kernel(x_, w, bb), sets)),
+        "library_ms": device_ms(rotating(
+            lambda x_, _: F.layer_norm(x_, (HIDDEN,), w, bb, 1e-12), sets)),
+        "plain_ms": device_ms(rotating(
+            lambda x_, _: L._ln_reference(x_, None, w, bb, 1e-12), sets),
+            iters=5),
+        "host_us": host_us(lambda: L.layer_norm_kernel(x, w, bb)),
+        "max_abs_err": f_err}
+    fwd["bound_ms"], fwd["bound_by"] = bound(_nbytes(x, w, bb, out),
+                                             8 * x.numel(), dt)
+    bwd = {"ms": device_ms(rotating(
+        lambda x_, dy_: L.layer_norm_backward_kernel(x_, w, dy_), sets)),
+        "library_ms": device_ms(rotating(lambda f_: f_(),
+                                         [(f_,) for f_ in lib])),
+        "plain_ms": device_ms(rotating(
+            lambda x_, dy_: L._ln_backward_reference(x_, None, w, bb, dy_,
+                                                     1e-12), sets), iters=5),
+        "host_us": host_us(lambda: L.layer_norm_backward_kernel(x, w, dy)),
+        "max_abs_err": b_err}
+    bwd["bound_ms"], bwd["bound_by"] = bound(
+        _nbytes(x, w, dy, got[0], got[1], got[2]), 10 * x.numel(), dt)
+    del lib, xs, dys
     torch.cuda.empty_cache()
-    line = (f"  mmf_serve on the finetuned run's folder (cli/serve.py "
-            f"build_server, the registry's vilbert, port 0): {SERVE_B} "
-            f"concurrent requests all 200, scores [3129] finite, {batches} "
-            f"batch(es), launches {launches} (exact per forward); vs an "
-            "in-memory engine on the run's weights: max_abs_err "
-            f"{max(errs):.4g} ({max(ulps):g} bf16 ulps of the largest "
-            f"score), cosine min {min(coss):.6f} (bounds {SERVE_BATCH_ULPS} "
-            f"ulps / {SERVE_BATCH_MIN_COSINE}); build_server to the first "
-            f"answer {first_s:.2f}s on '{card}'")
-    return {"launches": launches, "line": line}
+    return fwd, bwd
+
+
+def phase_vilt_kernels(card):
+    g = torch.Generator(device=DEV).manual_seed(6)
+    # f32 at ViLT's size: a plain backward call takes ~13 ms
+    att = _attention_case("vilt", *_vilt_attention_inputs(TRAIN_B, g),
+                          iters=3, plain_iters=2, repeats=3)
+    ln_fwd, ln_bwd = _vilt_layer_norm_case(g)
+    torch.cuda.empty_cache()
+    ms, lib, pl, bd = (att["ms"], att["library_ms"], att["plain_ms"],
+                       att["bound_ms"])
+    print(f"phase vilt-kernels: ok K1, K1-stats, K2 and K3 in f32 at ViLT's "
+          f"{att['shape']} (questions of 6-40 tokens masked, 577 image "
+          "tokens; 617 = 9 x 64 + 41 rows), and K4, K4-bwd f32 without the "
+          f"residual at [{VILT_ROWS}, {HIDDEN}], against their plain "
+          "versions within the kernels phase's bounds; device ms "
+          "(spin-queued; LayerNorms over rotating inputs), the plain "
+          "versions' (CUDA events), SDPA's / F.layer_norm's, host us a call "
+          "and the bound (f32 operations over the FP32 non-tensor peak, "
+          f"67 TFLOP/s: TF32 would round the products' inputs) on "
+          f"'{card}':")
+    print("  max_abs_err " + ", ".join(
+        f"{n} {e:.3g}" for n, e in att["max_abs_err"].items())
+        + f"; K1 {ms['K1']:.4f} (sdpa {lib['K1']:.4f}, plain "
+        f"{pl['K1']:.4f}, bound {bd['K1']:.4f} {att['bound_by']['K1']}), "
+        f"K1-stats {ms['K1-stats']:.4f} (sdpa fwd+lse {lib['K1-stats']:.4f},"
+        f" plain {pl['K1-stats']:.4f}, bound {bd['K1-stats']:.4f}), K2 "
+        f"{ms['K2']:.4f} (bound {bd['K2']:.4f}), K3 {ms['K3']:.4f} (bound "
+        f"{bd['K3']:.4f}), K2+K3 {ms['K2'] + ms['K3']:.4f} (sdpa bwd "
+        f"{lib['K2+K3']:.4f}, plain {pl['K2+K3']:.4f}); host us " + ", ".join(
+            f"{n} {u:.1f}" for n, u in att["host_us"].items()))
+    for name, r in (("K4", ln_fwd), ("K4-bwd", ln_bwd)):
+        print(f"  {name} f32 [{VILT_ROWS}, {HIDDEN}] no residual: "
+              f"max_abs_err {r['max_abs_err']:.3g}; kernel {r['ms']:.4f}, "
+              f"F.layer_norm{' backward' if name == 'K4-bwd' else ''} "
+              f"{r['library_ms']:.4f}, plain {r['plain_ms']:.4f}; bound "
+              f"{r['bound_ms']:.4f} by {r['bound_by']} (kernel at "
+              f"{100 * r['bound_ms'] / r['ms']:.0f}%); host "
+              f"{r['host_us']:.1f} us a call")
+    return att, ln_fwd, ln_bwd
+
+
+def _check_vilt_config(mc, heads="vqa2"):
+    check((mc["hidden_size"], mc["num_hidden_layers"],
+           mc["num_attention_heads"], mc["image_encoder"]["params"][
+               "patch_size"], list(mc["image_encoder"]["params"][
+                   "image_size"]), mc["image_encoder"]["params"]["mlp_dim"],
+           heads in mc["heads"]) == (
+        HIDDEN, 12, HEADS, 16, [flagship.VILT_IMAGE] * 2, 3072, True),
+        dict(mc))
+
+
+def phase_vilt_serving(card):
+    """ViLT-base from the VQA2 config behind ServingEngine: every bucket
+    1-32 once, counted; one sample against the f32 CPU forward."""
+    cfg = flagship.vilt_vqa2_config()
+    model = flagship.vilt(cfg)
+    _check_vilt_config(model.config)
+    model.init_weights(torch.Generator().manual_seed(0))
+    cpu_state = {k: v.clone() for k, v in model.state_dict().items()}
+    n_params = sum(p.numel() for p in model.parameters())
+    samples = flagship.split_samples(flagship.vilt_example_batch(SERVE_B,
+                                                                 seed=7))
+    engine = ServingEngine(model, device=DEV, max_batch_size=SERVE_B,
+                           meta=VILT_META)
+    t0 = time.perf_counter()
+    warmed = engine.warmup(samples[0])
+    warm_s = time.perf_counter() - t0
+    reset_counts()  # the main path, counted from zero
+    outs = {b: engine.predict_many(samples[:b]) for b in engine.buckets}
+    torch.cuda.synchronize()
+    launches = read_counts()
+    n = len(engine.buckets)
+    want = dict(ZERO_COUNTS, flash_attention_fwd=VILT_ATTENTION * n,
+                layer_norm=VILT_LN * n)
+    check(launches == want, f"vilt serving launches {launches}, want "
+          f"{want} for buckets {engine.buckets}")
+    for b, rows in outs.items():
+        check(all(r["scores"].shape == (3129,) and np.isfinite(
+            r["scores"]).all() for r in rows), f"vilt bucket {b} scores")
+    ref_model = flagship.vilt(cfg)
+    ref_model.load_state_dict(cpu_state, strict=True)
+    probe = 3
+    ref = cpu_forward(ref_model, dict(samples[probe], **VILT_META))["scores"]
+    errs, coss = [], []
+    for b in (4, SERVE_B):
+        got = np.asarray(outs[b][probe]["scores"], np.float32)
+        errs.append(float(np.abs(got - ref).max()))
+        coss.append(float(got @ ref / (np.linalg.norm(got)
+                                       * np.linalg.norm(ref))))
+    check(max(errs) <= VILT_SERVE_ATOL and min(coss) >= VILT_SERVE_MIN_COSINE,
+          f"vilt served vs f32 CPU: max_abs_err {errs}, cosine {coss}")
+    del ref_model
+    arrays, statics = engine_lib._split_static(engine_lib._stack_samples(
+        samples))
+    dev_batch = dict(engine_lib._to_device(arrays, DEV), **VILT_META)
+
+    def forward():
+        with torch.inference_mode():
+            engine.model(dev_batch)
+
+    fwd_ms = time_ms(forward, iters=3, repeats=3)
+    dev_ms, by_category = _device_ms(forward, 3)
+    del engine, model
+    torch.cuda.empty_cache()
+    print(f"phase vilt-serving: ok ViLT-base {n_params / 1e6:.1f}M params "
+          f"(12 x {HIDDEN} pre-LN ViT, {VILT_S} tokens: {flagship.VILT_SEQ} "
+          f"text, [CLS] and {VILT_PATCHES} patches of 16 px at "
+          f"{flagship.VILT_IMAGE} px; the VQA2 MLP head at 1536 over 3129 "
+          "answers, and the model defaults' test head, unused), f32, built "
+          f"from {flagship.VILT_VQA2_CONFIG}; warmup buckets {list(warmed)} "
+          f"in {warm_s:.1f}s; each bucket once: launches {launches} (exact: "
+          f"{VILT_ATTENTION} K1 and {VILT_LN} K4 a forward); sample {probe} "
+          f"at buckets 4 and 32 vs the f32 CPU forward: max_abs_err "
+          f"{max(errs):.4g} (bound {VILT_SERVE_ATOL}), cosine min "
+          f"{min(coss):.7f} (bound {VILT_SERVE_MIN_COSINE}); cuBLAS TF32 "
+          f"{torch.backends.cuda.matmul.allow_tf32}, cuDNN TF32 "
+          f"{torch.backends.cudnn.allow_tf32} (the patch convolution)")
+    print(f"  on '{card}': f32 forward at bucket 32 {fwd_ms:.2f} ms (CUDA "
+          f"events), device time {dev_ms:.3f} ms (torch.profiler, 3 "
+          "forwards): " + "; ".join(
+              f"{cat} {ms:.3f} x{cnt:.0f}" for cat, (ms, cnt) in
+              sorted(by_category.items(), key=lambda kv: -kv[1][0])))
+    return launches
+
+
+def _vilt_build(cfg, overrides):
+    """ViLT for the compared steps: dropout 0 everywhere."""
+    return _without_dropout(flagship.vilt(cfg, overrides))
+
+
+def _kernels_vs_plain(cfg, init, batch, build, trainer, steps, label):
+    """``steps`` steps through the kernels and through the plain versions
+    from ``init``: (losses, worst gradient cosine, worst norm-relative
+    error, worst update cosine, launches), each bound checked."""
+    k_losses, k_grads, k_upd, k_launches = _compared_steps(
+        cfg, init, batch, steps=steps, trainer=trainer, build=build,
+        no_dropout=())
+    with plain_versions():
+        p_losses, p_grads, p_upd, p_launches = _compared_steps(
+            cfg, init, batch, steps=steps, trainer=trainer, build=build,
+            no_dropout=())
+    check(p_launches == ZERO_COUNTS, f"{label} plain launches {p_launches}")
+    loss_rel = _check_losses(k_losses, p_losses)
+    compared, g_cos, g_rel, worst_g, worst_r = _check_gradients(k_grads,
+                                                                p_grads)
+    u_cos = {n: _cosine(k_upd[n], p_upd[n]) for n in compared
+             if float(p_upd[n].abs().max()) > 0}
+    worst_u = min(u_cos, key=u_cos.get)
+    check(u_cos[worst_u] >= TRAIN_MIN_UPDATE_COSINE,
+          f"{label} update cosine {u_cos[worst_u]} at {worst_u}")
+    del k_grads, p_grads, k_upd, p_upd
+    torch.cuda.empty_cache()
+    return (f"{steps} steps at dropout 0 (launches {k_launches} vs "
+            f"{p_launches}): losses {k_losses} vs {p_losses} (max rel "
+            f"{loss_rel:.3g}, bound {TRAIN_LOSS_RTOL}); first-step "
+            f"gradients: cosine min {g_cos[worst_g]:.7f} at {worst_g} "
+            f"(bound {TRAIN_MIN_GRAD_COSINE}), |g_k - g_p| / |g_p| max "
+            f"{g_rel[worst_r]:.3g} at {worst_r} (bound "
+            f"{TRAIN_MAX_GRAD_REL}); update cosine min {u_cos[worst_u]:.6f} "
+            f"at {worst_u} (bound {TRAIN_MIN_UPDATE_COSINE}; "
+            f"{len(u_cos)} parameters that moved); {len(compared)} "
+            "parameters compared (the attention key biases left out)"), \
+        k_launches
+
+
+def _timed_steps(step, state, batch, n):
+    """1 warm-up and ``n`` counted steps: (state, losses, ms per step,
+    launches, peak GB, warm-up s)."""
+    t0 = time.perf_counter()
+    state, rep = step(state, batch)
+    float(rep["total_loss"])
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()  # the main path, counted from zero
+    losses, step_ms = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        state, rep = step(state, batch)
+        losses.append(float(rep["total_loss"]))  # synchronises
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    launches = read_counts()
+    check(all(math.isfinite(x) for x in losses) and not bool(
+        rep["nan_flag"]), f"losses {losses}")
+    return (state, losses, step_ms, launches,
+            torch.cuda.max_memory_allocated() / 1e9, warm_s)
+
+
+def phase_vilt_training(card):
+    """ViLT-base's VQA2 finetuning step at B=64, then its MLM + ITM
+    pretraining step (the second, masked encoder pass) at B=32."""
+    cfg = flagship.vilt_vqa2_config()
+    _check_vilt_config(cfg["model_config"]["vilt"])
+    host_batch = flagship.vilt_train_batch(TRAIN_B, seed=0)
+    model = _no_attention_dropout(flagship.vilt(cfg))
+    model.init_weights(torch.Generator().manual_seed(0))
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    state, step = flagship.vqa2_trainer(model, cfg, seed=0)
+    batch = train_state._to_device(host_batch, DEV)
+    state, losses, step_ms, launches, peak_gb, warm_s = _timed_steps(
+        step, state, batch, VILT_STEPS)
+    per_step = dict(ZERO_COUNTS, flash_attention_fwd_stats=VILT_ATTENTION,
+                    flash_attention_bwd_dq=VILT_ATTENTION,
+                    flash_attention_bwd_dkv=VILT_ATTENTION,
+                    layer_norm=VILT_LN, layer_norm_bwd=VILT_LN)
+    check(launches == {k: v * VILT_STEPS for k, v in per_step.items()},
+          f"vilt training launches {launches}")
+
+    def one_step():
+        nonlocal state
+        state, _ = step(state, batch)
+
+    dev_ms, by_category = _device_ms(one_step, 2)
+    best_ms = min(step_ms)
+    del state, step, model
+    torch.cuda.empty_cache()
+    line, k_launches = _kernels_vs_plain(
+        cfg, init, batch, _vilt_build, flagship.vqa2_trainer,
+        COMPARED_STEPS, "vilt")
+    check(k_launches == {k: v * COMPARED_STEPS for k, v in
+                         per_step.items()}, f"vilt kernel side {k_launches}")
+    print(f"phase vilt-training: ok ViLT-base f32 from end to end, B="
+          f"{TRAIN_B}, VQA2 config (AdamW lr 1e-4, warmup_linear, the "
+          "vqa2_mlp logit_bce inside the model, the BERT no-decay groups, "
+          "no lr multipliers, as in JAX), text-embedding and head dropout "
+          "0.1, attention-probability dropout 0 (cut: TransformerConfig's "
+          f"0.1 would take the plain path); warm-up step {warm_s:.1f}s; "
+          f"{VILT_STEPS} steps, losses {[round(x, 4) for x in losses]}; "
+          f"launches {launches} (exact per step: {VILT_ATTENTION} "
+          f"K1-stats, K2 and K3, {VILT_LN} K4 and K4-bwd); cuBLAS TF32 "
+          f"{torch.backends.cuda.matmul.allow_tf32}, cuDNN TF32 "
+          f"{torch.backends.cudnn.allow_tf32} on both sides below")
+    print(f"  on '{card}': ms per step {[round(x, 2) for x in step_ms]} "
+          f"(best {best_ms:.2f}), {TRAIN_B * 1e3 / best_ms:.1f} samples/s "
+          f"at best; device time {dev_ms:.2f} ms per step (torch.profiler, "
+          f"2 steps) against {best_ms:.2f} ms wall: idle "
+          f"{100 * (1 - dev_ms / best_ms):.1f}%; max_memory_allocated "
+          f"{peak_gb:.2f} GB")
+    print("  device time per step by kind of kernel (ms, launches): "
+          + "; ".join(f"{cat} {ms:.2f} x{cnt:.0f}" for cat, (ms, cnt) in
+                      sorted(by_category.items(), key=lambda kv: -kv[1][0])))
+    print("  kernels vs plain versions, " + line)
+    pretrain = _vilt_pretraining(card)
+    return {k: launches[k] + k_launches[k] + pretrain[k] for k in launches}
+
+
+def _vilt_pretraining(card):
+    cfg = flagship.vilt_pretrain_config()
+    mc = cfg["model_config"]["vilt"]
+    _check_vilt_config(mc, "masked_coco")
+    check([h["type"] for h in mc["heads"]["masked_coco"]] ==
+          ["mlm_multi", "itm"], f"pretraining heads {mc['heads']}")
+    host_batch = flagship.vilt_pretrain_batch(VILT_PRETRAIN_B, seed=0)
+    model = _no_attention_dropout(flagship.vilt(cfg))
+    model.init_weights(torch.Generator().manual_seed(1))
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    state, step = flagship.masked_coco_trainer(model, cfg, seed=0)
+    batch = train_state._to_device(host_batch, DEV)
+    state, losses, step_ms, launches, peak_gb, warm_s = _timed_steps(
+        step, state, batch, VILT_PRETRAIN_STEPS)
+    _, rep = step(state, batch)
+    keys = sorted(rep["losses"])
+    check(keys == ["train/masked_coco/itm_loss",
+                   "train/masked_coco/masked_lm_loss"], f"losses {keys}")
+    per_step = dict(ZERO_COUNTS,
+                    flash_attention_fwd_stats=VILT_PRETRAIN_ATTENTION,
+                    flash_attention_bwd_dq=VILT_PRETRAIN_ATTENTION,
+                    flash_attention_bwd_dkv=VILT_PRETRAIN_ATTENTION,
+                    layer_norm=VILT_PRETRAIN_LN,
+                    layer_norm_bwd=VILT_PRETRAIN_LN)
+    check(launches == {k: v * VILT_PRETRAIN_STEPS for k, v in
+                       per_step.items()}, f"vilt pretraining {launches}")
+    launches = {k: v + per_step[k] for k, v in launches.items()}
+
+    def one_step():
+        nonlocal state
+        state, _ = step(state, batch)
+
+    dev_ms, by_category = _device_ms(one_step, 2, gemm_dim=VOCAB)
+    best_ms = min(step_ms)
+    del state, step, model, rep
+    torch.cuda.empty_cache()
+    small = {k: v[:VILT_PRETRAIN_COMPARED_B] if isinstance(
+        v, torch.Tensor) else v for k, v in batch.items()}
+    line, k_launches = _kernels_vs_plain(
+        cfg, init, small, _vilt_build, flagship.masked_coco_trainer,
+        VILT_PRETRAIN_COMPARED, "vilt pretraining")
+    check(k_launches == {k: v * VILT_PRETRAIN_COMPARED for k, v in
+                         per_step.items()}, f"vilt pretraining kernel side "
+          f"{k_launches}")
+    labels = int((host_batch["lm_label_ids"] >= 0).sum())
+    print(f"  MLM + ITM pretraining ({flagship.VILT_PRETRAIN_CONFIG}: the "
+          "mlm_multi head over a second encoder pass of the masked ids, "
+          f"itm), B={VILT_PRETRAIN_B} (the config's 64 cut: reckoned ~71 "
+          f"GB), {labels} masked tokens; warm-up {warm_s:.1f}s; "
+          f"{VILT_PRETRAIN_STEPS} steps, losses "
+          f"{[round(x, 4) for x in losses]}; launches exact per step "
+          f"({VILT_PRETRAIN_ATTENTION} K1-stats, K2 and K3, "
+          f"{VILT_PRETRAIN_LN} K4 and K4-bwd); ms per step "
+          f"{[round(x, 2) for x in step_ms]}, device {dev_ms:.2f} ms "
+          f"(idle {100 * (1 - dev_ms / min(step_ms)):.1f}%), "
+          f"max_memory_allocated {peak_gb:.2f} GB on '{card}'")
+    print("    device time per step by kind (ms, launches): " + "; ".join(
+        f"{cat} {ms:.2f} x{cnt:.0f}" for cat, (ms, cnt) in
+        sorted(by_category.items(), key=lambda kv: -kv[1][0])))
+    print(f"    kernels vs plain versions, B={VILT_PRETRAIN_COMPARED_B} "
+          "(the batch's first rows: the plain attention's saved scores "
+          "would not fit at 32), " + line)
+    return {k: launches[k] + k_launches[k] for k in launches}
+
+
+def _loader_alone(trainer, n):
+    """The train loader alone: ``n`` batches of a restarted epoch
+    (workers started again first), batches/s; then one batch's samples
+    read and processed in this process, seconds."""
+    loader = trainer.train_loader
+    next(iter(loader))
+    loader.seed_sampler(1)
+    t1 = time.perf_counter()
+    for _, _b in zip(range(n), loader):
+        pass
+    bps = n / (time.perf_counter() - t1)
+    dataset = trainer.dataset_loader.datamodules["vqa2"].train_dataset
+    t1 = time.perf_counter()
+    for i in range(RUN_B):
+        dataset[i]
+    return bps, time.perf_counter() - t1
+
+
+def phase_vilt_run(card):
+    """mmf_run finetunes ViLT-base on VQA2 over raw images (the synthetic
+    raw-image layout: PNG content under the .jpg names, decoded and
+    resized to 384 px by the loader's workers), evaluates and predicts;
+    then mmf_serve serves the run's folder."""
+    import shutil
+
+    from mmf_tpu_torch.common.registry import registry
+    from tests.torch_vqa2_layout import (
+        IMAGE_SPLITS,
+        image_layout_opts,
+        write_image_layout,
+    )
+
+    registry.register_callback("chip_smoke_recorder")(_StepRecorder)
+    registry.register_callback("chip_smoke_attention_cut")(_AttentionCut)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_vilt_")
+    trainer = None
+    try:
+        t0 = time.perf_counter()
+        write_image_layout(tmp, n_train=RUN_SPLITS["train"],
+                           n_val=RUN_SPLITS["val"],
+                           n_test=RUN_SPLITS["test"], n_images=RUN_IMAGES,
+                           min_side=200, max_side=480,
+                           num_answers=RUN_ANSWERS, vocab_size=VOCAB, seed=0)
+        layout_s = time.perf_counter() - t0
+        u = VILT_RUN_UPDATES
+        trainer, recorder, launches, run_s = _cli_run(
+            os.path.join(tmp, "save"), flagship.VILT_VQA2_CONFIG, "vilt",
+            "vqa2", u, [*_evaluated(u), *image_layout_opts(tmp)],
+            attention_cut=True)
+        _check_vilt_config(trainer.config["model_config"]["vilt"])
+        image = recorder.batches[0]["image"]
+        check(tuple(image.shape) == (RUN_B, 3, flagship.VILT_IMAGE,
+                                     flagship.VILT_IMAGE)
+              and image.dtype == torch.float32
+              and float(image.abs().max()) <= 1.0 + 1e-6,
+              f"vilt batch image {tuple(image.shape)} {image.dtype}")
+        rel, losses, acc, sps = _run_checks(
+            trainer, recorder, launches, u, VILT_ATTENTION, VILT_LN,
+            lambda c: _no_attention_dropout(flagship.vilt(c)),
+            "train/vqa2/vqa2_mlp", "vilt",
+            os.path.join(tmp, "datasets", IMAGE_SPLITS["test"][0][0]))
+        bps, batch_s = _loader_alone(trainer, 6)
+        trainer.teardown()
+        model = flagship.vilt(trainer.config)
+        model.load_state_dict({k: v.cpu() for k, v in
+                               trainer.model.state_dict().items()},
+                              strict=True)
+        served_launches, served = _served_folder(
+            card, trainer.config["env"]["save_dir"], model,
+            flagship.split_samples(flagship.vilt_example_batch(SERVE_B,
+                                                               seed=9)),
+            dict(ZERO_COUNTS, flash_attention_fwd=VILT_ATTENTION,
+                 layer_norm=VILT_LN), VILT_META, "vilt")
+        print(f"phase vilt-run: ok mmf_run (cli/run.py's run(opts)) "
+              f"finetunes ViLT-base on VQA2 with {flagship.VILT_VQA2_CONFIG} "
+              f"over raw images, B={RUN_B}, {RUN_WORKERS} loader workers, on "
+              f"the synthetic raw-image layout ({RUN_SPLITS} questions, the "
+              f"five split_by_coco_2017 train files, {RUN_IMAGES} PNG images "
+              f"of 200-480 px a side, written in {layout_s:.1f}s): {u} "
+              f"updates, losses {losses} equal to the train step's on the "
+              f"same batches (max rel {rel:.3g}, bound {RUN_LOSS_RTOL}); one "
+              f"evaluation and checkpoint; val vqa_accuracy {acc:.4f}; "
+              f"reports; launches {launches} (exact); run {run_s:.1f}s, "
+              f"train {sps:.1f} samples/s over updates 3-{u}; the loader "
+              f"alone {bps:.2f} batches/s, one batch's {RUN_B} samples (PNG "
+              f"decode, resize to {flagship.VILT_IMAGE}, tokenizer, answers)"
+              f" read in this process in {batch_s:.2f}s, on '{card}'")
+        print(served)
+    finally:
+        if trainer is not None:
+            trainer.teardown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {k: launches[k] + served_launches[k] for k in launches}
+
+
+def phase_mmft_kernels(card):
+    """K1, K1-stats, K2 and K3 in bf16 at MMFT's [64, 12, 114, 64] (its
+    training batch) and [32, 12, 114, 64] (its serving bucket) with its
+    mask, against their plain versions."""
+    g = torch.Generator(device=DEV).manual_seed(7)
+    rows = {b: _attention_case(f"mmft B={b}", *_mmft_attention_inputs(b, g))
+            for b in (TRAIN_B, SERVE_B)}
+    print(f"phase mmft-kernels: ok K1, K1-stats, K2 and K3 in bf16 at MMFT's "
+          f"{MMFT_S} tokens (14 text + 100 regions, every one valid: 114 = "
+          "64 + 50 rows), B = 64 (training) and 32 (the serving bucket), "
+          "against their plain versions within the kernels phase's bounds;"
+          " device ms (spin-queued), SDPA's, the plain versions' (CUDA "
+          f"events), host us a call and the bound on '{card}':")
+    for b, r in rows.items():
+        ms, lib = r["ms"], r["library_ms"]
+        print(f"  {r['shape']}: max_abs_err " + ", ".join(
+            f"{n} {e:.3g}" for n, e in r["max_abs_err"].items())
+            + "; " + ", ".join(
+                f"{n} {ms[n]:.4f} (bound {r['bound_ms'][n]:.4f} "
+                f"{r['bound_by'][n]})" for n in ms)
+            + f"; sdpa fwd {lib['K1']:.4f}, fwd+lse {lib['K1-stats']:.4f}, "
+            f"bwd {lib['K2+K3']:.4f} (K2+K3 {ms['K2'] + ms['K3']:.4f}); "
+            "plain " + ", ".join(f"{n} {t:.4f}"
+                                 for n, t in r["plain_ms"].items())
+            + "; host us " + ", ".join(f"{n} {u:.1f}"
+                                       for n, u in r["host_us"].items()))
+    torch.cuda.empty_cache()
+    return rows[TRAIN_B]
+
+
+def _mmft_served_vs_plain(model, samples):
+    """The in-memory engine's bucket-32 scores through the kernels
+    against the same engine's through the plain versions, bf16 on both
+    sides: (max abs error, min cosine), checked against the serving
+    phase's bounds."""
+    engine = ServingEngine(copy.deepcopy(model), device=DEV,
+                           max_batch_size=SERVE_B, meta=VILT_META)
+    reset_counts()
+    got = engine.predict_many(samples)
+    k_launches = read_counts()
+    with plain_versions():
+        want = engine.predict_many(samples)
+    p_launches = read_counts()
+    check(k_launches == dict(ZERO_COUNTS, flash_attention_fwd=MMFT_ATTENTION,
+                             layer_norm=MMFT_LN) and p_launches == k_launches,
+          f"mmft served launches {k_launches}, then {p_launches}")
+    errs, coss = [], []
+    for a, b in zip(got, want):
+        a = np.asarray(a["scores"], np.float32)
+        b = np.asarray(b["scores"], np.float32)
+        check(a.shape == b.shape and np.isfinite(a).all(), f"{a.shape}")
+        errs.append(float(np.abs(a - b).max()))
+        coss.append(float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b))))
+    check(max(errs) <= SERVE_ATOL and min(coss) >= SERVE_MIN_COSINE,
+          f"mmft served kernels vs plain: error {max(errs)}, cosine "
+          f"{min(coss)}")
+    del engine
+    torch.cuda.empty_cache()
+    return max(errs), min(coss)
+
+
+def phase_mmft_run(card):
+    """mmf_run trains MMFTransformer on VQA2 region features (bf16, the
+    vocab text processor's 14 tokens + 100 regions), evaluates and
+    predicts; then mmf_serve serves the run's folder."""
+    import shutil
+
+    from mmf_tpu_torch.common.registry import registry
+    from tests.torch_vqa2_layout import SPLITS, layout_opts, write_layout
+
+    registry.register_callback("chip_smoke_recorder")(_StepRecorder)
+    registry.register_callback("chip_smoke_attention_cut")(_AttentionCut)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mmft_")
+    trainer = None
+    try:
+        t0 = time.perf_counter()
+        write_layout(tmp, n_train=RUN_SPLITS["train"],
+                     n_val=RUN_SPLITS["val"], n_test=RUN_SPLITS["test"],
+                     n_images=RUN_IMAGES, regions=REGIONS, feature_dim=VDIM,
+                     num_answers=RUN_ANSWERS, vocab_size=VOCAB, seed=0,
+                     glove=True)
+        layout_s = time.perf_counter() - t0
+        u = MMFT_RUN_UPDATES
+        opts = flagship.MMFT_VQA2_OVERRIDES + _evaluated(u) + [
+            opt for opt in layout_opts(tmp)
+            if "tokenizer_config" not in opt]  # the vocab processor's
+        trainer, recorder, launches, run_s = _cli_run(
+            os.path.join(tmp, "save"), flagship.MMFT_VQA2_CONFIG,
+            "mmf_transformer", "vqa2", u, opts, attention_cut=True)
+        mc = trainer.config["model_config"]["mmf_transformer"]
+        check((mc["hidden_size"], mc["num_hidden_layers"], mc["dtype"],
+               mc["heads"][0]["num_labels"]) == (HIDDEN, 12, "bfloat16",
+                                                 3129), dict(mc))
+        text = recorder.batches[0]["text"]
+        check(tuple(text.shape) == (RUN_B, flagship.MMFT_SEQ), text.shape)
+        rel, losses, acc, sps = _run_checks(
+            trainer, recorder, launches, u, MMFT_ATTENTION, MMFT_LN,
+            lambda c: _no_attention_dropout(flagship.mmft(c)),
+            "train/vqa2/logit_bce", "mmft",
+            os.path.join(tmp, "datasets", "vqa2", "defaults", "annotations",
+                         SPLITS["test"]))
+        trainer.teardown()
+        # the run's first batch from its initial weights, through the
+        # kernels and through the plain versions
+        vs_plain, k_launches = _kernels_vs_plain(
+            trainer.config, recorder.initial, recorder.batches[0],
+            lambda c, o: _without_dropout(flagship.mmft(c, o)),
+            flagship.vqa2_trainer, COMPARED_STEPS, "mmft")
+        per_step = dict(ZERO_COUNTS, flash_attention_fwd_stats=MMFT_ATTENTION,
+                        flash_attention_bwd_dq=MMFT_ATTENTION,
+                        flash_attention_bwd_dkv=MMFT_ATTENTION,
+                        layer_norm=MMFT_LN, layer_norm_bwd=MMFT_LN)
+        check(k_launches == {k: v * COMPARED_STEPS for k, v in
+                             per_step.items()}, f"mmft kernel side "
+              f"{k_launches}")
+        model = flagship.mmft(trainer.config)
+        model.load_state_dict({k: v.cpu() for k, v in
+                               trainer.model.state_dict().items()},
+                              strict=True)
+        samples = flagship.split_samples(flagship.mmft_example_batch(
+            SERVE_B, seed=9))
+        serve_err, serve_cos = _mmft_served_vs_plain(model, samples)
+        served_launches, served = _served_folder(
+            card, trainer.config["env"]["save_dir"], model, samples,
+            dict(ZERO_COUNTS, flash_attention_fwd=MMFT_ATTENTION,
+                 layer_norm=MMFT_LN), VILT_META, "mmft")
+        print(f"phase mmft-run: ok mmf_run trains MMFTransformer on VQA2 "
+              f"features with {flagship.MMFT_VQA2_CONFIG} and "
+              "flagship.MMFT_VQA2_OVERRIDES (bf16, 12 x 768, "
+              f"{MMFT_S} tokens: the vocab processor's {flagship.MMFT_SEQ} "
+              f"and {REGIONS} regions of {VDIM}; the config's 480 cut to "
+              f"B={RUN_B}), the synthetic layout with GloVe files (written "
+              f"in {layout_s:.1f}s): {u} updates, losses {losses} equal to "
+              f"the train step's (max rel {rel:.3g}, bound {RUN_LOSS_RTOL});"
+              f" val vqa_accuracy {acc:.4f}; launches {launches} (exact: "
+              f"{MMFT_ATTENTION} attention calls and {MMFT_LN} LayerNorms a "
+              f"forward); run {run_s:.1f}s, train {sps:.1f} samples/s over "
+              f"updates 3-{u} on '{card}'")
+        print("  kernels vs plain versions, the run's first batch and "
+              f"initial weights, bf16 on both sides: {vs_plain}")
+        print(f"  served at bucket 32, kernels vs plain versions (an "
+              f"in-memory engine on the run's weights, bf16 on both sides):"
+              f" max_abs_err {serve_err:.4g} (bound {SERVE_ATOL}), cosine "
+              f"min {serve_cos:.7f} (bound {SERVE_MIN_COSINE})")
+        print(served)
+    finally:
+        if trainer is not None:
+            trainer.teardown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {k: launches[k] + served_launches[k] for k in launches}
 
 
 SOURCES = {  # name -> (route, source, the TPU kernel it replaces)
@@ -3117,6 +3913,11 @@ def main():
     vilbert_rows = phase_vilbert_kernels(card)
     vilbert = [phase_vilbert_serving(card), phase_vilbert_training(card),
                phase_vilbert_runs(card)]
+    vilt_att, vilt_ln, vilt_ln_bwd = phase_vilt_kernels(card)
+    vilt = [phase_vilt_serving(card), phase_vilt_training(card),
+            phase_vilt_run(card)]
+    mmft_att = phase_mmft_kernels(card)
+    vilt.append(phase_mmft_run(card))
     results["int8_dequant_gemm"]["vb_int8_forward_ms"] = k5_vb_ms
     # the attention kernels at ViLBERT's shapes (D = 128, Sq != Skv)
     short = {"flash_attention_fwd": "K1", "flash_attention_fwd_stats":
@@ -3133,6 +3934,28 @@ def main():
                     "bound_by": r["bound_by"][kid],
                     "library_ms": r["library_ms"][lib]}
             for shape, r in vilbert_rows.items()}
+        # and in f32 at ViLT's [64, 12, 617, 64]
+        results[name]["vilt_shape"] = {
+            "shape": vilt_att["shape"], "dtype": "float32",
+            "max_abs_err": vilt_att["max_abs_err"][kid],
+            "ms": vilt_att["ms"][kid], "host_us": vilt_att["host_us"][kid],
+            "plain_ms": vilt_att["plain_ms"][lib],
+            "bound_ms": vilt_att["bound_ms"][kid],
+            "bound_by": vilt_att["bound_by"][kid],
+            "library_ms": vilt_att["library_ms"][lib]}
+        # and in bf16 at MMFT's [64, 12, 114, 64]
+        results[name]["mmft_shape"] = {
+            "shape": mmft_att["shape"], "dtype": "bfloat16",
+            "max_abs_err": mmft_att["max_abs_err"][kid],
+            "ms": mmft_att["ms"][kid], "host_us": mmft_att["host_us"][kid],
+            "plain_ms": mmft_att["plain_ms"][lib],
+            "bound_ms": mmft_att["bound_ms"][kid],
+            "bound_by": mmft_att["bound_by"][kid],
+            "library_ms": mmft_att["library_ms"][lib]}
+    results["layer_norm"]["vilt_form"] = dict(
+        vilt_ln, form=f"float32 [{VILT_ROWS}, {HIDDEN}] no residual")
+    results["layer_norm_bwd"]["vilt_form"] = dict(
+        vilt_ln_bwd, form=f"float32 [{VILT_ROWS}, {HIDDEN}] no residual")
     kernels = []
     for name, (route, source, replaces) in SOURCES.items():
         r = results[name]
@@ -3144,12 +3967,15 @@ def main():
             # form, K2, K3, K4, K4-bwd), MMBT-grid at batch 1 (K1, K4, K5
             # under int8), VisualBERT under int8 (K1, K4, K5), the
             # served checkpoint (K1, K4; K5 under int8), mmf_run (the
-            # training path's kernels, and K1 and K4 in evaluation) and
-            # ViLBERT's serving, training, mmf_run and mmf_serve
+            # training path's kernels, and K1 and K4 in evaluation),
+            # ViLBERT's serving, training, mmf_run and mmf_serve, ViLT's
+            # serving, training, pretraining, mmf_run and mmf_serve, and
+            # MMFT's mmf_run and mmf_serve
             "launches": (served[name] + trained[name] + mmbt[name]
                          + vb_int8[name] + pretrained[name]
                          + served_ckpt[name] + mmf_run[name]
-                         + sum(v[name] for v in vilbert)),
+                         + sum(v[name] for v in vilbert)
+                         + sum(v[name] for v in vilt)),
             "max_abs_err": r["err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],
@@ -3158,7 +3984,8 @@ def main():
             "library_ms": r["library_ms"], "library": LIBRARY[name],
             **{k: r[k] for k in ("events_ms", "library_events_ms", "host_us",
                                  "vb_int8_forward_ms", "plain_vjp_ms",
-                                 "forms", "vilbert_shapes") if k in r},
+                                 "forms", "vilbert_shapes", "vilt_shape",
+                                 "mmft_shape", "vilt_form") if k in r},
         })
     print(json.dumps({"kernels": kernels}))
     print(card_line())

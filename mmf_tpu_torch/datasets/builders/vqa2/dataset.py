@@ -2,9 +2,12 @@
 
 Port of ``mmf_tpu/datasets/builders/vqa2/dataset.py``: a question through
 the text processor, the image's region features from the features
-database, the soft answer scores as ``targets``, and the predictions
-formatted as ``{"question_id", "answer"}`` rows. The OCR fields wait for
-the ``vqa2_ocr`` builder; images wait for the image database.
+database (``use_features``) or the image itself (``use_images``:
+``<image_name>.jpg`` from the image database, through the
+``image_processor``, as ``image`` [3, H, W] float32), the soft answer
+scores as ``targets``, and the predictions formatted as
+``{"question_id", "answer"}`` rows. The OCR fields wait for the
+``vqa2_ocr`` builder.
 """
 
 from __future__ import annotations
@@ -30,6 +33,11 @@ class VQA2Dataset(MMFDataset):
             raise NotImplementedError(
                 "use_ocr / use_ocr_info: the OCR fields come with the "
                 "vqa2_ocr builder, which is not ported yet")
+
+    def init_processors(self):
+        super().init_processors()
+        if not self._use_features and hasattr(self, "image_processor"):
+            self.image_db.transform = self.image_processor
 
     def try_fast_read(self):
         if self._dataset_type == "test":
@@ -84,6 +92,11 @@ class VQA2Dataset(MMFDataset):
                 self.features_db[idx]
             )
             current_sample.update(features)
+        else:
+            # the file is named .jpg; the loader goes by its content
+            image_path = sample_info["image_name"] + ".jpg"
+            current_sample.image = self.image_db.from_path(image_path)[
+                "images"][0]
 
         return self.add_answer_info(sample_info, current_sample)
 

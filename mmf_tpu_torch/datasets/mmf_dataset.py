@@ -1,9 +1,10 @@
-"""MMFDataset: an annotation database plus a features database.
+"""MMFDataset: an annotation database plus a features database and/or
+an image database.
 
-Port of ``mmf_tpu/datasets/mmf_dataset.py`` for datasets that read
-region features (``use_features``). The image database needs an image
-decoder, which the card's machine lacks, and is not ported yet: a config
-with ``use_images`` raises.
+Port of ``mmf_tpu/datasets/mmf_dataset.py``: ``use_features`` reads
+region features, ``use_images`` reads images from the split's
+``images`` folder (``ImageDatabase``; a dataset sets its
+``image_processor`` as the database's transform).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from mmf_tpu_torch.datasets.databases.annotation_database import (
 from mmf_tpu_torch.datasets.databases.features_database import (
     FeaturesDatabase,
 )
+from mmf_tpu_torch.datasets.databases.image_database import ImageDatabase
 from mmf_tpu_torch.utils.general import get_absolute_path
 
 
@@ -29,11 +31,7 @@ class MMFDataset(BaseDataset):
 
         self._use_images = self.config.get("use_images", False)
         if self._use_images:
-            raise NotImplementedError(
-                f"{dataset_name}: use_images needs the image database and "
-                "processors, which the port does not have yet; use the "
-                "region features (use_features)"
-            )
+            self.image_db = self.build_image_db()
         self._use_features = self.config.get("use_features", False)
         if self._use_features:
             self.features_db = self.build_features_db()
@@ -50,6 +48,14 @@ class MMFDataset(BaseDataset):
         )
         return FeaturesDatabase(
             self.config, features_path, annotation_db=self.annotation_db
+        )
+
+    def build_image_db(self) -> ImageDatabase:
+        image_path = self._get_path_based_on_index(
+            self.config, "images", self._index
+        )
+        return ImageDatabase(
+            self.config, image_path, annotation_db=self.annotation_db
         )
 
     def _process_feature_info(self, features):

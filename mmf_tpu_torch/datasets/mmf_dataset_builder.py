@@ -36,6 +36,8 @@ class MMFDatasetBuilder(BaseDatasetBuilder):
         attributes = ["annotations"]
         if config.get("use_features", False):
             attributes.append("features")
+        if config.get("use_images", False):
+            attributes.append("images")
         data_dir = config.get("data_dir", None)
         for attribute in attributes:
             for split, paths in (config.get(attribute, {}) or {}).items():

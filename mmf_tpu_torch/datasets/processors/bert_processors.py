@@ -1,7 +1,7 @@
 """BERT tokenizer processors.
 
-Port of ``masked_token`` and ``bert_tokenizer`` from
-``mmf_tpu/datasets/processors/bert_processors.py``. JAX wraps Hugging
+Port of ``masked_token``, ``bert_tokenizer`` and ``vilt_text_tokenizer``
+from ``mmf_tpu/datasets/processors/bert_processors.py``. JAX wraps Hugging
 Face's ``BertTokenizerFast``; the port has its own WordPiece tokenizer in
 plain Python (``BertWordPieceTokenizer``), written to give the same
 tokens: the special tokens are matched in the raw text first; then the
@@ -337,5 +337,28 @@ class BertTokenizer(MaskedTokenProcessor):
         output = self._convert_to_indices(
             tokens_a, tokens_b, probability=self._probability
         )
+        output["text"] = output["tokens"]
+        return output
+
+
+@registry.register_processor("vilt_text_tokenizer")
+class VILTTextTokenizer(MaskedTokenProcessor):
+    """ViLT's question tokenizer (reference bert_processors.py:409-433):
+    one sentence, masked at ``mask_probability`` (0 by default), ``text``
+    set to its tokens."""
+
+    def __init__(self, config, *args, **kwargs):
+        super().__init__(config, *args, **kwargs)
+        self._probability = config.get("mask_probability", 0)
+
+    def __call__(self, item: Dict[str, Any]) -> Dict[str, Any]:
+        if "text" in item:
+            text_a = item["text"]
+        else:
+            text_a = " ".join(item["tokens"])
+        tokens_a = self.tokenize(text_a)
+        self._truncate_seq_pair(tokens_a, None, self._max_seq_length)
+        output = self._convert_to_indices(tokens_a, None,
+                                          probability=self._probability)
         output["text"] = output["tokens"]
         return output

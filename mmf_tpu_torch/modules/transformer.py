@@ -190,8 +190,20 @@ class Dense(nn.Linear):
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
+# a table of at most this many rows (the token-type embeddings) is read as
+# a one-hot product: its gradient is then a GEMM, the same bits on every
+# call, where the card's gather backward sums the many repeats of one id
+# (a segment id over a whole image) in an order that varies
+ONE_HOT_ROWS = 16
+
+
 class Embed(nn.Embedding):
-    """flax ``nn.Embed(dtype=compute, param_dtype=float32)``."""
+    """flax ``nn.Embed(dtype=compute, param_dtype=float32)``. A table of
+    at most ``ONE_HOT_ROWS`` rows is read as a one-hot product: the rows'
+    own values (each output sums one row and zeros), as long as the
+    product does not round its inputs, which an f32 table's would on the
+    card with cuBLAS TF32 on (torch's default leaves it off); and a
+    deterministic gradient."""
 
     def __init__(self, num_embeddings: int, features: int,
                  dtype: torch.dtype = torch.float32):
@@ -202,7 +214,11 @@ class Embed(nn.Embedding):
         nn.init.zeros_(self.weight)
 
     def forward(self, ids):
-        return F.embedding(ids, self.weight.to(self.compute_dtype))
+        weight = self.weight.to(self.compute_dtype)
+        rows = weight.shape[0]  # a lazily sized table's, once loaded
+        if rows <= ONE_HOT_ROWS:
+            return F.one_hot(ids.long(), rows).to(weight.dtype) @ weight
+        return F.embedding(ids, weight)
 
 
 class ResidualLayerNorm(nn.Module):

@@ -44,8 +44,9 @@
 //     layout the next projection reads is written in place. Three blocks
 //     an SM at D <= 64, one at D up to 128;
 //   - float32 inputs multiply with plain f32 FMAs (a 4x4 register tile
-//     per thread for q k^T, 4 x D/16 for p v), to keep f32 parity; no
-//     served or trained path runs f32.
+//     per thread for q k^T, 4 x D/16 for p v), to keep f32 parity. ViLT
+//     serves and trains in f32 (S = 617); there these lose to SDPA's f32
+//     path (PERF.md section 7).
 // The bias is read in f32 through its own strides: stride 0 broadcasts a
 // [B,1,1,Skv] padding-mask row over heads and q rows without
 // materialising [B,H,Sq,Skv]. q/k/v/o are addressed through (batch, head,

@@ -20,10 +20,15 @@ that copy before it hands back numpy arrays (bfloat16 outputs come back
 as float32, since numpy has no bfloat16).
 
 ``from_checkpoint`` builds the engine from a checkpoint folder (the
-model rebuilt from its config snapshot, the weights loaded). Not ported
-yet: ``mesh=`` (multi-card serving) and ``from_export`` (``torch.export``
-cannot trace the kernels' ctypes launches until they are registered as
-``torch.library`` custom ops with fake implementations).
+model rebuilt from its config snapshot, the weights loaded); its batches
+carry the checkpoint's dataset as ``dataset_name`` (and ``dataset_type``
+``test``) unless the samples name one, so that a model with heads per
+dataset (ViLT) answers. The JAX engine passes no such field, and a
+request cannot carry a string, so there a served ViLT gives no scores.
+Not ported yet: ``mesh=`` (multi-card serving) and ``from_export``
+(``torch.export`` cannot trace the kernels' ctypes launches until they
+are registered as ``torch.library`` custom ops with fake
+implementations).
 """
 
 from __future__ import annotations
@@ -249,8 +254,12 @@ class ServingEngine:
         buckets: Optional[Sequence[int]] = None,
         postprocess: Optional[Callable[[Dict[str, Any]], Any]] = None,
         output_fields: Optional[Sequence[str]] = None,
+        meta: Optional[Dict[str, Any]] = None,
     ):
         self.device = _serving_device(device)
+        # static fields every batch gets where its samples lack them
+        # (``dataset_name`` picks a per-dataset model's heads)
+        self.meta = dict(meta or {})
         # top-level output keys to return (None = all); unused fields
         # are never copied back to the host
         self.output_fields = (
@@ -277,6 +286,8 @@ class ServingEngine:
 
         _serving_device(device)  # before the model is built
         pipeline = Inference(checkpoint_path=checkpoint_path)
+        kwargs.setdefault("meta", {"dataset_name": pipeline.dataset_name,
+                                   "dataset_type": "test"})
         engine = cls(pipeline.model, device=device, **kwargs)
         engine.processors = pipeline.processor
         return engine
@@ -331,6 +342,7 @@ class ServingEngine:
         bucket = self._bucket(n)
         batch = _pad_batch(_stack_samples(samples), n, bucket)
         arrays, statics = _split_static(batch)
+        statics = dict(self.meta, **statics)
         cuda = self.device.type == "cuda"
         with self._lock:
             tensors = _to_device(arrays, self.device)

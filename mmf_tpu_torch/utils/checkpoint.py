@@ -133,6 +133,8 @@ def load_model_weights(model: torch.nn.Module, state_dict: Dict[str, Any],
     device. Unfilled entries of the model keep their values, or, when
     ``strict``, raise (as flax does on a missing leaf). Returns the
     counts."""
+    if hasattr(model, "materialize_from_state_dict"):
+        model.materialize_from_state_dict(state_dict)  # layers it sizes
     own = model.state_dict()
     converted, stats = convert_reference_state_dict(
         state_dict, own, reference_key_map(model_name),

@@ -10,6 +10,9 @@ the flax paths with dots, so the mapping is mechanical:
 - Embed ``embedding``         -> ``weight``
 - LayerNorm/BatchNorm ``scale`` -> ``weight``
 - ``bias``                    -> ``bias``
+- a parameter made with ``self.param`` outside those modules (the ViT
+  patch embeddings' ``cls_token`` and ``position_embeddings``) keeps
+  its name
 
 and, from a ``variables["batch_stats"]`` tree, BatchNorm ``mean`` ->
 ``running_mean`` and ``var`` -> ``running_var``, with a zero
@@ -45,6 +48,7 @@ logger = logging.getLogger(__name__)
 _LEAF = {"kernel": "weight", "embedding": "weight", "scale": "weight",
          "bias": "bias"}
 _STATS = {"mean": "running_mean", "var": "running_var"}
+_VERBATIM = {"cls_token", "position_embeddings"}
 
 
 def _flatten(tree, prefix=()):
@@ -70,9 +74,12 @@ def params_from_jax(
 
     for path, value in _flatten(params).items():
         leaf = path[-1]
+        arr = np.asarray(value)
+        if leaf in _VERBATIM:
+            put(".".join(path), arr)
+            continue
         if leaf not in _LEAF:
             raise KeyError(f"no port mapping for flax leaf {'/'.join(path)}")
-        arr = np.asarray(value)
         if leaf == "kernel":
             if arr.ndim == 2:
                 arr = arr.T
@@ -216,11 +223,43 @@ VILBERT_KEY_MAP = {
     r"bert\.v_pooler\.dense": "bert.v_pooler",
 }
 
-# the families the port has
+# HF ViT -> the pre-LN ViTModel (modules/vit.py)
+HF_VIT_KEY_MAP = {
+    r"^vit\.": "",
+    r"embeddings\.patch_embeddings\.projection": "embeddings.projection",
+    r"encoder\.layer\.(\d+)\.layernorm_before":
+        r"encoder.layer_\1.layernorm_before",
+    r"encoder\.layer\.(\d+)\.layernorm_after":
+        r"encoder.layer_\1.layernorm_after",
+    r"encoder\.layer\.(\d+)\.attention\.attention\.query":
+        r"encoder.layer_\1.attention_query",
+    r"encoder\.layer\.(\d+)\.attention\.attention\.key":
+        r"encoder.layer_\1.attention_key",
+    r"encoder\.layer\.(\d+)\.attention\.attention\.value":
+        r"encoder.layer_\1.attention_value",
+    # older HF versions nest self-attention one level less
+    r"encoder\.layer\.(\d+)\.attention\.self\.query":
+        r"encoder.layer_\1.attention_query",
+    r"encoder\.layer\.(\d+)\.attention\.self\.key":
+        r"encoder.layer_\1.attention_key",
+    r"encoder\.layer\.(\d+)\.attention\.self\.value":
+        r"encoder.layer_\1.attention_value",
+    r"encoder\.layer\.(\d+)\.attention\.output\.dense":
+        r"encoder.layer_\1.attention_output_dense",
+    r"encoder\.layer\.(\d+)\.intermediate\.dense":
+        r"encoder.layer_\1.intermediate_dense",
+    r"encoder\.layer\.(\d+)\.output\.dense": r"encoder.layer_\1.output_dense",
+    r"^layernorm\.": "layernorm.",
+    r"^pooler\.dense": "pooler.dense",
+}
+
+# the families the port has (mmf_transformer / mmft and the others
+# not named here take the HF-BERT patterns and the fuzzy match)
 MODEL_KEY_MAPS: Dict[str, Dict[str, str]] = {
     "visual_bert": VISUAL_BERT_KEY_MAP,
     "mmbt": MMBT_KEY_MAP,
     "vilbert": VILBERT_KEY_MAP,
+    "vilt": HF_VIT_KEY_MAP,
 }
 
 

@@ -37,6 +37,20 @@ counts to ``example_batch``, ``vilbert_train_batch`` VQA2 targets and
 ``masked_vqa2_train_batch`` the masked-LM labels, masked-region labels
 and class probabilities.
 
+ViLT-base (``projects/vilt/configs/vqa2/defaults.yaml``: a 12 x 768
+pre-LN ViT over 40 text tokens and 384 px images in 16 px patches, f32,
+the VQA2 MLP head at 1536 over 3129 answers): ``vilt_vqa2_config`` and
+``vilt_pretrain_config`` (``masked_coco/pretrain.yaml``: the
+``mlm_multi`` and ``itm`` heads) read the YAML, ``vilt`` builds the model
+of either, ``vilt_example_batch`` draws its inputs (a ragged question
+mask, images in [-1, 1] as ``vilt_image_processor`` gives them),
+``vilt_train_batch`` adds VQA2 targets and ``vilt_pretrain_batch`` the
+masked ids, their labels and ``is_correct``. MMFTransformer
+(``projects/mmf_transformer/configs/vqa2/defaults.yaml``, bf16, 14
+``vocab`` tokens and 100 regions of 2048): ``mmft_vqa2_config`` (with
+``MMFT_VQA2_OVERRIDES``), ``mmft`` (sized by an example batch),
+``mmft_example_batch`` and ``mmft_train_batch``.
+
 For Hateful Memes at batch 1 (the JAX package's latency metric,
 ``tools/benchmarks/bench_latency.py``): ``mmbt_grid`` builds MMBT-grid
 (ResNet-152 grid features, 12 x 768 trunk, 2 labels, bf16 compute) from
@@ -80,6 +94,18 @@ VILBERT_VQA2_OVERRIDES = [
 # info, which its ``return_features_info: false`` leaves out
 VILBERT_MASKED_VQA2_OVERRIDES = [
     "dataset_config.masked_vqa2.return_features_info=true",
+]
+VILT_VQA2_CONFIG = "projects/vilt/configs/vqa2/defaults.yaml"
+VILT_PRETRAIN_CONFIG = "projects/vilt/configs/masked_coco/pretrain.yaml"
+VILT_SEQ, VILT_IMAGE = 40, 384  # the VQA2 config's tokens and pixels
+MMFT_VQA2_CONFIG = "projects/mmf_transformer/configs/vqa2/defaults.yaml"
+MMFT_SEQ = 14  # configs/datasets/vqa2/defaults.yaml's vocab max_length
+# what projects/mmf_transformer/configs/vqa2/defaults.yaml lacks to run
+# (a fault of the YAML, ROADMAP C): it sets num_labels 3129 but keeps the
+# model defaults' head list, a 2-label mlp, whose scores do not meet the
+# 3129 VQA2 targets
+MMFT_VQA2_OVERRIDES = [
+    "model_config.mmf_transformer.heads=[{type: mlp, num_labels: 3129}]",
 ]
 
 
@@ -162,7 +188,7 @@ def split_samples(batch: Dict[str, Any]) -> List[Dict[str, Any]]:
             return {k: take(v, i) for k, v in tree.items()}
         return tree[i] if isinstance(tree, np.ndarray) else tree
 
-    n = len(batch["input_ids"])
+    n = len(next(v for v in batch.values() if isinstance(v, np.ndarray)))
     return [take(batch, i) for i in range(n)]
 
 
@@ -170,14 +196,16 @@ def _project_config(path: str, dataset: str, opts: Optional[List[str]],
                     model: str = "visual_bert"):
     """A project config merged over the root defaults, ``model`` and
     ``datasets`` set as the command line sets them, then ``opts``
-    (``a.b.c=value`` overrides) applied."""
+    (``a.b.c=value`` overrides) applied, every interpolation resolved."""
     from mmf_tpu_torch.config import omega
     from mmf_tpu_torch.config.configuration import load_yaml
 
     cfg = omega.merge(load_yaml("config/defaults.yaml"), load_yaml(path))
     omega.merge_with_dotlist(cfg, [f"model={model}", f"datasets={dataset}"]
                              + list(opts or []))
-    return cfg
+    # interpolations inside lists (ViLT's image_size) resolve only here,
+    # as Configuration resolves them eagerly
+    return omega.resolve_all(cfg)
 
 
 def vqa2_config(opts: Optional[List[str]] = None):
@@ -279,6 +307,143 @@ def vqa2_visual_bert(config, model_overrides: Optional[Dict[str, Any]] = None):
     mc = omega.merge(config["model_config"]["visual_bert"],
                      model_overrides or {})
     return registry.get_model_class("visual_bert")(config=mc)
+
+
+def vilt_vqa2_config(opts: Optional[List[str]] = None):
+    """ViLT's VQA2 config merged over the root defaults, then ``opts``."""
+    return _project_config(VILT_VQA2_CONFIG, "vqa2", opts, "vilt")
+
+
+def vilt_pretrain_config(opts: Optional[List[str]] = None):
+    """ViLT's MLM + ITM pretraining config (masked COCO) merged over the
+    root defaults, then ``opts``."""
+    return _project_config(VILT_PRETRAIN_CONFIG, "masked_coco", opts, "vilt")
+
+
+def mmft_vqa2_config(opts: Optional[List[str]] = None):
+    """MMFTransformer's VQA2 config merged over the root defaults, then
+    ``MMFT_VQA2_OVERRIDES`` and ``opts``."""
+    return _project_config(MMFT_VQA2_CONFIG, "vqa2",
+                           MMFT_VQA2_OVERRIDES + list(opts or []),
+                           "mmf_transformer")
+
+
+def _model(name, config, model_overrides):
+    from mmf_tpu_torch.common.registry import registry
+    from mmf_tpu_torch.config import omega
+    from mmf_tpu_torch.utils.env import setup_imports
+
+    setup_imports()
+    mc = omega.merge(config["model_config"][name], model_overrides or {})
+    return registry.get_model_class(name)(config=mc)
+
+
+def vilt(config, model_overrides: Optional[Dict[str, Any]] = None):
+    """ViLT from the config's ``model_config.vilt`` (whichever heads it
+    names) with ``model_overrides`` on a copy."""
+    return _model("vilt", config, model_overrides)
+
+
+def mmft(config, model_overrides: Optional[Dict[str, Any]] = None,
+         example: Optional[Dict[str, Any]] = None):
+    """MMFTransformer from the config's ``model_config.mmf_transformer``
+    with ``model_overrides`` on a copy, its feature projections and
+    position tables sized by ``example`` (``mmft_example_batch(1)`` by
+    default)."""
+    model = _model("mmf_transformer", config, model_overrides)
+    return _sized(model, mmft_example_batch(1) if example is None
+                  else example)
+
+
+def vilt_example_batch(batch_size: int = 8, seq_len: int = VILT_SEQ,
+                       image_size: int = VILT_IMAGE,
+                       vocab_size: int = 30522,
+                       seed: int = 0) -> Dict[str, Any]:
+    """ViLT's inputs, drawn from ``np.random.RandomState(seed)``: questions
+    of 6 to ``seq_len`` tokens ([CLS] ... [SEP], padded with 0 and
+    masked), zero segments, and ``image`` [B, 3, S, S] uniform in [-1,
+    1], the range ``vilt_image_processor`` gives."""
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(1000, vocab_size, (batch_size, seq_len))
+    lengths = rng.randint(min(6, seq_len), seq_len + 1, batch_size)
+    mask = (np.arange(seq_len)[None] < lengths[:, None]).astype(np.int64)
+    ids[:, 0] = 101
+    ids[np.arange(batch_size), lengths - 1] = 102
+    return {
+        "input_ids": (ids * mask).astype(np.int64),
+        "input_mask": mask,
+        "segment_ids": np.zeros((batch_size, seq_len), np.int64),
+        "image": rng.uniform(-1.0, 1.0, (batch_size, 3, image_size,
+                                         image_size)).astype(np.float32),
+    }
+
+
+def vilt_train_batch(batch_size: int = 8, seq_len: int = VILT_SEQ,
+                     image_size: int = VILT_IMAGE, vocab_size: int = 30522,
+                     num_labels: int = VQA2_NUM_LABELS,
+                     seed: int = 0) -> Dict[str, Any]:
+    """``vilt_example_batch`` plus ``vqa2_train_batch``'s targets."""
+    batch = vilt_example_batch(batch_size, seq_len, image_size, vocab_size,
+                               seed)
+    batch["targets"] = vqa2_train_batch(batch_size, 1, 1, 1, vocab_size,
+                                        num_labels, seed)["targets"]
+    return batch
+
+
+def vilt_pretrain_batch(batch_size: int = 8, seq_len: int = VILT_SEQ,
+                        image_size: int = VILT_IMAGE,
+                        vocab_size: int = 30522,
+                        mask_probability: float = 0.15,
+                        false_caption_probability: float = 0.1,
+                        seed: int = 0) -> Dict[str, Any]:
+    """``vilt_example_batch`` plus the MLM + ITM fields, drawn from
+    ``np.random.RandomState(seed + 1)``: ``input_ids_masked`` (each
+    question token replaced by [MASK] with ``mask_probability``; the
+    ``masked_token`` processor's rate), ``lm_label_ids`` (the replaced
+    tokens' ids, -1 elsewhere) and ``is_correct`` (0 with
+    ``false_caption_probability``, the config's false-caption rate)."""
+    batch = vilt_example_batch(batch_size, seq_len, image_size, vocab_size,
+                               seed)
+    rng = np.random.RandomState(seed + 1)
+    ids, mask = batch["input_ids"], batch["input_mask"]
+    inner = (mask > 0) & (ids != 101) & (ids != 102)
+    masked = inner & (rng.rand(batch_size, seq_len) < mask_probability)
+    batch["input_ids_masked"] = np.where(masked, 103, ids).astype(np.int64)
+    batch["lm_label_ids"] = np.where(masked, ids, -1).astype(np.int64)
+    batch["is_correct"] = (rng.rand(batch_size)
+                           >= false_caption_probability).astype(np.int64)
+    return batch
+
+
+def mmft_example_batch(batch_size: int = 8, seq_len: int = MMFT_SEQ,
+                       regions: int = 100, vdim: int = 2048,
+                       vocab_size: int = 100, seed: int = 0
+                       ) -> Dict[str, Any]:
+    """MMFTransformer's VQA2 inputs: ``text`` [B, seq_len], the ``vocab``
+    processor's word indices (padded with 0), and ``example_batch``'s
+    region features, drawn from ``np.random.RandomState(seed)``."""
+    batch = example_batch(batch_size, 1, regions, vdim, 2, seed)
+    rng = np.random.RandomState(seed + 4)
+    lengths = rng.randint(3, seq_len + 1, batch_size)
+    words = rng.randint(4, vocab_size, (batch_size, seq_len))
+    batch["text"] = np.where(np.arange(seq_len)[None] < lengths[:, None],
+                             words, 0).astype(np.int64)
+    for key in ("input_ids", "input_mask", "segment_ids"):
+        batch.pop(key)
+    return batch
+
+
+def mmft_train_batch(batch_size: int = 8, seq_len: int = MMFT_SEQ,
+                     regions: int = 100, vdim: int = 2048,
+                     vocab_size: int = 100,
+                     num_labels: int = VQA2_NUM_LABELS,
+                     seed: int = 0) -> Dict[str, Any]:
+    """``mmft_example_batch`` plus ``vqa2_train_batch``'s targets."""
+    batch = mmft_example_batch(batch_size, seq_len, regions, vdim,
+                               vocab_size, seed)
+    batch["targets"] = vqa2_train_batch(batch_size, 1, 1, 1, 2, num_labels,
+                                        seed)["targets"]
+    return batch
 
 
 def vqa2_train_batch(batch_size: int = 8, seq_len: int = 128,

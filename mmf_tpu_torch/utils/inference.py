@@ -8,9 +8,11 @@ checkpoint's weights (the port's names, or a reference MMF state_dict's
 through the key maps; an entry the checkpoint leaves unfilled raises), and
 the dataset's processors config is exposed.
 
-Not ported yet: ``forward`` (it decodes the image and runs the FRCNN
-detector for its region features; the card's machine has no image
-decoder, ROADMAP A.5, and FRCNN is ROADMAP A.6) and
+``dataset_name`` is the checkpoint's dataset (its config's
+``datasets``), which a served batch carries. Not ported yet: ``forward``
+(a local image through the FRCNN detector for region features, ROADMAP
+A.6, or as raw pixels, which JAX feeds without the image processor and
+under the dataset name ``inference``, for which ViLT has no head) and
 ``_region_features``; both raise. A served checkpoint's ``text``
 requests go through its ``text_processor`` in ``serving/server.py``.
 """
@@ -49,6 +51,11 @@ class Inference:
         if user_dir:
             import_user_module(user_dir)
         dataset_name = list(config["dataset_config"].keys())[0]
+        datasets = config.get("datasets")
+        # the dataset the model was trained on: ``dataset_name`` picks a
+        # per-dataset model's heads
+        self.dataset_name = datasets.split(",")[0] if isinstance(
+            datasets, str) and datasets else dataset_name
         # processors are optional (e.g. raw-array models and plugins);
         # text requests then need pre-processed fields
         processor = config["dataset_config"][dataset_name].get("processors")
@@ -71,9 +78,8 @@ class Inference:
 
     def forward(self, image_path: str, text: dict, image_format: str = "path"):
         raise NotImplementedError(
-            "Inference.forward needs an image decoder and the FRCNN "
-            "detector for the image's region features, which the port does "
-            "not have yet (image processors: ROADMAP A.5; FRCNN: ROADMAP "
-            "A.6); send the question as 'text' and the region features as "
-            "'fields' to mmf_serve instead"
+            "Inference.forward is not ported yet (its region features need "
+            "the FRCNN detector, ROADMAP A.6); send the question as 'text' "
+            "and the image or region features as 'fields' to mmf_serve "
+            "instead"
         )

@@ -33,10 +33,16 @@ VILBERT_SHAPES = [(4, 8, 100, 100, 128), (4, 8, 128, 100, 128),
                   (4, 8, 100, 128, 128)]
 
 
+# ViLT's: 40 text tokens and 577 image tokens (617 = 9 x 64 + 41), f32
+VILT_SHAPE = (2, 12, 617, 617, 64)
+# MMFT's on VQA2: 14 text tokens and 100 regions (114 = 64 + 50), bf16
+MMFT_SHAPE = (2, 12, 114, 114, 64)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(2, 12, 228, 228, 64), (1, 2, 37, 37, 64),
                                    (2, 3, 9, 130, 16), (1, 2, 70, 70, 128)]
-                         + VILBERT_SHAPES)
+                         + VILBERT_SHAPES + [VILT_SHAPE, MMFT_SHAPE])
 def test_flash_attention_matches_plain(card, dtype, shape):
     b, h, sq, skv, d = shape
     g = torch.Generator(device=card).manual_seed(0)
@@ -119,7 +125,8 @@ BWD_SHAPES = [(2, 12, 228, 228, 64), (2, 3, 128, 100, 64),
               (1, 2, 37, 70, 8), (2, 2, 9, 130, 16), (1, 2, 70, 45, 24),
               (1, 2, 70, 70, 128), (1, 2, 127, 127, 64),
               (1, 2, 129, 129, 64), (1, 2, 256, 256, 64),
-              (1, 2, 257, 257, 64), (1, 2, 64, 300, 64)] + VILBERT_SHAPES
+              (1, 2, 257, 257, 64), (1, 2, 64, 300, 64)] + VILBERT_SHAPES + [
+                  VILT_SHAPE, MMFT_SHAPE]
 
 
 @pytest.fixture
@@ -625,7 +632,8 @@ def test_quant_dense_runs_k5_on_the_card(card):
 # finite score at all
 FWD_SHAPES = [(2, 3, 100, 150, 16), (2, 3, 100, 150, 64),
               (2, 3, 100, 150, 128), (1, 2, 1024, 1024, 16),
-              (1, 2, 1024, 1024, 64), (1, 2, 1024, 1024, 128)] + VILBERT_SHAPES
+              (1, 2, 1024, 1024, 64), (1, 2, 1024, 1024, 128)] + VILBERT_SHAPES + [
+                  MMFT_SHAPE]
 
 
 def _fwd_case(card, dtype, shape, bias_kind, seed=11):
@@ -727,3 +735,61 @@ def test_vilbert_forward_runs_the_kernels(card):
         got.flatten(), want.flatten(), dim=0))
     assert cos >= 0.999
 
+
+
+def test_vilt_forward_and_step_run_the_kernels(card, no_tf32):
+    """ViLT at full width with 2 layers, f32, through the kernels: per
+    forward one K1 a layer and 2 * 2 + 3 LayerNorms (K4: the text
+    embeddings', two a pre-LN layer, the encoder's last, the MLP
+    head's); a backward adds one K1-stats, K2 and K3 a layer and a K4-bwd
+    a LayerNorm. The scores against the same weights' f32 forward on the
+    CPU, TF32 off in cuBLAS and cuDNN (the patch convolution)."""
+    import dataclasses
+
+    from mmf_tpu_torch.modules import transformer as T
+    from mmf_tpu_torch.utils import flagship
+
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        cfg = flagship.vilt_vqa2_config()
+        model = flagship.vilt(cfg, {"num_hidden_layers": 2})
+        model.init_weights(torch.Generator().manual_seed(0))
+        ref = flagship.vilt(cfg, {"num_hidden_layers": 2})
+        ref.load_state_dict(model.state_dict(), strict=True)
+        batch = flagship.vilt_train_batch(2, seed=1)
+        meta = {"dataset_name": "vqa2", "dataset_type": "train"}
+
+        def to(device):
+            return dict({k: torch.from_numpy(v).to(device)
+                         for k, v in batch.items()}, **meta)
+
+        model = model.to(card).eval()
+        counts = {f: f.launches for f in (
+            A.flash_attention, A.flash_attention_with_stats,
+            A.flash_attention_bwd_dq, A.flash_attention_bwd_dkv,
+            L.layer_norm_kernel, L.layer_norm_backward_kernel)}
+        with torch.inference_mode():
+            got = model(to(card))["scores"].cpu()
+            want = ref.eval()(to("cpu"))["scores"]
+        torch.cuda.synchronize()
+        assert A.flash_attention.launches - counts[A.flash_attention] == 2
+        assert L.layer_norm_kernel.launches - counts[
+            L.layer_norm_kernel] == 7
+        torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-4)
+        # attention-probability dropout would take the plain path
+        for m in model.modules():
+            if isinstance(getattr(m, "config", None), T.TransformerConfig):
+                m.config = dataclasses.replace(
+                    m.config, attention_probs_dropout_prob=0.0)
+        with T.dropout_generator(torch.Generator(device=card).manual_seed(0)):
+            out = model.train()(to(card))
+        sum(out["losses"].values()).backward()
+        torch.cuda.synchronize()
+        for f, n in ((A.flash_attention_with_stats, 2),
+                     (A.flash_attention_bwd_dq, 2),
+                     (A.flash_attention_bwd_dkv, 2),
+                     (L.layer_norm_backward_kernel, 7)):
+            assert f.launches - counts[f] == n, f
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32

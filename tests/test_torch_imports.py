@@ -55,6 +55,14 @@ SLICE_MODULES = [
     "mmf_tpu_torch.trainers.mmf_trainer",
     "mmf_tpu_torch.cli.run",
     "mmf_tpu_torch.cli.predict",
+    "mmf_tpu_torch.models.transformers.base",
+    "mmf_tpu_torch.models.transformers.heads.heads",
+    "mmf_tpu_torch.modules.ot",
+    "mmf_tpu_torch.modules.vit",
+    "mmf_tpu_torch.models.vilt",
+    "mmf_tpu_torch.models.mmf_transformer",
+    "mmf_tpu_torch.datasets.databases.image_database",
+    "mmf_tpu_torch.datasets.processors.image_processors",
 ]
 
 _PROBE = """

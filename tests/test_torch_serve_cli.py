@@ -218,7 +218,7 @@ def test_inference_forward_waits_for_the_processors(tmp_path):
                                           port_visual_bert(MODEL)))
     assert "text_processor" in pipeline.processor
     with pytest.raises(NotImplementedError,
-                       match="image decoder and the FRCNN"):
+                       match="forward is not ported yet .* FRCNN"):
         pipeline.forward("image.jpg", {"text": "what is this?"})
     with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
         pipeline._region_features("image.jpg")

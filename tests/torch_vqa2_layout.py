@@ -30,12 +30,28 @@ Under ``root`` (the run's ``env.data_dir``):
   punctuation, and ``[unusedN]`` filler;
 - the zoo's ``.built`` markers, so that the JAX package, which would
   download the zoo's resources otherwise, takes the layout as built.
+
+``write_image_layout`` writes the raw-image form that
+``projects/unit/configs/vqa2_dataset_cfg.yaml`` names (ViLT's VQA2
+config): the ``split_by_coco_2017`` annotation files (five for train,
+each paired with an image folder; ``imdb_val2017.npy``) and the test
+split's ``imdb_test2015.npy``, over images in
+``datasets/coco/defaults/images/{train2014,val2014,test2015}``. Each
+image is PNG content (``png_bytes``) under ``<image_name>.jpg``, the
+name the VQA2 dataset opens, so that PIL (JAX's loader, which goes by
+content) and the port's PNG decoder read the same files; sizes are drawn
+non-square, so that the processors resize. Its ``.built`` markers cannot
+satisfy the JAX package's builder: ``vqa2.defaults`` and
+``vqa2.split_by_coco_2017`` share ``datasets/vqa2/annotations`` with
+different versions, so JAX's ``mmf_run`` would download one of them.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, List
+import struct
+import zlib
+from typing import Dict, List, Sequence
 
 import numpy as np
 
@@ -119,10 +135,14 @@ def write_layout(root: str, n_train: int = 640, n_val: int = 128,
                  feature_dim: int = 2048, num_answers: int = 3129,
                  vocab_size: int = 30522, seed: int = 0,
                  full_boxes: bool = False,
-                 cls_prob_width: int = 0) -> Dict[str, str]:
+                 cls_prob_width: int = 0,
+                 glove: bool = False) -> Dict[str, str]:
     """Write the layout under ``root``; returns its main paths. The
     class probabilities come from a second generator, so the other
-    fields are the same with and without them."""
+    fields are the same with and without them. ``glove`` also writes
+    what VQA2's ``vocab`` text processor reads: ``vocabulary_100k.txt``
+    (every word a question can hold) and 300-wide random vectors in
+    ``datasets/vectors/glove.6B.300d.txt``."""
     rng = np.random.RandomState(seed)
     cls_rng = np.random.RandomState(seed + 1)
     datasets = os.path.join(root, "datasets")
@@ -189,6 +209,17 @@ def write_layout(root: str, n_train: int = 640, n_val: int = 128,
     vocab_file = os.path.join(root, "vocab.txt")
     with open(vocab_file, "w") as f:
         f.write("\n".join(_vocab(vocab_size)) + "\n")
+    if glove:
+        words = sorted({w + s for w in _WORDS for s in _SUFFIXES})
+        with open(os.path.join(vocab_dir, "vocabulary_100k.txt"), "w") as f:
+            f.write("\n".join(words) + "\n")
+        os.makedirs(os.path.join(datasets, "vectors"), exist_ok=True)
+        vec_rng = np.random.RandomState(seed + 2)
+        with open(os.path.join(datasets, "vectors", "glove.6B.300d.txt"),
+                  "w") as f:
+            for w in words:
+                f.write(w + " " + " ".join(
+                    f"{x:.4f}" for x in vec_rng.randn(300)) + "\n")
 
     for name, version in ZOO_VERSIONS.items():
         base = os.path.join(datasets, name)
@@ -211,3 +242,154 @@ def layout_opts(root: str, dataset: str = "vqa2",
                 "params.tokenizer_config.params.vocab_file="
                 + os.path.join(root, "vocab.txt"))
     return opts
+
+
+# the raw-image VQA2 layout (projects/unit/configs/vqa2_dataset_cfg.yaml)
+SPLIT_2017 = "vqa2/split_by_coco_2017/annotations"
+IMAGE_SPLITS = {  # split -> [(annotation file, image folder)]
+    "train": [(f"{SPLIT_2017}/imdb_train2017_in_train2014.npy",
+               "train2014"),
+              (f"{SPLIT_2017}/imdb_train2017_in_val2014.npy", "val2014"),
+              (f"{SPLIT_2017}/imdb_vg_karpathytrain_in_train2014.npy",
+               "train2014"),
+              (f"{SPLIT_2017}/imdb_vg_karpathytrain_in_val2014_not_in_"
+               "val2017.npy", "val2014"),
+              (f"{SPLIT_2017}/imdb_vg_karpathytest_not_in_val2017.npy",
+               "val2014")],
+    "val": [(f"{SPLIT_2017}/imdb_val2017.npy", "val2014")],
+    "test": [("vqa2/defaults/annotations/imdb_test2015.npy", "test2015")],
+}
+SPLIT_2017_VERSION = "1.0_2021_02_05"  # configs/zoo/datasets.yaml
+
+
+def _paeth(a, b, c):
+    a, b, c = (x.astype(np.int16) for x in (a, b, c))
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    return np.where((pa <= pb) & (pa <= pc), a,
+                    np.where(pb <= pc, b, c)).astype(np.uint8)
+
+
+def png_bytes(pixels: np.ndarray, filters: Sequence[int] = (0, 1, 2),
+              palette: np.ndarray = None) -> bytes:
+    """8-bit non-interlaced PNG of ``pixels`` ([H, W] grey, [H, W, 2]
+    grey + alpha, [H, W, 3] RGB, [H, W, 4] RGBA; or, with ``palette``
+    [N, 3], [H, W] indices), row y filtered with ``filters[y %
+    len(filters)]`` (0 None, 1 Sub, 2 Up, 3 Average, 4 Paeth)."""
+    pixels = np.asarray(pixels, np.uint8)
+    if pixels.ndim == 2:
+        pixels = pixels[..., None]
+    h, w, c = pixels.shape
+    colour = 3 if palette is not None else {1: 0, 2: 4, 3: 2, 4: 6}[c]
+    rows = pixels.reshape(h, w * c)
+    out = bytearray()
+    prev = np.zeros(w * c, np.uint8)
+    for y in range(h):
+        kind = filters[y % len(filters)]
+        x = rows[y]
+        left = np.concatenate([np.zeros(c, np.uint8), x[:-c]])
+        upleft = np.concatenate([np.zeros(c, np.uint8), prev[:-c]])
+        pred = {0: np.zeros_like(x), 1: left, 2: prev,
+                3: ((left.astype(np.uint16) + prev) // 2).astype(np.uint8),
+                4: _paeth(left, prev, upleft)}[kind]
+        out.append(kind)
+        out += (x - pred).astype(np.uint8).tobytes()
+        prev = x
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    header = struct.pack(">IIBBBBB", w, h, 8, colour, 0, 0, 0)
+    body = chunk(b"IHDR", header)
+    if palette is not None:
+        body += chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes())
+    return (b"\x89PNG\r\n\x1a\n" + body
+            + chunk(b"IDAT", zlib.compress(bytes(out), 6))
+            + chunk(b"IEND", b""))
+
+
+def _image(rng, min_side: int, max_side: int) -> np.ndarray:
+    """[H, W, 3] uint8, H != W: a colour gradient with noise, so that it
+    compresses as a photo might."""
+    h = int(rng.randint(min_side, max_side + 1))
+    w = int(rng.randint(min_side, max_side + 1))
+    if w == h:
+        w = h + 1 if h < max_side else h - 1
+    yy, xx = np.mgrid[0:h, 0:w]
+    base = rng.rand(3) * 255
+    slope = (rng.rand(3, 2) - 0.5) * 2
+    img = (base[:, None, None] + slope[:, 0, None, None] * yy
+           + slope[:, 1, None, None] * xx)
+    img = img.transpose(1, 2, 0) + rng.randn(h, w, 3) * 6
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def write_image_layout(root: str, n_train: int = 640, n_val: int = 128,
+                       n_test: int = 64, n_images: int = 160,
+                       min_side: int = 200, max_side: int = 480,
+                       num_answers: int = 3129, vocab_size: int = 30522,
+                       seed: int = 0) -> Dict[str, str]:
+    """Write the raw-image layout under ``root``; returns its main paths.
+    ``n_train`` questions are spread over the five train files."""
+    rng = np.random.RandomState(seed)
+    datasets = os.path.join(root, "datasets")
+    answer_words = _answer_words(num_answers)
+    n_test_images = max(1, n_images // 5)
+    n_each = max(1, (n_images - n_test_images) // 2)
+    counts = {"train2014": n_each, "val2014": n_each,
+              "test2015": n_test_images}
+    images = {}
+    for folder, n in counts.items():
+        out = os.path.join(datasets, "coco", "defaults", "images", folder)
+        os.makedirs(out, exist_ok=True)
+        images[folder] = [f"COCO_{folder}_{i:012d}" for i in range(n)]
+        for name in images[folder]:
+            with open(os.path.join(out, name + ".jpg"), "wb") as f:
+                f.write(png_bytes(_image(rng, min_side, max_side)))
+
+    question_id = 0
+    totals = {"train": n_train, "val": n_val, "test": n_test}
+    for split, files in IMAGE_SPLITS.items():
+        shares = np.full(len(files), totals[split] // len(files))
+        shares[:totals[split] % len(files)] += 1
+        for (path, folder), n in zip(files, shares):
+            names = images[folder]
+            rows = [{"creation_time": 0.0, "version": 1.0,
+                     "dataset_type": split, "has_answer": split != "test"}]
+            for i in range(int(n)):
+                name = names[int(rng.randint(len(names)))]
+                question = _question(rng)
+                row = {"question": question, "question_str": question,
+                       "question_id": question_id,
+                       "image_id": int(name.rsplit("_", 1)[1]),
+                       "image_name": name}
+                if split != "test":
+                    row["answers"] = _answers(rng, answer_words)
+                    row["all_answers"] = list(row["answers"])
+                rows.append(row)
+                question_id += 1
+            full = os.path.join(datasets, path)
+            os.makedirs(os.path.dirname(full), exist_ok=True)
+            np.save(full, np.array(rows, dtype=object))
+
+    vocab_dir = os.path.join(datasets, "vqa2", "defaults", "extras",
+                             "vocabs")
+    os.makedirs(vocab_dir, exist_ok=True)
+    with open(os.path.join(vocab_dir, "answers_vqa.txt"), "w") as f:
+        f.write("\n".join(answer_words) + "\n")
+    vocab_file = os.path.join(root, "vocab.txt")
+    with open(vocab_file, "w") as f:
+        f.write("\n".join(_vocab(vocab_size)) + "\n")
+    for name, version in ZOO_VERSIONS.items():
+        for sub in ("", "annotations", "images"):
+            _mark_built(os.path.join(datasets, name, sub), version)
+    return {"root": root, "vocab_file": vocab_file}
+
+
+def image_layout_opts(root: str, dataset: str = "vqa2") -> List[str]:
+    """The dotlist that points a raw-image VQA2 config at the layout."""
+    return [f"env.data_dir={root}",
+            f"dataset_config.{dataset}.processors.text_processor.params."
+            "tokenizer_config.params.vocab_file="
+            + os.path.join(root, "vocab.txt")]
