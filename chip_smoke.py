@@ -244,11 +244,12 @@ SERVE_BATCH_ULPS = 4
 SERVE_BATCH_MIN_COSINE = 0.99999
 N_REQUESTS = 8
 # backward kernels: max abs error over the largest entry of the plain
-# version's gradient. f32: same formulas, other summation order (TF32 off);
-# bf16: p and ds rounded to bf16 before the tensor-core products and the
-# gradients stored in bf16 (one ulp is 2^-8 relative). Against autograd
-# through mha_reference (other formulas, other roundings) half as much
-# again
+# version's gradient. f32: same formulas, other summation order, the
+# kernels' products in split-TF32 (inputs kept to ~21 bits; the plain
+# version's TF32 off); bf16: p and ds rounded to bf16 before the
+# tensor-core products and the gradients stored in bf16 (one ulp is 2^-8
+# relative). Against autograd through mha_reference (other formulas,
+# other roundings) half as much again
 GRAD_REL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # stats form: m and l are f32 sums of the same products in another order
 STATS_TOL = dict(atol=1e-4, rtol=1e-4)
@@ -288,6 +289,9 @@ COMPARED_STEPS = 3
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
               torch.int8: 1979e12}
+# f32 at f32 accuracy on the tensor cores: split-TF32 runs each f32
+# product as three TF32 products (hi hi, hi lo, lo hi) at the TF32 rate
+TF32_FLOPS, SPLIT_TF32_PRODUCTS = 495e12, 3
 # K5 (int8 GEMM) shapes (M, K, N) on the main paths, with their launches
 # per forward: the MMBT trunk at batch 1 (131 tokens; Q, K, V, O, FFN in,
 # FFN out in 12 layers), its pooler (M = 1) and VisualBERT at bucket 32
@@ -523,19 +527,24 @@ def phase_build(card):
                      "spills; ptxas notes " + (", ".join(
                          f"{c} x{notes.count(c)}" for c in sorted(set(
                              notes))) or "none") + ")")
-        reports[name] = [k for k in kernels
-                         if "sm90" in k[0] or "ln_bwd" in k[0]]
+        reports[name] = [k for k in kernels if any(
+            tag in k[0] for tag in ("sm90", "tf32", "ln_bwd"))]
+    bwd = A._bwd_lib()[0]
     smem = (A._fwd_lib()[0].mmf_flash_attention_fwd_smem_bytes(HEAD_DIM),
-            A._bwd_lib()[0].mmf_flash_attention_bwd_smem_bytes(HEAD_DIM))
+            bwd.mmf_flash_attention_bwd_smem_bytes(HEAD_DIM, 1),
+            bwd.mmf_flash_attention_bwd_smem_bytes(HEAD_DIM, 0),
+            bwd.mmf_flash_attention_bwd_smem_bytes(2 * HEAD_DIM, 0))
     parts.append(f"layer_norm triton jit {done['layer_norm'][1]:.1f}s")
     print(f"phase build: ok card='{card}' torch={torch.__version__} "
           f"cuda={torch.version.cuda}; built in parallel in {wall:.1f}s: "
           + "; ".join(parts))
-    print("  wgmma kernels and K4-bwd's (ptxas: registers, spill store "
-          "bytes; C7510, C7515 and C7520 would mean serialised products; "
-          f"bf16 K1 takes {smem[0]} B of dynamic smem a block at "
-          f"D={HEAD_DIM}, K2 and K3 {smem[1]} B; K4-bwd's template "
-          "arguments: dtype, 16-byte vectors a lane, warps a row):")
+    print("  wgmma kernels, the f32 K2/K3 (split-TF32 on mma.sync) and "
+          "K4-bwd's (ptxas: registers, spill store bytes; C7510, C7515 and "
+          "C7520 would mean serialised products; bf16 K1 takes "
+          f"{smem[0]} B of dynamic smem a block at D={HEAD_DIM}, K2 and K3 "
+          f"{smem[1]} B; f32 K2 and K3 {smem[2]} B, {smem[3]} B at "
+          f"D={2 * HEAD_DIM}; K4-bwd's template arguments: dtype, 16-byte "
+          "vectors a lane, warps a row):")
     for name, kernels in reports.items():
         print(f"    {name}: " + "; ".join(
             f"{n} {r} regs, {sp} B spills" for n, r, sp, _ in kernels))
@@ -2486,9 +2495,10 @@ VILBERT_PRETRAIN_UPDATES = 3
 def _attention_case(name, q, k, v, bias, dout, iters=20, plain_iters=20,
                     repeats=5):
     """K1, K1-stats, K2 and K3 on (q, k, v, bias, dO): errors against the
-    plain versions, device times (``iters`` calls, half for SDPA's
-    backward, best of ``repeats``) beside SDPA's and the plain versions'
-    (``plain_iters``), host time a call, and the bound."""
+    plain versions, K2 and K3 bit-equal across two calls, device times
+    (``iters`` calls, half for SDPA's backward, best of ``repeats``)
+    beside SDPA's and the plain versions' (``plain_iters``), host time a
+    call, and the bound."""
     dt = q.dtype
     b, heads, sq, head_dim = q.shape
     skv = k.shape[2]
@@ -2508,6 +2518,14 @@ def _attention_case(name, q, k, v, bias, dout, iters=20, plain_iters=20,
     errs = [rel_err(got, want, GRAD_REL[dt], f"{n} {name}")
             for n, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref)]
     del ref, ref_out
+    # no atomics: a second call gives the same bits
+    dq2, delta2 = A.flash_attention_bwd_dq(q, k, v, bias, out_s, m, l, dout)
+    again = (dq2, delta2) + A.flash_attention_bwd_dkv(q, k, v, bias, dout, m,
+                                                      l, delta2)
+    torch.cuda.synchronize()
+    check(all(torch.equal(x, y) for x, y in zip((dq, delta, dk, dv), again)),
+          f"{name}: backward not bit-equal across calls")
+    del dq2, delta2, again
     calls = {
         "K1": lambda: A.flash_attention(q, k, v, bias),
         "K1-stats": lambda: A.flash_attention_with_stats(q, k, v, bias),
@@ -2535,9 +2553,10 @@ def _attention_case(name, q, k, v, bias, dout, iters=20, plain_iters=20,
                  iters=max(plain_iters // 2, 1), repeats=repeats)}
     # each input read once, each output written once; FLOPs of the
     # products (2 per multiply-add): QK^T and PV forward, QK^T, dO V^T and
-    # dS K for dq, QK^T, dO V^T, P^T dO and dS^T Q for dk and dv. f32 runs
-    # on the FMA units (TF32 would round the products' inputs): its
-    # operations go over the FP32 non-tensor peak
+    # dS K for dq, QK^T, dO V^T, P^T dO and dS^T Q for dk and dv. f32 is
+    # held to the least time at f32 accuracy: its products as split-TF32
+    # on the tensor cores (plain TF32 would round the inputs); the bound
+    # on the FP32 FMA units, where K1 f32 runs, beside it
     sq_b, kv_b, st = _nbytes(q), _nbytes(k), _nbytes(m)
     pairs = b * heads * sq * skv * head_dim
     work = {"K1": (2 * sq_b + 2 * kv_b + _nbytes(bias), 4 * pairs),
@@ -2545,7 +2564,14 @@ def _attention_case(name, q, k, v, bias, dout, iters=20, plain_iters=20,
                          4 * pairs),
             "K2": (4 * sq_b + 2 * kv_b + _nbytes(bias) + 3 * st, 6 * pairs),
             "K3": (2 * sq_b + 4 * kv_b + _nbytes(bias) + 3 * st, 8 * pairs)}
-    bounds = {n: bound(nb, fl, dt) for n, (nb, fl) in work.items()}
+    if dt == torch.float32:
+        bounds = {n: max((1e3 * nb / HBM_BYTES_PER_S, "bytes"), (
+            1e3 * SPLIT_TF32_PRODUCTS * fl / TF32_FLOPS, "operations"))
+            for n, (nb, fl) in work.items()}
+        fma = {n: bound(nb, fl, dt)[0] for n, (nb, fl) in work.items()}
+    else:
+        bounds = {n: bound(nb, fl, dt) for n, (nb, fl) in work.items()}
+        fma = None
     return {"shape": [b, heads, sq, skv, head_dim],
             "max_abs_err": {"K1": err, "K1-stats": err_s, "K2": errs[0],
                             "K3": max(errs[1:])},
@@ -2556,7 +2582,8 @@ def _attention_case(name, q, k, v, bias, dout, iters=20, plain_iters=20,
                            "K2+K3": dev["sdpa bwd"]},
             "plain_ms": plain,
             "bound_ms": {n: v[0] for n, v in bounds.items()},
-            "bound_by": {n: v[1] for n, v in bounds.items()}}
+            "bound_by": {n: v[1] for n, v in bounds.items()},
+            "fma_bound_ms": fma}
 
 
 def phase_vilbert_kernels(card):
@@ -3293,27 +3320,30 @@ def phase_vilt_kernels(card):
                           iters=3, plain_iters=2, repeats=3)
     ln_fwd, ln_bwd = _vilt_layer_norm_case(g)
     torch.cuda.empty_cache()
-    ms, lib, pl, bd = (att["ms"], att["library_ms"], att["plain_ms"],
-                       att["bound_ms"])
+    ms, lib, pl, bd, fma = (att["ms"], att["library_ms"], att["plain_ms"],
+                            att["bound_ms"], att["fma_bound_ms"])
     print(f"phase vilt-kernels: ok K1, K1-stats, K2 and K3 in f32 at ViLT's "
           f"{att['shape']} (questions of 6-40 tokens masked, 577 image "
           "tokens; 617 = 9 x 64 + 41 rows), and K4, K4-bwd f32 without the "
           f"residual at [{VILT_ROWS}, {HIDDEN}], against their plain "
           "versions within the kernels phase's bounds; device ms "
-          "(spin-queued; LayerNorms over rotating inputs), the plain "
+          "(spin-queued; LayerNorms over rotating input sets), the plain "
           "versions' (CUDA events), SDPA's / F.layer_norm's, host us a call "
-          "and the bound (f32 operations over the FP32 non-tensor peak, "
-          f"67 TFLOP/s: TF32 would round the products' inputs) on "
+          "and two bounds: at f32 accuracy (split-TF32, three TF32 products "
+          f"over {TF32_FLOPS / 1e12:.0f} TFLOP/s; K2 and K3 run so), and on "
+          "the FP32 FMA units (67 TFLOP/s; K1 runs so) on "
           f"'{card}':")
     print("  max_abs_err " + ", ".join(
         f"{n} {e:.3g}" for n, e in att["max_abs_err"].items())
         + f"; K1 {ms['K1']:.4f} (sdpa {lib['K1']:.4f}, plain "
-        f"{pl['K1']:.4f}, bound {bd['K1']:.4f} {att['bound_by']['K1']}), "
-        f"K1-stats {ms['K1-stats']:.4f} (sdpa fwd+lse {lib['K1-stats']:.4f},"
-        f" plain {pl['K1-stats']:.4f}, bound {bd['K1-stats']:.4f}), K2 "
-        f"{ms['K2']:.4f} (bound {bd['K2']:.4f}), K3 {ms['K3']:.4f} (bound "
-        f"{bd['K3']:.4f}), K2+K3 {ms['K2'] + ms['K3']:.4f} (sdpa bwd "
-        f"{lib['K2+K3']:.4f}, plain {pl['K2+K3']:.4f}); host us " + ", ".join(
+        f"{pl['K1']:.4f}, bound {bd['K1']:.4f} {att['bound_by']['K1']}, FMA "
+        f"{fma['K1']:.4f}), K1-stats {ms['K1-stats']:.4f} (sdpa fwd+lse "
+        f"{lib['K1-stats']:.4f}, plain {pl['K1-stats']:.4f}, bound "
+        f"{bd['K1-stats']:.4f}, FMA {fma['K1-stats']:.4f}), K2 "
+        f"{ms['K2']:.4f} (bound {bd['K2']:.4f}, FMA {fma['K2']:.4f}), K3 "
+        f"{ms['K3']:.4f} (bound {bd['K3']:.4f}, FMA {fma['K3']:.4f}), K2+K3 "
+        f"{ms['K2'] + ms['K3']:.4f} (sdpa bwd {lib['K2+K3']:.4f}, plain "
+        f"{pl['K2+K3']:.4f}); host us " + ", ".join(
             f"{n} {u:.1f}" for n, u in att["host_us"].items()))
     for name, r in (("K4", ln_fwd), ("K4-bwd", ln_bwd)):
         print(f"  {name} f32 [{VILT_ROWS}, {HIDDEN}] no residual: "
@@ -3942,6 +3972,7 @@ def main():
             "plain_ms": vilt_att["plain_ms"][lib],
             "bound_ms": vilt_att["bound_ms"][kid],
             "bound_by": vilt_att["bound_by"][kid],
+            "fma_bound_ms": vilt_att["fma_bound_ms"][kid],
             "library_ms": vilt_att["library_ms"][lib]}
         # and in bf16 at MMFT's [64, 12, 114, 64]
         results[name]["mmft_shape"] = {

@@ -5,10 +5,13 @@ Port of ``mmf_tpu/datasets/databases/image_database.py``:
 JAX's loader is PIL's ``Image.open(...).convert("RGB")``. The card's
 machine has no PIL, so the port's loader decodes PNG itself
 (``decode_png``: the zlib stream with the standard library, the five row
-filters in numpy; 8-bit grey, grey with alpha, RGB and RGBA, palettes of
-1 to 8 bits, non-interlaced) into what ``convert("RGB")`` gives: grey
-replicated to three channels, alpha and palette transparency dropped. It
-knows a PNG by its signature, not by its file name, as PIL does. Any
+filters in numpy) into what ``convert("RGB")`` gives, for every standard
+PNG mode: grey at 1, 2, 4, 8 and 16 bits, grey with alpha, RGB and RGBA
+at 8 and 16 bits, palettes of 1 to 8 bits, each plain or Adam7-interlaced.
+As PIL maps them: grey replicated to three channels, 1-, 2- and 4-bit grey
+scaled to 0-255, 16-bit grey clipped at 255, 16-bit colour cut to its high
+byte, alpha and transparency dropped. It knows a PNG by its signature,
+not by its file name, as PIL does. Any
 other content (JPEG, ...) goes through PIL where PIL imports, and raises
 naming the format where it does not; nothing is substituted. Either way
 the loader returns an ``RGBImage``: [H, W, 3] uint8 pixels, which the
@@ -29,6 +32,11 @@ from mmf_tpu_torch.utils.general import get_absolute_path
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # PNG colour type -> samples
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
+           6: (8, 16)}  # the bit depths the PNG standard allows
+# Adam7's passes: (first column, first row, column step, row step)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 _SIGNATURES = ((b"\xff\xd8\xff", "JPEG"), (b"GIF8", "GIF"), (b"BM", "BMP"),
                (b"RIFF", "WebP"), (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"))
 
@@ -77,44 +85,10 @@ def _unfilter_paeth(line: np.ndarray, prev: np.ndarray, bpp: int):
     return np.frombuffer(bytes(out), np.uint8)
 
 
-def decode_png(data: bytes) -> np.ndarray:
-    """PNG bytes -> [H, W, 3] uint8 RGB, as PIL's ``convert("RGB")``.
-    Raises for what it does not decode (bit depths other than 8,
-    interlaced images), naming it."""
-    if data[:8] != PNG_SIGNATURE:
-        raise ValueError("not PNG content")
-    pos, idat, palette, header = 8, [], None, None
-    while pos + 8 <= len(data):
-        (length,) = struct.unpack(">I", data[pos:pos + 4])
-        kind = data[pos + 4:pos + 8]
-        body = data[pos + 8:pos + 8 + length]
-        pos += 12 + length
-        if kind == b"IHDR":
-            header = struct.unpack(">IIBBBBB", body)
-        elif kind == b"PLTE":
-            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
-        elif kind == b"IDAT":
-            idat.append(body)
-        elif kind == b"IEND":
-            break
-    if header is None:
-        raise ValueError("PNG without an IHDR chunk")
-    width, height, depth, colour, _, _, interlace = header
-    if colour not in _CHANNELS or not (
-            depth == 8 or colour == 3 and depth in (1, 2, 4)):
-        raise ValueError(f"PNG of bit depth {depth}, colour type {colour}: "
-                         "the port decodes 8-bit grey, grey + alpha, RGB "
-                         "and RGBA, and palettes of 1, 2, 4 or 8 bits")
-    if interlace:
-        raise ValueError("interlaced (Adam7) PNG: the port decodes "
-                         "non-interlaced PNG only")
-    bpp = _CHANNELS[colour]  # bytes a pixel (a palette's: at most 1)
-    stride = width * bpp if depth == 8 else -(-width * depth // 8)
-    rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if rows.size != height * (stride + 1):
-        raise ValueError(f"PNG data of {rows.size} bytes for {height} rows "
-                         f"of {stride + 1}")
-    rows = rows.reshape(height, stride + 1)
+def _unfilter(rows: np.ndarray, bpp: int) -> np.ndarray:
+    """[H, 1 + stride] filtered scanlines -> [H, stride] bytes; ``bpp``:
+    bytes a pixel, at least 1 (the filters' left neighbour)."""
+    height, stride = rows.shape[0], rows.shape[1] - 1
     out = np.empty((height, stride), np.uint8)
     prev = np.zeros(stride, np.uint8)
     for y in range(height):
@@ -134,20 +108,88 @@ def decode_png(data: bytes) -> np.ndarray:
             raise ValueError(f"PNG row {y} has filter type {kind}")
         out[y] = cur
         prev = out[y]
-    if depth < 8:  # packed palette indices, the first in the high bits
-        bits = np.unpackbits(out, axis=1).reshape(height, -1, depth)
-        weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
-        out = (bits * weights).sum(-1, dtype=np.uint8)[:, :width]
-    pixels = out.reshape(height, width, bpp)
+    return out
+
+
+def _samples(raw: np.ndarray, width: int, depth: int,
+             channels: int) -> np.ndarray:
+    """[H, stride] unfiltered bytes -> [H, width, channels] samples
+    (uint16 at 16 bits, else uint8): 16-bit samples big-endian, 1-, 2-
+    and 4-bit ones packed the first in the high bits."""
+    height = raw.shape[0]
+    if depth == 16:
+        return np.ascontiguousarray(raw).view(">u2").astype(
+            np.uint16).reshape(height, width, channels)
+    if depth == 8:
+        return raw.reshape(height, width, channels)
+    bits = np.unpackbits(raw, axis=1).reshape(height, -1, depth)
+    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    return (bits * weights).sum(-1, dtype=np.uint8)[:, :width, None]
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """PNG bytes -> [H, W, 3] uint8 RGB, as PIL's ``convert("RGB")``.
+    Raises, naming it, for what the PNG standard does not define (a bit
+    depth a colour type does not take, an unknown filter)."""
+    if data[:8] != PNG_SIGNATURE:
+        raise ValueError("not PNG content")
+    pos, idat, palette, header = 8, [], None, None
+    while pos + 8 <= len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        kind = data[pos + 4:pos + 8]
+        body = data[pos + 8:pos + 8 + length]
+        pos += 12 + length
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+    if header is None:
+        raise ValueError("PNG without an IHDR chunk")
+    width, height, depth, colour, _, _, interlace = header
+    if depth not in _DEPTHS.get(colour, ()):
+        raise ValueError(f"PNG of bit depth {depth}, colour type {colour}: "
+                         "not a standard PNG mode")
+    if interlace not in (0, 1):
+        raise ValueError(f"PNG interlace method {interlace}")
+    channels = _CHANNELS[colour]
+    bits = channels * depth  # a pixel's
+    bpp = max(1, bits // 8)
+    passes = []  # (x0, y0, dx, dy, columns, rows, bytes a row) of each
+    for x0, y0, dx, dy in _ADAM7 if interlace else ((0, 0, 1, 1),):
+        w, h = -(-(width - x0) // dx), -(-(height - y0) // dy)
+        if w > 0 and h > 0:  # an empty pass has no scanlines
+            passes.append((x0, y0, dx, dy, w, h, -(-w * bits // 8)))
+    stream = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    need = sum(h * (stride + 1) for *_, h, stride in passes)
+    if stream.size != need:
+        raise ValueError(f"PNG data of {stream.size} bytes where its "
+                         f"{width} x {height} pixels take {need}")
+    samples = np.empty((height, width, channels),
+                       np.uint16 if depth == 16 else np.uint8)
+    used = 0
+    for x0, y0, dx, dy, w, h, stride in passes:
+        rows = stream[used:used + h * (stride + 1)].reshape(h, stride + 1)
+        used += h * (stride + 1)
+        samples[y0::dy, x0::dx] = _samples(_unfilter(rows, bpp), w, depth,
+                                           channels)
     if colour == 3:
         if palette is None:
             raise ValueError("palette PNG without a PLTE chunk")
         table = np.zeros((256, 3), np.uint8)  # PIL's black past the end
         table[:len(palette)] = palette
-        return table[pixels[..., 0]]
+        return table[samples[..., 0]]
+    if depth == 16:  # PIL: grey clipped at 255, colour's high byte
+        samples = (np.minimum(samples, 255) if colour == 0
+                   else samples >> 8).astype(np.uint8)
+    elif depth < 8:  # grey scaled to 0-255
+        samples = samples * np.uint8(255 // (2 ** depth - 1))
     if colour in (0, 4):
-        return np.repeat(pixels[..., :1], 3, axis=2)
-    return np.ascontiguousarray(pixels[..., :3])
+        return np.repeat(samples[..., :1], 3, axis=2)
+    return np.ascontiguousarray(samples[..., :3])
 
 
 def image_format(data: bytes) -> str:

@@ -209,27 +209,31 @@ def _bwd_lib():
     return _typed_library("flash_attention_bwd", {
         "mmf_flash_attention_bwd_dq": [_P] * 10 + _DIMS + [_STRIDES, _F, _P],
         "mmf_flash_attention_bwd_dkv": [_P] * 10 + _DIMS + [_STRIDES, _F, _P],
-        "mmf_flash_attention_bwd_smem_bytes": [_I],
+        "mmf_flash_attention_bwd_smem_bytes": [_I, _I],
     })
 
 
-def _kernel_layout_ok(t: torch.Tensor) -> bool:
-    """Contiguous head dim; for bf16 also 16-byte aligned rows (the
-    tensor-core kernels load 8 bf16 at a time) and positive strides on
-    dims longer than 1 (the backward's TMA maps cannot broadcast)."""
+def _kernel_layout_ok(t: torch.Tensor, tma: bool) -> bool:
+    """Contiguous head dim; for the kernels that load by TMA (``tma``:
+    every bf16 kernel, and the f32 backward) also 16-byte aligned rows
+    and positive strides on dims longer than 1 (TMA maps cannot
+    broadcast)."""
     if t.stride(-1) != 1:
         return False
-    if t.dtype != torch.bfloat16:
+    if not tma:
         return True
+    per16 = 16 // t.element_size()
     return t.data_ptr() % 16 == 0 and all(
-        s % 8 == 0 and (s > 0 or n == 1)
+        s % per16 == 0 and (s > 0 or n == 1)
         for s, n in zip(t.stride()[:3], t.shape[:3]))
 
 
-def _kernel_operand(t: torch.Tensor) -> torch.Tensor:
-    # a fresh allocation is aligned (contiguous() would keep an offset view)
-    return t if _kernel_layout_ok(t) else t.clone(
-        memory_format=torch.contiguous_format)
+def _kernel_operand(t: torch.Tensor, tma: bool) -> torch.Tensor:
+    """``t`` as a kernel takes it (``tma``: loaded by TMA). A fresh
+    allocation is aligned (contiguous() would keep an offset view)."""
+    if _kernel_layout_ok(t, tma):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 def _check_qkv(what: str, q, k, v):
@@ -335,7 +339,8 @@ def build_flash_attention_bwd() -> dict:
 def _flash_forward(q, k, v, bias, scale, with_stats):
     what = "flash_attention_with_stats" if with_stats else "flash_attention"
     b, h, sq, skv, d = _check_qkv(what, q, k, v)
-    q, k, v = map(_kernel_operand, (q, k, v))
+    tma = q.dtype == torch.bfloat16  # the f32 forward reads rows itself
+    q, k, v = (_kernel_operand(t, tma) for t in (q, k, v))
     if scale is None:
         scale = d ** -0.5
     bias_ptr, bias_strides, _bias = _kernel_bias(bias, q, b, h, sq, skv)
@@ -400,7 +405,8 @@ def flash_attention_block(q, k, v, bias=None, scale=None):
     (contiguous), m and l f32 [B,H,Sq]. Arguments as ``flash_attention``.
     Merge the states of several kv blocks with ``merge_block_states``."""
     b, h, sq, skv, d = _check_qkv("flash_attention_block", q, k, v)
-    q, k, v = map(_kernel_operand, (q, k, v))
+    tma = q.dtype == torch.bfloat16
+    q, k, v = (_kernel_operand(t, tma) for t in (q, k, v))
     if scale is None:
         scale = d ** -0.5
     bias_ptr, bias_strides, _bias = _kernel_bias(bias, q, b, h, sq, skv)
@@ -453,7 +459,8 @@ def flash_attention_bwd_dq(q, k, v, bias, out, m, l, dout, scale=None):
     b, h, sq, skv, d = _check_backward_args(
         "flash_attention_bwd_dq", q, k, v, {"m": m, "l": l},
         {"out": out, "dout": dout})
-    q, k, v, out, dout = map(_kernel_operand, (q, k, v, out, dout))
+    q, k, v, out, dout = (_kernel_operand(t, True)
+                          for t in (q, k, v, out, dout))
     m, l = m.contiguous(), l.contiguous()
     if scale is None:
         scale = d ** -0.5
@@ -489,7 +496,7 @@ def flash_attention_bwd_dkv(q, k, v, bias, dout, m, l, delta, scale=None):
     b, h, sq, skv, d = _check_backward_args(
         "flash_attention_bwd_dkv", q, k, v,
         {"m": m, "l": l, "delta": delta}, {"dout": dout})
-    q, k, v, dout = map(_kernel_operand, (q, k, v, dout))
+    q, k, v, dout = (_kernel_operand(t, True) for t in (q, k, v, dout))
     m, l, delta = m.contiguous(), l.contiguous(), delta.contiguous()
     if scale is None:
         scale = d ** -0.5

@@ -49,14 +49,14 @@
 //     columns outside the tensor with zeros); padded kv columns get p = 0
 //     and padded rows are never stored. No atomics: every output element
 //     is written by one block, so two runs give the same bits.
-//   - float32: plain FMAs in a 16 x 16 thread grid (4 x 4 register tiles),
-//     as the forward's f32 kernel, to keep f32 parity.
+//   - float32: the same blocks and ring, with the products in split-TF32
+//     on mma.sync (the float32 section below says why not wgmma).
 //   - The bias is read in f32 through its strides (0 on broadcast dims): a
 //     [B,1,1,Skv] padding-mask row once per tile (K2) or block (K3), any
 //     other bias per element. q, k, v, O, dO and the three gradients are
 //     addressed through (batch, head, seq) strides, so [B, S, H, D]
-//     projection views are read and written in place (the bf16 tensor
-//     maps carry the strides).
+//     projection views are read and written in place (the tensor maps
+//     carry the strides).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (mmf_tpu_torch/ops/_build.py); plain C entry
@@ -72,8 +72,6 @@ namespace {
 
 using namespace mmf_flash_sm90;
 
-constexpr int BQ = 64;  // q rows per tile
-constexpr int BK = 64;  // kv rows per tile
 constexpr int MAX_D = 128;
 
 struct Strides {
@@ -91,319 +89,6 @@ struct Args {
   float scale;
   Strides st;
 };
-
-// ---------------------------------------------------------------------------
-// float32: FMA kernels, 256 threads = 16 x 16; thread (ty, tx) owns tile
-// rows ty + 16 i and columns tx + 16 j (i, j < 4) of the score tile, and
-// rows ty + 16 i, head-dim columns tx + 16 j (j < NJ) of its gradients.
-// ---------------------------------------------------------------------------
-constexpr int F_THREADS = 256;
-constexpr int F_LD = BQ + 1;  // padded row length of [*][64] f32 tiles
-
-size_t dq_f32_smem_bytes(int d) {
-  // q^T * scale [D][F_LD], dO^T [D][F_LD], k [BK][D+1], v [BK][D+1],
-  // ds [BQ][F_LD]
-  return sizeof(float) * (size_t(2) * d * F_LD + size_t(2) * BK * (d + 1) +
-                          size_t(BQ) * F_LD);
-}
-
-size_t dkv_f32_smem_bytes(int d) {
-  // k^T [D][F_LD], v^T [D][F_LD], q * scale [BQ][D+1], dO [BQ][D+1],
-  // p^T [BK][F_LD], ds^T [BK][F_LD]
-  return sizeof(float) * (size_t(2) * d * F_LD + size_t(2) * BQ * (d + 1) +
-                          size_t(2) * BK * F_LD);
-}
-
-template <int NJ>
-__global__ void __launch_bounds__(F_THREADS) bwd_dq_f32_kernel(Args a) {
-  extern __shared__ float smem[];
-  __shared__ float m_s[BQ], li_s[BQ], dl_s[BQ];
-  const int D = a.D, LDR = D + 1;
-  float* qt = smem;             // [D][F_LD]: q^T * scale
-  float* dot = qt + D * F_LD;   // [D][F_LD]: dO^T
-  float* ks = dot + D * F_LD;   // [BK][LDR]
-  float* vs = ks + BK * LDR;    // [BK][LDR]
-  float* dss = vs + BK * LDR;   // [BQ][F_LD]: ds of this tile
-
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const Strides& st = a.st;
-  const float* qb = static_cast<const float*>(a.q) + b * st.q[0] + h * st.q[1];
-  const float* kb = static_cast<const float*>(a.k) + b * st.k[0] + h * st.k[1];
-  const float* vb = static_cast<const float*>(a.v) + b * st.v[0] + h * st.v[1];
-  const float* ob = static_cast<const float*>(a.o) + b * st.o[0] + h * st.o[1];
-  const float* dob =
-      static_cast<const float*>(a.dout) + b * st.dout[0] + h * st.dout[1];
-  float* dqb = static_cast<float*>(a.dq) + b * st.dq[0] + h * st.dq[1];
-  const float* bb =
-      a.bias == nullptr ? nullptr : a.bias + b * st.bias[0] + h * st.bias[1];
-  const long long so = ((long long)b * a.H + h) * a.Sq;
-
-  for (int idx = tid; idx < BQ * D; idx += F_THREADS) {
-    const int r = idx / D, d = idx - (idx / D) * D;
-    const int s = q0 + r;
-    const bool in = s < a.Sq;
-    qt[d * F_LD + r] = in ? qb[s * st.q[2] + d] * a.scale : 0.f;
-    dot[d * F_LD + r] = in ? dob[s * st.dout[2] + d] : 0.f;
-  }
-  // delta = rowsum(dO * O): warp w reduces rows 8 w .. 8 w + 7
-  for (int rr = 0; rr < BQ / 8; ++rr) {
-    const int r = warp * (BQ / 8) + rr, s = q0 + r;
-    float acc = 0.f;
-    if (s < a.Sq)
-      for (int d = lane; d < D; d += 32)
-        acc += dob[s * st.dout[2] + d] * ob[s * st.o[2] + d];
-    acc = sum_xor(acc, 32);
-    if (lane == 0) {
-      const bool in = s < a.Sq;
-      dl_s[r] = in ? acc : 0.f;
-      m_s[r] = in ? a.m[so + s] : 0.f;
-      li_s[r] = in ? 1.f / a.l[so + s] : 1.f;
-      if (in) a.delta[so + s] = acc;
-    }
-  }
-  __syncthreads();
-  float mr[4], lir[4], dr[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    mr[i] = m_s[ty + 16 * i];
-    lir[i] = li_s[ty + 16 * i];
-    dr[i] = dl_s[ty + 16 * i];
-  }
-
-  float acc[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-
-  for (int kv0 = 0; kv0 < a.Skv; kv0 += BK) {
-    __syncthreads();  // previous tile's ks/vs/dss fully consumed
-    for (int idx = tid; idx < BK * D; idx += F_THREADS) {
-      const int c = idx / D, d = idx - (idx / D) * D;
-      const int s = kv0 + c;
-      const bool in = s < a.Skv;
-      ks[c * LDR + d] = in ? kb[s * st.k[2] + d] : 0.f;
-      vs[c * LDR + d] = in ? vb[s * st.v[2] + d] : 0.f;
-    }
-    __syncthreads();
-
-    float sc[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = dp[i][j] = 0.f;
-#pragma unroll 2
-    for (int d = 0; d < D; ++d) {
-      float aq[4], ado[4], bk[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        aq[i] = qt[d * F_LD + ty + 16 * i];
-        ado[i] = dot[d * F_LD + ty + 16 * i];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        bk[j] = ks[(tx + 16 * j) * LDR + d];
-        bv[j] = vs[(tx + 16 * j) * LDR + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          sc[i][j] = fmaf(aq[i], bk[j], sc[i][j]);
-          dp[i][j] = fmaf(ado[i], bv[j], dp[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = q0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = kv0 + tx + 16 * j;
-        float s = sc[i][j];
-        if (c >= a.Skv) {
-          s = -INFINITY;  // outside the sequence: p = 0
-        } else if (bb != nullptr && r < a.Sq) {
-          s += bb[r * st.bias[2] + c];
-        }
-        const float p = expf(s - mr[i]) * lir[i];
-        dss[(ty + 16 * i) * F_LD + tx + 16 * j] = p * (dp[i][j] - dr[i]);
-      }
-    }
-    __syncthreads();
-
-    const int n_cols = min(BK, a.Skv - kv0);
-#pragma unroll 4
-    for (int c = 0; c < n_cols; ++c) {
-      float ds[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) ds[i] = dss[(ty + 16 * i) * F_LD + c];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int d = tx + 16 * j;
-        if (d < D) {
-          const float kv = ks[c * LDR + d];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(ds[i], kv, acc[i][j]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty + 16 * i;
-    if (r >= a.Sq) continue;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int d = tx + 16 * j;
-      if (d < D) dqb[r * st.dq[2] + d] = acc[i][j] * a.scale;
-    }
-  }
-}
-
-template <int NJ>
-__global__ void __launch_bounds__(F_THREADS) bwd_dkv_f32_kernel(Args a) {
-  extern __shared__ float smem[];
-  __shared__ float m_s[BQ], li_s[BQ], dl_s[BQ];
-  const int D = a.D, LDR = D + 1;
-  float* kt = smem;            // [D][F_LD]: k^T
-  float* vt = kt + D * F_LD;   // [D][F_LD]: v^T
-  float* qs = vt + D * F_LD;   // [BQ][LDR]: q * scale
-  float* dos = qs + BQ * LDR;  // [BQ][LDR]: dO
-  float* pt = dos + BQ * LDR;  // [BK][F_LD]: p^T of this tile
-  float* dst = pt + BK * F_LD;  // [BK][F_LD]: ds^T of this tile
-
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int kv0 = blockIdx.x * BK, h = blockIdx.y, b = blockIdx.z;
-  const Strides& st = a.st;
-  const float* qb = static_cast<const float*>(a.q) + b * st.q[0] + h * st.q[1];
-  const float* kb = static_cast<const float*>(a.k) + b * st.k[0] + h * st.k[1];
-  const float* vb = static_cast<const float*>(a.v) + b * st.v[0] + h * st.v[1];
-  const float* dob =
-      static_cast<const float*>(a.dout) + b * st.dout[0] + h * st.dout[1];
-  float* dkb = static_cast<float*>(a.dk) + b * st.dk[0] + h * st.dk[1];
-  float* dvb = static_cast<float*>(a.dv) + b * st.dv[0] + h * st.dv[1];
-  const float* bb =
-      a.bias == nullptr ? nullptr : a.bias + b * st.bias[0] + h * st.bias[1];
-  const long long so = ((long long)b * a.H + h) * a.Sq;
-
-  for (int idx = tid; idx < BK * D; idx += F_THREADS) {
-    const int c = idx / D, d = idx - (idx / D) * D;
-    const int s = kv0 + c;
-    const bool in = s < a.Skv;
-    kt[d * F_LD + c] = in ? kb[s * st.k[2] + d] : 0.f;
-    vt[d * F_LD + c] = in ? vb[s * st.v[2] + d] : 0.f;
-  }
-
-  float dk[4][NJ], dv[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) dk[i][j] = dv[i][j] = 0.f;
-
-  for (int q0 = 0; q0 < a.Sq; q0 += BQ) {
-    __syncthreads();  // previous tile's qs/dos/pt/dst fully consumed
-    for (int idx = tid; idx < BQ * D; idx += F_THREADS) {
-      const int r = idx / D, d = idx - (idx / D) * D;
-      const int s = q0 + r;
-      const bool in = s < a.Sq;
-      qs[r * LDR + d] = in ? qb[s * st.q[2] + d] * a.scale : 0.f;
-      dos[r * LDR + d] = in ? dob[s * st.dout[2] + d] : 0.f;
-    }
-    if (tid < BQ) {
-      const int s = q0 + tid;
-      const bool in = s < a.Sq;
-      m_s[tid] = in ? a.m[so + s] : 0.f;
-      li_s[tid] = in ? 1.f / a.l[so + s] : 1.f;
-      dl_s[tid] = in ? a.delta[so + s] : 0.f;
-    }
-    __syncthreads();
-
-    // s^T and (dO v^T)^T: rows = kv (ty + 16 i), columns = q (tx + 16 j)
-    float sc[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = dp[i][j] = 0.f;
-#pragma unroll 2
-    for (int d = 0; d < D; ++d) {
-      float ak[4], av[4], bq[4], bdo[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        ak[i] = kt[d * F_LD + ty + 16 * i];
-        av[i] = vt[d * F_LD + ty + 16 * i];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        bq[j] = qs[(tx + 16 * j) * LDR + d];
-        bdo[j] = dos[(tx + 16 * j) * LDR + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          sc[i][j] = fmaf(ak[i], bq[j], sc[i][j]);
-          dp[i][j] = fmaf(av[i], bdo[j], dp[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int c = kv0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int rl = tx + 16 * j, r = q0 + rl;
-        float p = 0.f;  // outside either sequence
-        if (r < a.Sq && c < a.Skv) {
-          float s = sc[i][j];
-          if (bb != nullptr) s += bb[r * st.bias[2] + c];
-          p = expf(s - m_s[rl]) * li_s[rl];
-        }
-        pt[(ty + 16 * i) * F_LD + rl] = p;
-        dst[(ty + 16 * i) * F_LD + rl] = p * (dp[i][j] - dl_s[rl]);
-      }
-    }
-    __syncthreads();
-
-    const int n_rows = min(BQ, a.Sq - q0);
-#pragma unroll 4
-    for (int r = 0; r < n_rows; ++r) {
-      float p[4], ds[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        p[i] = pt[(ty + 16 * i) * F_LD + r];
-        ds[i] = dst[(ty + 16 * i) * F_LD + r];
-      }
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int d = tx + 16 * j;
-        if (d < D) {
-          const float qv = qs[r * LDR + d], dov = dos[r * LDR + d];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            dv[i][j] = fmaf(p[i], dov, dv[i][j]);
-            dk[i][j] = fmaf(ds[i], qv, dk[i][j]);  // qs holds q * scale
-          }
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int c = kv0 + ty + 16 * i;
-    if (c >= a.Skv) continue;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int d = tx + 16 * j;
-      if (d < D) {
-        dkb[c * st.dk[2] + d] = dk[i][j];
-        dvb[c * st.dv[2] + d] = dv[i][j];
-      }
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // bfloat16: warp-specialised wgmma kernels (the block, ring and layouts of
@@ -753,22 +438,567 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   store_rows<NB>(dvb, st.dv[2], kvrow, a.Skv, a.D, 1.f, dv);
 }
 
-// The four operand maps, or false for a layout TMA does not take.
-bool make_maps(Maps& maps, const Args& a, int B) {
-  return make_tile_map(&maps.q, a.q, a.D, a.Sq, a.H, B, a.st.q) &&
-         make_tile_map(&maps.k, a.k, a.D, a.Skv, a.H, B, a.st.k) &&
-         make_tile_map(&maps.v, a.v, a.D, a.Skv, a.H, B, a.st.v) &&
-         make_tile_map(&maps.dout, a.dout, a.D, a.Sq, a.H, B, a.st.dout);
+// ---------------------------------------------------------------------------
+// float32: split-TF32 ("3xTF32") products on the tensor cores.
+//
+// Each f32 operand x is split as x = hi + lo, hi = x truncated to TF32
+// (its low 13 mantissa bits cleared) and lo = x - hi (exact), which the
+// tensor core reads truncated to TF32 in turn; each product a b runs as
+// lo(a) hi(b) + hi(a) lo(b) + hi(a) hi(b) on mma.sync.m16n8k8 tf32, the
+// small terms first into the f32 accumulator. lo(a) lo(b), ~2^-20 of the
+// product, is dropped: the inputs keep ~21 of f32's 24 significant bits
+// where plain TF32 keeps 11 (TF32 alone would put ~1e-3 into p through
+// the scores).
+//
+// Route: mma.sync with the operands read from the swizzled TMA tiles into
+// registers, not wgmma. wgmma takes 32-bit operands K-major only (no
+// transpose for tf32, and TMA does not transpose 4-byte elements), so
+// ds k, p^T dO and ds^T q would need k^T, dO^T and q^T written by the
+// block, and each operand read from shared memory would need its lo half
+// in a buffer of its own: at D = 64 a K2 block would hold q, dO and their
+// lo (64 KB), a 2-stage k/v ring (66 KB), k and v lo, k^T and its lo
+// (64 KB): 194 KB, one block and one consumer warpgroup an SM, whose exp
+// and split work would stall its own products; at D = 128, 354 KB, which
+// does not fit. With mma.sync the split happens in registers as each
+// fragment is loaded and the transposed operands are read in place: no
+// derived copy, ~100 KB a block at D = 64, two blocks an SM.
+//   - A block is four warps of 16 rows each and no producer warp: thread
+//     0 starts the TMA loads of a 2-stage ring (the f32 rows by cp.async
+//     from every thread, mbarriers), and a barrier a tile frees a stage.
+//     With a fifth warp, three warps share some SM quarters and ptxas
+//     capped the registers at 168, where the products spilled; four
+//     warps get up to 255 (two blocks an SM). Tiles are 64 rows of
+//     32-column f32 boxes under the 128-byte swizzle, so every fragment
+//     load below reads 32 distinct banks.
+//   - The m16n8k8 accumulator holds (row g, columns 2t, 2t + 1) where its
+//     A fragment wants (row g, columns t, t + 4) (g = lane / 4, t = lane %
+//     4). Instead of shuffling, the second products (ds k, p^T dO, ds^T q)
+//     take the reduction index of each 8 in the order 0, 2, 4, 6, 1, 3, 5,
+//     7: the accumulator registers are the A fragment as they stand, and
+//     the B fragment reads rows 2t and 2t + 1 of the tile.
+//   - p and ds are formed in the registers by the bf16 kernels' helpers:
+//     the bias row once a tile, a per-element bias per element.
+//   - What bounds them: 3 x 6 (K2) and 3 x 8 (K3) B H Sq Skv D FLOPs on
+//     the tensor cores at TF32 rate, 0.68 and 0.91 ms at ViLT's [64, 12,
+//     617, 64] (495 TFLOP/s); on the FP32 FMA units the same work in f32
+//     takes at least 1.68 and 2.23 ms (67 TFLOP/s). mma.sync's tf32 peak
+//     is ~319 TFLOP/s; the split, the loads and the exp keep the warps'
+//     issue, not the tensor cores, the limit (PERF.md).
+// ---------------------------------------------------------------------------
+constexpr int F_STAGES = 2;        // the f32 ring's depth
+constexpr int F_THREADS = ROWS * 2;  // four warps of 16 rows, no producer
+
+// Shared memory of an f32 block, NB 64-column blocks of the head dim (2 NB
+// boxes a tile): its two own tiles, the ring (two tiles and up to 256 f32
+// row values a stage), K2's row statistics, the mbarriers.
+template <int NB>
+struct FLayout {
+  static constexpr int TILE = 2 * NB * BOX_BYTES;  // 64 rows x 64 NB f32
+  static constexpr int STAGE = 2 * TILE + ALIGN;
+  static constexpr int RING = 2 * TILE;
+  static constexpr int STATS = RING + F_STAGES * STAGE;
+  static constexpr int BARS = STATS + 3 * ROWS * 4;
+  static constexpr int BYTES = BARS + (F_STAGES + 1) * 8 + ALIGN;
+};
+
+// Fragment offsets (floats) within a swizzled f32 tile: 64 rows of 32-
+// column boxes (2048 floats each), 128 bytes a row, 16-byte chunk m of
+// row r at chunk m ^ (r % 8). Each lane keeps its own part of them, so
+// that every fragment load is a base register plus a constant:
+//   - rows 8 n + g (16 w + g in the own tiles), column 8 kk + t + 4 h:
+//     2048 (kk / 4) + 256 n + row_k[(2 kk + h) % 8];
+//   - rows 8 j + 2t + h, column 8 n + g: 2048 (n / 4) + 256 j +
+//     col_k[n % 4][h].
+struct FragOffsets {
+  int row_k[8], col_k[4][2];
+
+  __device__ __forceinline__ FragOffsets() {
+    const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+#pragma unroll
+    for (int m = 0; m < 8; ++m) row_k[m] = 32 * g + ((m ^ g) << 2) + t;
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        col_k[n][h] = 64 * t + 32 * h +
+                      (((2 * n + (g >> 2)) ^ (2 * t + h)) << 2) + (g & 3);
+  }
+};
+
+struct Split {
+  uint32_t hi, lo;
+};
+
+// hi: x with its low 13 mantissa bits cleared (a TF32 value, exact as the
+// tensor core reads it); lo = x - hi, exact in f32, which the tensor core
+// reads to its top 11 bits (|lo| < 2^-10 |x|, so x keeps ~21 bits).
+__device__ __forceinline__ Split split_tf32(float x) {
+  const uint32_t hi = __float_as_uint(x) & 0xffffe000u;
+  return {hi, __float_as_uint(x - __uint_as_float(hi))};
 }
 
+__device__ __forceinline__ void mma_tf32(float* d, uint32_t a0, uint32_t a1,
+                                         uint32_t a2, uint32_t a3,
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// The three TF32 products of d += a b in their order: 0 lo(a) hi(b), 1
+// hi(a) lo(b), 2 hi(a) hi(b) (small terms first).
+__device__ __forceinline__ void mma_term(int term, float* d,
+                                         const Split (&a)[4], Split b0,
+                                         Split b1) {
+  if (term == 0)
+    mma_tf32(d, a[0].lo, a[1].lo, a[2].lo, a[3].lo, b0.hi, b1.hi);
+  else if (term == 1)
+    mma_tf32(d, a[0].hi, a[1].hi, a[2].hi, a[3].hi, b0.lo, b1.lo);
+  else
+    mma_tf32(d, a[0].hi, a[1].hi, a[2].hi, a[3].hi, b0.hi, b1.hi);
+}
+
+// s = A B^T and dp = C E^T over the 64 NB head-dim columns (zeros past
+// D): the warp's rows 16 w + g and + 8 of the own tiles A and C (`A` and
+// `C` already offset to row 16 w) against the 64 rows of the ring tiles B
+// and E. s[4 n + e] is row g + 8 (e >> 1) of the warp, column 8 n + 2t +
+// (e & 1): the wgmma accumulator layout the bf16 helpers read. A k-step's
+// fragments are loaded and split first, then its 48 products issue term by
+// term over the 16 accumulators, so no product waits on the one before.
+template <int NB>
+__device__ __forceinline__ void score_products(float (&s)[32],
+                                               float (&dp)[32],
+                                               const float* A,
+                                               const float* B,
+                                               const float* C,
+                                               const float* E,
+                                               const FragOffsets& o) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < 8 * NB; ++kk) {
+    const int lo = o.row_k[(2 * kk) & 7] + 2048 * (kk >> 2);
+    const int hi = o.row_k[(2 * kk + 1) & 7] + 2048 * (kk >> 2);
+    const Split a[4] = {split_tf32(A[lo]), split_tf32(A[lo + 256]),
+                        split_tf32(A[hi]), split_tf32(A[hi + 256])};
+    const Split e[4] = {split_tf32(C[lo]), split_tf32(C[lo + 256]),
+                        split_tf32(C[hi]), split_tf32(C[hi + 256])};
+    Split b[8][2], f[8][2];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      b[n][0] = split_tf32(B[lo + 256 * n]);
+      b[n][1] = split_tf32(B[hi + 256 * n]);
+      f[n][0] = split_tf32(E[lo + 256 * n]);
+      f[n][1] = split_tf32(E[hi + 256 * n]);
+    }
+#pragma unroll
+    for (int term = 0; term < 3; ++term)
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        mma_term(term, &s[4 * n], a, b[n][0], b[n][1]);
+        mma_term(term, &dp[4 * n], e, f[n][0], f[n][1]);
+      }
+  }
+}
+
+// acc += X B, reduced over the 64 rows of the ring tile B, for two such
+// products at once (X0 B0 into acc0, X1 B1 into acc1; K2 passes one): X is
+// the warp's [16, 64] in the accumulator layout above, taken as the A
+// fragment with the reduction index permuted within each 8 (slot t is
+// column 2t, slot t + 4 column 2t + 1), and B read in the same order (rows
+// 8 j + 2t and 8 j + 2t + 1). acc[nb][4 i + e]: head-dim column 64 nb +
+// 8 i + 2t + (e & 1), as store_rows writes it. Products issue term by
+// term over the accumulators, as in score_products.
+template <int NB, int N_PRODUCTS>
+__device__ __forceinline__ void acc_products(float (&acc0)[NB][32],
+                                             const float (&x0)[32],
+                                             const float* B0,
+                                             float (&acc1)[NB][32],
+                                             const float (&x1)[32],
+                                             const float* B1,
+                                             const FragOffsets& o) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const Split a[4] = {split_tf32(x0[4 * j]), split_tf32(x0[4 * j + 2]),
+                        split_tf32(x0[4 * j + 1]),
+                        split_tf32(x0[4 * j + 3])};
+    Split c[4];
+    if (N_PRODUCTS == 2) {
+      c[0] = split_tf32(x1[4 * j]);
+      c[1] = split_tf32(x1[4 * j + 2]);
+      c[2] = split_tf32(x1[4 * j + 1]);
+      c[3] = split_tf32(x1[4 * j + 3]);
+    }
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+      Split b[8][2], f[8][2];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int n = 8 * nb + i;
+        const int at = 2048 * (n >> 2) + 256 * j;
+        b[i][0] = split_tf32(B0[at + o.col_k[n & 3][0]]);
+        b[i][1] = split_tf32(B0[at + o.col_k[n & 3][1]]);
+        if (N_PRODUCTS == 2) {
+          f[i][0] = split_tf32(B1[at + o.col_k[n & 3][0]]);
+          f[i][1] = split_tf32(B1[at + o.col_k[n & 3][1]]);
+        }
+      }
+#pragma unroll
+      for (int term = 0; term < 3; ++term)
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          mma_term(term, &acc0[nb][4 * i], a, b[i][0], b[i][1]);
+          if (N_PRODUCTS == 2)
+            mma_term(term, &acc1[nb][4 * i], c, f[i][0], f[i][1]);
+        }
+    }
+  }
+}
+
+// Zeros the boxes past `boxes` of every tile TMA fills (the two own tiles
+// and both tiles of each stage), which it never writes: the products run
+// over all 64 NB columns. Nothing to do when D fills the tiles' boxes.
+template <int NB>
+__device__ __forceinline__ void zero_spare_boxes(unsigned char* base,
+                                                 int boxes) {
+  using Lay = FLayout<NB>;
+  const int spare = 2 * NB - boxes;
+  if (spare == 0) return;
+  constexpr int TILES = 2 + 2 * F_STAGES;
+  const int per_tile = spare * (BOX_BYTES / 16);  // 16-byte stores
+  for (int i = threadIdx.x; i < TILES * per_tile; i += F_THREADS) {
+    const int tile = i / per_tile, at = i - tile * per_tile;
+    unsigned char* t = tile < 2 ? base + tile * Lay::TILE
+                                : base + Lay::RING +
+                                      ((tile - 2) >> 1) * Lay::STAGE +
+                                      ((tile - 2) & 1) * Lay::TILE;
+    reinterpret_cast<float4*>(t + boxes * BOX_BYTES)[at] =
+        make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// Thread 0 starts the block's two own tiles (`boxes` 32-column boxes of 64
+// rows from row0 of maps m0 and m1) onto `bar`.
+template <int NB>
+__device__ __forceinline__ void load_own_f32(unsigned char* base,
+                                             uint64_t* bar,
+                                             const CUtensorMap* m0,
+                                             const CUtensorMap* m1, int row0,
+                                             int h, int b, int boxes) {
+  if (threadIdx.x != 0) return;
+  mbar_arrive_expect_tx(bar, 2 * boxes * BOX_BYTES);
+  for (int i = 0; i < boxes; ++i) {
+    tma_load(base + i * BOX_BYTES, m0, bar, 32 * i, row0, h, b);
+    tma_load(base + FLayout<NB>::TILE + i * BOX_BYTES, m1, bar, 32 * i, row0,
+             h, b);
+  }
+}
+
+// Starts ring tile t (64 rows from row0) into stage t % F_STAGES: thread 0
+// its two tiles by TMA, every thread its share of the stage's f32 rows by
+// cp.async (`fill`); every thread arrives on the stage's full barrier once
+// its copies land, so no thread waits for a load here.
+template <int NB, typename Fill>
+__device__ __forceinline__ void load_stage(int t, unsigned char* ring,
+                                           uint64_t* full,
+                                           const CUtensorMap* m0,
+                                           const CUtensorMap* m1, int row0,
+                                           int h, int b, int boxes,
+                                           Fill fill) {
+  using Lay = FLayout<NB>;
+  const int s = t % F_STAGES;
+  unsigned char* st = ring + s * Lay::STAGE;
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(&full[s], 2 * boxes * BOX_BYTES);
+    for (int i = 0; i < boxes; ++i) {
+      tma_load(st + i * BOX_BYTES, m0, &full[s], 32 * i, row0, h, b);
+      tma_load(st + Lay::TILE + i * BOX_BYTES, m1, &full[s], 32 * i, row0, h,
+               b);
+    }
+  }
+  fill(reinterpret_cast<float*>(st + 2 * Lay::TILE));
+  cp_async_arrive(&full[s]);
+}
+
+// Before tile t's products: starts tile t + F_STAGES - 1 into the stage
+// that tile t - 1 used, once every warp is done with it (the loads of a
+// tile overlap the products of the tiles before it), then waits for tile
+// t. The first F_STAGES - 1 tiles are started before the loop.
+template <int NB, typename Fill>
+__device__ __forceinline__ void next_stage(int t, int n_tiles,
+                                           unsigned char* ring,
+                                           uint64_t* full,
+                                           const CUtensorMap* m0,
+                                           const CUtensorMap* m1, int h,
+                                           int b, int boxes, Fill fill) {
+  const int ahead = t + F_STAGES - 1;
+  if (ahead < n_tiles) {
+    if (t > 0) __syncthreads();
+    load_stage<NB>(ahead, ring, full, m0, m1, 64 * ahead, h, b, boxes, fill);
+  }
+  mbar_wait(&full[t % F_STAGES], (t / F_STAGES) & 1);
+}
+
+__device__ __forceinline__ void init_f32_barriers(uint64_t* full,
+                                                  uint64_t* own_bar) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < F_STAGES; ++s) mbar_init(&full[s], F_THREADS);
+    mbar_init(own_bar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+}
+
+// K2 in f32: replaces _flash_bwd_dq_kernel (mmf_tpu/ops/attention.py) in
+// float32. One block per (b, h, 64 q rows); q and dO own, k and v through
+// the ring with the tile's padding-mask row.
+template <int NB, int MIN_BLOCKS>
+__global__ void __launch_bounds__(F_THREADS, MIN_BLOCKS)
+    bwd_dq_tf32x3_kernel(const __grid_constant__ Maps maps, const Args a) {
+  using Lay = FLayout<NB>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align_smem(smem_raw);
+  unsigned char* ring = base + Lay::RING;
+  float* m_s = reinterpret_cast<float*>(base + Lay::STATS);
+  float* li_s = m_s + ROWS;
+  float* dl_s = li_s + ROWS;
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + Lay::BARS);
+  uint64_t* own_bar = full + F_STAGES;
+
+  const int q0 = blockIdx.x * ROWS, h = blockIdx.y, b = blockIdx.z;
+  const Strides& st = a.st;
+  const int n_tiles = (a.Skv + 63) / 64, boxes = (a.D + 31) / 32;
+  const float* bias_bh =
+      a.bias == nullptr ? nullptr : a.bias + b * st.bias[0] + h * st.bias[1];
+  const bool row_bias = bias_bh != nullptr && st.bias[2] == 0;
+  const int tid = threadIdx.x, g = (tid & 31) >> 2;
+  auto fill = [&](int kv0) {  // the tile's padding-mask row, or zeros
+    return [&, kv0](float* rows) {
+      if (tid < 64) {
+        const bool in = row_bias && kv0 + tid < a.Skv;
+        cp_async_4(rows + tid, in ? bias_bh + kv0 + tid : a.m, in);
+      }
+    };
+  };
+  zero_spare_boxes<NB>(base, boxes);
+  init_f32_barriers(full, own_bar);
+  load_own_f32<NB>(base, own_bar, &maps.q, &maps.dout, q0, h, b, boxes);
+  for (int t = 0; t < F_STAGES - 1 && t < n_tiles; ++t)
+    load_stage<NB>(t, ring, full, &maps.k, &maps.v, 64 * t, h, b, boxes,
+                   fill(64 * t));
+
+  const long long so = ((long long)b * a.H + h) * a.Sq;
+  {
+    // delta = rowsum(dO * O), 8 threads a row, 16-byte loads, with m and
+    // 1 / l, for the block's rows
+    const float* ob =
+        static_cast<const float*>(a.o) + b * st.o[0] + h * st.o[1];
+    const float* dob =
+        static_cast<const float*>(a.dout) + b * st.dout[0] + h * st.dout[1];
+    const int part = tid & 7;
+    float acc[4], mv[4], lv[4];
+#pragma unroll
+    for (int pass = 0; pass < 4; ++pass) {
+      const int s = q0 + 16 * pass + (tid >> 3);
+      const bool in = s < a.Sq;
+      acc[pass] = 0.f;
+      mv[pass] = 0.f;
+      lv[pass] = 1.f;
+      if (in && part == 0) {
+        mv[pass] = a.m[so + s];
+        lv[pass] = a.l[so + s];
+      }
+#pragma unroll
+      for (int c = 0; c < 2 * NB; ++c) {
+        const int c4 = 4 * part + 32 * c;
+        if (!in || c4 >= a.D) continue;
+        const float4 x =
+            *reinterpret_cast<const float4*>(dob + s * st.dout[2] + c4);
+        const float4 y =
+            *reinterpret_cast<const float4*>(ob + s * st.o[2] + c4);
+        acc[pass] = fmaf(x.x, y.x, acc[pass]);
+        acc[pass] = fmaf(x.y, y.y, acc[pass]);
+        acc[pass] = fmaf(x.z, y.z, acc[pass]);
+        acc[pass] = fmaf(x.w, y.w, acc[pass]);
+      }
+    }
+#pragma unroll
+    for (int pass = 0; pass < 4; ++pass) {
+      const int r = 16 * pass + (tid >> 3), s = q0 + r;
+      const bool in = s < a.Sq;
+      const float d = sum_xor(acc[pass], 8);
+      if (part == 0) {
+        dl_s[r] = in ? d : 0.f;
+        m_s[r] = mv[pass];
+        li_s[r] = 1.f / lv[pass];
+        if (in) a.delta[so + s] = d;
+      }
+    }
+    __syncthreads();
+  }
+  // warp w owns q rows q0 + 16 w + g and + 8
+  const int r0 = 16 * (tid >> 5) + g;
+  const int qrow[2] = {q0 + r0, q0 + r0 + 8};
+  const bool elem_bias = bias_bh != nullptr && !row_bias;
+  float mr[2], lir[2], dr[2];
+  const float* brow[2];  // rows of a per-element bias (clamped to Sq)
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mr[i] = m_s[r0 + 8 * i];
+    lir[i] = li_s[r0 + 8 * i];
+    dr[i] = dl_s[r0 + 8 * i];
+    brow[i] = elem_bias ? bias_bh + min(qrow[i], a.Sq - 1) * st.bias[2]
+                        : nullptr;
+  }
+  float dq[NB][32];
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) dq[nb][e] = 0.f;
+  const FragOffsets frag;
+  mbar_wait(own_bar, 0);
+  // the own tiles from this warp's 16 rows on
+  const float* q_t = reinterpret_cast<const float*>(base) + 512 * (tid >> 5);
+  const float* do_t =
+      reinterpret_cast<const float*>(base + Lay::TILE) + 512 * (tid >> 5);
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int kv0 = 64 * t, ahead = 64 * (t + F_STAGES - 1);
+    next_stage<NB>(t, n_tiles, ring, full, &maps.k, &maps.v, h, b, boxes,
+                   fill(ahead));
+    const unsigned char* stg = ring + (t % F_STAGES) * Lay::STAGE;
+    const float* k_t = reinterpret_cast<const float*>(stg);
+    const float* v_t = reinterpret_cast<const float*>(stg + Lay::TILE);
+    const float* bias_row =
+        reinterpret_cast<const float*>(stg + 2 * Lay::TILE);
+    float sc[32], dp[32];
+    score_products<NB>(sc, dp, q_t, k_t, do_t, v_t, frag);
+    if (elem_bias)
+      dq_tile_ds<true>(sc, dp, bias_row, brow, kv0, a.Skv, a.scale, mr,
+                       lir, dr);
+    else
+      dq_tile_ds<false>(sc, dp, bias_row, brow, kv0, a.Skv, a.scale, mr,
+                        lir, dr);
+    acc_products<NB, 1>(dq, sc, k_t, dq, sc, k_t, frag);  // dq += ds k
+  }
+  float* dqb = static_cast<float*>(a.dq) + b * st.dq[0] + h * st.dq[1];
+  const float mul[2] = {a.scale, a.scale};
+  store_rows<NB, float>(dqb, st.dq[2], qrow, a.Sq, a.D, mul, dq);
+}
+
+// K3 in f32: replaces _flash_bwd_dkv_kernel (mmf_tpu/ops/attention.py) in
+// float32. One block per (b, h, 64 kv rows); k and v own, q and dO through
+// the ring with the tile's m, l and delta rows.
+template <int NB, int MIN_BLOCKS>
+__global__ void __launch_bounds__(F_THREADS, MIN_BLOCKS)
+    bwd_dkv_tf32x3_kernel(const __grid_constant__ Maps maps, const Args a) {
+  using Lay = FLayout<NB>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align_smem(smem_raw);
+  unsigned char* ring = base + Lay::RING;
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + Lay::BARS);
+  uint64_t* own_bar = full + F_STAGES;
+
+  const int kv0 = blockIdx.x * ROWS, h = blockIdx.y, b = blockIdx.z;
+  const Strides& st = a.st;
+  const int n_tiles = (a.Sq + 63) / 64, boxes = (a.D + 31) / 32;
+  const float* bias_bh =
+      a.bias == nullptr ? nullptr : a.bias + b * st.bias[0] + h * st.bias[1];
+  const bool row_bias = bias_bh != nullptr && st.bias[2] == 0;
+  const int tid = threadIdx.x, g = (tid & 31) >> 2;
+  const long long so = ((long long)b * a.H + h) * a.Sq;
+  auto fill = [&](int q0) {  // m, l and delta of the tile's rows
+    return [&, q0](float* rows) {
+      if (tid < 64) {
+        const long long i = so + min(q0 + tid, a.Sq - 1);
+        const bool in = q0 + tid < a.Sq;
+        cp_async_4(rows + tid, a.m + i, in);
+        cp_async_4(rows + 64 + tid, a.l + i, in);
+        cp_async_4(rows + 128 + tid, a.delta + i, in);
+      }
+    };
+  };
+  zero_spare_boxes<NB>(base, boxes);
+  init_f32_barriers(full, own_bar);
+  load_own_f32<NB>(base, own_bar, &maps.k, &maps.v, kv0, h, b, boxes);
+  for (int t = 0; t < F_STAGES - 1 && t < n_tiles; ++t)
+    load_stage<NB>(t, ring, full, &maps.q, &maps.dout, 64 * t, h, b, boxes,
+                   fill(64 * t));
+
+  // warp w owns kv rows kv0 + 16 w + g and + 8
+  const int r0 = 16 * (tid >> 5) + g;
+  const int kvrow[2] = {kv0 + r0, kv0 + r0 + 8};
+  float bk[2] = {0.f, 0.f};  // the padding-mask row at this lane's kv rows
+  if (row_bias)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (kvrow[i] < a.Skv) bk[i] = bias_bh[kvrow[i]];
+  float dk[NB][32], dv[NB][32];
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) dk[nb][e] = dv[nb][e] = 0.f;
+  const FragOffsets frag;
+  mbar_wait(own_bar, 0);
+  // the own tiles from this warp's 16 rows on
+  const float* k_t = reinterpret_cast<const float*>(base) + 512 * (tid >> 5);
+  const float* v_t =
+      reinterpret_cast<const float*>(base + Lay::TILE) + 512 * (tid >> 5);
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int q0 = 64 * t, ahead = 64 * (t + F_STAGES - 1);
+    next_stage<NB>(t, n_tiles, ring, full, &maps.q, &maps.dout, h, b, boxes,
+                   fill(ahead));
+    const unsigned char* stg = ring + (t % F_STAGES) * Lay::STAGE;
+    const float* q_t = reinterpret_cast<const float*>(stg);
+    const float* do_t = reinterpret_cast<const float*>(stg + Lay::TILE);
+    const float* rows = reinterpret_cast<const float*>(stg + 2 * Lay::TILE);
+    // s^T = k q^T and (dO v^T)^T = v dO^T: rows kv, columns q
+    float sc[32], dp[32];
+    score_products<NB>(sc, dp, k_t, q_t, v_t, do_t, frag);
+    if (bias_bh != nullptr && !row_bias)
+      dkv_tile_p_ds<true>(sc, dp, rows, bk, bias_bh, st.bias[2], kvrow, q0,
+                          a.Sq, a.Skv, a.scale);
+    else
+      dkv_tile_p_ds<false>(sc, dp, rows, bk, bias_bh, st.bias[2], kvrow, q0,
+                           a.Sq, a.Skv, a.scale);
+    // dv += p^T dO and dk += ds^T q
+    acc_products<NB, 2>(dv, sc, do_t, dk, dp, q_t, frag);
+  }
+  float* dkb = static_cast<float*>(a.dk) + b * st.dk[0] + h * st.dk[1];
+  float* dvb = static_cast<float*>(a.dv) + b * st.dv[0] + h * st.dv[1];
+  const float k_mul[2] = {a.scale, a.scale}, v_mul[2] = {1.f, 1.f};
+  store_rows<NB, float>(dkb, st.dk[2], kvrow, a.Skv, a.D, k_mul, dk);
+  store_rows<NB, float>(dvb, st.dv[2], kvrow, a.Skv, a.D, v_mul, dv);
+}
+
+// The four operand maps (bf16, or f32 with `f32`), or false for a layout
+// TMA does not take.
+bool make_maps(Maps& maps, const Args& a, int B, bool f32) {
+  return make_tile_map(&maps.q, a.q, a.D, a.Sq, a.H, B, a.st.q, f32) &&
+         make_tile_map(&maps.k, a.k, a.D, a.Skv, a.H, B, a.st.k, f32) &&
+         make_tile_map(&maps.v, a.v, a.D, a.Skv, a.H, B, a.st.v, f32) &&
+         make_tile_map(&maps.dout, a.dout, a.D, a.Sq, a.H, B, a.st.dout,
+                       f32);
+}
+
+// Sets the kernel's shared-memory size, encodes the four operand maps (f32
+// or bf16) and launches one block of `threads` per (64 rows, h, b). The
+// attribute call comes first: it makes the device's primary context
+// current in the calling thread, which encoding a tensor map needs (a
+// fresh host thread, as autograd's backward thread, may have none yet).
 template <typename Kernel>
-cudaError_t launch_sm90(Kernel kernel, size_t smem, int n_rows, int B,
-                        const Maps& maps, const Args& a, cudaStream_t stream) {
+cudaError_t launch_sm90(Kernel kernel, size_t smem, int threads, int n_rows,
+                        int B, bool f32, const Args& a,
+                        cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
+  Maps maps;
+  if (!make_maps(maps, a, B, f32)) return cudaErrorInvalidValue;
   dim3 grid((n_rows + ROWS - 1) / ROWS, a.H, B);
-  kernel<<<grid, THREADS, smem, stream>>>(maps, a);
+  kernel<<<grid, threads, smem, stream>>>(maps, a);
   return cudaGetLastError();
 }
 
@@ -778,40 +1008,29 @@ cudaError_t launch_sm90(Kernel kernel, size_t smem, int n_rows, int B,
 // (five 32-register accumulators) two: at three it spills and ptxas
 // serialises its products. D > 64 doubles the accumulators: one block.
 cudaError_t launch_bf16(bool dq, int B, const Args& a, cudaStream_t s) {
-  Maps maps;
-  if (!make_maps(maps, a, B)) return cudaErrorInvalidValue;
   if (a.D > 64)
-    return dq ? launch_sm90(bwd_dq_sm90_kernel<2, 1>, WLayout<2>::BYTES, a.Sq,
-                            B, maps, a, s)
+    return dq ? launch_sm90(bwd_dq_sm90_kernel<2, 1>, WLayout<2>::BYTES,
+                            THREADS, a.Sq, B, false, a, s)
               : launch_sm90(bwd_dkv_sm90_kernel<2, 1>, WLayout<2>::BYTES,
-                            a.Skv, B, maps, a, s);
-  return dq ? launch_sm90(bwd_dq_sm90_kernel<1, 3>, WLayout<1>::BYTES, a.Sq, B,
-                          maps, a, s)
-            : launch_sm90(bwd_dkv_sm90_kernel<1, 2>, WLayout<1>::BYTES, a.Skv,
-                          B, maps, a, s);
+                            THREADS, a.Skv, B, false, a, s);
+  return dq ? launch_sm90(bwd_dq_sm90_kernel<1, 3>, WLayout<1>::BYTES,
+                          THREADS, a.Sq, B, false, a, s)
+            : launch_sm90(bwd_dkv_sm90_kernel<1, 2>, WLayout<1>::BYTES,
+                          THREADS, a.Skv, B, false, a, s);
 }
 
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, size_t smem, int threads, int n_tiles,
-                   int B, const Args& a, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return err;
-  dim3 grid(n_tiles, a.H, B);
-  kernel<<<grid, threads, smem, stream>>>(a);
-  return cudaGetLastError();
-}
-
-template <int N>
-cudaError_t launch_dq_f32(int B, const Args& a, cudaStream_t s) {
-  return launch(bwd_dq_f32_kernel<N>, dq_f32_smem_bytes(a.D), F_THREADS,
-                (a.Sq + BQ - 1) / BQ, B, a, s);
-}
-
-template <int N>
-cudaError_t launch_dkv_f32(int B, const Args& a, cudaStream_t s) {
-  return launch(bwd_dkv_f32_kernel<N>, dkv_f32_smem_bytes(a.D), F_THREADS,
-                (a.Skv + BK - 1) / BK, B, a, s);
+// The f32 kernels: two blocks an SM at D <= 64 (~100 KB of shared memory
+// each, 8 warps an SM: up to 255 registers a thread), one above (~196 KB).
+cudaError_t launch_f32(bool dq, int B, const Args& a, cudaStream_t s) {
+  if (a.D > 64)
+    return dq ? launch_sm90(bwd_dq_tf32x3_kernel<2, 1>, FLayout<2>::BYTES,
+                            F_THREADS, a.Sq, B, true, a, s)
+              : launch_sm90(bwd_dkv_tf32x3_kernel<2, 1>, FLayout<2>::BYTES,
+                            F_THREADS, a.Skv, B, true, a, s);
+  return dq ? launch_sm90(bwd_dq_tf32x3_kernel<1, 2>, FLayout<1>::BYTES,
+                          F_THREADS, a.Sq, B, true, a, s)
+            : launch_sm90(bwd_dkv_tf32x3_kernel<1, 2>, FLayout<1>::BYTES,
+                          F_THREADS, a.Skv, B, true, a, s);
 }
 
 // Validates the arguments shared by both entry points and fills `a`.
@@ -842,9 +1061,10 @@ extern "C" {
 // 1 = bfloat16 (q, k, v, o, dout and the gradients share it); bias is
 // float32 or null. strides: 27 element strides, (batch, head, seq) for
 // q, k, v, o, dout, dq, dk, dv and bias in that order; the head dim is
-// contiguous in all. m, l, delta: contiguous float32 [B, H, Sq]. bfloat16
-// inputs need 16-byte aligned pointers and strides that are multiples of
-// 8, positive on every dim longer than 1 (the TMA maps carry them). Each launches on `stream`, allocates nothing and returns
+// contiguous in all. m, l, delta: contiguous float32 [B, H, Sq]. q, k, v,
+// o and dout need 16-byte aligned pointers and strides that are multiples
+// of 16 bytes, positive on every dim longer than 1 (the TMA maps carry
+// them). Each launches on `stream`, allocates nothing and returns
 // cudaGetLastError() (or cudaErrorInvalidValue / cudaErrorMisalignedAddress
 // for arguments the kernels do not take).
 
@@ -862,22 +1082,14 @@ int mmf_flash_attention_bwd_dq(const void* q, const void* k, const void* v,
   cudaError_t err = prepare(a, dtype, B, H, Sq, Skv, D, strides, scale);
   if (err != cudaSuccess) return int(err);
   if (B == 0 || H == 0 || Sq == 0) return 0;
-  if (dtype == 1 &&
-      (!aligned16(q, a.st.q) || !aligned16(k, a.st.k) ||
-       !aligned16(v, a.st.v) || !aligned16(o, a.st.o) ||
-       !aligned16(dout, a.st.dout)))
+  const int eb = dtype == 1 ? 2 : 4;
+  if (!aligned16(q, a.st.q, eb) || !aligned16(k, a.st.k, eb) ||
+      !aligned16(v, a.st.v, eb) || !aligned16(o, a.st.o, eb) ||
+      !aligned16(dout, a.st.dout, eb))
     return int(cudaErrorMisalignedAddress);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return int(launch_bf16(true, B, a, s));
-  switch ((D + 15) / 16) {
-#define MMF_CASE(n) \
-  case n:           \
-    return int(launch_dq_f32<n>(B, a, s));
-    MMF_CASE(1) MMF_CASE(2) MMF_CASE(3) MMF_CASE(4)
-    MMF_CASE(5) MMF_CASE(6) MMF_CASE(7) MMF_CASE(8)
-#undef MMF_CASE
-  }
-  return int(cudaErrorInvalidValue);
+  return int(dtype == 1 ? launch_bf16(true, B, a, s)
+                        : launch_f32(true, B, a, s));
 }
 
 // K3: dk and dv, from the delta that K2 wrote.
@@ -894,26 +1106,19 @@ int mmf_flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
   cudaError_t err = prepare(a, dtype, B, H, Sq, Skv, D, strides, scale);
   if (err != cudaSuccess) return int(err);
   if (B == 0 || H == 0 || Skv == 0) return 0;
-  if (dtype == 1 &&
-      (!aligned16(q, a.st.q) || !aligned16(k, a.st.k) ||
-       !aligned16(v, a.st.v) || !aligned16(dout, a.st.dout)))
+  const int eb = dtype == 1 ? 2 : 4;
+  if (!aligned16(q, a.st.q, eb) || !aligned16(k, a.st.k, eb) ||
+      !aligned16(v, a.st.v, eb) || !aligned16(dout, a.st.dout, eb))
     return int(cudaErrorMisalignedAddress);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return int(launch_bf16(false, B, a, s));
-  switch ((D + 15) / 16) {
-#define MMF_CASE(n) \
-  case n:           \
-    return int(launch_dkv_f32<n>(B, a, s));
-    MMF_CASE(1) MMF_CASE(2) MMF_CASE(3) MMF_CASE(4)
-    MMF_CASE(5) MMF_CASE(6) MMF_CASE(7) MMF_CASE(8)
-#undef MMF_CASE
-  }
-  return int(cudaErrorInvalidValue);
+  return int(dtype == 1 ? launch_bf16(false, B, a, s)
+                        : launch_f32(false, B, a, s));
 }
 
-// Dynamic shared memory of a bf16 K2 or K3 block at head dim D (both
-// kernels share the layout), for reports.
-int mmf_flash_attention_bwd_smem_bytes(int D) {
+// Dynamic shared memory of a K2 or K3 block at head dim D (both kernels
+// share the layout), bf16 (dtype 1) or f32 (0), for reports.
+int mmf_flash_attention_bwd_smem_bytes(int D, int dtype) {
+  if (dtype == 0) return D <= 64 ? FLayout<1>::BYTES : FLayout<2>::BYTES;
   return D <= 64 ? WLayout<1>::BYTES : WLayout<2>::BYTES;
 }
 

@@ -1,7 +1,8 @@
 // Device helpers shared by the flash-attention forward (K1) and backward
-// (K2, K3) kernels: warp reductions, bf16 packing and the bf16 alignment
-// check. An m16n8k16 accumulator row pair packs (pack_bf16) into wgmma's
-// register A operand, whose per-warp layout hopper.cuh describes.
+// (K2, K3) kernels: warp reductions, bf16 packing and the 16-byte
+// alignment check (bf16 operands, the f32 backward's TMA maps). An m16n8k16
+// accumulator row pair packs (pack_bf16) into wgmma's register A operand,
+// whose per-warp layout hopper.cuh describes.
 
 #pragma once
 
@@ -30,11 +31,12 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-inline bool aligned16(const void* p, const long long* strides) {
-  // bf16 rows are loaded as 16-byte vectors
+inline bool aligned16(const void* p, const long long* strides,
+                      int elem_bytes = 2) {
+  // rows are loaded as 16-byte vectors (and by TMA)
   if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
   for (int i = 0; i < 3; ++i)
-    if (strides[i] % 8 != 0) return false;
+    if (strides[i] * elem_bytes % 16 != 0) return false;
   return true;
 }
 

@@ -319,36 +319,42 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A 4-D map over (D, S, H, B) of a bf16 tensor whose (batch, head, seq)
-// element strides are st[0..2] (head dim contiguous): 64 x 64 boxes under
-// the 128-byte swizzle, zeros outside. A dim of size 1 gets a packed
-// stride (its stride is never used); a stride that is not a positive
-// multiple of 16 bytes is refused.
+// A 4-D map over (D, S, H, B) of a bf16 (or, with `f32`, float32) tensor
+// whose (batch, head, seq) element strides are st[0..2] (head dim
+// contiguous): boxes of 64 rows x 128 bytes (64 bf16 or 32 f32) under the
+// 128-byte swizzle, zeros outside. A dim of size 1 gets a packed stride
+// (its stride is never used); a stride that is not a positive multiple of
+// 16 bytes is refused.
 inline bool make_tile_map(CUtensorMap* map, const void* ptr, int D, int S,
-                          int H, int B, const long long* st) {
+                          int H, int B, const long long* st,
+                          bool f32 = false) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
+  const cuuint64_t esize = f32 ? 4 : 2;
   const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(S), cuuint64_t(H),
                               cuuint64_t(B)};
   const long long elem[3] = {st[2], st[1], st[0]};  // seq, head, batch
   cuuint64_t strides[3];
-  cuuint64_t packed = cuuint64_t(D) * 2;
+  cuuint64_t packed = cuuint64_t(D) * esize;
   for (int i = 0; i < 3; ++i) {
     cuuint64_t s;
     if (dims[i + 1] == 1) {
       s = (packed + 15) / 16 * 16;
     } else {
-      if (elem[i] <= 0 || (elem[i] * 2) % 16 != 0) return false;
-      s = cuuint64_t(elem[i]) * 2;
+      if (elem[i] <= 0 || (elem[i] * esize) % 16 != 0) return false;
+      s = cuuint64_t(elem[i]) * esize;
     }
     strides[i] = s;
     packed = s * dims[i + 1];
   }
-  const cuuint32_t box[4] = {64, BOX_ROWS, 1, 1};
+  const cuuint32_t box[4] = {cuuint32_t(128 / esize), BOX_ROWS, 1, 1};
   const cuuint32_t one[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-            dims, strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+  return fn(map,
+            f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+            4, const_cast<void*>(ptr), dims, strides, box, one,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

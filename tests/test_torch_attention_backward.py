@@ -5,7 +5,9 @@ autograd through the port's ``dot_product_attention``) against
 ``jax.grad`` through ``flash_attention``. The JAX side runs its Pallas
 kernels (K1 stats form, K2, K3) in interpret mode; the port runs its plain
 versions, which the CUDA kernels are held against on the card
-(tests/test_torch_cuda_kernels.py, chip_smoke.py)."""
+(tests/test_torch_cuda_kernels.py, chip_smoke.py). The f32 kernels'
+split-TF32 arithmetic is emulated here in plain torch at ViLT's shape and
+held against both."""
 
 import numpy as np
 import pytest
@@ -184,3 +186,86 @@ def test_autograd_function_needs_the_card():
     assert [f.launches for f in (tattn.flash_attention_with_stats,
                                  tattn.flash_attention_bwd_dq,
                                  tattn.flash_attention_bwd_dkv)] == counts
+
+
+# --- the f32 K2/K3 arithmetic: split-TF32 products ------------------------
+# The kernels split each f32 operand x as hi = x with its low 13 mantissa
+# bits cleared and lo = x - hi, which the tensor core reads truncated to
+# TF32 in turn, and run each product as lo hi + hi lo + hi hi (lo lo
+# dropped). Held here 10x inside the card's f32 gradient bound (GRAD_REL
+# 1e-4 in tests/test_torch_cuda_kernels.py and chip_smoke.py).
+CARD_GRAD_REL_F32 = 1e-4
+VILT_SEQ, VILT_S = 40, 617  # text tokens; text + [CLS] + 576 patches
+
+
+def _tf32(x, mode):
+    """x as TF32: "truncate" clears the low 13 mantissa bits (what the
+    kernels do, and how the tensor core reads an f32), "round" rounds to
+    nearest, ties away (cvt.rna)."""
+    bits = x.contiguous().view(torch.int32)
+    if mode == "round":
+        bits = bits + 0x1000
+    return (bits & -0x2000).view(torch.float32)
+
+
+def _split_mm(a, b, mode):
+    """a @ b as three TF32 products, the small terms first."""
+    a_hi, b_hi = _tf32(a, mode), _tf32(b, mode)
+    a_lo, b_lo = _tf32(a - a_hi, mode), _tf32(b - b_hi, mode)
+    return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
+
+
+def _split_tf32_backward(q, k, v, bias, out, m, l, dout, scale, mode):
+    """K2's and K3's formulas with every product in split-TF32: p from the
+    forward's m and l, delta = rowsum(dO O), ds = p (dO v^T - delta)."""
+    kt = k.transpose(-1, -2)
+    p = torch.exp(_split_mm(q, kt, mode) * scale + bias - m[..., None])
+    p = p / l[..., None]
+    delta = (dout * out).sum(-1, keepdim=True)
+    ds = p * (_split_mm(dout, v.transpose(-1, -2), mode) - delta)
+    return (_split_mm(ds, k, mode) * scale,
+            _split_mm(ds.transpose(-1, -2), q, mode) * scale,
+            _split_mm(p.transpose(-1, -2), dout, mode))
+
+
+@pytest.fixture(scope="module")
+def vilt_f32_case():
+    """Two heads of two ViLT samples (questions of 9 and 40 tokens, every
+    patch valid), f32: the inputs, the port's plain backward and JAX's
+    backward through its K2 and K3 (interpret mode)."""
+    rng = np.random.RandomState(12)
+    q, k, v, dout = (rng.randn(2, 2, VILT_S, 64).astype(np.float32)
+                     for _ in range(4))
+    mask = np.ones((2, VILT_S), np.int32)
+    mask[:, :VILT_SEQ] = np.arange(VILT_SEQ)[None] < np.array([[9], [40]])
+    (jq, jk, jv, jdout), jb, (tq, tk, tv, tdout), tb = _to_both(
+        q, k, v, mask, dout, "float32")
+    out, m, l = tattn.flash_forward_reference(tq, tk, tv, tb)
+    plain = tattn.flash_backward_reference(tq, tk, tv, tb, out, m, l, tdout)
+    jax_grads = [np.asarray(g) for g in _jax_grads(jq, jk, jv, jb, jdout)]
+    return (tq, tk, tv, tb, out, m, l, tdout), plain, jax_grads
+
+
+@pytest.mark.parametrize("mode", ["truncate", "round"])
+def test_split_tf32_backward_is_inside_the_f32_bound(vilt_f32_case, mode,
+                                                     monkeypatch):
+    """At ViLT's 617 x 617 per head (D = 64, its length mask) the split-
+    TF32 dq, dk, dv stay 10x inside the card's f32 bound of both the plain
+    backward and JAX's; one TF32 product alone does not. The recomputed
+    scores may put p a hair above 1 (m and l come from the forward's
+    products): that stays inside too."""
+    monkeypatch.setenv("MMF_TPU_ATTENTION_LOGITS", "f32")
+    args, plain, jax_grads = vilt_f32_case
+    scale = 64 ** -0.5
+    got = _split_tf32_backward(*args, scale, mode)
+    for name, g, p, j in zip("qkv", got, plain, jax_grads):
+        for what, want in (("plain", p.numpy()), ("jax", j)):
+            err = _rel_err(g.numpy(), want)
+            assert err < CARD_GRAD_REL_F32 / 10, (
+                f"d{name} vs {what} ({mode}): rel {err:.2e}")
+    # plain TF32 (hi hi alone) misses the bound: the split is what holds
+    q, k = args[0], args[1]
+    tf32_scores = _tf32(q, mode) @ _tf32(k, mode).transpose(-1, -2)
+    f32_scores = q @ k.transpose(-1, -2)
+    assert _rel_err(tf32_scores.numpy(), f32_scores.numpy()) > \
+        CARD_GRAD_REL_F32

@@ -82,9 +82,11 @@ def test_layer_norm_kernel_matches_plain(card, dtype, with_residual):
 
 
 # backward kernels: gradients are compared relative to the largest
-# reference entry. f32: the same formulas, other summation orders (TF32
-# off); bf16: p and ds are rounded to bf16 before the tensor-core products
-# (one ulp is 2^-8 relative) and the gradients are stored in bf16
+# reference entry. f32: the same formulas, other summation orders, the
+# kernels' products in split-TF32 (inputs kept to ~21 bits; the plain
+# version's TF32 off); bf16: p and ds are rounded to bf16 before the
+# tensor-core products (one ulp is 2^-8 relative) and the gradients are
+# stored in bf16
 GRAD_REL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
@@ -200,6 +202,58 @@ def test_backward_is_bit_equal_across_calls(card, dtype):
     torch.cuda.synchronize()
     for a, b_ in zip(first, second):
         assert torch.equal(a, b_)
+
+
+def test_f32_backward_is_bit_equal_at_vilt_shape(card):
+    """The split-TF32 K2 and K3 at ViLT's 617 rows: no atomics, so two
+    calls give the same bits."""
+    q, k, v, bias, dout = _bwd_case(card, torch.float32, *VILT_SHAPE,
+                                    seed=9)
+    out, m, l = A.flash_attention_with_stats(q, k, v, bias)
+    runs = []
+    for _ in range(2):
+        dq, delta = A.flash_attention_bwd_dq(q, k, v, bias, out, m, l, dout)
+        runs.append((dq, delta) + A.flash_attention_bwd_dkv(
+            q, k, v, bias, dout, m, l, delta))
+    torch.cuda.synchronize()
+    for a, b_ in zip(*runs):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.parametrize("offset", ["pointer", "stride"])
+def test_f32_backward_takes_views_tma_cannot_load(card, no_tf32, offset):
+    """f32 views whose pointer ("pointer": 4 bytes past 16-byte alignment)
+    or seq stride ("stride": 65 floats) TMA cannot take: the wrappers copy
+    them, and the kernels match the plain version."""
+    b, h, sq, skv, d = 2, 3, 70, 45, 64
+    g = torch.Generator(device=card).manual_seed(10)
+
+    def view(s):  # [B,S,H,D] storage -> [B,H,S,D] view
+        if offset == "pointer":
+            x = torch.randn(b * s * h * d + 1, device=card, generator=g)
+            x = x[1:].view(b, s, h, d)
+        else:
+            x = torch.randn(b, s, h, d + 1, device=card, generator=g)
+            x = x[..., :d]
+        return x.transpose(1, 2)
+
+    q, k, v, dout = view(sq), view(skv), view(skv), view(sq)
+    assert not A._kernel_layout_ok(q, tma=True)
+    mask = (torch.rand(b, skv, device=card, generator=g) > 0.3).int()
+    mask[:, 0] = 1
+    bias = A.make_attention_bias(mask)
+    out, m, l = A.flash_attention_with_stats(q, k, v, bias)
+    counts = (A.flash_attention_bwd_dq.launches,
+              A.flash_attention_bwd_dkv.launches)
+    dq, delta = A.flash_attention_bwd_dq(q, k, v, bias, out, m, l, dout)
+    dk, dv = A.flash_attention_bwd_dkv(q, k, v, bias, dout, m, l, delta)
+    torch.cuda.synchronize()
+    assert (A.flash_attention_bwd_dq.launches,
+            A.flash_attention_bwd_dkv.launches) == (counts[0] + 1,
+                                                    counts[1] + 1)
+    want = A.flash_backward_reference(q, k, v, bias, out, m, l, dout)
+    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        _assert_rel(got, ref, GRAD_REL[torch.float32], name)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

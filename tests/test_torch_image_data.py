@@ -1,15 +1,19 @@
-"""The image path of the port's data stack against PIL and the JAX
-package on the CPU: the PNG decoder bit-equal to PIL's
-``convert("RGB")`` over every colour type and row filter; the ViLT image
-processor within 1e-4 of JAX's (PIL's bilinear resize in mode F) after
-its [-1, 1] normalisation; ``vilt_text_tokenizer``'s fields equal to
-JAX's; the VQA2 ``use_images`` datasets of both packages giving the same
-samples on the synthetic raw-image layout (the images within 1e-4);
-and JPEG content without PIL raising, naming the format."""
+"""The image path of the port's data stack against PIL and the JAX package
+on the CPU: the PNG decoder bit-equal to PIL's ``convert("RGB")`` over
+every colour type and row filter, and over every standard PNG mode (bit
+depths 1 to 16, alpha, palettes), plain and Adam7-interlaced (written
+here: PIL reads Adam7 but does not write it); the ViLT image processor
+within 1e-4 of JAX's (PIL's bilinear resize in mode F) after its [-1, 1]
+normalisation; ``vilt_text_tokenizer``'s fields equal to JAX's; the VQA2
+``use_images`` datasets of both packages giving the same samples on the
+synthetic raw-image layout (the images within 1e-4); and JPEG content
+without PIL raising, naming the format."""
 
 import io
 import os
+import struct
 import sys
+import zlib
 
 import numpy as np
 import pytest
@@ -95,6 +99,100 @@ def test_png_decoder_equals_pil_for_every_filter(mode, filters):
     data = png_bytes(pixels, filters)
     np.testing.assert_array_equal(decode_png(data), _pil_rgb(data))
     assert _filters(data) == set(filters)
+
+
+# every standard PNG mode: name -> (colour type, bit depth)
+PNG_MODES = {"grey1": (0, 1), "grey2": (0, 2), "grey4": (0, 4),
+             "grey8": (0, 8), "grey16": (0, 16), "rgb8": (2, 8),
+             "rgb16": (2, 16), "palette1": (3, 1), "palette2": (3, 2),
+             "palette4": (3, 4), "palette8": (3, 8), "grey_alpha8": (4, 8),
+             "grey_alpha16": (4, 16), "rgba8": (6, 8), "rgba16": (6, 16)}
+# Adam7's passes: (first column, first row, column step, row step)
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+         (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _packed_rows(samples, depth):
+    """[H, W, C] samples -> [H, bytes] scanline bytes at ``depth`` bits
+    (16-bit big-endian; 1, 2 and 4 bits packed, the first in the high
+    bits)."""
+    h, w, c = samples.shape
+    if depth == 16:
+        return samples.astype(">u2").view(np.uint8).reshape(h, w * c * 2)
+    if depth == 8:
+        return samples.astype(np.uint8).reshape(h, w * c)
+    bits = (samples.reshape(h, w, 1) >> np.arange(depth - 1, -1, -1)) & 1
+    return np.packbits(bits.astype(np.uint8).reshape(h, w * depth), axis=1)
+
+
+def _paeth_predict(a, b, c):
+    a, b, c = (x.astype(np.int16) for x in (a, b, c))
+    p = a + b - c
+    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+    return np.where((pa <= pb) & (pa <= pc), a,
+                    np.where(pb <= pc, b, c)).astype(np.uint8)
+
+
+def _png_any(samples, colour, depth, interlace, palette=None):
+    """A PNG of ``samples`` ([H, W, C] at ``depth`` bits) in any standard
+    mode, plain or Adam7-interlaced, each pass's rows filtered with None,
+    Sub, Up, Average and Paeth in turn."""
+    h, w, c = samples.shape
+    bpp = max(1, c * depth // 8)
+    data = bytearray()
+    for i, (x0, y0, dx, dy) in enumerate(ADAM7 if interlace
+                                         else ((0, 0, 1, 1),)):
+        sub = samples[y0::dy, x0::dx]
+        if not sub.size:
+            continue
+        prev = None
+        for y, row in enumerate(_packed_rows(sub, depth)):
+            up = np.zeros_like(row) if prev is None else prev
+            left = np.concatenate([np.zeros(bpp, np.uint8), row[:-bpp]])
+            upleft = np.concatenate([np.zeros(bpp, np.uint8), up[:-bpp]])
+            kind = (i + y) % 5
+            pred = (np.zeros_like(row), left, up,
+                    ((left.astype(np.uint16) + up) // 2).astype(np.uint8),
+                    _paeth_predict(left, up, upleft))[kind]
+            data.append(kind)
+            data += (row - pred).astype(np.uint8).tobytes()
+            prev = row
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    out = b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(
+        ">IIBBBBB", w, h, depth, colour, 0, 0, int(interlace)))
+    if palette is not None:
+        out += chunk(b"PLTE", palette.astype(np.uint8).tobytes())
+    return (out + chunk(b"IDAT", zlib.compress(bytes(data)))
+            + chunk(b"IEND", b""))
+
+
+@pytest.mark.parametrize("interlace", [False, True], ids=["plain", "adam7"])
+@pytest.mark.parametrize("mode", sorted(PNG_MODES))
+def test_png_decoder_equals_pil_in_every_mode(mode, interlace):
+    """Bit-equal to PIL's ``convert("RGB")``: 1-, 2- and 4-bit grey
+    scaled to 0-255, 16-bit grey clipped at 255, 16-bit colour cut to its
+    high byte, alpha dropped, palettes looked up; sizes that leave Adam7
+    passes empty and ragged."""
+    from mmf_tpu_torch.datasets.databases.image_database import decode_png
+
+    colour, depth = PNG_MODES[mode]
+    channels = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[colour]
+    rng = np.random.RandomState(depth * 7 + colour)
+    # grey16 straddles PIL's clip at 255
+    top = {(0, 16): 600, (3, depth): 12}.get((colour, depth), 2 ** depth)
+    palette = rng.randint(0, 256, (12, 3)) if colour == 3 else None
+    for shape in ((1, 1), (3, 5), (13, 11), (17, 9)):
+        samples = rng.randint(0, top, shape + (channels,)).astype(
+            np.uint16 if depth == 16 else np.uint8)
+        data = _png_any(samples, colour, depth, interlace, palette)
+        with Image.open(io.BytesIO(data)) as img:
+            assert img.info.get("interlace", 0) == int(interlace)
+            want = np.asarray(img.convert("RGB"))
+        np.testing.assert_array_equal(decode_png(data), want)
 
 
 def test_png_decoder_equals_pil_for_palettes():
