@@ -12,8 +12,9 @@ the script exits non-zero without a result line):
               K3), the int8 GEMM (K5) and the LayerNorm backward
               (K4-bwd), Triton's JIT for the LayerNorm (K4), with build
               times, and the registers and spills of the wgmma kernels
-              (K1, K2, K3, K5, with their shared memory) and of K4-bwd's,
-              and ptxas's C75xx notes (a serialised wgmma shows there).
+              (K1, K2, K3, K5), the f32 K1, K2 and K3 (split-TF32 on
+              mma.sync), with their shared memory, and of K4-bwd's, and
+              ptxas's C75xx notes (a serialised wgmma shows there).
 2. kernels  - each kernel against its plain PyTorch version on the card
               at the main paths' shapes, with stated tolerances, and both
               timed (best of several runs): K1 in its inference, stats
@@ -148,12 +149,14 @@ the script exits non-zero without a result line):
               it on masked VQA2 (3 updates), each run's losses equal to
               the train step's on the same batches; then mmf_serve on
               the finetuned folder against an in-memory engine.
-14. vilt-kernels - K1, K1-stats, K2 and K3 in f32 at ViLT's [64, 12,
-              617, 64] (40 text tokens masked by length, 577 image
-              tokens), K4 and K4-bwd in f32 without the residual at
+14. vilt-kernels - K1, K1-stats, K1-raw, K2 and K3 in f32 at ViLT's
+              [64, 12, 617, 64] (40 text tokens masked by length, 577
+              image tokens; K1's three forms and K2/K3 bit-equal across
+              two calls), K4 and K4-bwd in f32 without the residual at
               [39488, 768], each against its plain version and timed
               beside SDPA / F.layer_norm, with host time and the bound
-              (f32 operations over the FP32 non-tensor peak).
+              (split-TF32 operations over the TF32 peak, and the same work
+              over the FP32 non-tensor peak beside it).
 15. vilt-serving - ViLT-base (f32, projects/vilt/configs/vqa2/defaults.yaml)
               behind ServingEngine at buckets 1-32: exact launches (12 K1
               and 27 K4 a forward), one sample against the f32 CPU
@@ -529,22 +532,25 @@ def phase_build(card):
                              notes))) or "none") + ")")
         reports[name] = [k for k in kernels if any(
             tag in k[0] for tag in ("sm90", "tf32", "ln_bwd"))]
-    bwd = A._bwd_lib()[0]
-    smem = (A._fwd_lib()[0].mmf_flash_attention_fwd_smem_bytes(HEAD_DIM),
+    fwd, bwd = A._fwd_lib()[0], A._bwd_lib()[0]
+    smem = (fwd.mmf_flash_attention_fwd_smem_bytes(HEAD_DIM, 1),
             bwd.mmf_flash_attention_bwd_smem_bytes(HEAD_DIM, 1),
+            fwd.mmf_flash_attention_fwd_smem_bytes(HEAD_DIM, 0),
+            fwd.mmf_flash_attention_fwd_smem_bytes(2 * HEAD_DIM, 0),
             bwd.mmf_flash_attention_bwd_smem_bytes(HEAD_DIM, 0),
             bwd.mmf_flash_attention_bwd_smem_bytes(2 * HEAD_DIM, 0))
     parts.append(f"layer_norm triton jit {done['layer_norm'][1]:.1f}s")
     print(f"phase build: ok card='{card}' torch={torch.__version__} "
           f"cuda={torch.version.cuda}; built in parallel in {wall:.1f}s: "
           + "; ".join(parts))
-    print("  wgmma kernels, the f32 K2/K3 (split-TF32 on mma.sync) and "
-          "K4-bwd's (ptxas: registers, spill store bytes; C7510, C7515 and "
-          "C7520 would mean serialised products; bf16 K1 takes "
+    print("  wgmma kernels, the f32 K1, K2 and K3 (split-TF32 on mma.sync) "
+          "and K4-bwd's (ptxas: registers, spill store bytes; C7510, C7515 "
+          "and C7520 would mean serialised products; bf16 K1 takes "
           f"{smem[0]} B of dynamic smem a block at D={HEAD_DIM}, K2 and K3 "
-          f"{smem[1]} B; f32 K2 and K3 {smem[2]} B, {smem[3]} B at "
-          f"D={2 * HEAD_DIM}; K4-bwd's template arguments: dtype, 16-byte "
-          "vectors a lane, warps a row):")
+          f"{smem[1]} B; f32 K1 {smem[2]} B, {smem[3]} B at "
+          f"D={2 * HEAD_DIM}; f32 K2 and K3 {smem[4]} B, {smem[5]} B; "
+          "K4-bwd's template arguments: dtype, 16-byte vectors a lane, "
+          "warps a row):")
     for name, kernels in reports.items():
         print(f"    {name}: " + "; ".join(
             f"{n} {r} regs, {sp} B spills" for n, r, sp, _ in kernels))
@@ -2556,7 +2562,7 @@ def _attention_case(name, q, k, v, bias, dout, iters=20, plain_iters=20,
     # dS K for dq, QK^T, dO V^T, P^T dO and dS^T Q for dk and dv. f32 is
     # held to the least time at f32 accuracy: its products as split-TF32
     # on the tensor cores (plain TF32 would round the inputs); the bound
-    # on the FP32 FMA units, where K1 f32 runs, beside it
+    # of the same work on the FP32 FMA units beside it
     sq_b, kv_b, st = _nbytes(q), _nbytes(k), _nbytes(m)
     pairs = b * heads * sq * skv * head_dim
     work = {"K1": (2 * sq_b + 2 * kv_b + _nbytes(bias), 4 * pairs),
@@ -3313,38 +3319,89 @@ def _vilt_layer_norm_case(g):
     return fwd, bwd
 
 
+def _vilt_raw_case(q, k, v, bias):
+    """K1's raw-stats form in f32 at ViLT's shape against its plain
+    version, timed beside it with host time and the bound (no PyTorch call
+    returns the unnormalized state); and the f32 K1 in its three forms
+    bit-equal across two calls."""
+    dt = q.dtype
+    first = (A.flash_attention(q, k, v, bias),) + \
+        A.flash_attention_with_stats(q, k, v, bias) + \
+        A.flash_attention_block(q, k, v, bias)
+    second = (A.flash_attention(q, k, v, bias),) + \
+        A.flash_attention_with_stats(q, k, v, bias) + \
+        A.flash_attention_block(q, k, v, bias)
+    torch.cuda.synchronize()
+    check(all(torch.equal(x, y) for x, y in zip(first, second)),
+          "vilt: f32 K1 forms not bit-equal across calls")
+    acc, m, l = first[4:]
+    del first, second
+    ref = A.flash_attention_block_reference(q, k, v, bias)
+    torch.testing.assert_close(m, ref[1], **STATS_TOL)
+    torch.testing.assert_close(l, ref[2], **STATS_TOL)
+    err = max(rel_err(acc, ref[0], RAW_REL[dt], "raw acc vilt"),
+              float((m - ref[1]).abs().max()),
+              float((l - ref[2]).abs().max()))
+    del ref
+    b, heads, sq, head_dim = q.shape
+    pairs = b * heads * sq * k.shape[2] * head_dim
+    nbytes = 3 * _nbytes(q) + _nbytes(bias) + _nbytes(acc, m, l)
+    bound_ms, bound_by = max((1e3 * nbytes / HBM_BYTES_PER_S, "bytes"), (
+        1e3 * SPLIT_TF32_PRODUCTS * 4 * pairs / TF32_FLOPS, "operations"))
+
+    def call():
+        return A.flash_attention_block(q, k, v, bias)
+
+    return {"max_abs_err": err, "ms": device_ms(call, iters=3, repeats=3),
+            "host_us": host_us(call, iters=10),
+            "plain_ms": time_ms(
+                lambda: A.flash_attention_block_reference(q, k, v, bias),
+                iters=2, repeats=3),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "fma_bound_ms": bound(nbytes, 4 * pairs, dt)[0],
+            "library_ms": None}
+
+
 def phase_vilt_kernels(card):
     g = torch.Generator(device=DEV).manual_seed(6)
+    q, k, v, bias, dout = _vilt_attention_inputs(TRAIN_B, g)
     # f32 at ViLT's size: a plain backward call takes ~13 ms
-    att = _attention_case("vilt", *_vilt_attention_inputs(TRAIN_B, g),
-                          iters=3, plain_iters=2, repeats=3)
+    att = _attention_case("vilt", q, k, v, bias, dout, iters=3, plain_iters=2,
+                          repeats=3)
+    raw = _vilt_raw_case(q, k, v, bias)
+    del q, k, v, bias, dout
     ln_fwd, ln_bwd = _vilt_layer_norm_case(g)
     torch.cuda.empty_cache()
     ms, lib, pl, bd, fma = (att["ms"], att["library_ms"], att["plain_ms"],
                             att["bound_ms"], att["fma_bound_ms"])
-    print(f"phase vilt-kernels: ok K1, K1-stats, K2 and K3 in f32 at ViLT's "
-          f"{att['shape']} (questions of 6-40 tokens masked, 577 image "
-          "tokens; 617 = 9 x 64 + 41 rows), and K4, K4-bwd f32 without the "
+    print(f"phase vilt-kernels: ok K1, K1-stats, K1-raw, K2 and K3 in f32 "
+          f"at ViLT's {att['shape']} (questions of 6-40 tokens masked, 577 "
+          "image tokens; 617 = 9 x 64 + 41 rows; K1's three forms bit-equal "
+          "across two calls), and K4, K4-bwd f32 without the "
           f"residual at [{VILT_ROWS}, {HIDDEN}], against their plain "
           "versions within the kernels phase's bounds; device ms "
           "(spin-queued; LayerNorms over rotating input sets), the plain "
           "versions' (CUDA events), SDPA's / F.layer_norm's, host us a call "
           "and two bounds: at f32 accuracy (split-TF32, three TF32 products "
-          f"over {TF32_FLOPS / 1e12:.0f} TFLOP/s; K2 and K3 run so), and on "
-          "the FP32 FMA units (67 TFLOP/s; K1 runs so) on "
-          f"'{card}':")
+          f"over {TF32_FLOPS / 1e12:.0f} TFLOP/s; the attention kernels run "
+          "so), and the same work in f32 on the FP32 FMA units (67 TFLOP/s) "
+          f"on '{card}':")
     print("  max_abs_err " + ", ".join(
         f"{n} {e:.3g}" for n, e in att["max_abs_err"].items())
+        + f", K1-raw {raw['max_abs_err']:.3g}"
         + f"; K1 {ms['K1']:.4f} (sdpa {lib['K1']:.4f}, plain "
         f"{pl['K1']:.4f}, bound {bd['K1']:.4f} {att['bound_by']['K1']}, FMA "
         f"{fma['K1']:.4f}), K1-stats {ms['K1-stats']:.4f} (sdpa fwd+lse "
         f"{lib['K1-stats']:.4f}, plain {pl['K1-stats']:.4f}, bound "
-        f"{bd['K1-stats']:.4f}, FMA {fma['K1-stats']:.4f}), K2 "
+        f"{bd['K1-stats']:.4f}, FMA {fma['K1-stats']:.4f}), K1-raw "
+        f"{raw['ms']:.4f} (plain {raw['plain_ms']:.4f}, bound "
+        f"{raw['bound_ms']:.4f}, FMA {raw['fma_bound_ms']:.4f}), K2 "
         f"{ms['K2']:.4f} (bound {bd['K2']:.4f}, FMA {fma['K2']:.4f}), K3 "
         f"{ms['K3']:.4f} (bound {bd['K3']:.4f}, FMA {fma['K3']:.4f}), K2+K3 "
         f"{ms['K2'] + ms['K3']:.4f} (sdpa bwd {lib['K2+K3']:.4f}, plain "
         f"{pl['K2+K3']:.4f}); host us " + ", ".join(
-            f"{n} {u:.1f}" for n, u in att["host_us"].items()))
+            f"{n} {u:.1f}" for n, u in att["host_us"].items())
+        + f", K1-raw {raw['host_us']:.1f}")
     for name, r in (("K4", ln_fwd), ("K4-bwd", ln_bwd)):
         print(f"  {name} f32 [{VILT_ROWS}, {HIDDEN}] no residual: "
               f"max_abs_err {r['max_abs_err']:.3g}; kernel {r['ms']:.4f}, "
@@ -3353,7 +3410,7 @@ def phase_vilt_kernels(card):
               f"{r['bound_ms']:.4f} by {r['bound_by']} (kernel at "
               f"{100 * r['bound_ms'] / r['ms']:.0f}%); host "
               f"{r['host_us']:.1f} us a call")
-    return att, ln_fwd, ln_bwd
+    return att, raw, ln_fwd, ln_bwd
 
 
 def _check_vilt_config(mc, heads="vqa2"):
@@ -3943,7 +4000,7 @@ def main():
     vilbert_rows = phase_vilbert_kernels(card)
     vilbert = [phase_vilbert_serving(card), phase_vilbert_training(card),
                phase_vilbert_runs(card)]
-    vilt_att, vilt_ln, vilt_ln_bwd = phase_vilt_kernels(card)
+    vilt_att, vilt_raw, vilt_ln, vilt_ln_bwd = phase_vilt_kernels(card)
     vilt = [phase_vilt_serving(card), phase_vilt_training(card),
             phase_vilt_run(card)]
     mmft_att = phase_mmft_kernels(card)
@@ -3983,6 +4040,8 @@ def main():
             "bound_ms": mmft_att["bound_ms"][kid],
             "bound_by": mmft_att["bound_by"][kid],
             "library_ms": mmft_att["library_ms"][lib]}
+    results["flash_attention_fwd_raw"]["vilt_shape"] = dict(
+        vilt_raw, shape=vilt_att["shape"], dtype="float32")
     results["layer_norm"]["vilt_form"] = dict(
         vilt_ln, form=f"float32 [{VILT_ROWS}, {HIDDEN}] no residual")
     results["layer_norm_bwd"]["vilt_form"] = dict(

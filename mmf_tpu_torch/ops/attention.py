@@ -201,7 +201,7 @@ def _fwd_lib():
             [_P] * 7 + _DIMS + [_STRIDES, _F, _P],
         "mmf_flash_attention_fwd_raw":
             [_P] * 7 + _DIMS + [_STRIDES, _F, _P],
-        "mmf_flash_attention_fwd_smem_bytes": [_I],
+        "mmf_flash_attention_fwd_smem_bytes": [_I, _I],
     })
 
 
@@ -214,9 +214,9 @@ def _bwd_lib():
 
 
 def _kernel_layout_ok(t: torch.Tensor, tma: bool) -> bool:
-    """Contiguous head dim; for the kernels that load by TMA (``tma``:
-    every bf16 kernel, and the f32 backward) also 16-byte aligned rows
-    and positive strides on dims longer than 1 (TMA maps cannot
+    """Contiguous head dim; for a kernel that loads ``t`` by TMA (``tma``:
+    every attention kernel, in both dtypes) also 16-byte aligned rows and
+    positive strides on dims longer than 1 (TMA maps cannot
     broadcast)."""
     if t.stride(-1) != 1:
         return False
@@ -228,10 +228,10 @@ def _kernel_layout_ok(t: torch.Tensor, tma: bool) -> bool:
         for s, n in zip(t.stride()[:3], t.shape[:3]))
 
 
-def _kernel_operand(t: torch.Tensor, tma: bool) -> torch.Tensor:
-    """``t`` as a kernel takes it (``tma``: loaded by TMA). A fresh
+def _kernel_operand(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as the attention kernels take it (loaded by TMA). A fresh
     allocation is aligned (contiguous() would keep an offset view)."""
-    if _kernel_layout_ok(t, tma):
+    if _kernel_layout_ok(t, tma=True):
         return t
     return t.clone(memory_format=torch.contiguous_format)
 
@@ -339,8 +339,7 @@ def build_flash_attention_bwd() -> dict:
 def _flash_forward(q, k, v, bias, scale, with_stats):
     what = "flash_attention_with_stats" if with_stats else "flash_attention"
     b, h, sq, skv, d = _check_qkv(what, q, k, v)
-    tma = q.dtype == torch.bfloat16  # the f32 forward reads rows itself
-    q, k, v = (_kernel_operand(t, tma) for t in (q, k, v))
+    q, k, v = (_kernel_operand(t) for t in (q, k, v))
     if scale is None:
         scale = d ** -0.5
     bias_ptr, bias_strides, _bias = _kernel_bias(bias, q, b, h, sq, skv)
@@ -405,8 +404,7 @@ def flash_attention_block(q, k, v, bias=None, scale=None):
     (contiguous), m and l f32 [B,H,Sq]. Arguments as ``flash_attention``.
     Merge the states of several kv blocks with ``merge_block_states``."""
     b, h, sq, skv, d = _check_qkv("flash_attention_block", q, k, v)
-    tma = q.dtype == torch.bfloat16
-    q, k, v = (_kernel_operand(t, tma) for t in (q, k, v))
+    q, k, v = (_kernel_operand(t) for t in (q, k, v))
     if scale is None:
         scale = d ** -0.5
     bias_ptr, bias_strides, _bias = _kernel_bias(bias, q, b, h, sq, skv)
@@ -459,8 +457,7 @@ def flash_attention_bwd_dq(q, k, v, bias, out, m, l, dout, scale=None):
     b, h, sq, skv, d = _check_backward_args(
         "flash_attention_bwd_dq", q, k, v, {"m": m, "l": l},
         {"out": out, "dout": dout})
-    q, k, v, out, dout = (_kernel_operand(t, True)
-                          for t in (q, k, v, out, dout))
+    q, k, v, out, dout = (_kernel_operand(t) for t in (q, k, v, out, dout))
     m, l = m.contiguous(), l.contiguous()
     if scale is None:
         scale = d ** -0.5
@@ -496,7 +493,7 @@ def flash_attention_bwd_dkv(q, k, v, bias, dout, m, l, delta, scale=None):
     b, h, sq, skv, d = _check_backward_args(
         "flash_attention_bwd_dkv", q, k, v,
         {"m": m, "l": l, "delta": delta}, {"dout": dout})
-    q, k, v, dout = (_kernel_operand(t, True) for t in (q, k, v, dout))
+    q, k, v, dout = (_kernel_operand(t) for t in (q, k, v, dout))
     m, l, delta = m.contiguous(), l.contiguous(), delta.contiguous()
     if scale is None:
         scale = d ** -0.5

@@ -43,15 +43,27 @@
 //     output goes out through the given strides, so the [B, S, H, D]
 //     layout the next projection reads is written in place. Three blocks
 //     an SM at D <= 64, one at D up to 128;
-//   - float32 inputs multiply with plain f32 FMAs (a 4x4 register tile
-//     per thread for q k^T, 4 x D/16 for p v), to keep f32 parity. ViLT
-//     serves and trains in f32 (S = 617); there these lose to SDPA's f32
-//     path (PERF.md section 7).
+//   - float32 (ViLT serves and trains in f32, S = 617) runs
+//     flash_fwd_tf32x3_kernel: the products in split-TF32 on mma.sync
+//     (flash_attention_tf32.cuh, shared with the f32 K2 and K3), to keep
+//     f32 accuracy on the tensor cores. One block per (b, h, 64 q rows) of
+//     four warps of 16 rows and no producer warp: thread 0 loads q once by
+//     TMA and streams k and v through a 2-stage ring of 128-byte-swizzled
+//     32-column f32 boxes, the padding-mask bias row beside them
+//     (cp.async). s = q k^T comes out in the wgmma accumulator layout, so
+//     online_softmax below is the online softmax of both dtypes; p stays
+//     f32 and is the A fragment of p v as it stands (the reduction index
+//     permuted), v read in place from the ring; each tile's p v is summed
+//     from zero and added to o with one rounding. What bounds it: 3 x 4 B H
+//     Sq Skv D FLOPs at the TF32 rate, 0.45 ms at ViLT's [64, 12, 617, 64]
+//     (495 TFLOP/s; 1.12 ms for the same work in f32 on the FMA units).
+//     Two blocks an SM at D <= 64 (~84 KB of shared memory each), one at
+//     D up to 128.
 // The bias is read in f32 through its own strides: stride 0 broadcasts a
 // [B,1,1,Skv] padding-mask row over heads and q rows without
 // materialising [B,H,Sq,Skv]. q/k/v/o are addressed through (batch, head,
-// seq) strides with a contiguous head dim (the bf16 tensor maps carry
-// them), so the [B,S,H,D] -> [B,H,S,D] view of a projection output is
+// seq) strides with a contiguous head dim (the tensor maps carry them),
+// so the [B,S,H,D] -> [B,H,S,D] view of a projection output is
 // read in place.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -62,13 +74,11 @@
 
 #include <math.h>
 
-#include "flash_attention_sm90.cuh"
+#include "flash_attention_tf32.cuh"
 
 namespace {
 
-using namespace mmf_flash_sm90;
-constexpr int BQ = 64;  // q rows per block
-constexpr int BK = 64;  // kv columns per shared-memory tile
+using namespace mmf_flash_tf32;
 constexpr int MAX_D = 128;
 
 struct Strides {
@@ -76,166 +86,9 @@ struct Strides {
 };
 
 // ---------------------------------------------------------------------------
-// float32: FMA kernel, 256 threads = 16 x 16, thread (ty, tx) owns q rows
-// ty + 16 i and kv columns / output columns tx + 16 j
-// ---------------------------------------------------------------------------
-constexpr int F_THREADS = 256;
-constexpr int F_LD = 65;  // padded row length of the [*, 64] f32 tiles
-
-size_t f32_smem_bytes(int d) {
-  // q^T [D][F_LD], k^T [D][F_LD], v [BK][D], p [BQ][F_LD]
-  return sizeof(float) *
-         (size_t(2) * d * F_LD + size_t(BK) * d + size_t(BQ) * F_LD);
-}
-
-// NJ = ceil(D / 16): output columns per thread.
-template <int NJ>
-__global__ void __launch_bounds__(F_THREADS)
-flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v,
-                     const float* __restrict__ bias, float* __restrict__ o,
-                     float* __restrict__ m_out, float* __restrict__ l_out,
-                     int Sq, int Skv, int D, float scale, Strides st,
-                     bool raw) {
-  extern __shared__ float smem[];
-  float* qt = smem;          // [D][F_LD]: q^T * scale
-  float* kt = qt + D * F_LD;  // [D][F_LD]: k^T
-  float* vs = kt + D * F_LD;  // [BK][D]
-  float* ps = vs + BK * D;    // [BQ][F_LD]: probabilities of this tile
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-
-  const float* qb = q + b * st.q[0] + h * st.q[1];
-  const float* kb = k + b * st.k[0] + h * st.k[1];
-  const float* vb = v + b * st.v[0] + h * st.v[1];
-  float* ob = o + b * st.o[0] + h * st.o[1];
-  const float* bb =
-      bias == nullptr ? nullptr : bias + b * st.bias[0] + h * st.bias[1];
-
-  for (int idx = tid; idx < BQ * D; idx += F_THREADS) {
-    const int r = idx / D, d = idx - (idx / D) * D;
-    const int s = q0 + r;
-    qt[d * F_LD + r] = s < Sq ? qb[s * st.q[2] + d] * scale : 0.f;
-  }
-
-  float m[4], l[4], acc[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-  }
-
-  for (int kv0 = 0; kv0 < Skv; kv0 += BK) {
-    __syncthreads();  // previous tile's kt/vs/ps fully consumed
-    for (int idx = tid; idx < BK * D; idx += F_THREADS) {
-      const int c = idx / D, d = idx - (idx / D) * D;
-      const int s = kv0 + c;
-      const bool in = s < Skv;
-      kt[d * F_LD + c] = in ? kb[s * st.k[2] + d] : 0.f;
-      vs[c * D + d] = in ? vb[s * st.v[2] + d] : 0.f;
-    }
-    __syncthreads();
-
-    float sc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float a[4], bk[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = qt[d * F_LD + ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bk[j] = kt[d * F_LD + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(a[i], bk[j], sc[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = q0 + ty + 16 * i;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = kv0 + tx + 16 * j;
-        if (c >= Skv) {
-          sc[i][j] = -INFINITY;  // outside the sequence: excluded exactly
-        } else if (bb != nullptr && r < Sq) {
-          sc[i][j] += bb[r * st.bias[2] + c];
-        }
-        mx = fmaxf(mx, sc[i][j]);
-      }
-      mx = max_xor(mx, 16);  // the 16 lanes of a half-warp share a row
-      const float m_new = fmaxf(m[i], mx);
-      // a row with no finite score yet keeps p = 0 instead of NaN
-      const float m_use = m_new == -INFINITY ? 0.f : m_new;
-      const float alpha = expf(m[i] - m_use);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(sc[i][j] - m_use);
-        rs += p;
-        ps[(ty + 16 * i) * F_LD + tx + 16 * j] = p;
-      }
-      rs = sum_xor(rs, 16);
-      l[i] = l[i] * alpha + rs;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] *= alpha;
-    }
-    __syncthreads();
-
-    const int n_cols = min(BK, Skv - kv0);
-#pragma unroll 4
-    for (int c = 0; c < n_cols; ++c) {
-      float p[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = ps[(ty + 16 * i) * F_LD + c];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int d = tx + 16 * j;
-        if (d < D) {
-          const float vv = vs[c * D + d];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(p[i], vv, acc[i][j]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty + 16 * i;
-    if (r >= Sq) continue;
-    // raw form: the unnormalized accumulator; l == 0: zeros
-    const float inv = raw ? 1.f : l[i] > 0.f ? 1.f / l[i] : 0.f;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int d = tx + 16 * j;
-      if (d < D) ob[r * st.o[2] + d] = acc[i][j] * inv;
-    }
-    if (m_out != nullptr && tx == 0) {  // the 16 lanes of a row agree
-      const long long idx = ((long long)b * gridDim.y + h) * Sq + r;
-      m_out[idx] = raw ? m[i] : l[i] > 0.f ? m[i] : 0.f;
-      l_out[idx] = raw ? l[i] : l[i] > 0.f ? l[i] : 1.f;
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// bfloat16: the warp-specialised wgmma kernel. FORM: 0 inference (bf16
-// out), 1 stats (bf16 out, parked m and l), 2 raw (f32 accumulator out,
-// raw m and l).
+// bfloat16: the warp-specialised wgmma kernel. FORM: 0 inference (out in
+// the input dtype), 1 stats (out, parked m and l), 2 raw (f32 accumulator
+// out, raw m and l); the f32 kernel below takes the same forms.
 // ---------------------------------------------------------------------------
 enum { INFERENCE = 0, STATS = 1, RAW = 2 };
 
@@ -245,7 +98,7 @@ struct Maps {
 
 struct Args {
   const float* bias;   // null: no bias
-  void* o;             // bf16 output, or the f32 accumulator (raw form)
+  void* o;             // output in the input dtype, or the f32 raw acc
   float *m, *l;        // [B, H, Sq]; null in the inference form
   int H, Sq, Skv, D;
   float scale;
@@ -270,14 +123,14 @@ __device__ __forceinline__ void score_product(float (&s)[32], uint32_t a,
 
 // One kv tile of the online softmax for this lane's rows `i`: the scores
 // become p = exp(s - m_new) in place, the running max m moves to m_new,
-// and this lane's share of the normalizer l and the output rows o are
-// rescaled by exp(m - m_new) and l gains the tile's p. Columns past Skv
-// get p = 0; the bias is the tile's row (`bias_row`, zeros without a
-// bias) or, with ELEM_BIAS, read per element from the rows `brow`. A row
-// with no finite score yet keeps p = 0 (its max is taken as 0).
-template <int NB, bool ELEM_BIAS>
-__device__ __forceinline__ void softmax_tile(
-    float (&sc)[32], float (&o)[NB][32], float (&m)[2], float (&l)[2],
+// this lane's share of the normalizer l is rescaled by alpha = exp(m -
+// m_new) and gains the tile's p. Columns past Skv get p = 0; the bias is
+// the tile's row (`bias_row`, zeros without a bias) or, with ELEM_BIAS,
+// read per element from the rows `brow`. A row with no finite score yet
+// keeps p = 0 (its max is taken as 0).
+template <bool ELEM_BIAS>
+__device__ __forceinline__ void online_softmax(
+    float (&sc)[32], float (&m)[2], float (&l)[2], float (&alpha)[2],
     const float* bias_row, const float* const (&brow)[2], int kv0, int Skv,
     float scale) {
   const int t4 = threadIdx.x & 3;
@@ -291,7 +144,7 @@ __device__ __forceinline__ void softmax_tile(
     sc[e] = kv0 + c < Skv ? x : -INFINITY;
     mx[i] = fmaxf(mx[i], sc[e]);
   }
-  float m_use[2], alpha[2];
+  float m_use[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const float m_new = fmaxf(m[i], max_xor(mx[i], 4));
@@ -306,6 +159,18 @@ __device__ __forceinline__ void softmax_tile(
     sc[e] = exp2f((sc[e] - m_use[i]) * LOG2E);
     l[i] += sc[e];
   }
+}
+
+// online_softmax, with the output rows o rescaled by alpha (the bf16
+// kernel, before its o += p v products).
+template <int NB, bool ELEM_BIAS>
+__device__ __forceinline__ void softmax_tile(
+    float (&sc)[32], float (&o)[NB][32], float (&m)[2], float (&l)[2],
+    const float* bias_row, const float* const (&brow)[2], int kv0, int Skv,
+    float scale) {
+  float alpha[2];
+  online_softmax<ELEM_BIAS>(sc, m, l, alpha, bias_row, brow, kv0, Skv,
+                            scale);
 #pragma unroll
   for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
@@ -437,25 +302,6 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   }
 }
 
-template <int NJ>
-cudaError_t launch_f32(const void* q, const void* k, const void* v,
-                       const void* bias, void* o, float* m_out,
-                       float* l_out, int B, int H, int Sq, int Skv, int D,
-                       float scale, const Strides& st, bool raw,
-                       cudaStream_t stream) {
-  const size_t smem = f32_smem_bytes(D);
-  auto kernel = flash_fwd_f32_kernel<NJ>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return err;
-  dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  kernel<<<grid, F_THREADS, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(bias),
-      static_cast<float*>(o), m_out, l_out, Sq, Skv, D, scale, st, raw);
-  return cudaGetLastError();
-}
-
 template <int NB, int FORM>
 cudaError_t launch_sm90(const Maps& maps, const Args& a, int B,
                         cudaStream_t stream) {
@@ -478,6 +324,150 @@ cudaError_t launch_bf16(const Maps& maps, const Args& a, int B,
                   : launch_sm90<1, FORM>(maps, a, B, s);
 }
 
+// ---------------------------------------------------------------------------
+// float32: split-TF32 on mma.sync (flash_attention_tf32.cuh), the same
+// forms. One block per (b, h, 64 q rows); q own, k and v through the ring
+// with the tile's padding-mask row; warp w owns q rows q0 + 16 w + g and
+// + 8, in the accumulator layout the bf16 kernel's helpers read.
+// ---------------------------------------------------------------------------
+template <int NB, int FORM, int MIN_BLOCKS>
+__global__ void __launch_bounds__(F_THREADS, MIN_BLOCKS)
+    flash_fwd_tf32x3_kernel(const __grid_constant__ Maps maps, const Args a) {
+  using Lay = FLayout<NB, 1>;  // one own tile: q
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align_smem(smem_raw);
+  unsigned char* ring = base + Lay::RING;
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + Lay::BARS);
+  uint64_t* own_bar = full + F_STAGES;
+
+  const int q0 = blockIdx.x * ROWS, h = blockIdx.y, b = blockIdx.z;
+  const Strides& st = a.st;
+  const int n_tiles = (a.Skv + 63) / 64, boxes = (a.D + 31) / 32;
+  const float* bias_bh =
+      a.bias == nullptr ? nullptr : a.bias + b * st.bias[0] + h * st.bias[1];
+  const bool row_bias = bias_bh != nullptr && st.bias[2] == 0;
+  const int tid = threadIdx.x, g = (tid & 31) >> 2;
+  // a valid global address for the copies that read nothing
+  const float* dummy = static_cast<const float*>(a.o);
+  auto fill = [&](int kv0) {  // the tile's padding-mask row, or zeros
+    return [&, kv0](float* rows) {
+      if (tid < 64) {
+        const bool in = row_bias && kv0 + tid < a.Skv;
+        cp_async_4(rows + tid, in ? bias_bh + kv0 + tid : dummy, in);
+      }
+    };
+  };
+  zero_spare_boxes<NB, 1>(base, boxes);
+  init_f32_barriers(full, own_bar);
+  load_own_f32<NB, 1>(base, own_bar, &maps.q, nullptr, q0, h, b, boxes);
+  for (int t = 0; t < F_STAGES - 1 && t < n_tiles; ++t)
+    load_stage<NB>(t, ring, full, &maps.k, &maps.v, 64 * t, h, b, boxes,
+                   fill(64 * t));
+
+  const int r0 = 16 * (tid >> 5) + g;  // this lane's rows: r0, r0 + 8
+  const int qrow[2] = {q0 + r0, q0 + r0 + 8};
+  const bool elem_bias = bias_bh != nullptr && !row_bias;
+  const float* brow[2];  // rows of a per-element bias (clamped to Sq)
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    brow[i] = elem_bias ? bias_bh + min(qrow[i], a.Sq - 1) * st.bias[2]
+                        : nullptr;
+  float o[NB][32];
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) o[nb][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  const FragOffsets frag;
+  mbar_wait(own_bar, 0);
+  // the q tile from this warp's 16 rows on
+  const float* q_t = reinterpret_cast<const float*>(base) + 512 * (tid >> 5);
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int kv0 = 64 * t, ahead = 64 * (t + F_STAGES - 1);
+    next_stage<NB>(t, n_tiles, ring, full, &maps.k, &maps.v, h, b, boxes,
+                   fill(ahead));
+    const unsigned char* stg = ring + (t % F_STAGES) * Lay::STAGE;
+    const float* k_t = reinterpret_cast<const float*>(stg);
+    const float* v_t = reinterpret_cast<const float*>(stg + Lay::TILE);
+    const float* bias_row =
+        reinterpret_cast<const float*>(stg + 2 * Lay::TILE);
+    float sc[32], alpha[2];
+    score_products<NB, 1>(sc, sc, q_t, k_t, q_t, k_t, frag);  // s = q k^T
+    if (elem_bias)
+      online_softmax<true>(sc, m, l, alpha, bias_row, brow, kv0, a.Skv,
+                           a.scale);
+    else
+      online_softmax<false>(sc, m, l, alpha, bias_row, brow, kv0, a.Skv,
+                            a.scale);
+    // o = alpha o + p v. The tensor cores truncate their f32 sum at each
+    // chained product, so the tile's p v is summed from zero (24 chained
+    // products for each 64 head-dim columns) and added to o with one
+    // rounding: carried through every tile's products (234 at 617 kv), o
+    // drifted to ~1e-5, the f32 output bound's size.
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+      float pv[1][32];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) pv[0][e] = 0.f;
+      const float* v_nb = v_t + 4096 * nb;  // head-dim columns 64 nb on
+      acc_products<1, 1>(pv, sc, v_nb, pv, sc, v_nb, frag);
+#pragma unroll
+      for (int e = 0; e < 32; ++e)
+        o[nb][e] = fmaf(o[nb][e], alpha[(e >> 1) & 1], pv[0][e]);
+    }
+  }
+
+  // the normalizer: the 4 lanes of a row hold its partial sums
+#pragma unroll
+  for (int i = 0; i < 2; ++i) l[i] = sum_xor(l[i], 4);
+  float mul[2] = {1.f, 1.f};  // raw form: the unnormalized accumulator
+  if (FORM != RAW)  // l == 0 (no finite score): zeros
+#pragma unroll
+    for (int i = 0; i < 2; ++i) mul[i] = l[i] > 0.f ? 1.f / l[i] : 0.f;
+  store_rows<NB, float>(static_cast<float*>(a.o) + b * st.o[0] + h * st.o[1],
+                        st.o[2], qrow, a.Sq, a.D, mul, o);
+  const long long so = ((long long)b * a.H + h) * a.Sq;
+  if (FORM != INFERENCE && (tid & 3) == 0) {  // the 4 lanes of a row agree
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (qrow[i] >= a.Sq) continue;
+      const bool parked = FORM == STATS && !(l[i] > 0.f);
+      a.m[so + qrow[i]] = parked ? 0.f : m[i];
+      a.l[so + qrow[i]] = parked ? 1.f : l[i];
+    }
+  }
+}
+
+// Sets the f32 kernel's shared-memory size, then encodes the q, k, v maps
+// (that call makes the device's primary context current in the calling
+// thread, which encoding a tensor map needs) and launches. Two blocks an
+// SM at D <= 64 (8 warps: up to 255 registers a thread), one above.
+template <int NB, int FORM>
+cudaError_t launch_f32_nb(const void* q, const void* k, const void* v,
+                          const Args& a, int B, cudaStream_t stream) {
+  auto kernel = flash_fwd_tf32x3_kernel<NB, FORM, NB == 1 ? 2 : 1>;
+  const int smem = FLayout<NB, 1>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  Maps maps;
+  if (!make_tile_map(&maps.q, q, a.D, a.Sq, a.H, B, a.st.q, true) ||
+      !make_tile_map(&maps.k, k, a.D, a.Skv, a.H, B, a.st.k, true) ||
+      !make_tile_map(&maps.v, v, a.D, a.Skv, a.H, B, a.st.v, true))
+    return cudaErrorInvalidValue;
+  dim3 grid((a.Sq + ROWS - 1) / ROWS, a.H, B);
+  kernel<<<grid, F_THREADS, smem, stream>>>(maps, a);
+  return cudaGetLastError();
+}
+
+template <int FORM>
+cudaError_t launch_f32(const void* q, const void* k, const void* v,
+                       const Args& a, int B, cudaStream_t s) {
+  return a.D > 64 ? launch_f32_nb<2, FORM>(q, k, v, a, B, s)
+                  : launch_f32_nb<1, FORM>(q, k, v, a, B, s);
+}
+
 }  // namespace
 
 extern "C" {
@@ -487,11 +477,11 @@ extern "C" {
 // q, k, v, o and bias in that order; the head dim is contiguous in all.
 // m_out / l_out: both null (inference form) or both contiguous float32
 // [B, H, Sq] (stats form).
-// bfloat16 q/k/v need 16-byte aligned pointers and strides that are
-// multiples of 8, positive on every dim longer than 1 (the TMA maps carry
-// them). Launches on `stream`, allocates nothing, returns
-// cudaGetLastError() (or cudaErrorInvalidValue / cudaErrorMisalignedAddress
-// for arguments the kernels do not take).
+// q/k/v need 16-byte aligned pointers and strides that are multiples of
+// 16 bytes, positive on every dim longer than 1 (the TMA maps carry them).
+// Launches on `stream`, allocates nothing, returns cudaGetLastError() (or
+// cudaErrorInvalidValue / cudaErrorMisalignedAddress for arguments the
+// kernels do not take).
 static int forward(const void* q, const void* k, const void* v,
                    const void* bias, void* o, float* m_out, float* l_out,
                    int dtype, int B, int H, int Sq, int Skv, int D,
@@ -510,33 +500,28 @@ static int forward(const void* q, const void* k, const void* v,
     st.o[i] = strides[9 + i];
     st.bias[i] = strides[12 + i];
   }
+  const int eb = dtype == 1 ? 2 : 4;
+  if (!aligned16(q, st.q, eb) || !aligned16(k, st.k, eb) ||
+      !aligned16(v, st.v, eb))
+    return int(cudaErrorMisalignedAddress);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    if (!aligned16(q, st.q) || !aligned16(k, st.k) || !aligned16(v, st.v))
-      return int(cudaErrorMisalignedAddress);
-    Args a{};
-    a.bias = static_cast<const float*>(bias), a.o = o;
-    a.m = m_out, a.l = l_out;
-    a.H = H, a.Sq = Sq, a.Skv = Skv, a.D = D, a.scale = scale, a.st = st;
-    Maps maps;
-    if (!make_tile_map(&maps.q, q, D, Sq, H, B, st.q) ||
-        !make_tile_map(&maps.k, k, D, Skv, H, B, st.k) ||
-        !make_tile_map(&maps.v, v, D, Skv, H, B, st.v))
-      return int(cudaErrorInvalidValue);
-    if (raw) return int(launch_bf16<RAW>(maps, a, B, s));
-    return int(m_out == nullptr ? launch_bf16<INFERENCE>(maps, a, B, s)
-                                : launch_bf16<STATS>(maps, a, B, s));
+  Args a{};
+  a.bias = static_cast<const float*>(bias), a.o = o;
+  a.m = m_out, a.l = l_out;
+  a.H = H, a.Sq = Sq, a.Skv = Skv, a.D = D, a.scale = scale, a.st = st;
+  if (dtype == 0) {
+    if (raw) return int(launch_f32<RAW>(q, k, v, a, B, s));
+    return int(m_out == nullptr ? launch_f32<INFERENCE>(q, k, v, a, B, s)
+                                : launch_f32<STATS>(q, k, v, a, B, s));
   }
-  switch ((D + 15) / 16) {
-#define MMF_CASE(n)                                                        \
-  case n:                                                                  \
-    return int(launch_f32<n>(q, k, v, bias, o, m_out, l_out, B, H, Sq, Skv, \
-                             D, scale, st, raw, s));
-    MMF_CASE(1) MMF_CASE(2) MMF_CASE(3) MMF_CASE(4)
-    MMF_CASE(5) MMF_CASE(6) MMF_CASE(7) MMF_CASE(8)
-#undef MMF_CASE
-  }
-  return int(cudaErrorInvalidValue);
+  Maps maps;
+  if (!make_tile_map(&maps.q, q, D, Sq, H, B, st.q) ||
+      !make_tile_map(&maps.k, k, D, Skv, H, B, st.k) ||
+      !make_tile_map(&maps.v, v, D, Skv, H, B, st.v))
+    return int(cudaErrorInvalidValue);
+  if (raw) return int(launch_bf16<RAW>(maps, a, B, s));
+  return int(m_out == nullptr ? launch_bf16<INFERENCE>(maps, a, B, s)
+                              : launch_bf16<STATS>(maps, a, B, s));
 }
 
 int mmf_flash_attention_fwd(const void* q, const void* k, const void* v,
@@ -562,8 +547,10 @@ int mmf_flash_attention_fwd_raw(const void* q, const void* k, const void* v,
                  strides, scale, true, stream);
 }
 
-// Dynamic shared memory of a bf16 K1 block at head dim D, for reports.
-int mmf_flash_attention_fwd_smem_bytes(int D) {
+// Dynamic shared memory of a K1 block at head dim D, bf16 (dtype 1) or
+// f32 (0), for reports.
+int mmf_flash_attention_fwd_smem_bytes(int D, int dtype) {
+  if (dtype == 0) return D <= 64 ? FLayout<1, 1>::BYTES : FLayout<2, 1>::BYTES;
   return D <= 64 ? WLayout<1, 1>::BYTES : WLayout<2, 1>::BYTES;
 }
 

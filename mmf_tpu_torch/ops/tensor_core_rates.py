@@ -1,12 +1,12 @@
-"""Measure what bounds the f32 attention backward on the card.
+"""Measure what bounds the f32 attention kernels on the card.
 
 ``python -m mmf_tpu_torch.ops.tensor_core_rates`` builds
 ``ops/csrc/tensor_core_rates.cu`` with ``nvcc`` and runs it: the peak
 TFLOP/s of ``mma.sync`` m16n8k8 tf32 (the f32 K2 and K3's route) and
 m16n8k16 bf16 at 4 and 8 warps an SM, and of ``wgmma`` m64n64k8 tf32
 at 1 to 4 warpgroups an SM. Then it prints the SASS opcode counts of
-the f32 K2 and K3 (``cuobjdump``), the instruction mix a tile of their
-loop issues. Needs the card and the CUDA toolkit; prints the card's name
+the f32 K1, K2 and K3 (``cuobjdump``), the instruction mix a tile of
+their loop issues. Needs the card and the CUDA toolkit; prints the card's name
 and power limit first.
 """
 
@@ -36,8 +36,8 @@ def rates() -> str:
 
 
 def sass_counts(library: str) -> dict:
-    """{kernel: Counter of SASS opcodes} for the f32 K2 and K3 in
-    ``library``."""
+    """{kernel: Counter of SASS opcodes} for the f32 (split-TF32) kernels
+    in ``library``."""
     cuobjdump = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", library], capture_output=True,
                           text=True, check=True).stdout
@@ -57,9 +57,10 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     print(rates(), end="")
-    for name, ops in sass_counts(A._bwd_lib()[1]["path"]).items():
-        print(f"{name}: {sum(ops.values())} instructions; " + ", ".join(
-            f"{op} {n}" for op, n in ops.most_common(12)))
+    for lib in (A._fwd_lib, A._bwd_lib):
+        for name, ops in sass_counts(lib()[1]["path"]).items():
+            print(f"{name}: {sum(ops.values())} instructions; " + ", ".join(
+                f"{op} {n}" for op, n in ops.most_common(12)))
 
 
 if __name__ == "__main__":

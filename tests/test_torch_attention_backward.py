@@ -6,8 +6,8 @@ autograd through the port's ``dot_product_attention``) against
 kernels (K1 stats form, K2, K3) in interpret mode; the port runs its plain
 versions, which the CUDA kernels are held against on the card
 (tests/test_torch_cuda_kernels.py, chip_smoke.py). The f32 kernels'
-split-TF32 arithmetic is emulated here in plain torch at ViLT's shape and
-held against both."""
+split-TF32 arithmetic (K1 in its stats and raw forms, K2 and K3) is
+emulated here in plain torch at ViLT's shape and held against both."""
 
 import numpy as np
 import pytest
@@ -269,3 +269,111 @@ def test_split_tf32_backward_is_inside_the_f32_bound(vilt_f32_case, mode,
     f32_scores = q @ k.transpose(-1, -2)
     assert _rel_err(tf32_scores.numpy(), f32_scores.numpy()) > \
         CARD_GRAD_REL_F32
+
+
+# --- the f32 K1 arithmetic: split-TF32 products --------------------------
+# The forward's bounds on the card (tests/test_torch_cuda_kernels.py,
+# chip_smoke.py): the output within TOL, m and l within STATS_TOL, the
+# raw form's accumulator within RAW_REL of its largest entry.
+CARD_TOL_F32 = dict(atol=1e-5, rtol=1e-5)
+CARD_STATS_TOL = dict(atol=1e-4, rtol=1e-4)
+CARD_RAW_REL_F32 = 1e-5
+LOG2E = np.float32(1.4426950408889634)
+
+
+def _split_tf32_forward(q, k, v, bias, scale, mode, products=_split_mm):
+    """K1's arithmetic: s = q k^T as ``products`` (split-TF32), the scores
+    fmaf(s, scale, bias), the online softmax over 64-column kv tiles with
+    exp as exp2((s - m) log2 e), and o += p v as ``products`` with p in
+    f32, into the accumulator already rescaled by exp(m_old - m_new).
+    Returns the stats form (out, m, l; m = 0, l = 1 on a row with no
+    finite score) and the raw form (acc, m, l)."""
+    skv = k.shape[2]
+    bias = bias.expand(*q.shape[:3], skv)
+    m = torch.full(q.shape[:3], -torch.inf)
+    l = torch.zeros(q.shape[:3])
+    acc = torch.zeros_like(q)
+    for kv0 in range(0, skv, 64):
+        cols = slice(kv0, kv0 + 64)
+        s = products(q, k[:, :, cols].transpose(-1, -2), mode) * scale
+        s = s + bias[..., cols]
+        m_new = torch.maximum(m, s.amax(-1))
+        m_use = torch.where(torch.isneginf(m_new), 0.0, m_new)
+        alpha = torch.exp2((m - m_use) * LOG2E)
+        p = torch.exp2((s - m_use[..., None]) * LOG2E)
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + products(p, v[:, :, cols], mode)
+        m = m_new
+    empty = ~(l > 0)
+    out = acc / torch.where(empty, 1.0, l)[..., None]
+    return ((out, torch.where(empty, 0.0, m), torch.where(empty, 1.0, l)),
+            (acc, m, l))
+
+
+def _tf32_mm(a, b, mode):
+    """a @ b as one TF32 product (hi hi alone)."""
+    return _tf32(a, mode) @ _tf32(b, mode)
+
+
+@pytest.fixture(scope="module")
+def vilt_f32_forward(vilt_f32_case):
+    """The port's plain K1 forms and JAX's K1 (interpret mode: the stats
+    form through _flash_forward, the raw form through
+    flash_attention_block) on the ViLT case's inputs, numpy."""
+    (tq, tk, tv, tb, out, m, l, _), _, _ = vilt_f32_case
+    jq, jk, jv = (jnp.asarray(t.numpy()) for t in (tq, tk, tv))
+    jb = jnp.asarray(tb.numpy())
+    sq, scale = tq.shape[2], 64 ** -0.5
+    j_out, j_m, j_l = jattn._flash_forward(jq, jk, jv, jb, scale, 512, 1024,
+                                           True, with_lse=True)
+    j_raw = jattn.flash_attention_block(jq, jk, jv, jb, interpret=True)
+    raw = tattn.flash_attention_block_reference(tq, tk, tv, tb)
+    return {"plain": ([out, m, l], raw),
+            "jax": ([np.asarray(j_out[:, :, :sq]),
+                     np.asarray(j_m[:, :, :sq, 0]),
+                     np.asarray(j_l[:, :, :sq, 0])], j_raw)}
+
+
+def _inside_forward_bounds(got, want, what):
+    """Asserts the stats form (out, m, l) and the raw form (acc, m, l)
+    `got` inside the card's f32 forward bounds of `want`; returns the
+    largest share of a bound used."""
+    (out, m, l), (acc, rm, rl) = got
+    (w_out, w_m, w_l), (w_acc, w_rm, w_rl) = (
+        [np.asarray(x, np.float32) for x in form] for form in want)
+    shares = []
+    for name, g, w, tol in (("out", out, w_out, CARD_TOL_F32),
+                            ("m", m, w_m, CARD_STATS_TOL),
+                            ("l", l, w_l, CARD_STATS_TOL),
+                            ("raw m", rm, w_rm, CARD_STATS_TOL),
+                            ("raw l", rl, w_rl, CARD_STATS_TOL)):
+        err = np.abs(g.numpy() - w)
+        share = float((err / (tol["atol"] + tol["rtol"] * np.abs(w))).max())
+        assert share <= 1.0, f"{name} vs {what}: {share:.2f} of the bound"
+        shares.append(share)
+    err = _rel_err(acc.numpy(), w_acc)
+    assert err <= CARD_RAW_REL_F32, f"raw acc vs {what}: rel {err:.2e}"
+    return max(shares + [err / CARD_RAW_REL_F32])
+
+
+@pytest.mark.parametrize("mode", ["truncate", "round"])
+def test_split_tf32_forward_is_inside_the_f32_bounds(vilt_f32_case,
+                                                     vilt_f32_forward, mode):
+    """K1's split-TF32 arithmetic at ViLT's 617 x 617 per head (D = 64, its
+    length mask), in its stats and raw forms (the inference form's output
+    is the stats form's), stays inside the card's unchanged f32 forward
+    bounds (TOL, STATS_TOL, RAW_REL) of the plain version and of JAX's K1,
+    with truncated or rounded splits: at most 0.12 of a bound (the raw
+    accumulator's RAW_REL; the output uses 0.05 of TOL, m 0.01 and l 0.03
+    of STATS_TOL), held here at a quarter. One TF32 product alone (hi hi)
+    misses the output's bound 20-80 times over."""
+    (tq, tk, tv, tb, *_), _, _ = vilt_f32_case
+    scale = 64 ** -0.5
+    got = _split_tf32_forward(tq, tk, tv, tb, scale, mode)
+    for what, want in vilt_f32_forward.items():
+        share = _inside_forward_bounds(got, want, what)
+        assert share < 0.25, f"{what} ({mode}): {share:.2f} of a bound"
+    (tf32_out, _, _), _ = _split_tf32_forward(tq, tk, tv, tb, scale, mode,
+                                              products=_tf32_mm)
+    plain_out = vilt_f32_forward["plain"][0][0]
+    assert not torch.allclose(tf32_out, plain_out, **CARD_TOL_F32)

@@ -220,6 +220,62 @@ def test_f32_backward_is_bit_equal_at_vilt_shape(card):
         assert torch.equal(a, b_)
 
 
+def test_f32_forward_is_bit_equal_at_vilt_shape(card):
+    """The split-TF32 K1 at ViLT's 617 rows in its three forms (inference,
+    stats, raw): no atomics, so two calls give the same bits."""
+    q, k, v, bias, _ = _bwd_case(card, torch.float32, *VILT_SHAPE, seed=11)
+    runs = [(A.flash_attention(q, k, v, bias),)
+            + A.flash_attention_with_stats(q, k, v, bias)
+            + A.flash_attention_block(q, k, v, bias) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b_ in zip(*runs):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.parametrize("offset", ["pointer", "stride"])
+def test_f32_forward_takes_views_tma_cannot_load(card, no_tf32, offset):
+    """f32 views whose pointer ("pointer": 4 bytes past 16-byte alignment)
+    or seq stride ("stride": 65 floats) TMA cannot take: the forward's
+    wrappers copy them, and K1 in its three forms matches the plain
+    versions."""
+    b, h, sq, skv, d = 2, 3, 70, 45, 64
+    g = torch.Generator(device=card).manual_seed(12)
+
+    def view(s):  # [B,S,H,D] storage -> [B,H,S,D] view
+        if offset == "pointer":
+            x = torch.randn(b * s * h * d + 1, device=card, generator=g)
+            x = x[1:].view(b, s, h, d)
+        else:
+            x = torch.randn(b, s, h, d + 1, device=card, generator=g)
+            x = x[..., :d]
+        return x.transpose(1, 2)
+
+    q, k, v = view(sq), view(skv), view(skv)
+    assert not A._kernel_layout_ok(q, tma=True)
+    mask = (torch.rand(b, skv, device=card, generator=g) > 0.3).int()
+    mask[:, 0] = 1
+    bias = A.make_attention_bias(mask)
+    counts = (A.flash_attention.launches,
+              A.flash_attention_with_stats.launches,
+              A.flash_attention_block.launches)
+    out = A.flash_attention(q, k, v, bias)
+    out_s, m, l = A.flash_attention_with_stats(q, k, v, bias)
+    acc, raw_m, raw_l = A.flash_attention_block(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert (A.flash_attention.launches,
+            A.flash_attention_with_stats.launches,
+            A.flash_attention_block.launches) == tuple(c + 1 for c in counts)
+    ref_out, ref_m, ref_l = A.flash_forward_reference(q, k, v, bias)
+    for got in (out, out_s):
+        torch.testing.assert_close(got, ref_out, **TOL[torch.float32])
+    torch.testing.assert_close(m, ref_m, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(l, ref_l, atol=1e-4, rtol=1e-4)
+    ref = A.flash_attention_block_reference(q, k, v, bias)
+    torch.testing.assert_close(raw_m, ref[1], atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(raw_l, ref[2], atol=1e-4, rtol=1e-4)
+    _assert_rel(acc, ref[0], 1e-5, "acc")
+
+
 @pytest.mark.parametrize("offset", ["pointer", "stride"])
 def test_f32_backward_takes_views_tma_cannot_load(card, no_tf32, offset):
     """f32 views whose pointer ("pointer": 4 bytes past 16-byte alignment)

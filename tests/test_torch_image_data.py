@@ -20,6 +20,7 @@ import pytest
 import torch
 from PIL import Image
 
+from tests.torch_port_utils import registries_restored
 from tests.torch_vqa2_layout import (
     IMAGE_SPLITS,
     image_layout_opts,
@@ -313,14 +314,8 @@ def restore_registries():
     """The datasets register their processors in each registry's state,
     where a later dataset of the same name would find them: put both
     states back as they were."""
-    from mmf_tpu.common.registry import registry as jreg
-    from mmf_tpu_torch.common.registry import registry
-
-    saved = [(r, dict(r.mapping["state"])) for r in (jreg, registry)]
-    yield
-    for r, state in saved:
-        r.mapping["state"].clear()
-        r.mapping["state"].update(state)
+    with registries_restored():
+        yield
 
 
 @pytest.fixture(scope="module")

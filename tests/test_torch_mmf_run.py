@@ -28,6 +28,7 @@ import torch
 
 import jax
 
+from tests.torch_port_utils import registries_restored
 from tests.torch_vqa2_layout import layout_opts, write_layout
 
 TINY = {
@@ -57,16 +58,15 @@ def layout(tmp_path_factory):
 @pytest.fixture(scope="module", autouse=True)
 def _restore_global_state():
     """Both CLIs install logging handlers (and stop their loggers'
-    propagation) and fill their registries; put everything back after
-    the module. Module-scoped and autouse, so that it wraps the runs."""
-    from mmf_tpu_torch.common.registry import registry as port_registry
-
+    propagation) and fill their registries: the runs start from empty
+    registries (an earlier file's cached processors would feed them),
+    and everything is put back after the module. Module-scoped and
+    autouse, so that it wraps the runs."""
     loggers = [logging.getLogger(n) for n in ("mmf_tpu", "mmf_tpu_torch",
                                                "py.warnings")]
     saved = [(lg, list(lg.handlers), lg.level, lg.propagate)
              for lg in loggers]
-    state = dict(port_registry.mapping["state"])
-    with warnings.catch_warnings():
+    with registries_restored(empty=True), warnings.catch_warnings():
         yield
     for lg, handlers, level, propagate in saved:
         for h in lg.handlers:
@@ -76,8 +76,6 @@ def _restore_global_state():
         lg.setLevel(level)
         lg.propagate = propagate
     logging.captureWarnings(False)
-    port_registry.mapping["state"].clear()
-    port_registry.mapping["state"].update(state)
 
 
 def _opts(layout, save_dir, *extra):

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 
 from tests.test_torch_vqa2_dataset import _assert_equal
+from tests.torch_port_utils import registries_restored
 from tests.torch_vqa2_layout import SPLITS, layout_opts, write_layout
 
 REGIONS, DIM, ANSWERS, TARGETS = 10, 16, 6, 11
@@ -21,13 +22,11 @@ N_TRAIN, N_VAL, N_TEST = 12, 6, 4
 
 
 @pytest.fixture(autouse=True)
-def _restore_port_registry():
-    from mmf_tpu_torch.common.registry import registry
-
-    state = dict(registry.mapping["state"])
-    yield
-    registry.mapping["state"].clear()
-    registry.mapping["state"].update(state)
+def _restore_registries():
+    """The datasets cache their processors in both registries (JAX's
+    too): put both back, so that no later file's dataset reuses them."""
+    with registries_restored():
+        yield
 
 
 def _registries():

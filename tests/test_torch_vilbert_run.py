@@ -27,6 +27,7 @@ import jax
 import jax.numpy as jnp
 
 from tests.test_torch_vilbert import SMALL
+from tests.torch_port_utils import registries_restored
 from tests.torch_vqa2_layout import layout_opts, write_layout
 
 SEQ, REGIONS, DIM, ANSWERS, TARGETS = 16, 10, 16, 6, 11
@@ -50,16 +51,14 @@ def layout(tmp_path_factory):
 
 @pytest.fixture(scope="module", autouse=True)
 def _restore_global_state():
-    """Both CLIs install logging handlers and fill their registries; put
-    everything back after the module."""
-    from mmf_tpu_torch.common.registry import registry as port_registry
-
+    """Both CLIs install logging handlers and fill their registries: the
+    runs start from empty registries (an earlier file's cached processors
+    would feed them), and everything is put back after the module."""
     loggers = [logging.getLogger(n) for n in ("mmf_tpu", "mmf_tpu_torch",
                                                "py.warnings")]
     saved = [(lg, list(lg.handlers), lg.level, lg.propagate)
              for lg in loggers]
-    state = dict(port_registry.mapping["state"])
-    with warnings.catch_warnings():
+    with registries_restored(empty=True), warnings.catch_warnings():
         yield
     for lg, handlers, level, propagate in saved:
         for h in lg.handlers:
@@ -69,8 +68,6 @@ def _restore_global_state():
         lg.setLevel(level)
         lg.propagate = propagate
     logging.captureWarnings(False)
-    port_registry.mapping["state"].clear()
-    port_registry.mapping["state"].update(state)
 
 
 RUNS = {  # name -> (config, dataset, overrides, head, text processor)
@@ -183,6 +180,33 @@ def runs(layout, tmp_path_factory):
 
 def _losses(trainer, key):
     return list(trainer.meter.meters[key].averaged_value_deque)
+
+
+def test_runs_start_from_empty_registries():
+    """A dataset caches its processors in its registry's state
+    (``vqa2_text_processor``, ...) and a later dataset of the same name
+    reuses them. JAX's VQA2 run here once read its questions through the
+    processors an earlier file's VisualBERT run had left in JAX's
+    registry (its second loss 5.1469 against the port's 5.0979): the
+    module's runs see both registries empty, and find them as they were
+    afterwards."""
+    from mmf_tpu.common.registry import registry as jax_registry
+    from mmf_tpu_torch.common.registry import registry as port_registry
+
+    key, stale = "vqa2_text_processor", object()
+    registries = (jax_registry, port_registry)
+    for r in registries:
+        r.register(key, stale)
+    try:
+        with registries_restored(empty=True):
+            for r in registries:
+                assert r.mapping["state"] == {}
+                r.register(key, "the run's own")
+        for r in registries:
+            assert r.get(key, no_warning=True) is stale
+    finally:
+        for r in registries:
+            r.mapping["state"].pop(key, None)
 
 
 def test_vilbert_vqa2_run_matches_jax(runs):

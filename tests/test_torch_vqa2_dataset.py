@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_port_utils import registries_restored
 from tests.torch_vqa2_layout import layout_opts, write_layout
 
 REGIONS, DIM, ANSWERS = 10, 16, 6
@@ -18,13 +19,11 @@ N_TRAIN, N_VAL, N_TEST, BATCH = 20, 12, 6, 8
 
 
 @pytest.fixture(autouse=True)
-def _restore_port_registry():
-    from mmf_tpu_torch.common.registry import registry
-
-    state = dict(registry.mapping["state"])
-    yield
-    registry.mapping["state"].clear()
-    registry.mapping["state"].update(state)
+def _restore_registries():
+    """The datasets cache their processors in both registries (JAX's
+    too): put both back, so that no later file's dataset reuses them."""
+    with registries_restored():
+        yield
 
 
 @pytest.fixture(scope="module")

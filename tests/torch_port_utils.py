@@ -1,6 +1,9 @@
 """Shared helpers of the port's tests (tests/test_torch_*.py): a tiny
 VisualBERT built in JAX and in the port from the same YAML, with the JAX
-init carried across by ``params_from_jax``, and numpy inputs fed to both."""
+init carried across by ``params_from_jax``, and numpy inputs fed to both;
+``registries_restored`` for the tests that fill the registries."""
+
+import contextlib
 
 import numpy as np
 import torch
@@ -21,6 +24,29 @@ TINY = {
     "dtype": "float32",
 }
 META = {"dataset_name": "vqa2", "dataset_type": "val"}
+
+
+@contextlib.contextmanager
+def registries_restored(empty=False):
+    """Both registries' state (JAX's and the port's) put back as it was
+    after the block; with ``empty``, emptied for the block. A dataset
+    caches its processors there under its name (``vqa2_text_processor``,
+    ...) and a later dataset of that name, in any test file the process
+    runs afterwards, reuses them and reads its data through them."""
+    from mmf_tpu.common.registry import registry as jax_registry
+    from mmf_tpu_torch.common.registry import registry as port_registry
+
+    saved = [(r, dict(r.mapping["state"]))
+             for r in (jax_registry, port_registry)]
+    if empty:
+        for r, _ in saved:
+            r.mapping["state"].clear()
+    try:
+        yield
+    finally:
+        for r, state in saved:
+            r.mapping["state"].clear()
+            r.mapping["state"].update(state)
 
 
 def jax_visual_bert(overrides):
