@@ -182,6 +182,29 @@ the script exits non-zero without a result line):
               weights on its first batch through the kernels against 3
               through the plain versions; the bucket-32 forward through
               both; mmf_serve on the run's folder.
+20. hm-kernels - K1 (its three forms), K2 and K3 at Hateful Memes' shapes:
+              MMBT's [32, 12, 131, 64] bf16 (3 modal tokens and 128 text
+              tokens masked by length) and the baselines' f32 BERT at
+              [64, 12, 128, 64], against their plain versions, timed
+              beside SDPA with host time and the bound.
+21. hm-mmbt-run - mmf_run trains MMBT on Hateful Memes from
+              projects/hateful_memes/configs/mmbt/defaults.yaml over raw
+              images (tests/torch_hm_layout.py: PNG memes of 300-800 px;
+              ResNet-152 at 224 px in training mode, its BatchNorm
+              statistics updated; bf16 trunk, B=32): 8 updates, one
+              evaluation (accuracy, binary_f1, roc_auc), csv predictions
+              (id,proba,label); exact launches per update and eval
+              forward; samples/s, the loader alone, the host split, device
+              time by kind and the idle share, peak memory; 3 steps from
+              the run's initial weights through the kernels against the
+              plain versions at attention dropout 0, the ResNet's running
+              statistics included.
+22. hm-baselines - concat_bert, late_fusion, concat_bow, unimodal_text
+              (text.yaml and bert.yaml) and unimodal_image through mmf_run
+              from their project configs at their batch sizes: 2 updates,
+              one evaluation, csv predictions, exact launches (none for
+              the models without BERT); concat_bert's bucket-32 forward
+              against the f32 CPU forward of the same weights.
 
 Then one JSON line describing the kernels, the nvidia-smi line, and the
 last line {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -1256,9 +1279,10 @@ DEVICE_CATEGORIES = (  # kernel-name fragment -> category, first match
     (("_ln_fwd_kernel",), "LayerNorm K4"),
     (("ln_bwd_",), "LayerNorm backward K4-bwd"),
     (("int8_gemm",), "int8 GEMM K5"),
+    # before the convolutions: cuDNN's BatchNorm kernels are cudnn::bn_*
+    (("bn_fw", "bn_bw", "batch_norm"), "BatchNorm"),
     (("fprop", "conv", "winograd", "implicit_gemm", "cudnn"),
      "convolutions (cuDNN)"),
-    (("bn_fw", "batch_norm"), "BatchNorm"),
     (("nvjet", "gemm", "cutlass", "sm90_", "xmma"), "GEMMs"),
     (("multi_tensor_apply",), "optimizer"),
     # the masked-LM loss's f32 log_softmax over the vocabulary (attention's
@@ -1330,12 +1354,14 @@ def _by_category(prof, n, gemm_dim=None):
 def _compared_steps(cfg, state_dict, batch, steps=COMPARED_STEPS,
                     trainer=flagship.vqa2_trainer,
                     build=flagship.vqa2_visual_bert,
-                    no_dropout=(("hidden_dropout_prob", 0.0),)):
+                    no_dropout=(("hidden_dropout_prob", 0.0),),
+                    stats_out=None):
     """``steps`` steps at dropout 0 from ``state_dict``: (losses,
     gradients of the first step, None for a parameter that got none,
     parameter updates after all, launch counts). The schedule's update 0
     runs at lr 0, so the first two losses are taken at the initial
-    weights and the third after an update at lr > 0."""
+    weights and the third after an update at lr > 0. ``stats_out``, a
+    dict, receives the BatchNorms' running statistics after the steps."""
     model = build(cfg, dict(no_dropout))
     model.load_state_dict(state_dict, strict=True)
     state, step = trainer(model, cfg, seed=1)
@@ -1351,6 +1377,9 @@ def _compared_steps(cfg, state_dict, batch, steps=COMPARED_STEPS,
     launches = read_counts()
     updates = {n: p.detach().cpu() - state_dict[n]
                for n, p in model.named_parameters()}
+    if stats_out is not None:
+        stats_out.update({n: b.detach().cpu() for n, b in
+                          model.named_buffers() if "running_" in n})
     return losses, grads, updates, launches
 
 
@@ -2980,7 +3009,7 @@ def _served_folder(card, save_dir, model, samples, per_forward, meta,
 
 
 def _cli_run(save_dir, config, model, dataset, updates, opts,
-             attention_cut=False):
+             attention_cut=False, batch_size=RUN_B):
     """``mmf_run`` (``cli.run.run``) of ``model`` with the step recorder
     (and, with ``attention_cut``, ``_AttentionCut``): (trainer, recorder,
     launches, seconds). The processors an earlier run left in the
@@ -2996,7 +3025,7 @@ def _cli_run(save_dir, config, model, dataset, updates, opts,
         ", {type: chip_smoke_attention_cut}" if attention_cut else "")
     run_opts = [
         f"config={config}", f"model={model}", f"dataset={dataset}",
-        f"env.save_dir={save_dir}", f"training.batch_size={RUN_B}",
+        f"env.save_dir={save_dir}", f"training.batch_size={batch_size}",
         f"training.max_updates={updates}", "training.log_interval=1",
         f"training.num_workers={RUN_WORKERS}", "training.pin_memory=true",
         "training.seed=1", "scheduler.params.num_warmup_steps=2",
@@ -3319,11 +3348,11 @@ def _vilt_layer_norm_case(g):
     return fwd, bwd
 
 
-def _vilt_raw_case(q, k, v, bias):
-    """K1's raw-stats form in f32 at ViLT's shape against its plain
-    version, timed beside it with host time and the bound (no PyTorch call
-    returns the unnormalized state); and the f32 K1 in its three forms
-    bit-equal across two calls."""
+def _raw_case(q, k, v, bias, label="vilt", iters=3, plain_iters=2):
+    """K1's raw-stats form against its plain version, timed beside it
+    with host time and the bound (no PyTorch call returns the
+    unnormalized state); and K1 in its three forms bit-equal across two
+    calls."""
     dt = q.dtype
     first = (A.flash_attention(q, k, v, bias),) + \
         A.flash_attention_with_stats(q, k, v, bias) + \
@@ -3333,32 +3362,38 @@ def _vilt_raw_case(q, k, v, bias):
         A.flash_attention_block(q, k, v, bias)
     torch.cuda.synchronize()
     check(all(torch.equal(x, y) for x, y in zip(first, second)),
-          "vilt: f32 K1 forms not bit-equal across calls")
+          f"{label}: K1 forms not bit-equal across calls")
     acc, m, l = first[4:]
     del first, second
     ref = A.flash_attention_block_reference(q, k, v, bias)
     torch.testing.assert_close(m, ref[1], **STATS_TOL)
     torch.testing.assert_close(l, ref[2], **STATS_TOL)
-    err = max(rel_err(acc, ref[0], RAW_REL[dt], "raw acc vilt"),
+    err = max(rel_err(acc, ref[0], RAW_REL[dt], f"raw acc {label}"),
               float((m - ref[1]).abs().max()),
               float((l - ref[2]).abs().max()))
     del ref
     b, heads, sq, head_dim = q.shape
     pairs = b * heads * sq * k.shape[2] * head_dim
     nbytes = 3 * _nbytes(q) + _nbytes(bias) + _nbytes(acc, m, l)
-    bound_ms, bound_by = max((1e3 * nbytes / HBM_BYTES_PER_S, "bytes"), (
-        1e3 * SPLIT_TF32_PRODUCTS * 4 * pairs / TF32_FLOPS, "operations"))
+    if dt == torch.float32:
+        bound_ms, bound_by = max((1e3 * nbytes / HBM_BYTES_PER_S, "bytes"), (
+            1e3 * SPLIT_TF32_PRODUCTS * 4 * pairs / TF32_FLOPS,
+            "operations"))
+    else:
+        bound_ms, bound_by = bound(nbytes, 4 * pairs, dt)
 
     def call():
         return A.flash_attention_block(q, k, v, bias)
 
-    return {"max_abs_err": err, "ms": device_ms(call, iters=3, repeats=3),
+    return {"max_abs_err": err,
+            "ms": device_ms(call, iters=iters, repeats=3),
             "host_us": host_us(call, iters=10),
             "plain_ms": time_ms(
                 lambda: A.flash_attention_block_reference(q, k, v, bias),
-                iters=2, repeats=3),
+                iters=plain_iters, repeats=3),
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "fma_bound_ms": bound(nbytes, 4 * pairs, dt)[0],
+            "fma_bound_ms": (bound(nbytes, 4 * pairs, dt)[0]
+                             if dt == torch.float32 else None),
             "library_ms": None}
 
 
@@ -3368,7 +3403,7 @@ def phase_vilt_kernels(card):
     # f32 at ViLT's size: a plain backward call takes ~13 ms
     att = _attention_case("vilt", q, k, v, bias, dout, iters=3, plain_iters=2,
                           repeats=3)
-    raw = _vilt_raw_case(q, k, v, bias)
+    raw = _raw_case(q, k, v, bias)
     del q, k, v, bias, dout
     ln_fwd, ln_bwd = _vilt_layer_norm_case(g)
     torch.cuda.empty_cache()
@@ -3502,26 +3537,39 @@ def _vilt_build(cfg, overrides):
     return _without_dropout(flagship.vilt(cfg, overrides))
 
 
-def _kernels_vs_plain(cfg, init, batch, build, trainer, steps, label):
+def _kernels_vs_plain(cfg, init, batch, build, trainer, steps, label,
+                      stats=None, update_held=None):
     """``steps`` steps through the kernels and through the plain versions
     from ``init``: (losses, worst gradient cosine, worst norm-relative
-    error, worst update cosine, launches), each bound checked."""
+    error, worst update cosine, launches), each bound checked. ``stats``,
+    a list, receives the two sides' BatchNorm statistics after the
+    steps. ``update_held(name)``: the parameters the update cosine's
+    bound holds on (all by default); the others' worst is printed."""
+    k_stats, p_stats = {}, {}
     k_losses, k_grads, k_upd, k_launches = _compared_steps(
         cfg, init, batch, steps=steps, trainer=trainer, build=build,
-        no_dropout=())
+        no_dropout=(), stats_out=k_stats)
     with plain_versions():
         p_losses, p_grads, p_upd, p_launches = _compared_steps(
             cfg, init, batch, steps=steps, trainer=trainer, build=build,
-            no_dropout=())
+            no_dropout=(), stats_out=p_stats)
+    if stats is not None:
+        stats.extend([k_stats, p_stats])
     check(p_launches == ZERO_COUNTS, f"{label} plain launches {p_launches}")
     loss_rel = _check_losses(k_losses, p_losses)
     compared, g_cos, g_rel, worst_g, worst_r = _check_gradients(k_grads,
                                                                 p_grads)
     u_cos = {n: _cosine(k_upd[n], p_upd[n]) for n in compared
              if float(p_upd[n].abs().max()) > 0}
-    worst_u = min(u_cos, key=u_cos.get)
+    held = [n for n in u_cos if update_held is None or update_held(n)]
+    worst_u = min(held, key=u_cos.get)
     check(u_cos[worst_u] >= TRAIN_MIN_UPDATE_COSINE,
           f"{label} update cosine {u_cos[worst_u]} at {worst_u}")
+    others = ""
+    if len(held) < len(u_cos):
+        worst_o = min((n for n in u_cos if n not in held), key=u_cos.get)
+        others = (f"; not held ({len(u_cos) - len(held)} parameters): min "
+                  f"{u_cos[worst_o]:.6f} at {worst_o}")
     del k_grads, p_grads, k_upd, p_upd
     torch.cuda.empty_cache()
     return (f"{steps} steps at dropout 0 (launches {k_launches} vs "
@@ -3532,7 +3580,7 @@ def _kernels_vs_plain(cfg, init, batch, build, trainer, steps, label):
             f"{g_rel[worst_r]:.3g} at {worst_r} (bound "
             f"{TRAIN_MAX_GRAD_REL}); update cosine min {u_cos[worst_u]:.6f} "
             f"at {worst_u} (bound {TRAIN_MIN_UPDATE_COSINE}; "
-            f"{len(u_cos)} parameters that moved); {len(compared)} "
+            f"{len(held)} parameters that moved{others}); {len(compared)} "
             "parameters compared (the attention key biases left out)"), \
         k_launches
 
@@ -3682,7 +3730,7 @@ def _vilt_pretraining(card):
     return {k: launches[k] + k_launches[k] for k in launches}
 
 
-def _loader_alone(trainer, n):
+def _loader_alone(trainer, n, dataset_name="vqa2", batch_size=RUN_B):
     """The train loader alone: ``n`` batches of a restarted epoch
     (workers started again first), batches/s; then one batch's samples
     read and processed in this process, seconds."""
@@ -3693,9 +3741,9 @@ def _loader_alone(trainer, n):
     for _, _b in zip(range(n), loader):
         pass
     bps = n / (time.perf_counter() - t1)
-    dataset = trainer.dataset_loader.datamodules["vqa2"].train_dataset
+    dataset = trainer.dataset_loader.datamodules[dataset_name].train_dataset
     t1 = time.perf_counter()
-    for i in range(RUN_B):
+    for i in range(batch_size):
         dataset[i]
     return bps, time.perf_counter() - t1
 
@@ -3929,6 +3977,447 @@ def phase_mmft_run(card):
     return {k: launches[k] + served_launches[k] for k in launches}
 
 
+# -- phases 20-22: Hateful Memes ---------------------------------------------
+# MMBT on Hateful Memes: 3 modal tokens (start, the pooled ResNet cell,
+# end) before 128 text tokens; the baselines' f32 BERT over 128 tokens
+HM_MMBT_S, HM_TEXT_S = 3 + SEQ, SEQ
+HM_B = 32  # projects/hateful_memes/configs/mmbt/defaults.yaml's batch
+HM_BASELINE_B = 64  # concat_bert's and late_fusion's
+HM_UPDATES = 8
+HM_SPLITS = {"train": 256, "val": 64, "test": 64}
+HM_IMAGES = 64  # memes of 300-800 px a side; samples share them
+HM_LN = 26  # MMBT: 24 in the layers, the embedding LayerNorm twice
+BERT_LN = 25  # the baselines' TransformerModel: 24 and the embeddings'
+HM_ATTENTION = 12
+# the ResNet's BatchNorm statistics after the compared steps, kernels
+# against plain versions, relative to each tensor's largest entry: the
+# ResNet runs neither kernel, but the second and third steps' batch
+# statistics come from weights that Adam's first update moved by +-lr
+# wherever a gradient lies within bf16 noise of 0, which differs between
+# the sides (measured 5.1e-3 on an NVIDIA H100 80GB HBM3, 700 W)
+HM_STATS_REL = 3e-2
+# the baselines: (HATEFUL_MEMES_CONFIGS key, batch, BERT text encoder)
+HM_BASELINES = (("concat_bert", 64, True), ("late_fusion", 64, True),
+                ("concat_bow", 32, False), ("unimodal_text", 64, False),
+                ("unimodal_text_bert", 128, True),
+                ("unimodal_image", 32, False))
+HM_BASELINE_UPDATES = 2
+
+
+def _hm_attention_inputs(b, s, n_modal, dtype, g):
+    """q, k, v, dO [b, 12, s, 64] as the views the attention block hands
+    over, and a Hateful Memes mask as a bias: ``n_modal`` modal tokens,
+    always valid, then texts of 6 tokens to the rest."""
+    def proj():
+        return torch.randn(b, s, HEADS, HEAD_DIM, device=DEV,
+                           generator=g).to(dtype).transpose(1, 2)
+
+    lengths = torch.randint(6, s - n_modal + 1, (b,), device=DEV,
+                            generator=g)
+    text = (torch.arange(s - n_modal, device=DEV)[None] < lengths[:, None])
+    mask = torch.cat([torch.ones(b, n_modal, dtype=torch.int32, device=DEV),
+                      text.int()], dim=1)
+    return (proj(), proj(), proj(), A.make_attention_bias(mask, dtype),
+            proj())
+
+
+def phase_hm_kernels(card):
+    """K1 (all three forms), K2 and K3 at MMBT's [32, 12, 131, 64] bf16
+    and the baselines' [64, 12, 128, 64] f32, against their plain
+    versions."""
+    g = torch.Generator(device=DEV).manual_seed(13)
+    rows, raws = {}, {}
+    for label, b, s, n_modal, dt in (
+            ("mmbt", HM_B, HM_MMBT_S, 3, torch.bfloat16),
+            ("baselines", HM_BASELINE_B, HM_TEXT_S, 0, torch.float32)):
+        q, k, v, bias, dout = _hm_attention_inputs(b, s, n_modal, dt, g)
+        rows[label] = _attention_case(f"hateful memes {label}", q, k, v,
+                                      bias, dout)
+        raws[label] = _raw_case(q, k, v, bias, label, iters=20,
+                                plain_iters=10)
+        del q, k, v, bias, dout
+    torch.cuda.empty_cache()
+    print(f"phase hm-kernels: ok K1, K1-stats, K1-raw, K2 and K3 at MMBT's "
+          f"[{HM_B}, 12, {HM_MMBT_S}, 64] bf16 (3 modal tokens and texts of "
+          f"6-{SEQ} tokens: 131 = 2 x 64 + 3 rows) and the f32 baselines' "
+          f"[{HM_BASELINE_B}, 12, {HM_TEXT_S}, 64] (texts of 6-{SEQ} "
+          "tokens: two full tiles), against their plain versions within "
+          "the kernels phase's bounds (K1's three forms bit-equal across "
+          "two calls); device ms (spin-queued), SDPA's, the plain "
+          "versions' (CUDA events), host us a call and the bound (f32: "
+          "split-TF32 operations or bytes, the FP32 FMA bound beside it) "
+          f"on '{card}':")
+    for label, r in rows.items():
+        ms, lib, raw = r["ms"], r["library_ms"], raws[label]
+        fma = r["fma_bound_ms"]
+        print(f"  {label} {r['shape']}: max_abs_err " + ", ".join(
+            f"{n} {e:.3g}" for n, e in r["max_abs_err"].items())
+            + f", K1-raw {raw['max_abs_err']:.3g}; " + ", ".join(
+                f"{n} {ms[n]:.4f} (bound {r['bound_ms'][n]:.4f} "
+                f"{r['bound_by'][n]}"
+                + (f", FMA {fma[n]:.4f}" if fma else "") + ")" for n in ms)
+            + f", K1-raw {raw['ms']:.4f} (bound {raw['bound_ms']:.4f} "
+            f"{raw['bound_by']}; plain {raw['plain_ms']:.4f}); sdpa fwd "
+            f"{lib['K1']:.4f}, fwd+lse {lib['K1-stats']:.4f}, bwd "
+            f"{lib['K2+K3']:.4f} (K2+K3 {ms['K2'] + ms['K3']:.4f}); plain "
+            + ", ".join(f"{n} {t:.4f}" for n, t in r["plain_ms"].items())
+            + "; host us " + ", ".join(f"{n} {u:.1f}" for n, u in
+                                       r["host_us"].items())
+            + f", K1-raw {raw['host_us']:.1f}")
+    return rows, raws
+
+
+def _hm_layout(tmp):
+    from tests.torch_hm_layout import write_layout
+
+    t0 = time.perf_counter()
+    write_layout(tmp, n_train=HM_SPLITS["train"], n_val=HM_SPLITS["val"],
+                 n_test=HM_SPLITS["test"], n_images=HM_IMAGES,
+                 vocab_size=VOCAB, seed=0)
+    return time.perf_counter() - t0
+
+
+def _hm_opts(tmp, key, updates):
+    from tests.torch_hm_layout import layout_opts
+
+    bert = flagship.HATEFUL_MEMES_CONFIGS[key][1]
+    opts = _evaluated(updates) + layout_opts(tmp, bert) + \
+        flagship.HATEFUL_MEMES_OVERRIDES.get(key, [])
+    if key != "mmbt":
+        # the final model only: a baseline's checkpoints with its
+        # optimizer state take 0.8-2 GB each
+        opts.append("training.checkpoint_interval=1000")
+    return opts
+
+
+def _hm_reports(trainer, label):
+    """The run's csv prediction reports: one row a val and a test sample,
+    columns id, proba, label; then val's accuracy, binary_f1 and roc_auc
+    through the evaluation loop, each finite."""
+    import csv
+    import glob
+
+    save_dir = trainer.config["env"]["save_dir"]
+    rows = {}
+    for split in ("val", "test"):
+        files = glob.glob(os.path.join(save_dir, "reports",
+                                       f"hateful_memes_*_{split}_*.csv"))
+        check(len(files) == 1, f"{label} {split} reports {files}")
+        with open(files[0]) as f:
+            rows[split] = list(csv.DictReader(f))
+        check(len(rows[split]) == HM_SPLITS[split] and all(
+            list(r) == ["id", "proba", "label"]
+            and 0.0 <= float(r["proba"]) <= 1.0 and r["label"] in "01"
+            for r in rows[split]), f"{label} {split} rows {rows[split][:2]}")
+    report, meter = trainer.evaluation_loop("val")
+    metrics = {k: meter.meters[f"val/hateful_memes/{k}"].global_avg
+               for k in ("accuracy", "binary_f1", "roc_auc")}
+    check(report.batch_size == HM_SPLITS["val"] and all(
+        math.isfinite(v) for v in metrics.values()),
+        f"{label} val {report.batch_size} samples, {metrics}")
+    return metrics
+
+
+def _hm_step_device_ms(cfg, recorder):
+    """Device time of the train step alone (torch.profiler, 2 steps after
+    a warm-up) from the run's initial weights on its first batch: (ms a
+    step, {category: (ms, launches)})."""
+    model = flagship.hateful_memes_model(cfg)
+    model.load_state_dict(recorder.initial, strict=True)
+    state, step = flagship.hateful_memes_trainer(model, cfg, seed=1,
+                                                 device=DEV)
+    box = [state]
+
+    def one_step():
+        box[0], rep = step(box[0], recorder.batches[0])
+        float(rep["total_loss"])
+
+    one_step()
+    result = _device_ms(one_step, 2)
+    del state, step, model, box
+    torch.cuda.empty_cache()
+    return result
+
+
+def _hm_forwards(batch_size):
+    val = -(-HM_SPLITS["val"] // batch_size)
+    return 2 * val + -(-HM_SPLITS["test"] // batch_size)
+
+
+def phase_hm_mmbt_run(card):
+    """mmf_run trains MMBT on Hateful Memes from its project config over
+    raw images (ResNet-152 at 224 px trained with its BatchNorm
+    statistics), evaluates and predicts csv rows; then 3 steps from the
+    run's initial weights through the kernels against the plain
+    versions at attention dropout 0."""
+    import shutil
+
+    from mmf_tpu_torch.common.registry import registry
+    from mmf_tpu_torch.modules.resnet import BatchNorm
+
+    registry.register_callback("chip_smoke_recorder")(_StepRecorder)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_hm_")
+    trainer = None
+    key, u = "mmbt", HM_UPDATES
+    try:
+        layout_s = _hm_layout(tmp)
+        torch.cuda.reset_peak_memory_stats()
+        trainer, recorder, launches, run_s = _cli_run(
+            os.path.join(tmp, "save"), flagship.HATEFUL_MEMES_CONFIGS[key][0],
+            key, "hateful_memes", u, _hm_opts(tmp, key, u),
+            batch_size=HM_B)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        mc = trainer.config["model_config"]["mmbt"]
+        text = mc["text_encoder"]["params"]
+        sched = trainer.config["scheduler"]["params"]["num_training_steps"]
+        check((text["hidden_size"], text["num_hidden_layers"], mc["dtype"],
+               mc["num_labels"], trainer.config["evaluation"][
+                   "predict_file_format"], sched) == (
+            HIDDEN, 12, "bfloat16", 2, "csv", u), f"{dict(mc)} {sched}")
+        batch = recorder.batches[0]
+        check(tuple(batch["image"].shape) == (HM_B, 3, 224, 224)
+              and tuple(batch["input_ids"].shape) == (HM_B, SEQ),
+              f"mmbt batch {tuple(batch['image'].shape)}")
+        losses = list(trainer.meter.meters[
+            "train/hateful_memes/cross_entropy"].averaged_value_deque)
+        check(len(losses) == u and all(math.isfinite(x) for x in losses),
+              f"mmbt losses {losses}")
+        # the config's attention-probability dropout (0.1) sends the
+        # training steps' attention to the plain version, as in JAX
+        forwards = _hm_forwards(HM_B)
+        want = dict(ZERO_COUNTS, flash_attention_fwd=HM_ATTENTION * forwards,
+                    layer_norm=HM_LN * (u + forwards),
+                    layer_norm_bwd=HM_LN * u)
+        check(launches == want, f"mmbt launches {launches}, want {want}")
+        n_bn = sum(isinstance(m, BatchNorm) for m in trainer.model.modules())
+        stats = dict(trainer.model.named_buffers())
+        check(int(stats["ResNet152ImageEncoder_0.model.bn1."
+                        "num_batches_tracked"]) == u, "BatchNorm steps")
+        metrics = _hm_reports(trainer, "mmbt")
+        t = recorder.loss_read
+        steady = [n for n in range(3, u + 1)]
+        sps = HM_B * len(steady) / (t[u] - t[2])
+        update_ms = 1e3 * (t[u] - t[2]) / len(steady)
+        meters = trainer.profile_meter.meters
+        split = {k: 1e3 * meters[k].median for k in RUN_POINTS
+                 if k in meters and meters[k].averaged_value_deque}
+        bps, batch_s = _loader_alone(trainer, 4, "hateful_memes", HM_B)
+        trainer.teardown()
+
+        # the train step alone on the run's first batch: device time
+        # by kind, against the CLI's update time
+        cfg = trainer.config
+        dev_ms, by_category = _hm_step_device_ms(cfg, recorder)
+
+        # kernels vs plain versions at attention dropout 0. Adam's first
+        # steps move each weight by about its lr whatever its gradient's
+        # size, so an update's cosine counts the signs that agree; the
+        # ResNet's gradients reach it through the bf16 trunk, and those
+        # within bf16 noise of 0 step either way: the ResNet is held by
+        # its gradients and its BatchNorm statistics, the update cosine
+        # by the trunk
+        bn_stats = []
+        vs_plain, k_launches = _kernels_vs_plain(
+            cfg, recorder.initial, batch,
+            lambda c, o: _without_dropout(flagship.hateful_memes_model(c, o)),
+            flagship.hateful_memes_trainer, COMPARED_STEPS, "mmbt",
+            stats=bn_stats,
+            update_held=lambda n: not n.startswith("ResNet152ImageEncoder"))
+        per_step = dict(ZERO_COUNTS, flash_attention_fwd_stats=HM_ATTENTION,
+                        flash_attention_bwd_dq=HM_ATTENTION,
+                        flash_attention_bwd_dkv=HM_ATTENTION,
+                        layer_norm=HM_LN, layer_norm_bwd=HM_LN)
+        check(k_launches == {k: v * COMPARED_STEPS for k, v in
+                             per_step.items()}, f"mmbt kernel side "
+              f"{k_launches}")
+        k_stats, p_stats = bn_stats
+        check(set(k_stats) == set(p_stats) and len(k_stats) == 2 * n_bn,
+              f"{len(k_stats)} running statistics, {n_bn} BatchNorms")
+        stats_err = {n: float((k_stats[n] - p_stats[n]).abs().max())
+                     / float(p_stats[n].abs().max()) for n in k_stats}
+        worst_s = max(stats_err, key=stats_err.get)
+        stats_rel = stats_err[worst_s]
+        moved = min(float((p_stats[n] - recorder.initial[n]).abs().max())
+                    for n in p_stats)
+        check(stats_rel <= HM_STATS_REL and moved > 0,
+              f"mmbt BatchNorm statistics kernels vs plain: {stats_rel} at "
+              f"{worst_s}; least moved {moved}")
+        print(f"phase hm-mmbt-run: ok mmf_run trains MMBT on Hateful Memes "
+              f"with {flagship.HATEFUL_MEMES_CONFIGS[key][0]} over raw images"
+              f" (ResNet-152 at 224 px in training mode, {n_bn} BatchNorms; "
+              f"12 x {HIDDEN} bf16 trunk over {HM_MMBT_S} tokens; B={HM_B}, "
+              f"{RUN_WORKERS} loader workers; the synthetic layout: "
+              f"{HM_SPLITS} memes over {HM_IMAGES} PNG images of 300-800 px,"
+              f" written in {layout_s:.1f}s; warmup cut to 2): {u} updates, "
+              f"losses {[round(x, 4) for x in losses]}; launches "
+              f"{launches} (exact: {HM_LN} K4 and K4-bwd an update, the "
+              "training attention plain at the config's dropout 0.1; 12 K1 "
+              f"+ {HM_LN} K4 in each of {forwards} eval forwards); val "
+              + ", ".join(f"{k} {v:.4f}" for k, v in metrics.items())
+              + f"; csv reports of {HM_SPLITS['val']} val and "
+              f"{HM_SPLITS['test']} test rows (id,proba,label); "
+              f"num_training_steps '${{training.max_updates}}' read as {sched}")
+        print(f"  on '{card}': train {sps:.1f} samples/s over updates "
+              f"3-{u} ({update_ms:.1f} ms an update); the loader alone "
+              f"{bps:.2f} batches/s ({HM_B * bps:.0f} samples/s), one "
+              f"batch's {HM_B} samples (PNG decode, resize 256, crop 224, "
+              f"tokenizer) in this process {batch_s:.2f}s; host split (ms, "
+              "median of the run's updates): " + ", ".join(
+                  f"{k} {v:.2f}" for k, v in split.items())
+              + f"; device time {dev_ms:.2f} ms a step (torch.profiler, 2 "
+              f"steps of the train step alone on the run's first batch): "
+              f"idle {100 * max(0.0, 1 - dev_ms / update_ms):.1f}% of the "
+              f"CLI's update; run {run_s:.1f}s; max_memory_allocated "
+              f"{peak_gb:.2f} GB")
+        print("  device time a step by kind of kernel (ms, launches): "
+              + "; ".join(f"{cat} {ms:.2f} x{cnt:.0f}" for cat, (ms, cnt) in
+                          sorted(by_category.items(),
+                                 key=lambda kv: -kv[1][0])))
+        print(f"  kernels vs plain versions, the run's first batch and "
+              f"initial weights at dropout 0: {vs_plain}; the ResNet's "
+              f"BatchNorm statistics after the {COMPARED_STEPS} steps: max "
+              f"rel {stats_rel:.3g} at {worst_s} (bound {HM_STATS_REL}), "
+              f"every one moved from its initial value (least {moved:.3g})")
+    finally:
+        if trainer is not None:
+            trainer.teardown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
+def _hm_served_vs_cpu(model, label):
+    """The run's model served at bucket 32 (an in-memory engine, the
+    kernels) against the f32 CPU forward of the same weights (plain
+    versions): (max abs error over the largest |score|, cosine of the
+    scores), checked against the ViLT phase's f32 bounds taken relative
+    to the largest score (the ResNet's eval activations at seeded
+    weights reach 1e3 and more)."""
+    batch = flagship.hateful_memes_train_batch(SERVE_B, seed=9)
+    batch.pop("targets")
+    samples = flagship.split_samples(dict(batch, **flagship.HATEFUL_MEMES_META))
+    engine = ServingEngine(copy.deepcopy(model), device=DEV,
+                           max_batch_size=SERVE_B)
+    reset_counts()
+    got = np.stack([np.asarray(o["scores"], np.float32)
+                    for o in engine.predict_many(samples)])
+    launches = read_counts()
+    check(launches == dict(ZERO_COUNTS, flash_attention_fwd=HM_ATTENTION,
+                           layer_norm=BERT_LN),
+          f"{label} served launches {launches}")
+    del engine
+    cpu = copy.deepcopy(model).cpu().eval()
+    cpu_batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    with torch.inference_mode():
+        want = cpu(dict(cpu_batch, **flagship.HATEFUL_MEMES_META))[
+            "scores"].float().numpy()
+    top = float(np.abs(want).max())
+    err = float(np.abs(got - want).max()) / top
+    cos = float((got * want).sum() / (np.linalg.norm(got)
+                                      * np.linalg.norm(want)))
+    check(got.shape == want.shape and err <= VILT_SERVE_ATOL
+          and cos >= VILT_SERVE_MIN_COSINE,
+          f"{label} served vs CPU f32: rel {err}, cosine {cos}")
+    return err, cos, top
+
+
+def phase_hm_baselines(card):
+    """mmf_run trains, evaluates and predicts each Hateful Memes baseline
+    from its project config at its batch size; concat_bert's bucket-32
+    forward against the CPU."""
+    import shutil
+
+    from mmf_tpu_torch.common.registry import registry
+
+    registry.register_callback("chip_smoke_recorder")(_StepRecorder)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_hm_baselines_")
+    total = dict(ZERO_COUNTS)
+    lines = []
+    served = step_ms = None
+    u = HM_BASELINE_UPDATES
+    try:
+        layout_s = _hm_layout(tmp)
+        for key, b, bert in HM_BASELINES:
+            name = flagship.hateful_memes_model_name(key)
+            torch.cuda.reset_peak_memory_stats()
+            trainer, recorder, launches, run_s = _cli_run(
+                os.path.join(tmp, f"save_{key}"),
+                flagship.HATEFUL_MEMES_CONFIGS[key][0], name,
+                "hateful_memes", u, _hm_opts(tmp, key, u), batch_size=b)
+            try:
+                peak_gb = torch.cuda.max_memory_allocated() / 1e9
+                check(int(trainer.config["training"]["batch_size"]) == b,
+                      f"{key} batch size")
+                losses = list(trainer.meter.meters[
+                    "train/hateful_memes/cross_entropy"].averaged_value_deque)
+                check(len(losses) == u and all(math.isfinite(x)
+                                               for x in losses),
+                      f"{key} losses {losses}")
+                forwards = _hm_forwards(b)
+                want = dict(ZERO_COUNTS)
+                if bert:
+                    want.update(flash_attention_fwd=HM_ATTENTION * forwards,
+                                layer_norm=BERT_LN * (u + forwards),
+                                layer_norm_bwd=BERT_LN * u)
+                check(launches == want, f"{key} launches {launches}, want "
+                      f"{want}")
+                metrics = _hm_reports(trainer, key)
+                t = recorder.loss_read
+                n_params = sum(p.numel() for p in trainer.model.parameters())
+                lines.append(
+                    f"  {key} ({n_params / 1e6:.1f}M params, B={b}): losses "
+                    f"{[round(x, 4) for x in losses]}; launches "
+                    f"{ {k: v for k, v in launches.items() if v} or 'none'} "
+                    "(exact" + (f": {BERT_LN} K4 and K4-bwd an update, 12 K1"
+                                f" + {BERT_LN} K4 in each of {forwards} eval"
+                                " forwards" if bert else "") + "); val "
+                    + ", ".join(f"{k} {v:.4f}" for k, v in metrics.items())
+                    + f"; update 2 {1e3 * (t[2] - t[1]):.1f} ms; run "
+                    f"{run_s:.1f}s; max_memory_allocated {peak_gb:.2f} GB")
+                for k in total:
+                    total[k] += launches[k]
+                if key == "concat_bert":
+                    model = flagship.hateful_memes_model(trainer.config)
+                    model.load_state_dict({k: v.cpu() for k, v in
+                                           trainer.model.state_dict().items()},
+                                          strict=True)
+                    served = _hm_served_vs_cpu(model, key)
+                    del model
+                    # the f32 BERT's GEMMs run without TF32 (cuBLAS's
+                    # default): their share of a step
+                    step_ms = _hm_step_device_ms(trainer.config, recorder)
+            finally:
+                trainer.teardown()
+                del trainer, recorder
+                torch.cuda.empty_cache()
+        err, cos, top = served
+        print(f"phase hm-baselines: ok mmf_run trains each Hateful Memes "
+              f"baseline from its project config ({u} updates, one "
+              "evaluation, csv predictions; the synthetic layout written in "
+              f"{layout_s:.1f}s; warmup cut to 2; the unimodal text configs "
+              "with flagship.HATEFUL_MEMES_OVERRIDES' optimizer); the BERT "
+              "text encoders in f32, their training attention plain at "
+              f"dropout 0.1, on '{card}':")
+        for line in lines:
+            print(line)
+        dev_ms, by_category = step_ms
+        print(f"  concat_bert's step (B={HM_BASELINE_B}) alone on its run's "
+              f"first batch: device time {dev_ms:.2f} ms (torch.profiler, 2 "
+              "steps), GEMMs "
+              f"{100 * by_category.get('GEMMs', (0.0, 0))[0] / dev_ms:.0f}% "
+              "of it (the f32 BERT's, TF32 off, and the classifier's); by "
+              "kind (ms, launches): " + "; ".join(
+                  f"{cat} {ms:.2f} x{cnt:.0f}" for cat, (ms, cnt) in
+                  sorted(by_category.items(), key=lambda kv: -kv[1][0])))
+        print(f"  concat_bert at bucket 32 (an in-memory engine on the run's"
+              f" weights, the kernels, cuDNN's TF32 default) against its f32 "
+              f"CPU forward: max abs err {err:.3g} of the largest |score| "
+              f"{top:.4g} (bound {VILT_SERVE_ATOL}), cosine {cos:.7f} (bound"
+              f" {VILT_SERVE_MIN_COSINE})")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return total
+
+
 SOURCES = {  # name -> (route, source, the TPU kernel it replaces)
     "flash_attention_fwd": ("cuda",
                             "mmf_tpu_torch/ops/csrc/flash_attention_fwd.cu",
@@ -4005,6 +4494,8 @@ def main():
             phase_vilt_run(card)]
     mmft_att = phase_mmft_kernels(card)
     vilt.append(phase_mmft_run(card))
+    hm_att, hm_raw = phase_hm_kernels(card)
+    hm = [phase_hm_mmbt_run(card), phase_hm_baselines(card)]
     results["int8_dequant_gemm"]["vb_int8_forward_ms"] = k5_vb_ms
     # the attention kernels at ViLBERT's shapes (D = 128, Sq != Skv)
     short = {"flash_attention_fwd": "K1", "flash_attention_fwd_stats":
@@ -4031,6 +4522,18 @@ def main():
             "bound_by": vilt_att["bound_by"][kid],
             "fma_bound_ms": vilt_att["fma_bound_ms"][kid],
             "library_ms": vilt_att["library_ms"][lib]}
+        # and at Hateful Memes': MMBT's bf16 [32, 12, 131, 64], the
+        # baselines' f32 [64, 12, 128, 64]
+        results[name]["hateful_memes_shapes"] = {
+            label: {"shape": r["shape"],
+                    "dtype": "bfloat16" if label == "mmbt" else "float32",
+                    "max_abs_err": r["max_abs_err"][kid],
+                    "ms": r["ms"][kid], "host_us": r["host_us"][kid],
+                    "plain_ms": r["plain_ms"][lib],
+                    "bound_ms": r["bound_ms"][kid],
+                    "bound_by": r["bound_by"][kid],
+                    "library_ms": r["library_ms"][lib]}
+            for label, r in hm_att.items()}
         # and in bf16 at MMFT's [64, 12, 114, 64]
         results[name]["mmft_shape"] = {
             "shape": mmft_att["shape"], "dtype": "bfloat16",
@@ -4042,6 +4545,10 @@ def main():
             "library_ms": mmft_att["library_ms"][lib]}
     results["flash_attention_fwd_raw"]["vilt_shape"] = dict(
         vilt_raw, shape=vilt_att["shape"], dtype="float32")
+    results["flash_attention_fwd_raw"]["hateful_memes_shapes"] = {
+        label: dict(r, shape=hm_att[label]["shape"],
+                    dtype="bfloat16" if label == "mmbt" else "float32")
+        for label, r in hm_raw.items()}
     results["layer_norm"]["vilt_form"] = dict(
         vilt_ln, form=f"float32 [{VILT_ROWS}, {HIDDEN}] no residual")
     results["layer_norm_bwd"]["vilt_form"] = dict(
@@ -4059,13 +4566,15 @@ def main():
             # served checkpoint (K1, K4; K5 under int8), mmf_run (the
             # training path's kernels, and K1 and K4 in evaluation),
             # ViLBERT's serving, training, mmf_run and mmf_serve, ViLT's
-            # serving, training, pretraining, mmf_run and mmf_serve, and
-            # MMFT's mmf_run and mmf_serve
+            # serving, training, pretraining, mmf_run and mmf_serve,
+            # MMFT's mmf_run and mmf_serve, and the Hateful Memes runs
+            # (MMBT and the baselines)
             "launches": (served[name] + trained[name] + mmbt[name]
                          + vb_int8[name] + pretrained[name]
                          + served_ckpt[name] + mmf_run[name]
                          + sum(v[name] for v in vilbert)
-                         + sum(v[name] for v in vilt)),
+                         + sum(v[name] for v in vilt)
+                         + sum(v[name] for v in hm)),
             "max_abs_err": r["err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],
@@ -4075,7 +4584,8 @@ def main():
             **{k: r[k] for k in ("events_ms", "library_events_ms", "host_us",
                                  "vb_int8_forward_ms", "plain_vjp_ms",
                                  "forms", "vilbert_shapes", "vilt_shape",
-                                 "mmft_shape", "vilt_form") if k in r},
+                                 "mmft_shape", "hateful_memes_shapes",
+                                 "vilt_form") if k in r},
         })
     print(json.dumps({"kernels": kernels}))
     print(card_line())

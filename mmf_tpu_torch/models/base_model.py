@@ -84,6 +84,7 @@ class BaseModel(nn.Module):
         (out_channels * kh * kw)), so activations stay O(1) through a
         deep ResNet), BatchNorm weight 1, bias 0, running mean 0 and
         running variance 1."""
+        from mmf_tpu_torch.modules.resnet import BatchNorm
         from mmf_tpu_torch.modules.transformer import (
             Dense,
             Embed,
@@ -109,7 +110,7 @@ class BaseModel(nn.Module):
                 normal(module.weight, (2.0 / (o * kh * kw)) ** 0.5)
                 if module.bias is not None:
                     module.bias.zero_()
-            elif isinstance(module, nn.BatchNorm2d):
+            elif isinstance(module, BatchNorm):
                 module.weight.fill_(1.0)
                 module.bias.zero_()
                 module.running_mean.zero_()

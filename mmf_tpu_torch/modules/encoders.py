@@ -1,11 +1,16 @@
-"""Image encoders (the part of ``mmf_tpu/modules/encoders.py`` that MMBT
-uses).
+"""Encoders (the part of ``mmf_tpu/modules/encoders.py`` that MMBT and
+the Hateful Memes baselines use).
 
-Registered: ``identity`` and ``resnet152`` (grid features from
-ResNet-152). ``build_image_encoder`` keeps the JAX factory's config
-contract; with ``direct_features`` it builds ``identity`` only, and the
-other feature encoders (``projection``, ``finetune_faster_rcnn_fpn_fc7``)
-raise ``NotImplementedError`` naming the module that is not ported.
+Registered: ``identity``, ``resnet152`` (grid features from ResNet-152),
+``text_embedding`` (a ``TextEmbedding`` reduced over the tokens) and
+``transformer`` (a BERT-style ``TransformerModel`` in float32, JAX's
+default dtype, whose type table ``num_segments`` widens; it returns the
+pooled output). ``build_image_encoder`` and ``build_text_encoder`` keep
+the JAX factories' config contract (``embedding`` is the text factory's
+alias of ``text_embedding``); with ``direct_features`` the image factory
+builds ``identity`` (``default``) only, and the other feature encoders
+(``projection``, ``finetune_faster_rcnn_fpn_fc7``) raise
+``NotImplementedError`` naming the module that is not ported.
 Pretrained ImageNet weights are not loaded (``pretrained`` is accepted
 and ignored, as in the JAX package): ``BaseModel.init_weights`` fills the
 ResNet from a seed.
@@ -92,6 +97,83 @@ class ResNet152ImageEncoder(Encoder):
         return pooled.reshape(pooled.shape[0], -1, pooled.shape[-1])
 
 
+@registry.register_encoder("text_embedding")
+class TextEmbeddingEncoder(Encoder):
+    """A ``TextEmbedding`` of the tokens, reduced over them by
+    ``operator``: ``sum``, ``concat`` (flattened), ``mul`` (product) or
+    none."""
+
+    def __init__(self, operator: str = "sum", embedding_params=None):
+        super().__init__()
+        from mmf_tpu_torch.modules.embeddings import TextEmbedding
+
+        p = dict(embedding_params or {})
+        self.operator = operator
+        self.module = TextEmbedding(p.get("type", "vocab"),
+                                    p.get("params", {}))
+
+    @property
+    def out_dim(self):
+        if self.operator not in ("sum", "mul"):
+            raise ValueError(
+                f"the width of operator {self.operator!r} depends on the "
+                "sequence length")
+        return self.module.out_dim
+
+    def forward(self, x, *args, **kwargs):
+        x = self.module(x)
+        if self.operator == "sum":
+            return x.sum(dim=1)
+        if self.operator == "concat":
+            return x.reshape(x.shape[0], -1)
+        if self.operator == "mul":
+            return torch.prod(x, dim=1)
+        return x
+
+
+@registry.register_encoder("transformer")
+class TransformerEncoderWrapper(Encoder):
+    """A BERT-style text encoder in float32: ``module`` is the shared
+    ``TransformerModel``; ``num_segments`` widens its type table.
+    ``forward(input_ids, attention_mask, token_type_ids)`` returns the
+    pooled output (the sequence with ``return_sequence``). Its dropout
+    rates are ``TransformerConfig``'s (0.1), which no config key
+    reaches, as in JAX."""
+
+    def __init__(self, bert_model_name: str = "bert-base-uncased",
+                 hidden_size: int = 768, num_hidden_layers: int = 12,
+                 num_attention_heads: int = 12, vocab_size: int = 30522,
+                 max_position_embeddings: int = 512,
+                 type_vocab_size: int = 2, num_segments=None,
+                 output_attentions: bool = False,
+                 output_hidden_states: bool = False,
+                 random_init: bool = False):
+        super().__init__()
+        from mmf_tpu_torch.modules.transformer import (
+            TransformerConfig,
+            TransformerModel,
+        )
+
+        self.hidden_size = hidden_size
+        self.module = TransformerModel(TransformerConfig(
+            vocab_size=vocab_size, hidden_size=hidden_size,
+            num_hidden_layers=num_hidden_layers,
+            num_attention_heads=num_attention_heads,
+            intermediate_size=hidden_size * 4,
+            max_position_embeddings=max_position_embeddings,
+            type_vocab_size=num_segments or type_vocab_size,
+            dtype=torch.float32))
+
+    @property
+    def out_dim(self):
+        return self.hidden_size
+
+    def forward(self, input_ids, attention_mask=None, token_type_ids=None,
+                return_sequence=False):
+        seq, pooled = self.module(input_ids, attention_mask, token_type_ids)
+        return seq if return_sequence else pooled
+
+
 def _construct(cls, params: Dict[str, Any]):
     """``cls`` from the config params its constructor names."""
     names = inspect.signature(cls.__init__).parameters
@@ -117,3 +199,13 @@ def build_image_encoder(config, direct_features: bool = False):
     if cls is None:
         raise NotImplementedError(f"Unknown Image Encoder: {etype}")
     return _construct(cls, params)
+
+
+def build_text_encoder(config):
+    etype = config.get("type", "transformer")
+    if etype == "embedding":  # the text factory's alias
+        etype = "text_embedding"
+    cls = registry.get_encoder_class(etype)
+    if cls is None:
+        raise NotImplementedError(f"Unknown Text Encoder: {etype}")
+    return _construct(cls, dict(config.get("params", {}) or {}))

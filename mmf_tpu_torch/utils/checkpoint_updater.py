@@ -13,6 +13,8 @@ the flax paths with dots, so the mapping is mechanical:
 - a parameter made with ``self.param`` outside those modules (the ViT
   patch embeddings' ``cls_token`` and ``position_embeddings``) keeps
   its name
+- a ``WeightNorm`` wrapper's gain (``fc1/{Dense_0/kernel/scale}``, flax
+  names it after the wrapped kernel) -> ``fc1.scale``
 
 and, from a ``variables["batch_stats"]`` tree, BatchNorm ``mean`` ->
 ``running_mean`` and ``var`` -> ``running_var``, with a zero
@@ -77,6 +79,9 @@ def params_from_jax(
         arr = np.asarray(value)
         if leaf in _VERBATIM:
             put(".".join(path), arr)
+            continue
+        if leaf.endswith("/kernel/scale"):  # a WeightNorm wrapper's gain
+            put(".".join(path[:-1] + ("scale",)), arr)
             continue
         if leaf not in _LEAF:
             raise KeyError(f"no port mapping for flax leaf {'/'.join(path)}")

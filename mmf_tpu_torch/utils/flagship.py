@@ -55,7 +55,14 @@ For Hateful Memes at batch 1 (the JAX package's latency metric,
 ``tools/benchmarks/bench_latency.py``): ``mmbt_grid`` builds MMBT-grid
 (ResNet-152 grid features, 12 x 768 trunk, 2 labels, bf16 compute) from
 ``configs/models/mmbt/defaults.yaml`` with the classification head, and
-``hateful_memes_example_batch`` draws that script's inputs.
+``hateful_memes_example_batch`` draws that script's inputs. For
+training on Hateful Memes: ``HATEFUL_MEMES_CONFIGS`` names each model's
+project config (MMBT and the five baselines),
+``hateful_memes_config(model, opts)`` reads one,
+``hateful_memes_model(config)`` builds its model,
+``hateful_memes_train_batch`` draws a training batch of the
+``bert_tokenizer`` datasets' layout, and ``hateful_memes_trainer``
+builds the step as ``vqa2_trainer`` does.
 """
 
 from __future__ import annotations
@@ -70,6 +77,24 @@ VQA2_META = {"dataset_name": "vqa2", "dataset_type": "train"}
 MASKED_COCO_CONFIG = "projects/visual_bert/configs/masked_coco/pretrain.yaml"
 MASKED_COCO_META = {"dataset_name": "masked_coco", "dataset_type": "train"}
 HATEFUL_MEMES_META = {"dataset_name": "hateful_memes", "dataset_type": "test"}
+HATEFUL_MEMES_TRAIN_META = {"dataset_name": "hateful_memes",
+                            "dataset_type": "train"}
+# model -> (project config, the dataset config's text processor is BERT's)
+HATEFUL_MEMES_CONFIGS = {
+    "mmbt": ("projects/hateful_memes/configs/mmbt/defaults.yaml", True),
+    "concat_bert": ("projects/hateful_memes/configs/concat_bert/"
+                    "defaults.yaml", True),
+    "late_fusion": ("projects/hateful_memes/configs/late_fusion/"
+                    "defaults.yaml", True),
+    "concat_bow": ("projects/hateful_memes/configs/concat_bow/defaults.yaml",
+                   False),
+    "unimodal_text": ("projects/hateful_memes/configs/unimodal/text.yaml",
+                      True),
+    "unimodal_text_bert": ("projects/hateful_memes/configs/unimodal/"
+                           "bert.yaml", True),
+    "unimodal_image": ("projects/hateful_memes/configs/unimodal/image.yaml",
+                       False),
+}
 VILBERT_VQA2_CONFIG = "projects/vilbert/configs/vqa2/defaults.yaml"
 VILBERT_MASKED_VQA2_CONFIG = "projects/vilbert/configs/masked_vqa2/pretrain.yaml"
 MASKED_VQA2_META = {"dataset_name": "masked_vqa2", "dataset_type": "train"}
@@ -244,6 +269,79 @@ def masked_vqa2_vilbert_config(opts: Optional[List[str]] = None):
     params = cfg["scheduler"]["params"]
     params["num_training_steps"] = int(params["num_training_steps"])
     return cfg
+
+
+# the unimodal text configs name no optimizer and the root defaults give
+# none a type, so they do not run as they stand, in JAX either; they take
+# concat_bow's
+HATEFUL_MEMES_OVERRIDES = {
+    key: ["optimizer.type=adam_w", "optimizer.params.lr=5.0e-05",
+          "optimizer.params.eps=1.0e-08"]
+    for key in ("unimodal_text", "unimodal_text_bert")
+}
+
+
+def hateful_memes_model_name(key: str) -> str:
+    """The registered model of a ``HATEFUL_MEMES_CONFIGS`` key."""
+    return "unimodal_text" if key == "unimodal_text_bert" else key
+
+
+def hateful_memes_config(key: str = "mmbt",
+                         opts: Optional[List[str]] = None):
+    """The Hateful Memes project config of ``key`` (a
+    ``HATEFUL_MEMES_CONFIGS`` key) merged over the root defaults, then
+    its ``HATEFUL_MEMES_OVERRIDES`` and ``opts``. The schedule's ``num_training_steps`` quotes an
+    interpolation (``'${training.max_updates}'``), which resolves to the
+    number it names."""
+    path = HATEFUL_MEMES_CONFIGS[key][0]
+    cfg = _project_config(path, "hateful_memes",
+                          HATEFUL_MEMES_OVERRIDES.get(key, [])
+                          + list(opts or []),
+                          hateful_memes_model_name(key))
+    params = (cfg.get("scheduler", {}) or {}).get("params", {}) or {}
+    if "num_training_steps" in params:
+        params["num_training_steps"] = int(params["num_training_steps"])
+    return cfg
+
+
+def hateful_memes_model(config,
+                        model_overrides: Optional[Dict[str, Any]] = None):
+    """The model the config's ``model`` key names, from its
+    ``model_config``, with ``model_overrides`` on a copy."""
+    return _model(config["model"], config, model_overrides)
+
+
+def hateful_memes_train_batch(batch_size: int = 32, seq_len: int = 128,
+                              image_size: int = 224, vocab_size: int = 30522,
+                              seed: int = 0) -> Dict[str, Any]:
+    """A Hateful Memes training batch from a numpy seed: BERT inputs
+    with ragged masks (6 tokens up to ``seq_len``) and two segments in
+    about half the samples, a [B, 3, S, S] f32 image, class
+    ``targets``, and ``text`` ids as the ``vocab`` processor gives them
+    (14 tokens)."""
+    rng = np.random.RandomState(seed)
+    lengths = rng.randint(6, seq_len + 1, batch_size)
+    mask = (np.arange(seq_len)[None] < lengths[:, None]).astype(np.int32)
+    two = rng.rand(batch_size) < 0.5
+    segments = ((np.arange(seq_len)[None] >= lengths[:, None] // 2)
+                & two[:, None] & (mask > 0)).astype(np.int32)
+    return {
+        "input_ids": rng.randint(0, vocab_size, (batch_size, seq_len)
+                                 ).astype(np.int32),
+        "input_mask": mask,
+        "segment_ids": segments,
+        "image": rng.randn(batch_size, 3, image_size, image_size).astype(
+            np.float32),
+        "targets": rng.randint(0, 2, batch_size).astype(np.int64),
+        "text": rng.randint(0, 64, (batch_size, MMFT_SEQ)).astype(np.int64),
+    }
+
+
+def hateful_memes_trainer(model, config, seed: int = 0,
+                          device: Any = "cuda"):
+    """``vqa2_trainer`` with the Hateful Memes training meta fields."""
+    return vqa2_trainer(model, config, seed, device,
+                        HATEFUL_MEMES_TRAIN_META)
 
 
 def _sized(model, example):

@@ -60,11 +60,23 @@ def get_bert_configured_parameters(model: nn.Module) -> Dict[str, bool]:
     return mask
 
 
+def _is_flax_scale(module: nn.Module, leaf: str) -> bool:
+    """Whether the parameter is one that flax names ``scale``: a
+    BatchNorm's ``weight`` or a weight norm's gain. JAX's mask exempts
+    every ``scale`` leaf from weight decay."""
+    from mmf_tpu_torch.modules.resnet import BatchNorm
+
+    return leaf == "scale" or (isinstance(module, BatchNorm)
+                               and leaf == "weight")
+
+
 def bert_no_decay_mask(scopes=None) -> Callable[[nn.Module], Dict[str, bool]]:
     """Callable ``model -> {name: decay}`` (True = apply weight decay),
     the reference's no-decay list ``["bias", "LayerNorm.bias",
     "LayerNorm.weight"]``: every ``bias`` and both LayerNorm parameters
-    (flax ``scale``/``bias``).
+    (flax ``scale``/``bias``); as in JAX, whose rule reads the flax
+    names, also every other parameter flax names ``scale`` (BatchNorm
+    weights, weight-norm gains).
 
     scopes: optional top-level module names the exemption applies to;
     parameters outside them decay unconditionally."""
@@ -76,8 +88,10 @@ def bert_no_decay_mask(scopes=None) -> Callable[[nn.Module], Dict[str, bool]]:
             if scope_set is not None and name.split(".")[0] not in scope_set:
                 mask[name] = True
                 continue
+            no_decay = (_is_flax_scale(owner, leaf)
+                        or _is_layer_norm(owner))
             leaf = leaf.lower()
-            no_decay = (leaf.endswith("bias") or _is_layer_norm(owner)
+            no_decay = (no_decay or leaf.endswith("bias")
                         or "layer_norm" in leaf or "layernorm" in leaf)
             mask[name] = not no_decay
         return mask

@@ -37,12 +37,18 @@ VILBERT_SHAPES = [(4, 8, 100, 100, 128), (4, 8, 128, 100, 128),
 VILT_SHAPE = (2, 12, 617, 617, 64)
 # MMFT's on VQA2: 14 text tokens and 100 regions (114 = 64 + 50), bf16
 MMFT_SHAPE = (2, 12, 114, 114, 64)
+# Hateful Memes: MMBT's 3 modal tokens and 128 text tokens (131 = 2 x 64
+# + 3), bf16; the baselines' f32 BERT over 128 tokens (two full tiles)
+MMBT_SHAPE = (2, 12, 131, 131, 64)
+BASELINE_SHAPE = (2, 12, 128, 128, 64)
+HM_SHAPES = [MMBT_SHAPE, BASELINE_SHAPE]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(2, 12, 228, 228, 64), (1, 2, 37, 37, 64),
                                    (2, 3, 9, 130, 16), (1, 2, 70, 70, 128)]
-                         + VILBERT_SHAPES + [VILT_SHAPE, MMFT_SHAPE])
+                         + VILBERT_SHAPES + [VILT_SHAPE, MMFT_SHAPE]
+                         + HM_SHAPES)
 def test_flash_attention_matches_plain(card, dtype, shape):
     b, h, sq, skv, d = shape
     g = torch.Generator(device=card).manual_seed(0)
@@ -128,7 +134,7 @@ BWD_SHAPES = [(2, 12, 228, 228, 64), (2, 3, 128, 100, 64),
               (1, 2, 70, 70, 128), (1, 2, 127, 127, 64),
               (1, 2, 129, 129, 64), (1, 2, 256, 256, 64),
               (1, 2, 257, 257, 64), (1, 2, 64, 300, 64)] + VILBERT_SHAPES + [
-                  VILT_SHAPE, MMFT_SHAPE]
+                  VILT_SHAPE, MMFT_SHAPE] + HM_SHAPES
 
 
 @pytest.fixture
@@ -743,7 +749,7 @@ def test_quant_dense_runs_k5_on_the_card(card):
 FWD_SHAPES = [(2, 3, 100, 150, 16), (2, 3, 100, 150, 64),
               (2, 3, 100, 150, 128), (1, 2, 1024, 1024, 16),
               (1, 2, 1024, 1024, 64), (1, 2, 1024, 1024, 128)] + VILBERT_SHAPES + [
-                  MMFT_SHAPE]
+                  MMFT_SHAPE, MMBT_SHAPE]
 
 
 def _fwd_case(card, dtype, shape, bias_kind, seed=11):
