@@ -205,6 +205,29 @@ the script exits non-zero without a result line):
               one evaluation, csv predictions, exact launches (none for
               the models without BERT); concat_bert's bucket-32 forward
               against the f32 CPU forward of the same weights.
+23. m4c-kernels - K1 (its three forms), K2 and K3 in f32 at M4C's four
+              attention shapes (B=128, 12 heads of 64, its -10000 biases):
+              TextBert [128, 12, 20, 64], the training pass [128, 12, 182,
+              64] with the per-row prefix-LM bias [B, 1, 182, 182], the
+              prefill [128, 12, 170, 64] and the cached decode (12 queries
+              over 182 keys), against their plain versions, timed beside
+              SDPA with host time and the bound; K1 over the cached prefix
+              K/V against K1 over the whole sequence's last 12 rows.
+24. m4c-run - mmf_run trains M4C at full width on TextVQA from
+              projects/m4c/configs/textvqa/defaults.yaml with
+              flagship.TEXTVQA_M4C_OVERRIDES (tests/torch_textvqa_layout.py:
+              seeded imdb files, two LMDBs of 2048-wide object and OCR
+              features written by the port's core, a 5000-word answer
+              vocabulary, the seeded fasttext stand-in; B=128, 8 updates),
+              evaluates with the greedy decode and textvqa_accuracy, and
+              predicts json answers: exact launches (22 K4 and K4-bwd an
+              update; 55 K1 and 151 K4 a greedy-decode forward), the
+              reports' rows, samples/s, the loader alone, the host split,
+              device time by kind and the idle share, peak memory, the
+              decode's ms a batch; the cached decode against 12 full
+              passes, step by step; 3 steps through the kernels against
+              the plain versions at dropout 0; the LMDB and PHOC libraries
+              built from the checkout (PHOC's C against its python twin).
 
 Then one JSON line describing the kernels, the nvidia-smi line, and the
 last line {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -518,11 +541,16 @@ def _ln_build():
 def phase_build(card):
     """Every kernel's build, started together: one nvcc per CUDA source
     and Triton's JIT, each in its own thread."""
+    from mmf_tpu_torch.utils.native import lmdb_shim
+    from mmf_tpu_torch.utils.phoc import build_phoc
+
     jobs = {"flash_attention_fwd": A.build_flash_attention,
             "flash_attention_bwd": A.build_flash_attention_bwd,
             "int8_gemm": Q.build_int8_gemm,
             "layer_norm_bwd": L.build_layer_norm_bwd,
-            "layer_norm": _ln_build}
+            "layer_norm": _ln_build,
+            # the host libraries of TextVQA's loader (C++ and C)
+            "lmdb_core": lmdb_shim.library, "phoc": build_phoc.library}
     done, errors = {}, []
 
     def run(name, fn):
@@ -563,6 +591,8 @@ def phase_build(card):
             bwd.mmf_flash_attention_bwd_smem_bytes(HEAD_DIM, 0),
             bwd.mmf_flash_attention_bwd_smem_bytes(2 * HEAD_DIM, 0))
     parts.append(f"layer_norm triton jit {done['layer_norm'][1]:.1f}s")
+    parts.append(f"the LMDB core c++ {done['lmdb_core'][1]:.1f}s, PHOC cc "
+                 f"{done['phoc'][1]:.1f}s")
     print(f"phase build: ok card='{card}' torch={torch.__version__} "
           f"cuda={torch.version.cuda}; built in parallel in {wall:.1f}s: "
           + "; ".join(parts))
@@ -3374,7 +3404,7 @@ def _raw_case(q, k, v, bias, label="vilt", iters=3, plain_iters=2):
     del ref
     b, heads, sq, head_dim = q.shape
     pairs = b * heads * sq * k.shape[2] * head_dim
-    nbytes = 3 * _nbytes(q) + _nbytes(bias) + _nbytes(acc, m, l)
+    nbytes = _nbytes(q, k, v, bias, acc, m, l)
     if dt == torch.float32:
         bound_ms, bound_by = max((1e3 * nbytes / HBM_BYTES_PER_S, "bytes"), (
             1e3 * SPLIT_TF32_PRODUCTS * 4 * pairs / TF32_FLOPS,
@@ -4418,6 +4448,482 @@ def phase_hm_baselines(card):
     return total
 
 
+# M4C on TextVQA (flagship.textvqa_m4c_config: TextBert 3 x 768 over 20
+# question tokens, MMT 4 x 768 over 20 + 100 + 50 prefix tokens and 12
+# decode steps, 5000 answers and 50 OCR copy slots, f32), at the config's
+# batch
+M4C_B = 128
+M4C_PREFIX = flagship.M4C_TEXT + flagship.M4C_OBJECTS + flagship.M4C_OCR
+M4C_S = M4C_PREFIX + flagship.M4C_STEPS  # 182
+# attention calls: TextBert's 3 and the MMT's 4 a training pass; an
+# evaluation forward's greedy decode runs TextBert, the prefill (4) and
+# 4 a decode step over its 12 steps: 3 + 4 + 48 = 55 K1
+M4C_TRAIN_ATTENTION = 3 + 4
+M4C_EVAL_ATTENTION = 3 + 4 + 4 * flagship.M4C_STEPS
+# LayerNorms, each a ResidualLayerNorm (K4; K4-bwd in training):
+# TextBert's embeddings and 2 a layer (7), the object and OCR branches'
+# feature and box LayerNorms (4), PrevPredEmbeddings' answer, OCR and
+# embedding LayerNorms (3) and 2 an MMT layer (8): a training pass 22; an
+# evaluation forward 7 + 4, the prefill's 8, and 3 + 8 a decode step
+M4C_TRAIN_LN = 7 + 4 + 3 + 8
+M4C_EVAL_LN = 7 + 4 + 8 + flagship.M4C_STEPS * (3 + 8)
+M4C_UPDATES = 8
+M4C_SPLITS = {"train": 1024, "val": 256, "test": 128}
+M4C_IMAGES = 200  # TextVQA images hold up to 50 OCR tokens; samples share
+# every dropout of the model at 0 (the config keys reach each of them)
+M4C_NO_DROPOUT = {
+    "text_bert": {"hidden_dropout_prob": 0.0,
+                  "attention_probs_dropout_prob": 0.0},
+    "mmt": {"hidden_dropout_prob": 0.0, "attention_probs_dropout_prob": 0.0},
+    "obj": {"dropout_prob": 0.0}, "ocr": {"dropout_prob": 0.0}}
+# the cached greedy decode against 12 full passes, step by step on the same
+# fed-back indices: the scores of a step, relative to its largest |score|
+# (f32 GEMMs of other shapes: 170 prefix rows recomputed against cached),
+# and an argmax may differ only where the full pass's top-2 margin is
+# within 10x that difference
+M4C_DECODE_REL = 1e-4
+
+
+def _m4c_attention_inputs(case, g, b=M4C_B):
+    """M4C's attention calls, f32 q, k, v, dO as the views the attention
+    block hands over, with its -10000 biases: TextBert over 20 question
+    tokens of 1-20 (a [B,1,1,20] padding bias); the training pass over
+    182 = 20 + 100 + 50 + 12 tokens with the per-row prefix-LM bias
+    [B,1,182,182] (ragged questions, 50-100 objects, 0-50 OCR tokens, the
+    decode span causal); the prefill over the 170 prefix tokens
+    ([B,1,1,170]); the decode's 12 queries over 170 cached + 12 own keys
+    (bias [B,1,12,182], the training bias's last rows)."""
+    spans = ((flagship.M4C_TEXT, 1), (flagship.M4C_OBJECTS,
+                                      flagship.M4C_OBJECTS // 2),
+             (flagship.M4C_OCR, 0))
+    valid = [torch.arange(n, device=DEV)[None] < torch.randint(
+        lo, n + 1, (b, 1), device=DEV, generator=g) for n, lo in spans]
+    steps = flagship.M4C_STEPS
+    mask = torch.cat(valid + [torch.ones(b, steps, dtype=torch.bool,
+                                         device=DEV)], 1).float()
+    if case in ("textbert", "prefill"):
+        n = flagship.M4C_TEXT if case == "textbert" else M4C_PREFIX
+        sq = skv = n
+        bias = ((1.0 - mask[:, :n]) * -10000.0)[:, None, None, :]
+    else:
+        ext = mask[:, None, None, :].expand(b, 1, M4C_S, M4C_S).clone()
+        ext[:, :, -steps:, -steps:] = torch.tril(
+            torch.ones(steps, steps, device=DEV))
+        bias = (1.0 - ext) * -10000.0
+        sq, skv = (steps, M4C_S) if case == "decode" else (M4C_S, M4C_S)
+        if case == "decode":
+            bias = bias[:, :, -steps:].contiguous()
+
+    def proj(s):
+        return torch.randn(b, s, HEADS, HEAD_DIM, device=DEV,
+                           generator=g).transpose(1, 2)
+
+    return proj(sq), proj(skv), proj(skv), bias, proj(sq)
+
+
+def phase_m4c_kernels(card):
+    """K1 (its three forms), K2 and K3 in f32 at M4C's four attention
+    shapes against their plain versions, timed beside SDPA; K1 over the
+    cached prefix K/V against K1 over the whole sequence's rows."""
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 parity
+    g = torch.Generator(device=DEV).manual_seed(14)
+    rows, raws = {}, {}
+    for case in ("textbert", "train", "prefill", "decode"):
+        q, k, v, bias, dout = _m4c_attention_inputs(case, g)
+        rows[case] = _attention_case(f"m4c {case}", q, k, v, bias, dout)
+        raws[case] = _raw_case(q, k, v, bias, f"m4c {case}", iters=20,
+                               plain_iters=10)
+        del q, k, v, bias, dout
+    q, k, v, bias, _ = _m4c_attention_inputs("train", g)
+    steps = flagship.M4C_STEPS
+    full = A.flash_attention(q, k, v, bias)[:, :, -steps:]
+    cached = A.flash_attention(q[:, :, -steps:], k, v,
+                               bias[:, :, -steps:].contiguous())
+    torch.cuda.synchronize()
+    cache_err = float((cached - full).abs().max())
+    bit_equal = torch.equal(cached, full)
+    check(cache_err <= 1e-6, f"m4c cached decode K1 vs the full pass's "
+          f"rows: {cache_err}")
+    del q, k, v, bias, full, cached
+    torch.cuda.empty_cache()
+    print(f"phase m4c-kernels: ok K1, K1-stats, K1-raw, K2 and K3 in f32 at "
+          f"M4C's shapes (B={M4C_B}, 12 heads of 64, the -10000 biases): "
+          f"TextBert [{M4C_B}, 12, {flagship.M4C_TEXT}, 64] (padding bias), "
+          f"the training pass [{M4C_B}, 12, {M4C_S}, 64] (the per-row "
+          f"prefix-LM bias [B, 1, {M4C_S}, {M4C_S}]), the prefill "
+          f"[{M4C_B}, 12, {M4C_PREFIX}, 64] and the decode (12 queries over "
+          f"{M4C_S} keys, bias [B, 1, 12, {M4C_S}]), against their plain "
+          "versions within the kernels phase's bounds (K1's three forms "
+          "bit-equal across two calls); K1 over the cached prefix K/V "
+          f"against K1 over the {M4C_S} tokens' last 12 rows: max abs "
+          f"{cache_err:.3g} (bound 1e-6), bit-equal {bit_equal}; device ms "
+          "(spin-queued), SDPA's, the plain versions' (CUDA events), host "
+          "us a call and the bound (split-TF32 operations or bytes, the "
+          f"FP32 FMA bound beside it) on '{card}':")
+    for case, r in rows.items():
+        ms, lib, raw, fma = r["ms"], r["library_ms"], raws[case], \
+            r["fma_bound_ms"]
+        print(f"  {case} {r['shape']}: max_abs_err " + ", ".join(
+            f"{n} {e:.3g}" for n, e in r["max_abs_err"].items())
+            + f", K1-raw {raw['max_abs_err']:.3g}; " + ", ".join(
+                f"{n} {ms[n]:.4f} (bound {r['bound_ms'][n]:.4f} "
+                f"{r['bound_by'][n]}, FMA {fma[n]:.4f})" for n in ms)
+            + f", K1-raw {raw['ms']:.4f} (bound {raw['bound_ms']:.4f} "
+            f"{raw['bound_by']}; plain {raw['plain_ms']:.4f}); sdpa fwd "
+            f"{lib['K1']:.4f}, fwd+lse {lib['K1-stats']:.4f}, bwd "
+            f"{lib['K2+K3']:.4f} (K2+K3 {ms['K2'] + ms['K3']:.4f}); plain "
+            + ", ".join(f"{n} {t:.4f}" for n, t in r["plain_ms"].items())
+            + "; host us " + ", ".join(f"{n} {u:.1f}" for n, u in
+                                       r["host_us"].items())
+            + f", K1-raw {raw['host_us']:.1f}")
+    return rows, raws
+
+
+def _m4c_native_libraries(words):
+    """The LMDB core and the PHOC featurizer: built from the checkout's
+    sources under build/ and loaded in this process, and the C PHOC equal
+    to its python twin on ``words``: (library file -> path)."""
+    from mmf_tpu_torch.utils.native import build as native_build
+    from mmf_tpu_torch.utils.native import lmdb_shim
+    from mmf_tpu_torch.utils.phoc import build_phoc
+
+    lmdb_shim.library()
+    got = build_phoc.build_phoc_batch(words)
+    want = np.stack([build_phoc.build_phoc_python(build_phoc._normalize(w))
+                     for w in words])
+    check(np.array_equal(got, want) and got.any(), "PHOC C vs python twin")
+    libs = native_build.loaded()
+    root = os.path.dirname(os.path.abspath(__file__))
+    check(sorted(n.split("-")[0] for n in libs) == ["liblmdbcore", "libphoc"]
+          and all(p.startswith(os.path.join(root, "build", "mmf_tpu_torch",
+                                            "native")) for p in libs.values()),
+          f"native libraries {libs}")
+    return libs
+
+
+def _m4c_decode_against_full_passes(model, batch):
+    """The cached greedy decode (prefill, then decode_step over the
+    cached K/V) against 12 full passes of MMT.forward (the reference's
+    decode), step by step from the same fed-back indices (the full
+    pass's argmax): (worst relative score difference, argmax mismatches,
+    near-tie mismatches, the model's own decode equal to the stepped
+    one). A mismatch is allowed only where the full pass's top-2 margin
+    lies within 10x the two paths' score difference."""
+    model.eval()
+    steps = flagship.M4C_STEPS
+    with torch.no_grad():
+        encoded = model._encode(batch)
+        txt_mask, obj_mask, ocr_mmt_in, ocr_mask = (encoded[1], encoded[3],
+                                                    encoded[4], encoded[5])
+        inds = torch.zeros(M4C_B, steps, dtype=torch.long, device=DEV)
+        inds[:, 0] = int(model.config.get("bos_idx", 1))
+        enc_seq, kvs, enc_mask = model.mmt.prefill(*encoded)
+        start = txt_mask.shape[-1] + obj_mask.shape[-1]
+        ocr_out = enc_seq[:, start:start + ocr_mask.shape[-1]]
+        worst, mismatches, ties = 0.0, 0, 0
+        for t in range(steps):
+            res = model.mmt(*encoded, model.classifier_w, inds)
+            full = model._scores(res["mmt_dec_output"],
+                                 res["mmt_ocr_output"], ocr_mask).float()
+            dec = model.mmt.decode_step(kvs, enc_mask, model.classifier_w,
+                                        ocr_mmt_in, inds)
+            cached = model._scores(dec, ocr_out, ocr_mask).float()
+            diff = (cached[:, t] - full[:, t]).abs().amax(-1)
+            top = full[:, t].abs().amax(-1)
+            worst = max(worst, float((diff / top).max()))
+            top2 = full[:, t].topk(2, dim=-1).values
+            margin = top2[:, 0] - top2[:, 1]
+            differ = cached[:, t].argmax(-1) != full[:, t].argmax(-1)
+            mismatches += int(differ.sum())
+            ties += int((differ & (margin <= 10 * diff)).sum())
+            inds = torch.cat([inds[:, :1], full.argmax(-1)[:, :-1]], 1)
+        own = model(batch)["scores"].argmax(-1)
+    return worst, mismatches, ties, torch.equal(own, full.argmax(-1))
+
+
+def phase_m4c_run(card):
+    """mmf_run trains M4C on TextVQA at full width from its project
+    config, reading region and OCR features from LMDB, evaluates with the
+    greedy decode and textvqa_accuracy, and predicts the answers; the
+    decode against 12 full passes; 3 steps from the run's initial weights
+    through the kernels against the plain versions at dropout 0."""
+    import glob
+    import shutil
+
+    from mmf_tpu_torch.common.registry import registry
+    from mmf_tpu_torch.datasets.processors import processors as P
+    from tests.torch_textvqa_layout import (
+        SPLITS,
+        FastTextStandIn,
+        layout_opts,
+        write_layout,
+    )
+
+    registry.register_callback("chip_smoke_recorder")(_StepRecorder)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_m4c_")
+    trainer = None
+    load_fasttext = P.FastTextProcessor._load_fasttext_model
+
+    def stand_in(self, model_file):  # wiki.en.bin's seeded stand-in
+        self.model = FastTextStandIn()
+
+    P.FastTextProcessor._load_fasttext_model = stand_in
+    u, steps = M4C_UPDATES, flagship.M4C_STEPS
+    try:
+        t0 = time.perf_counter()
+        write_layout(tmp, n_train=M4C_SPLITS["train"],
+                     n_val=M4C_SPLITS["val"], n_test=M4C_SPLITS["test"],
+                     n_images=M4C_IMAGES, num_answers=flagship.M4C_ANSWERS,
+                     vocab_size=VOCAB, seed=0)
+        layout_s = time.perf_counter() - t0
+        lmdb_mb = sum(os.path.getsize(f) for f in glob.glob(os.path.join(
+            tmp, "datasets", "textvqa", "**", "data.mdb"),
+            recursive=True)) / 1e6
+        torch.cuda.reset_peak_memory_stats()
+        opts = (_evaluated(u) + flagship.TEXTVQA_M4C_OVERRIDES
+                + layout_opts(tmp) + ["scheduler.params.warmup_iterations=2"])
+        trainer, recorder, launches, run_s = _cli_run(
+            os.path.join(tmp, "save"), flagship.TEXTVQA_M4C_CONFIG, "m4c",
+            "textvqa", u, opts, batch_size=M4C_B)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        cfg = trainer.config
+        mc = cfg["model_config"]["m4c"]
+        model = trainer.model
+        check((mc["text_bert"]["num_hidden_layers"],
+               mc["mmt"]["num_hidden_layers"], mc["mmt"]["hidden_size"],
+               str(mc.get("dtype", "float32")),
+               tuple(model.classifier_w.shape),
+               registry.get("textvqa_num_final_outputs"),
+               cfg["optimizer"]["type"], cfg["scheduler"]["type"]) == (
+            3, 4, HIDDEN, "float32", (flagship.M4C_ANSWERS, HIDDEN),
+            flagship.M4C_ANSWERS + flagship.M4C_OCR, "Adam", "multi_step"),
+            f"m4c config {dict(mc)}")
+        batch = recorder.batches[0]
+        shapes = {k: tuple(batch[k].shape) for k in (
+            "text", "image_feature_0", "image_feature_1",
+            "context_feature_0", "context_feature_1", "order_vectors",
+            "ocr_bbox_coordinates", "train_prev_inds", "targets")}
+        check(shapes == {
+            "text": (M4C_B, flagship.M4C_TEXT),
+            "image_feature_0": (M4C_B, flagship.M4C_OBJECTS, VDIM),
+            "image_feature_1": (M4C_B, flagship.M4C_OBJECTS, VDIM),
+            "context_feature_0": (M4C_B, flagship.M4C_OCR, 300),
+            "context_feature_1": (M4C_B, flagship.M4C_OCR, 604),
+            "order_vectors": (M4C_B, flagship.M4C_OCR, flagship.M4C_OCR),
+            "ocr_bbox_coordinates": (M4C_B, flagship.M4C_OCR, 4),
+            "train_prev_inds": (M4C_B, steps),
+            "targets": (M4C_B, steps,
+                        flagship.M4C_ANSWERS + flagship.M4C_OCR)},
+            f"m4c batch {shapes}")
+        losses = list(trainer.meter.meters[
+            "train/textvqa/m4c_decoding_bce_with_mask"].averaged_value_deque)
+        check(len(losses) == u and all(math.isfinite(x) for x in losses),
+              f"m4c losses {losses}")
+        # the config's attention-probability dropout (0.1, TransformerConfig's
+        # default: the YAML sets no rate) sends the training attention to
+        # the plain version, as in JAX
+        val_batches = -(-M4C_SPLITS["val"] // M4C_B)
+        forwards = 2 * val_batches + -(-M4C_SPLITS["test"] // M4C_B)
+        want = dict(ZERO_COUNTS,
+                    flash_attention_fwd=M4C_EVAL_ATTENTION * forwards,
+                    layer_norm=M4C_TRAIN_LN * u + M4C_EVAL_LN * forwards,
+                    layer_norm_bwd=M4C_TRAIN_LN * u)
+        check(launches == want, f"m4c launches {launches}, want {want}")
+
+        save_dir = cfg["env"]["save_dir"]
+        reports = {}
+        for split in ("val", "test"):
+            files = glob.glob(os.path.join(save_dir, "reports",
+                                           f"textvqa_*_{split}_*.json"))
+            check(len(files) == 1, f"m4c {split} reports {files}")
+            with open(files[0]) as f:
+                reports[split] = json.load(f)
+            ids = sorted(int(r["question_id"]) for r in np.load(
+                os.path.join(tmp, "datasets", "textvqa", "defaults",
+                             "annotations", SPLITS[split]),
+                allow_pickle=True)[1:])
+            check(sorted(r["question_id"] for r in reports[split]) == ids
+                  and all(set(r) == {"question_id", "image_id", "answer",
+                                     "pred_source"}
+                          for r in reports[split]),
+                  f"m4c {split} rows {reports[split][:2]}")
+        sources = [s for r in reports["test"] for s in r["pred_source"]]
+        t1 = time.perf_counter()
+        reset_counts()
+        report, meter = trainer.evaluation_loop("val")
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t1
+        check(read_counts() == dict(
+            ZERO_COUNTS, flash_attention_fwd=M4C_EVAL_ATTENTION * val_batches,
+            layer_norm=M4C_EVAL_LN * val_batches), "m4c eval launches")
+        acc = meter.meters["val/textvqa/textvqa_accuracy"].global_avg
+        val_loss = meter.meters[
+            "val/textvqa/m4c_decoding_bce_with_mask"].global_avg
+        check(report.batch_size == M4C_SPLITS["val"] and 0.0 <= acc <= 1.0
+              and math.isfinite(val_loss),
+              f"m4c val {report.batch_size}, accuracy {acc}, loss "
+              f"{val_loss}")
+        t = recorder.loss_read
+        sps = M4C_B * (u - 2) / (t[u] - t[2])
+        update_ms = 1e3 * (t[u] - t[2]) / (u - 2)
+        meters = trainer.profile_meter.meters
+        split = {k: 1e3 * meters[k].median for k in RUN_POINTS
+                 if k in meters and meters[k].averaged_value_deque}
+        # the loader alone: a fresh epoch's first batch (it waits while
+        # the workers drain the batches they had prefetched for the epoch
+        # before), then its next five; one batch's samples in this process
+        batches = iter(trainer.train_loader)
+        t1 = time.perf_counter()
+        next(batches)
+        first_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        for _ in range(5):
+            next(batches)
+        bps = 5 / (time.perf_counter() - t1)
+        del batches
+        dataset = trainer.dataset_loader.datamodules["textvqa"].train_dataset
+        t1 = time.perf_counter()
+        for i in range(M4C_B):
+            dataset[i]
+        batch_s = time.perf_counter() - t1
+        imdb = np.load(os.path.join(tmp, "datasets", "textvqa", "defaults",
+                                    "annotations", SPLITS["train"]),
+                       allow_pickle=True)
+        libs = _m4c_native_libraries(sorted({
+            w for row in imdb[1:17] for w in row["ocr_tokens"]}))
+        trainer.teardown()
+
+        # the evaluation forward alone on a val batch: ms a batch (CUDA
+        # events, best of 3) and device time by kind
+        val_batch = train_state._to_device(
+            next(iter(trainer.val_loader)).pytree(), DEV)
+        val_batch.update(dataset_name="textvqa", dataset_type="val")
+        trainer.teardown()
+        model.eval()
+
+        def decode():
+            with torch.no_grad():
+                return model(val_batch)["scores"]
+
+        decode()
+        events = []
+        for _ in range(3):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            decode()
+            end.record()
+            end.synchronize()
+            events.append(start.elapsed_time(end))
+        decode_ms = min(events)
+        dec_dev_ms, dec_by_category = _device_ms(decode, 2)
+        worst, mismatches, ties, own = _m4c_decode_against_full_passes(
+            model, val_batch)
+        check(worst <= M4C_DECODE_REL and mismatches == ties and own,
+              f"m4c cached decode vs full passes: rel {worst}, "
+              f"{mismatches} argmax mismatches ({ties} near-ties), the "
+              f"model's own decode equal {own}")
+        del val_batch
+
+        # the train step alone on the run's first batch: device time by
+        # kind, against the CLI's update time
+        def build(c, o=None):
+            return flagship.textvqa_m4c(c, o)
+
+        step_model = build(cfg)
+        step_model.load_state_dict(recorder.initial, strict=True)
+        state, step = flagship.textvqa_trainer(step_model, cfg, seed=1)
+        box = [state]
+
+        def one_step():
+            box[0], rep = step(box[0], batch)
+            float(rep["total_loss"])
+
+        one_step()
+        dev_ms, by_category = _device_ms(one_step, 2)
+        del state, step, step_model, box
+        torch.cuda.empty_cache()
+
+        vs_plain, k_launches = _kernels_vs_plain(
+            cfg, recorder.initial, batch,
+            lambda c, o: flagship.textvqa_m4c(c, M4C_NO_DROPOUT),
+            flagship.textvqa_trainer, COMPARED_STEPS, "m4c")
+        per_step = dict(ZERO_COUNTS,
+                        flash_attention_fwd_stats=M4C_TRAIN_ATTENTION,
+                        flash_attention_bwd_dq=M4C_TRAIN_ATTENTION,
+                        flash_attention_bwd_dkv=M4C_TRAIN_ATTENTION,
+                        layer_norm=M4C_TRAIN_LN,
+                        layer_norm_bwd=M4C_TRAIN_LN)
+        check(k_launches == {k: v * COMPARED_STEPS for k, v in
+                             per_step.items()},
+              f"m4c kernel side {k_launches}")
+        n_params = sum(p.numel() for p in model.parameters())
+        print(f"phase m4c-run: ok mmf_run trains M4C on TextVQA with "
+              f"{flagship.TEXTVQA_M4C_CONFIG} and "
+              "flagship.TEXTVQA_M4C_OVERRIDES (TextBert 3 x 768 over "
+              f"{flagship.M4C_TEXT} tokens, MMT 4 x 768 over {M4C_PREFIX} + "
+              f"{steps} tokens, {flagship.M4C_ANSWERS} answers + "
+              f"{flagship.M4C_OCR} OCR copies, f32, {n_params / 1e6:.1f}M "
+              f"parameters; B={M4C_B}, {RUN_WORKERS} loader workers; the "
+              f"synthetic layout: {M4C_SPLITS} questions over {M4C_IMAGES} "
+              f"images, two LMDBs of [n, 2048] f32 features ({lmdb_mb:.0f} "
+              "MB, written by the port's core), the seeded fasttext "
+              f"stand-in, in {layout_s:.1f}s; warmup 1000 cut to 2): {u} "
+              f"updates, losses {[round(x, 4) for x in losses]}; launches "
+              f"{launches} (exact: {M4C_TRAIN_LN} K4 and K4-bwd an update, "
+              "the training attention plain at TransformerConfig's dropout "
+              f"0.1; {M4C_EVAL_ATTENTION} K1 and {M4C_EVAL_LN} K4 in each "
+              f"of {forwards} greedy-decode forwards); val textvqa_accuracy "
+              f"{acc:.4f}, loss {val_loss:.4f}; json reports of "
+              f"{len(reports['val'])} val and {len(reports['test'])} test "
+              f"answers ({sources.count('OCR')} OCR copies, "
+              f"{sources.count('VOCAB')} vocabulary words in test); native "
+              "libraries built from the checkout and loaded: "
+              + ", ".join(sorted(libs)) + " (PHOC's C equal to its python "
+              "twin)")
+        print(f"  on '{card}': train {sps:.1f} samples/s over updates "
+              f"3-{u} ({update_ms:.1f} ms an update); the loader alone "
+              f"(a fresh epoch: its first batch after {first_s:.2f}s, while "
+              "the workers drain the batches prefetched before, then 5) "
+              f"{bps:.2f} batches/s ({M4C_B * bps:.0f} samples/s), one "
+              f"batch's {M4C_B} samples (2 LMDB reads, fasttext, PHOC, "
+              f"tokenizer, m4c_answer) in this process {batch_s:.2f}s; "
+              "host split (ms, median of the run's updates): " + ", ".join(
+                  f"{k} {v:.2f}" for k, v in split.items())
+              + f"; device time {dev_ms:.2f} ms a step (torch.profiler, 2 "
+              f"steps of the train step alone on the run's first batch): "
+              f"idle {100 * max(0.0, 1 - dev_ms / update_ms):.1f}% of the "
+              f"CLI's update; run {run_s:.1f}s; max_memory_allocated "
+              f"{peak_gb:.2f} GB; evaluation of {M4C_SPLITS['val']} val "
+              f"questions {M4C_SPLITS['val'] / eval_s:.1f} samples/s")
+        print("  device time a step by kind of kernel (ms, launches): "
+              + "; ".join(f"{cat} {ms:.2f} x{cnt:.0f}" for cat, (ms, cnt) in
+                          sorted(by_category.items(),
+                                 key=lambda kv: -kv[1][0])))
+        print(f"  greedy decode of a val batch (B={M4C_B}: TextBert, the "
+              f"prefill, {steps} decode steps over the cached prefix K/V): "
+              f"{decode_ms:.2f} ms a batch (CUDA events, best of 3), device "
+              f"{dec_dev_ms:.2f} ms (torch.profiler, 2 forwards; idle "
+              f"{100 * max(0.0, 1 - dec_dev_ms / decode_ms):.1f}%); by kind "
+              "(ms, launches): " + "; ".join(
+                  f"{cat} {ms:.2f} x{cnt:.0f}" for cat, (ms, cnt) in
+                  sorted(dec_by_category.items(), key=lambda kv: -kv[1][0])))
+        print(f"  the cached decode against {steps} full passes of "
+              "MMT.forward, step by step on the same fed-back indices: "
+              f"scores max rel {worst:.3g} (bound {M4C_DECODE_REL}), "
+              f"{mismatches} argmax mismatches of {M4C_B * steps} "
+              f"({ties} at near-ties), the model's own decode token for "
+              "token equal to the full passes'")
+        print("  kernels vs plain versions, the run's first batch and "
+              f"initial weights at dropout 0: {vs_plain}")
+    finally:
+        P.FastTextProcessor._load_fasttext_model = load_fasttext
+        if trainer is not None:
+            trainer.teardown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {k: launches[k] + k_launches[k] for k in launches}
+
+
 SOURCES = {  # name -> (route, source, the TPU kernel it replaces)
     "flash_attention_fwd": ("cuda",
                             "mmf_tpu_torch/ops/csrc/flash_attention_fwd.cu",
@@ -4496,6 +5002,8 @@ def main():
     vilt.append(phase_mmft_run(card))
     hm_att, hm_raw = phase_hm_kernels(card)
     hm = [phase_hm_mmbt_run(card), phase_hm_baselines(card)]
+    m4c_att, m4c_raw = phase_m4c_kernels(card)
+    hm.append(phase_m4c_run(card))
     results["int8_dequant_gemm"]["vb_int8_forward_ms"] = k5_vb_ms
     # the attention kernels at ViLBERT's shapes (D = 128, Sq != Skv)
     short = {"flash_attention_fwd": "K1", "flash_attention_fwd_stats":
@@ -4534,6 +5042,18 @@ def main():
                     "bound_by": r["bound_by"][kid],
                     "library_ms": r["library_ms"][lib]}
             for label, r in hm_att.items()}
+        # and in f32 at M4C's: TextBert, the training pass, the prefill
+        # and the cached decode
+        results[name]["m4c_shapes"] = {
+            case: {"shape": r["shape"], "dtype": "float32",
+                   "max_abs_err": r["max_abs_err"][kid],
+                   "ms": r["ms"][kid], "host_us": r["host_us"][kid],
+                   "plain_ms": r["plain_ms"][lib],
+                   "bound_ms": r["bound_ms"][kid],
+                   "bound_by": r["bound_by"][kid],
+                   "fma_bound_ms": r["fma_bound_ms"][kid],
+                   "library_ms": r["library_ms"][lib]}
+            for case, r in m4c_att.items()}
         # and in bf16 at MMFT's [64, 12, 114, 64]
         results[name]["mmft_shape"] = {
             "shape": mmft_att["shape"], "dtype": "bfloat16",
@@ -4549,6 +5069,9 @@ def main():
         label: dict(r, shape=hm_att[label]["shape"],
                     dtype="bfloat16" if label == "mmbt" else "float32")
         for label, r in hm_raw.items()}
+    results["flash_attention_fwd_raw"]["m4c_shapes"] = {
+        case: dict(r, shape=m4c_att[case]["shape"], dtype="float32")
+        for case, r in m4c_raw.items()}
     results["layer_norm"]["vilt_form"] = dict(
         vilt_ln, form=f"float32 [{VILT_ROWS}, {HIDDEN}] no residual")
     results["layer_norm_bwd"]["vilt_form"] = dict(
@@ -4567,8 +5090,8 @@ def main():
             # training path's kernels, and K1 and K4 in evaluation),
             # ViLBERT's serving, training, mmf_run and mmf_serve, ViLT's
             # serving, training, pretraining, mmf_run and mmf_serve,
-            # MMFT's mmf_run and mmf_serve, and the Hateful Memes runs
-            # (MMBT and the baselines)
+            # MMFT's mmf_run and mmf_serve, the Hateful Memes runs
+            # (MMBT and the baselines) and M4C's mmf_run on TextVQA
             "launches": (served[name] + trained[name] + mmbt[name]
                          + vb_int8[name] + pretrained[name]
                          + served_ckpt[name] + mmf_run[name]
@@ -4585,6 +5108,7 @@ def main():
                                  "vb_int8_forward_ms", "plain_vjp_ms",
                                  "forms", "vilbert_shapes", "vilt_shape",
                                  "mmft_shape", "hateful_memes_shapes",
+                                 "m4c_shapes",
                                  "vilt_form") if k in r},
         })
     print(json.dumps({"kernels": kernels}))

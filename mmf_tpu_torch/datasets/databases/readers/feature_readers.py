@@ -1,17 +1,20 @@
 """Feature readers.
 
-Port of ``mmf_tpu/datasets/databases/readers/feature_readers.py`` for
-per-image ``.npy`` files, with numpy outputs: region features padded to
+Port of ``mmf_tpu/datasets/databases/readers/feature_readers.py``, with
+numpy outputs: per-image ``.npy`` files (region features padded to
 ``max_features`` with the ``<name>_info.npy`` side file's fields
 (``bbox``, ``num_boxes``, the image size, ...), and grid features in
-their 2-, 3- and 4-d layouts. The LMDB reader is not ported yet: a
-``.lmdb`` path raises.
+their 2-, 3- and 4-d layouts), and LMDB environments (``.lmdb`` paths):
+the pickled per-image dicts of MMF's feature zoo, read through the
+port's native LMDB core (``utils/native/lmdb_shim``), never the ``lmdb``
+package.
 """
 
 from __future__ import annotations
 
 import math
 import os
+import pickle
 
 import numpy as np
 
@@ -130,8 +133,62 @@ class PaddedFasterRCNNFeatureReader:
         return tmp, image_info
 
 
+def _lmdb_module():
+    """The native LMDB core (``utils/native/lmdb_shim``), built at first
+    use; raises where no C++ compiler works."""
+    from mmf_tpu_torch.utils.native import lmdb_shim
+
+    lmdb_shim.library()
+    return lmdb_shim
+
+
+class LMDBFeatureReader(PaddedFasterRCNNFeatureReader):
+    """LMDB-backed reader with lazy env init (reference
+    feature_readers.py:218-265). The environment holds ``b"keys"``, the
+    pickled list of image keys, and one pickled feature dict per key; an
+    image is looked up by the int after the path's last ``_`` first,
+    then by its path (without ``.npy``) relative to the database."""
+
+    def __init__(self, max_loc, base_path):
+        super().__init__(max_loc)
+        self.db_path = base_path
+        _lmdb_module()  # raise early when the core cannot be built
+        if not os.path.exists(self.db_path):
+            raise RuntimeError(
+                f"{self.db_path} path specified for LMDB features doesn't "
+                "exist."
+            )
+        self.env = None
+
+    def _init_db(self):
+        lmdb = _lmdb_module()
+        self.env = lmdb.open(
+            self.db_path, subdir=os.path.isdir(self.db_path), readonly=True,
+            lock=False, readahead=False, meminit=False,
+        )
+        with self.env.begin(write=False, buffers=True) as txn:
+            self.image_ids = pickle.loads(txn.get(b"keys"))
+            self.image_id_indices = {
+                self.image_ids[i]: i for i in range(len(self.image_ids))
+            }
+
+    def _load(self, image_file_path):
+        if self.env is None:
+            self._init_db()
+        split = os.path.relpath(image_file_path,
+                                self.db_path).split(".npy")[0]
+        try:
+            image_id = int(split.split("_")[-1])
+            img_id_idx = self.image_id_indices[str(image_id).encode()]
+        except (ValueError, KeyError):
+            image_id = split
+            img_id_idx = self.image_id_indices[image_id.encode()]
+        with self.env.begin(write=False, buffers=True) as txn:
+            return pickle.loads(txn.get(self.image_ids[img_id_idx]))
+
+
 class FeatureReader:
-    """Dispatcher by the features' ndim (reference
+    """Dispatcher by lmdb path or the features' ndim (reference
     feature_readers.py:28-95)."""
 
     def __init__(self, base_path, depth_first, max_features=None, ndim=None):
@@ -143,11 +200,9 @@ class FeatureReader:
 
     def _init_reader(self):
         if self.base_path.endswith(".lmdb"):
-            raise NotImplementedError(
-                f"{self.base_path}: the LMDB feature reader is not ported "
-                "yet; point the config at a folder of per-image .npy files"
-            )
-        if self.ndim == 2 or self.ndim == 0:
+            self.feat_reader = LMDBFeatureReader(self.max_features,
+                                                 self.base_path)
+        elif self.ndim == 2 or self.ndim == 0:
             if self.max_features is None:
                 self.feat_reader = FasterRCNNFeatureReader()
             else:

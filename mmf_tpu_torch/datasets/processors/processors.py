@@ -1,23 +1,30 @@
 """Core processors.
 
 Port of the processors of ``mmf_tpu/datasets/processors/processors.py``
-that the VQA2 and masked-VQA2 paths build: the ``Processor`` wrapper
-(type + params dispatch through the registry), ``vqa_answer`` (soft
-VQA-accuracy scores over the answer vocabulary) and
+that the VQA2, masked-VQA2 and TextVQA paths build: the ``Processor``
+wrapper (type + params dispatch through the registry), ``vqa_answer``
+(soft VQA-accuracy scores over the answer vocabulary) and
 ``multi_hot_answer_from_vocab``, ``vocab`` (words to indices through a
 vocabulary file), ``simple_word``, ``simple_sentence``, ``bbox``,
 ``masked_region`` (region masks for masked-region pretraining, drawn
 from Python's ``random`` as in JAX) and ``transformer_bbox`` (normalised
-box geometry with the area), and ``fasttext``'s constructor (the VQA2
-defaults name it; calling it raises, since no fasttext model ships with
-the port). They run on the host and emit fixed-shape numpy arrays.
+box geometry with the area), and M4C's: ``fasttext`` (OCR tokens to
+300-d word vectors through a ``fasttext`` model file, loaded at the
+first call; without the file or the ``fasttext`` package a call raises,
+as in JAX), ``phoc`` (OCR tokens to 604-d PHOC vectors through the C
+featurizer), ``copy`` (an array padded to ``max_length``) and
+``m4c_answer`` (fixed-vocabulary + OCR-copy decoding targets; the
+teacher-forced spelling is drawn from numpy's global generator, as in
+JAX). They run on the host and emit fixed-shape numpy arrays.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import random
-from collections import Counter
+from collections import Counter, defaultdict
+from itertools import islice, product
 
 import numpy as np
 
@@ -74,25 +81,6 @@ class Processor:
             return getattr(wrapped, name)
         raise AttributeError(
             f"Neither the wrapper nor the wrapped processor has {name!r}"
-        )
-
-
-@registry.register_processor("fasttext")
-class FastTextProcessor(BaseProcessor):
-    """FastText word vectors (reference processors.py:407-532). Built
-    lazily, as in JAX: the model file is needed only when the processor
-    is called, and the port has no fasttext reader yet, so a call
-    raises."""
-
-    def __init__(self, config, *args, **kwargs):
-        self.config = config
-        self.max_length = config.get("max_length", 50)
-        self.model_file = config.get("model_file", None)
-
-    def __call__(self, item):
-        raise NotImplementedError(
-            f"fasttext ({self.model_file}): the port has no fasttext "
-            "reader yet; only configs that never call this processor run"
         )
 
 
@@ -212,7 +200,8 @@ class MultiHotAnswerFromVocabProcessor(VQAAnswerProcessor):
 class VocabProcessor(BaseProcessor):
     """Words to a padded index array through a ``utils.vocab.Vocab``
     (reference processors.py:207-342): ``{"text": indices, "tokens":
-    padded tokens, "length": n}``."""
+    padded tokens, "length": n}``. Subclasses (``fasttext``, ``phoc``)
+    keep the call and override ``_map_strings_to_indices``."""
 
     MAX_LENGTH_DEFAULT = 50
     PAD_TOKEN = "<pad>"
@@ -224,6 +213,9 @@ class VocabProcessor(BaseProcessor):
             raise AttributeError(
                 "VocabProcessor needs a 'vocab' block in its config")
         self.vocab = Vocab(*args, **config["vocab"], **kwargs)
+        self._init_extras(config, *args, **kwargs)
+
+    def _init_extras(self, config, *args, **kwargs):
         self.max_length = config.get("max_length", self.MAX_LENGTH_DEFAULT)
         self.preprocessor = None
         if "preprocessor" in config:
@@ -245,21 +237,108 @@ class VocabProcessor(BaseProcessor):
         else:
             raise AssertionError(
                 "VocabProcessor input carries neither 'text' nor 'tokens'")
+        indices = self._map_strings_to_indices(tokens)
         length = min(len(tokens), self.max_length)
-        indices = np.full(self.max_length, self.vocab.get_pad_index(),
-                          np.int64)
-        for idx, token in enumerate(tokens[:length]):
-            indices[idx] = self.vocab.stoi.get(token,
-                                               self.vocab.get_unk_index())
         padded = [self.PAD_TOKEN] * self.max_length
         padded[:length] = tokens[:length]
         return {"text": indices, "tokens": padded, "length": np.int64(length)}
+
+    def _map_strings_to_indices(self, tokens):
+        indices = np.full(self.max_length, self.vocab.get_pad_index(),
+                          np.int64)
+        for idx, token in enumerate(tokens[:self.max_length]):
+            indices[idx] = self.vocab.stoi.get(token,
+                                               self.vocab.get_unk_index())
+        return indices
 
     def get_pad_index(self):
         return self.vocab.get_pad_index()
 
     def get_vocab_size(self):
         return self.vocab.get_size()
+
+
+@registry.register_processor("fasttext")
+class FastTextProcessor(VocabProcessor):
+    """FastText word vectors, ``[max_length, dim]`` f32 with zero rows
+    past the tokens (reference processors.py:407-532). The model file
+    (``model_file``, else ``wiki.en.bin`` in ``env.cache_dir``) is
+    loaded through the ``fasttext`` package at the first call; a call
+    raises when the file or the package is missing (nothing is
+    downloaded). ``model`` may be set to any object with
+    ``get_word_vector`` and ``get_dimension`` before the first call."""
+
+    def __init__(self, config, *args, **kwargs):
+        self.config = config
+        self._init_extras(config)
+        self.model_file = config.get("model_file", None)
+        self.model = None
+
+    def _load_fasttext_model(self, model_file):
+        if not os.path.exists(model_file):
+            raise RuntimeError(
+                f"fasttext model {model_file} not present; nothing is "
+                "downloaded: put the file there first")
+        import fasttext
+
+        self.model = fasttext.load_model(model_file)
+
+    def _map_strings_to_indices(self, tokens):
+        tokens = tokens[:self.max_length]
+        output = np.zeros((self.max_length, self.model.get_dimension()),
+                          np.float32)
+        for idx, token in enumerate(tokens):
+            output[idx] = self.model.get_word_vector(token)
+        return output
+
+    def __call__(self, item):
+        if self.model is None:
+            model_file = self.model_file
+            if model_file is None:
+                from mmf_tpu_torch.config.configuration import get_mmf_env
+
+                model_file = os.path.join(get_mmf_env("cache_dir"),
+                                          "wiki.en.bin")
+            self._load_fasttext_model(model_file)
+        return super().__call__(item)
+
+
+@registry.register_processor("phoc")
+class PhocProcessor(VocabProcessor):
+    """PHOC vectors of the OCR tokens, ``[max_length, 604]`` f32
+    (reference processors.py:1385), through the C featurizer
+    (``utils/phoc``)."""
+
+    def __init__(self, config, *args, **kwargs):
+        self.config = config
+        self._init_extras(config)
+
+    def _map_strings_to_indices(self, tokens):
+        from mmf_tpu_torch.utils.phoc.build_phoc import (
+            PHOC_DIM,
+            build_phoc_batch,
+        )
+
+        tokens = tokens[:self.max_length]
+        output = np.zeros((self.max_length, PHOC_DIM), np.float32)
+        if tokens:
+            output[:len(tokens)] = build_phoc_batch(list(tokens))
+        return output
+
+
+@registry.register_processor("copy")
+class CopyProcessor(BaseProcessor):
+    """An array padded (or cut) to ``max_length`` rows (reference
+    processors.py:1413)."""
+
+    def __init__(self, config, *args, **kwargs):
+        self.max_length = config["max_length"]
+
+    def __call__(self, item):
+        blob = item["blob"]
+        final_blob = np.zeros((self.max_length,) + blob.shape[1:], blob.dtype)
+        final_blob[:len(blob)] = blob[:self.max_length]
+        return {"blob": final_blob}
 
 
 @registry.register_processor("simple_word")
@@ -356,3 +435,131 @@ class TransformerBboxProcessor(BaseProcessor):
         out = dict(item)
         out["bbox"] = location
         return out
+
+
+@registry.register_processor("m4c_answer")
+class M4CAnswerProcessor(BaseProcessor):
+    """Fixed-vocab + OCR-copy decoding targets for M4C (reference
+    processors.py:1430-1607): the step-0 soft scores of every spelling
+    of every answer, and the teacher-forced input and targets of one
+    spelling drawn with ``np.random.choice`` (numpy's global generator,
+    as in JAX)."""
+
+    def __init__(self, config, *args, **kwargs):
+        self.answer_vocab = VocabDict(
+            config["vocab_file"], kwargs.get("data_dir", None)
+        )
+        self.PAD_IDX = self.answer_vocab.word2idx("<pad>")
+        self.BOS_IDX = self.answer_vocab.word2idx("<s>")
+        self.EOS_IDX = self.answer_vocab.word2idx("</s>")
+        self.UNK_IDX = self.answer_vocab.UNK_INDEX
+        assert self.PAD_IDX != self.answer_vocab.UNK_INDEX
+        assert self.BOS_IDX != self.answer_vocab.UNK_INDEX
+        assert self.EOS_IDX != self.answer_vocab.UNK_INDEX
+        assert self.PAD_IDX == 0
+
+        self.answer_preprocessor = Processor(config["preprocessor"])
+        self.num_answers = config["num_answers"]
+        self.max_length = config["max_length"]
+        self.max_copy_steps = config["max_copy_steps"]
+        assert self.max_copy_steps >= 1
+        self.match_answer_to_unk = False
+
+    def tokenize(self, sentence):
+        return sentence.split()
+
+    def match_answer_to_vocab_ocr_seq(self, answer, vocab2idx_dict,
+                                      ocr2inds_dict, max_match_num=20):
+        """Every way to spell ``answer`` as decoder indices, each word
+        from the fixed vocab (index < num_vocab) or copied from any OCR
+        slot holding it (num_vocab + slot): the first ``max_match_num``
+        in prefix-major order, or [] when a word is spellable neither way
+        (reference processors.py:1464-1505)."""
+        num_vocab = len(vocab2idx_dict)
+        per_word = []
+        for word in self.tokenize(answer):
+            choices = []
+            if word in vocab2idx_dict:
+                choices.append(vocab2idx_dict[word])
+            choices += [num_vocab + slot for slot in ocr2inds_dict[word]]
+            if not choices:
+                if not self.match_answer_to_unk:
+                    return []
+                choices.append(vocab2idx_dict.get("<unk>"))
+            per_word.append(choices)
+        if not per_word:
+            return []
+        return list(islice(product(*per_word), max_match_num))
+
+    def get_vocab_size(self):
+        return self.answer_vocab.num_vocab + self.max_length
+
+    def get_true_vocab_size(self):
+        return self.answer_vocab.num_vocab
+
+    def compute_answer_scores(self, answers):
+        """Answer string -> soft VQA accuracy, in closed form over the
+        answer multiset (see ``VQAAnswerProcessor.compute_answers_scores``)."""
+        n = len(answers)
+        scores = {}
+        for answer, c in Counter(answers).items():
+            held_in = min(1.0, (c - 1) / 3.0)
+            held_out = min(1.0, c / 3.0)
+            scores[answer] = (c * held_in + (n - c) * held_out) / n
+        return scores
+
+    def __call__(self, item):
+        answers = item["answers"]
+        if not answers:
+            return {
+                "sampled_idx_seq": None,
+                "train_prev_inds": np.zeros(self.max_copy_steps, np.int64),
+            }
+        answers = [
+            self.answer_preprocessor({"text": a})["text"] for a in answers
+        ]
+        assert len(answers) == self.num_answers
+        answer_score = self.compute_answer_scores(answers)
+
+        # OCR token string -> the copy slots it occupies (may repeat)
+        ocr_slots = defaultdict(list)
+        for slot, token in enumerate(item["tokens"]):
+            ocr_slots[token].append(slot)
+
+        # step 0: every spelling's first index earns its answer's soft
+        # accuracy (the max over answers sharing a first index)
+        scores = np.zeros(
+            (self.max_copy_steps, self.get_vocab_size()), np.float32
+        )
+        candidate_seqs = []
+        for answer in answers:
+            seqs = self.match_answer_to_vocab_ocr_seq(
+                answer, self.answer_vocab.word2idx_dict, ocr_slots
+            )
+            candidate_seqs += seqs
+            for seq in seqs:
+                scores[0, seq[0]] = max(scores[0, seq[0]],
+                                        answer_score[answer])
+
+        # teacher forcing from ONE uniformly drawn spelling: BOS, then the
+        # spelling shifted right; the step after its last index targets EOS
+        train_prev_inds = np.zeros(self.max_copy_steps, np.int64)
+        train_loss_mask = np.zeros(self.max_copy_steps, np.float32)
+        sampled = ()
+        if candidate_seqs:
+            sampled = candidate_seqs[np.random.choice(len(candidate_seqs))]
+            steps = min(1 + len(sampled), self.max_copy_steps)
+            train_loss_mask[:steps] = 1.0
+            train_prev_inds[0] = self.BOS_IDX
+            train_prev_inds[1:steps] = sampled[:steps - 1]
+            for t in range(1, steps):
+                target = sampled[t] if t < len(sampled) else self.EOS_IDX
+                scores[t, target] = 1.0
+
+        return {
+            "answers": answers,
+            "answers_scores": scores,
+            "sampled_idx_seq": sampled,
+            "train_prev_inds": train_prev_inds,
+            "train_loss_mask": train_loss_mask,
+        }

@@ -83,7 +83,8 @@ class BaseModel(nn.Module):
         convolution kernels He-normal over the fan-out (std sqrt(2 /
         (out_channels * kh * kw)), so activations stay O(1) through a
         deep ResNet), BatchNorm weight 1, bias 0, running mean 0 and
-        running variance 1."""
+        running variance 1. A module with weights from files
+        (``ImageFinetune``'s pickles) takes them again afterwards."""
         from mmf_tpu_torch.modules.resnet import BatchNorm
         from mmf_tpu_torch.modules.transformer import (
             Dense,
@@ -115,6 +116,9 @@ class BaseModel(nn.Module):
                 module.bias.zero_()
                 module.running_mean.zero_()
                 module.running_var.fill_(1.0)
+        for module in self.modules():
+            if hasattr(module, "load_pretrained"):
+                module.load_pretrained()
         return self
 
     @torch.no_grad()

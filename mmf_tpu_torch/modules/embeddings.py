@@ -1,5 +1,6 @@
 """Text embeddings (the part of ``mmf_tpu/modules/embeddings.py`` that
-the Hateful Memes baselines use).
+the Hateful Memes baselines use) and ``ImageFinetune``, M4C's fc6 -> fc7
+layer over region features.
 
 ``TextEmbedding`` dispatches on the config's type: ``identity``,
 ``vocab`` (``VocabEmbedding``, a trainable table; JAX does not load
@@ -12,11 +13,16 @@ the table mechanically.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+import os
+import pickle
+from typing import Any, Dict, Optional
 
+import numpy as np
+import torch
+import torch.nn.functional as F
 from torch import nn
 
-from mmf_tpu_torch.modules.transformer import Embed
+from mmf_tpu_torch.modules.transformer import Dense, Embed
 
 _NOT_PORTED = {
     "projection": "ProjectionEmbedding",
@@ -74,3 +80,39 @@ class TextEmbedding(nn.Module):
         if self.emb_type == "torch":
             return self.module(x.long())
         return self.module(x)
+
+
+class ImageFinetune(nn.Module):
+    """fc6 -> fc7 over region features: ``relu(lc(x))`` (reference
+    embeddings.py:289-306). With ``weights_file`` and ``bias_file``
+    (pickled numpy arrays, weights [out, in]) the layer takes its width
+    and values from them, at construction and again whenever
+    ``BaseModel.init_weights`` has drawn the model's weights; without
+    them it is ``out_dim_hint`` wide and drawn with the rest."""
+
+    def __init__(self, in_dim: int, weights_file: Optional[str] = None,
+                 bias_file: Optional[str] = None, out_dim_hint: int = 2048):
+        super().__init__()
+        self.pretrained = None
+        out_dim = out_dim_hint
+        if weights_file and os.path.exists(weights_file):
+            with open(weights_file, "rb") as w:
+                weights = np.asarray(pickle.load(w), np.float32)
+            with open(bias_file, "rb") as b:
+                bias = np.asarray(pickle.load(b), np.float32)
+            out_dim = bias.shape[0]
+            self.pretrained = (torch.from_numpy(weights),
+                               torch.from_numpy(bias))
+        self.out_dim = out_dim
+        self.lc = Dense(in_dim, out_dim)
+        self.load_pretrained()
+
+    @torch.no_grad()
+    def load_pretrained(self):
+        """Copy the pickled weights into ``lc`` (nothing without them)."""
+        if self.pretrained is not None:
+            self.lc.weight.copy_(self.pretrained[0])
+            self.lc.bias.copy_(self.pretrained[1])
+
+    def forward(self, image):
+        return F.relu(self.lc(image))

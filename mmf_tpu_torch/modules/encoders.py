@@ -8,8 +8,8 @@ default dtype, whose type table ``num_segments`` widens; it returns the
 pooled output). ``build_image_encoder`` and ``build_text_encoder`` keep
 the JAX factories' config contract (``embedding`` is the text factory's
 alias of ``text_embedding``); with ``direct_features`` the image factory
-builds ``identity`` (``default``) only, and the other feature encoders
-(``projection``, ``finetune_faster_rcnn_fpn_fc7``) raise
+builds ``identity`` (``default``) and ``finetune_faster_rcnn_fpn_fc7``
+(``ImageFinetune`` over region features); ``projection`` raises
 ``NotImplementedError`` naming the module that is not ported.
 Pretrained ImageNet weights are not loaded (``pretrained`` is accepted
 and ignored, as in the JAX package): ``BaseModel.init_weights`` fills the
@@ -174,6 +174,29 @@ class TransformerEncoderWrapper(Encoder):
         return seq if return_sequence else pooled
 
 
+@registry.register_encoder("finetune_faster_rcnn_fpn_fc7")
+class FinetuneFasterRcnnFpnFc7(nn.Module):
+    """fc6 -> fc7 finetune over region features (reference
+    encoders.py:116), an ``ImageFinetune`` named ``module``. Its weights
+    come from ``weights_file`` / ``bias_file`` when they exist, else
+    they are drawn; ``model_data_dir`` is accepted and unused, as in
+    JAX."""
+
+    def __init__(self, in_dim: int = 2048, weights_file: str = None,
+                 bias_file: str = None, model_data_dir: str = None):
+        super().__init__()
+        from mmf_tpu_torch.modules.embeddings import ImageFinetune
+
+        self.module = ImageFinetune(in_dim, weights_file, bias_file)
+
+    @property
+    def out_dim(self):
+        return self.module.out_dim
+
+    def forward(self, image_feat, *args, **kwargs):
+        return self.module(image_feat)
+
+
 def _construct(cls, params: Dict[str, Any]):
     """``cls`` from the config params its constructor names."""
     names = inspect.signature(cls.__init__).parameters
@@ -187,12 +210,13 @@ def build_image_encoder(config, direct_features: bool = False):
         # image-feature encoders operate on precomputed region features
         if etype in ("default", "identity"):
             return IdentityEncoder(in_dim=params.get("in_dim", 2048))
-        if etype in ("projection", "finetune_faster_rcnn_fpn_fc7"):
-            missing = ("ProjectionEmbedding" if etype == "projection"
-                       else "ImageFinetune")
+        if etype == "finetune_faster_rcnn_fpn_fc7":
+            return _construct(FinetuneFasterRcnnFpnFc7, params)
+        if etype == "projection":
             raise NotImplementedError(
-                f"image feature encoder {etype!r} needs {missing}, which "
-                "is not ported yet; use type identity"
+                "image feature encoder 'projection' needs "
+                "ProjectionEmbedding, which is not ported yet; use type "
+                "identity"
             )
         raise NotImplementedError(f"Unknown Image Feature Encoder: {etype}")
     cls = registry.get_encoder_class(etype)

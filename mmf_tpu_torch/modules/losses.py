@@ -3,7 +3,8 @@
 Port of part of ``mmf_tpu/modules/losses.py``: the containers ``Losses``
 and ``MMFLoss`` (the ``<dataset_type>/<dataset_name>/<loss>`` key
 contract), ``sigmoid_bce_with_logits``, and the ``logit_bce`` (VQA2),
-``cross_entropy`` (nlvr2 head) and ``mse`` losses. The other losses are
+``cross_entropy`` (nlvr2 head), ``mse`` and ``m4c_decoding_bce_with_mask``
+(M4C's decode steps) losses. The other losses are
 not ported yet. Every loss is ``loss(sample_list, model_output) ->
 scalar | dict`` on tensors, differentiable by autograd.
 """
@@ -150,3 +151,20 @@ class MSELoss:
     def __call__(self, sample_list, model_output):
         diff = model_output["scores"] - sample_list["targets"]
         return torch.mean(diff ** 2)
+
+
+@registry.register_loss("m4c_decoding_bce_with_mask")
+class M4CDecodingBCEWithMaskLoss:
+    """BCE over M4C's decode steps, summed over the answer space and the
+    steps that ``train_loss_mask`` keeps, over the kept steps' count (at
+    least 1) (reference losses.py:575)."""
+
+    def __call__(self, sample_list, model_output):
+        scores = model_output["scores"]  # [B, T, V]
+        targets = sample_list["targets"]
+        loss_mask = sample_list["train_loss_mask"]  # [B, T]
+        assert scores.dim() == 3 and loss_mask.dim() == 2
+        losses = sigmoid_bce_with_logits(scores, targets)
+        losses = losses * loss_mask[..., None]
+        count = torch.clamp(loss_mask.sum(), min=1.0)
+        return losses.sum() / count

@@ -8,9 +8,10 @@ with sklearn's semantics: ``f1`` (``macro_``, ``micro_``, ``binary_``,
 ``multilabel_`` and its ``micro``/``macro`` forms),
 ``f1_precision_recall`` (``binary_``, ``macro_``, ``micro_``),
 ``roc_auc`` (``micro_``, ``macro_``) and ``ap`` (``binary_``,
-``micro_``, ``macro_``). Metrics run on the host over the gathered
-report (numpy in, numpy out), as JAX's do; the trainer accumulates the
-fields in ``Metrics.required_params``. The other metrics wait for the
+``micro_``, ``macro_``), and ``textvqa_accuracy`` (M4C's decoded answers
+against TextVQA's ten, ``utils/m4c_evaluators``). Metrics run on the
+host over the gathered report (numpy in, numpy out), as JAX's do; the
+trainer accumulates the fields in ``Metrics.required_params``. The other metrics wait for the
 models and datasets that use them.
 """
 
@@ -589,3 +590,55 @@ class MacroAP(AveragePrecision):
     def __init__(self, *args, **kwargs):
         super().__init__(average="macro", **kwargs)
         self.name = "macro_ap"
+
+
+@registry.register_metric("textvqa_accuracy")
+class TextVQAAccuracy(BaseMetric):
+    """M4C's greedy-decoded ids (fixed vocabulary, then OCR copies) read
+    back into an answer string, up to the first ``</s>``, and scored
+    against the ten answers with the TextVQA evaluator (reference
+    metrics.py:669). The OCR tokens and the answers arrive as the byte
+    arrays the dataset packed (``context_tokens``, ``answers``) and are
+    unpacked as the reference does; JAX's metric indexes the packed
+    bytes instead (ROADMAP C.8)."""
+
+    def __init__(self):
+        super().__init__("textvqa_accuracy")
+        from mmf_tpu_torch.utils import m4c_evaluators as evaluators
+
+        self.evaluator = evaluators.TextVQAAccuracyEvaluator()
+        self.required_params = ["scores", "answers", "context_tokens"]
+        self.gt_key = "answers"
+
+    def calculate(self, sample_list, model_output, *args, **kwargs):
+        from mmf_tpu_torch.utils.distributed import byte_tensor_to_object
+        from mmf_tpu_torch.utils.text import word_tokenize
+
+        dataset_name = _meta(sample_list, "dataset_name")
+        answer_processor = registry.get(dataset_name + "_answer_processor")
+
+        pred_answers = _to_np(model_output["scores"]).argmax(axis=-1)
+        context_tokens = sample_list["context_tokens"]
+        answers = sample_list[self.gt_key]
+        answer_space_size = answer_processor.get_true_vocab_size()
+
+        predictions = []
+        for idx in range(len(pred_answers)):
+            tokens = byte_tensor_to_object(_to_np(context_tokens[idx]))
+            answer_words = []
+            for answer_id in pred_answers[idx].tolist():
+                answer_id = int(answer_id)
+                if answer_id >= answer_space_size:
+                    answer_id -= answer_space_size
+                    if answer_id < len(tokens):
+                        answer_words.append(word_tokenize(tokens[answer_id]))
+                else:
+                    if answer_id == answer_processor.EOS_IDX:
+                        break
+                    answer_words.append(
+                        answer_processor.answer_vocab.idx2word(answer_id))
+            pred_answer = " ".join(answer_words).replace(" 's", "'s")
+            predictions.append({
+                "pred_answer": pred_answer,
+                "gt_answers": byte_tensor_to_object(_to_np(answers[idx]))})
+        return float(self.evaluator.eval_pred_list(predictions))

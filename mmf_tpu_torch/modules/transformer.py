@@ -22,10 +22,11 @@ and no generator installed raises, as flax does without a dropout rng.
 JAX) makes every ``_dense`` projection a ``QuantDense``: the int8 GEMM
 kernel (K5) on the card, its plain version on the CPU.
 
-Not ported yet: remat, MoE, sequence and pipeline parallelism (the config
-fields are accepted; ``moe_experts > 0`` raises), the encoder's
-``output_hidden_states`` / ``prefix_kvs`` / ``return_kv`` (the
-attention block has ``prefix_kv`` and ``return_kv``).
+The encoder's ``prefix_kvs`` (per-layer cached K/V of a prefix that
+every call attends to, M4C's greedy decode), ``return_kv`` and
+``output_hidden_states`` are ported. Not ported yet: remat, MoE, sequence
+and pipeline parallelism (the config fields are accepted;
+``moe_experts > 0`` raises).
 Dense weights start at zero: ``BaseModel.init_weights`` fills them from
 an explicit ``torch.Generator``.
 """
@@ -399,9 +400,30 @@ class TransformerEncoder(nn.Module):
             moe = config.moe_experts > 0 and i % every == every - 1
             self.add_module(f"layer_{i}", TransformerLayer(config, moe=moe))
 
-    def forward(self, hidden, bias=None):
+    def forward(self, hidden, bias=None, output_hidden_states=False,
+                prefix_kvs=None, return_kv=False):
+        """``prefix_kvs``: per-layer cached (k, v) [B, H, S_prefix, D] of
+        tokens every query attends to (prepended to each layer's own
+        keys; ``bias`` then spans prefix + own keys). ``return_kv``
+        returns ``(hidden, [(k, v) of each layer's own tokens])``;
+        ``output_hidden_states`` returns ``(hidden, [input, layer 1
+        output, ..., last output])``."""
+        all_hidden, all_kv = [], []
         for i in range(self.num_layers):
-            hidden = getattr(self, f"layer_{i}")(hidden, bias)
+            if output_hidden_states:
+                all_hidden.append(hidden)
+            layer = getattr(self, f"layer_{i}")
+            prefix_kv = None if prefix_kvs is None else prefix_kvs[i]
+            if return_kv:
+                hidden, kv = layer(hidden, bias, prefix_kv, return_kv=True)
+                all_kv.append(kv)
+            else:
+                hidden = layer(hidden, bias, prefix_kv)
+        if output_hidden_states:
+            all_hidden.append(hidden)
+            return hidden, all_hidden
+        if return_kv:
+            return hidden, all_kv
         return hidden
 
 

@@ -17,7 +17,9 @@ card), and a machine with no card raises unless ``cpu`` was asked for.
 Left out of JAX's trainer, each for its reason: the mesh and its batch
 divisibility check (one device), flax's lazy init (torch builds the
 model eagerly), the jit cache per dataset (the meta rides in the batch),
-M4C's decode budget (no M4C yet), the MoE, pipeline and
+M4C's decode budget (``decode_budget_samples``, which picks JAX's scan
+unroll for the TPU's compile; the port's decode is a Python loop and
+compiles nothing), the MoE, pipeline and
 sequence-parallel hooks (parallelism comes later), the streaming
 ``torchmetrics`` and ``evaluation.limit_val_batches``.
 """

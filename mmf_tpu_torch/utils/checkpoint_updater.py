@@ -50,7 +50,8 @@ logger = logging.getLogger(__name__)
 _LEAF = {"kernel": "weight", "embedding": "weight", "scale": "weight",
          "bias": "bias"}
 _STATS = {"mean": "running_mean", "var": "running_var"}
-_VERBATIM = {"cls_token", "position_embeddings"}
+_VERBATIM = {"cls_token", "position_embeddings", "classifier_w",
+             "classifier_b"}
 
 
 def _flatten(tree, prefix=()):

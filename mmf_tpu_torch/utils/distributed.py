@@ -4,16 +4,25 @@ Port of the part of ``mmf_tpu/utils/distributed.py`` that the
 checkpoint layer and ``mmf_run`` use: ``get_rank``, ``get_world_size``,
 ``is_main`` and ``synchronize``, over ``torch.distributed`` when a
 process group is initialised and trivial when none is (one process);
-``infer_init_method`` and ``suppress_output``. The rest of that module
-(broadcasts, gathers, the mesh) is not ported yet.
+``infer_init_method``, ``suppress_output``, and the object <-> byte
+array codec (``object_to_byte_tensor`` / ``byte_tensor_to_object``) that
+carries strings (ids, OCR tokens, answers) through fixed-shape batches.
+The rest of that module (broadcasts, gathers, the mesh) is not ported
+yet.
 """
 
 from __future__ import annotations
 
 import os
+import pickle
 import warnings
+from typing import Any
 
+import numpy as np
 import torch.distributed as dist
+
+MAX_SIZE_LIMIT = 65533
+BYTE_SIZE = 256
 
 
 def _initialized() -> bool:
@@ -74,3 +83,30 @@ def suppress_output(is_main_proc: bool):
             builtin_warn(*args, **kwargs)
 
     warnings.warn = warn
+
+
+def object_to_byte_tensor(obj: Any, max_size: int = 4094) -> np.ndarray:
+    """``obj`` pickled into a uint8 array of ``max_size + 2``: two bytes
+    of length (big end first), the pickle, zeros (reference
+    distributed.py:245-262)."""
+    assert max_size <= MAX_SIZE_LIMIT
+    byte_arr = pickle.dumps(obj)
+    obj_size = len(byte_arr)
+    if obj_size > max_size:
+        raise Exception(
+            f"objects too large: object size {obj_size}, max size {max_size}"
+        )
+    byte_tensor = np.zeros(max_size + 2, dtype=np.uint8)
+    byte_tensor[0] = obj_size // BYTE_SIZE
+    byte_tensor[1] = obj_size % BYTE_SIZE
+    byte_tensor[2:2 + obj_size] = np.frombuffer(byte_arr, dtype=np.uint8)
+    return byte_tensor
+
+
+def byte_tensor_to_object(byte_tensor, max_size: int = 4094) -> Any:
+    """The object that ``object_to_byte_tensor`` packed (a numpy array or
+    a CPU tensor)."""
+    byte_tensor = np.asarray(byte_tensor, dtype=np.uint8)
+    assert byte_tensor.ndim == 1 and byte_tensor.shape[0] <= max_size + 2
+    obj_size = int(byte_tensor[0]) * BYTE_SIZE + int(byte_tensor[1])
+    return pickle.loads(byte_tensor[2:2 + obj_size].tobytes())

@@ -63,6 +63,14 @@ project config (MMBT and the five baselines),
 ``hateful_memes_train_batch`` draws a training batch of the
 ``bert_tokenizer`` datasets' layout, and ``hateful_memes_trainer``
 builds the step as ``vqa2_trainer`` does.
+
+M4C on TextVQA (``projects/m4c/configs/textvqa/defaults.yaml``: TextBert
+3 x 768 over 20 question tokens, MMT 4 x 768 over 100 objects, 50 OCR
+tokens and 12 decode steps, 5000 answers, f32): ``textvqa_m4c_config``
+reads the YAML with ``TEXTVQA_M4C_OVERRIDES``, ``textvqa_m4c`` builds
+the model, ``textvqa_m4c_batch`` draws a batch of the TextVQA dataset's
+layout with teacher-forced targets, and ``textvqa_trainer`` builds the
+step as ``vqa2_trainer`` does.
 """
 
 from __future__ import annotations
@@ -131,6 +139,25 @@ MMFT_SEQ = 14  # configs/datasets/vqa2/defaults.yaml's vocab max_length
 # 3129 VQA2 targets
 MMFT_VQA2_OVERRIDES = [
     "model_config.mmf_transformer.heads=[{type: mlp, num_labels: 3129}]",
+]
+
+
+TEXTVQA_M4C_CONFIG = "projects/m4c/configs/textvqa/defaults.yaml"
+TEXTVQA_META = {"dataset_name": "textvqa", "dataset_type": "train"}
+# M4C's answer space: fixed_answer_vocab_textvqa_5k.txt's 5000 answers,
+# then the 50 OCR copy slots; 12 decode steps (max_copy_steps)
+M4C_ANSWERS, M4C_OCR, M4C_STEPS = 5000, 50, 12
+M4C_TEXT, M4C_OBJECTS = 20, 100  # max_seq_length, max_features
+# what configs/datasets/textvqa/defaults.yaml lacks to run M4C (a fault
+# of the YAML, in JAX too; ROADMAP C.4): M4C reads the OCR boxes' fc7
+# features as image_feature_1, the second LMDB of one comma-joined
+# features entry (the reference's "detectron.lmdb,ocr_en_frcn_features.
+# lmdb"), and the YAML lists detectron.lmdb alone
+TEXTVQA_FEATURES = ("textvqa/defaults/features/open_images/detectron.lmdb,"
+                    "textvqa/ocr_en/features/ocr_en_frcn_features.lmdb")
+TEXTVQA_M4C_OVERRIDES = [
+    f"dataset_config.textvqa.features.{split}=['{TEXTVQA_FEATURES}']"
+    for split in ("train", "val", "test")
 ]
 
 
@@ -704,3 +731,73 @@ def masked_vqa2_trainer(model, config, seed: int = 0, device: Any = "cuda"):
     """``vqa2_trainer`` with the masked-VQA2 meta fields (the model returns
     its own masked-LM and masked-region losses)."""
     return vqa2_trainer(model, config, seed, device, MASKED_VQA2_META)
+
+
+def textvqa_m4c_config(opts: Optional[List[str]] = None):
+    """The TextVQA M4C config merged over the root defaults, then
+    ``TEXTVQA_M4C_OVERRIDES`` and ``opts`` applied."""
+    return _project_config(TEXTVQA_M4C_CONFIG, "textvqa",
+                           TEXTVQA_M4C_OVERRIDES + list(opts or []), "m4c")
+
+
+def textvqa_m4c(config, model_overrides: Optional[Dict[str, Any]] = None):
+    """M4C from the config's ``model_config`` (with ``model_overrides`` on
+    a copy), its classifier over ``M4C_ANSWERS`` answers unless the
+    registry holds ``textvqa_num_final_outputs`` (a TextVQA dataset
+    registers it)."""
+    return _model("m4c", config, model_overrides)
+
+
+def textvqa_m4c_batch(batch_size: int = 128, seed: int = 0,
+                      text_bert_vocab: int = 30522) -> Dict[str, Any]:
+    """A batch in the TextVQA dataset's layout at M4C's widths, from a
+    numpy seed: ragged questions, objects and OCR tokens (some with
+    none), unit fasttext rows and sparse PHOC rows, boxes, teacher-forced
+    indices over answers and OCR copies with their targets and loss
+    mask."""
+    rng = np.random.RandomState(seed)
+    n_ocr = rng.randint(0, M4C_OCR + 1, batch_size)
+    n_ocr[::8] = 0
+    fasttext = rng.randn(batch_size, M4C_OCR, 300).astype(np.float32)
+    phoc = (rng.rand(batch_size, M4C_OCR, 604) < 0.03).astype(np.float32)
+    order = np.zeros((batch_size, M4C_OCR, M4C_OCR), np.float32)
+    for i, n in enumerate(n_ocr):
+        fasttext[i, n:] = 0
+        phoc[i, n:] = 0
+        order[i, :n, :n] = np.eye(n)
+    steps = rng.randint(2, M4C_STEPS + 1, batch_size)
+    prev = rng.randint(0, M4C_ANSWERS + M4C_OCR, (batch_size, M4C_STEPS))
+    prev[:, 0] = 1
+    targets = np.zeros((batch_size, M4C_STEPS, M4C_ANSWERS + M4C_OCR),
+                       np.float32)
+    targets[np.arange(batch_size)[:, None], np.arange(M4C_STEPS)[None],
+            rng.randint(0, M4C_ANSWERS, (batch_size, M4C_STEPS))] = 1.0
+    return {
+        "text": rng.randint(1, text_bert_vocab,
+                            (batch_size, M4C_TEXT)).astype(np.int64),
+        "text_len": rng.randint(4, M4C_TEXT + 1, batch_size).astype(
+            np.int64),
+        "image_feature_0": rng.randn(batch_size, M4C_OBJECTS, 2048).astype(
+            np.float32),
+        "image_info_0": {"max_features": rng.randint(
+            M4C_OBJECTS // 2, M4C_OBJECTS + 1, batch_size).astype(np.int64)},
+        "obj_bbox_coordinates": rng.rand(batch_size, M4C_OBJECTS, 4).astype(
+            np.float32),
+        "context_feature_0": fasttext,
+        "context_feature_1": phoc,
+        "context_info_0": {"max_features": n_ocr.astype(np.int64)},
+        "image_feature_1": rng.randn(batch_size, M4C_OBJECTS, 2048).astype(
+            np.float32),
+        "order_vectors": order,
+        "ocr_bbox_coordinates": rng.rand(batch_size, M4C_OCR, 4).astype(
+            np.float32),
+        "train_prev_inds": prev.astype(np.int64),
+        "train_loss_mask": (np.arange(M4C_STEPS)[None] < steps[:, None]
+                            ).astype(np.float32),
+        "targets": targets,
+    }
+
+
+def textvqa_trainer(model, config, seed: int = 0, device: Any = "cuda"):
+    """``vqa2_trainer`` with the TextVQA meta fields."""
+    return vqa2_trainer(model, config, seed, device, TEXTVQA_META)

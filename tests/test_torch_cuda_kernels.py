@@ -196,6 +196,78 @@ def test_backward_with_a_per_row_bias(card, no_tf32, dtype, shape):
         _assert_rel(got, ref, GRAD_REL[dtype], name)
 
 
+def _m4c_case(card, case, b=2, seed=11):
+    """M4C's attention calls, f32, 12 heads of 64, with its -10000 biases:
+    TextBert over 20 question tokens (padding by length); the training
+    pass over 182 = 20 + 100 + 50 + 12 tokens with the per-row prefix-LM
+    bias [B,1,182,182] (padding in the question, objects and OCR tokens,
+    the last 12 causal); the prefill over the 170 prefix tokens; the
+    decode's 12 queries over 170 cached + 12 own keys, bias [B,1,12,182].
+    (q, k, v, bias, dO)."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    spans = (20, 100, 50)
+    valid = [torch.arange(n, device=card)[None] < torch.randint(
+        1 if n == 20 else 0, n + 1, (b, 1), device=card, generator=g)
+        for n in spans]
+    mask = torch.cat(valid + [torch.ones(b, 12, dtype=torch.bool,
+                                         device=card)], 1).float()
+    if case == "textbert":
+        sq = skv = 20
+        bias = ((1.0 - mask[:, :20]) * -10000.0)[:, None, None, :]
+    elif case == "prefill":
+        sq = skv = 170
+        bias = ((1.0 - mask[:, :170]) * -10000.0)[:, None, None, :]
+    else:
+        ext = mask[:, None, None, :].expand(b, 1, 182, 182).clone()
+        ext[:, :, -12:, -12:] = torch.tril(torch.ones(12, 12, device=card))
+        bias = (1.0 - ext) * -10000.0
+        sq, skv = (12, 182) if case == "decode" else (182, 182)
+        if case == "decode":
+            bias = bias[:, :, -12:].contiguous()
+
+    def proj(s):
+        return torch.randn(b, s, 12, 64, device=card,
+                           generator=g).transpose(1, 2)
+
+    return proj(sq), proj(skv), proj(skv), bias, proj(sq)
+
+
+@pytest.mark.parametrize("case", ["textbert", "train", "prefill", "decode"])
+def test_m4c_shapes_match_plain(card, no_tf32, case):
+    """K1 in its three forms, K2 and K3 at M4C's shapes against their
+    plain versions (the f32 bounds above)."""
+    q, k, v, bias, dout = _m4c_case(card, case)
+    out = A.flash_attention(q, k, v, bias)
+    out_s, m, l = A.flash_attention_with_stats(q, k, v, bias)
+    acc, m_raw, l_raw = A.flash_attention_block(q, k, v, bias)
+    dq, delta = A.flash_attention_bwd_dq(q, k, v, bias, out_s, m, l, dout)
+    dk, dv = A.flash_attention_bwd_dkv(q, k, v, bias, dout, m, l, delta)
+    torch.cuda.synchronize()
+    ref_out, ref_m, ref_l = A.flash_forward_reference(q, k, v, bias)
+    torch.testing.assert_close(out, ref_out, **TOL[torch.float32])
+    assert torch.equal(out, out_s)
+    torch.testing.assert_close(m, ref_m, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(l, ref_l, atol=1e-4, rtol=1e-4)
+    raw = A.flash_attention_block_reference(q, k, v, bias)
+    _assert_rel(acc, raw[0], 1e-5, "acc")
+    torch.testing.assert_close(m_raw, raw[1], atol=1e-4, rtol=1e-5)
+    want = A.flash_backward_reference(q, k, v, bias, out_s, m, l, dout)
+    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        _assert_rel(got, ref, GRAD_REL[torch.float32], name)
+
+
+def test_m4c_cached_decode_equals_the_full_pass_rows(card, no_tf32):
+    """K1 over the decode's 12 queries with the prefix's K/V prepended
+    (M4C's cached greedy decode) against K1 over the whole 182-token
+    sequence's last 12 rows: the same scores, bias and keys a row."""
+    q, k, v, bias, _ = _m4c_case(card, "train", seed=12)
+    full = A.flash_attention(q, k, v, bias)[:, :, -12:]
+    cached = A.flash_attention(q[:, :, -12:].contiguous(), k, v,
+                               bias[:, :, -12:].contiguous())
+    torch.cuda.synchronize()
+    torch.testing.assert_close(cached, full, atol=1e-6, rtol=1e-6)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_backward_is_bit_equal_across_calls(card, dtype):
     """No atomics: two calls on the same inputs give the same bits."""

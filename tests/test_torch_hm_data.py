@@ -415,7 +415,10 @@ def test_lmdb_features_raise_naming_the_reader(layout):
                             "features", "detectron.lmdb")
         os.makedirs(lmdb, exist_ok=True)
         builder = registry.get_builder_class("hateful_memes")()
-        with pytest.raises(NotImplementedError, match="(?i)lmdb"):
+        # the LMDB reader opens the environment at the first read: an
+        # empty folder holds no data.mdb
+        with pytest.raises(RuntimeError, match="no lmdb database at .*"
+                                               "detectron.lmdb"):
             ds = builder.load_dataset(
                 config["dataset_config"]["hateful_memes"], "train")
             ds[0]

@@ -63,6 +63,16 @@ SLICE_MODULES = [
     "mmf_tpu_torch.models.mmf_transformer",
     "mmf_tpu_torch.datasets.databases.image_database",
     "mmf_tpu_torch.datasets.processors.image_processors",
+    "mmf_tpu_torch.utils.native.build",
+    "mmf_tpu_torch.utils.native.lmdb_shim",
+    "mmf_tpu_torch.utils.phoc.build_phoc",
+    "mmf_tpu_torch.datasets.databases.readers.feature_readers",
+    "mmf_tpu_torch.datasets.processors.processors",
+    "mmf_tpu_torch.datasets.builders.textvqa.builder",
+    "mmf_tpu_torch.datasets.builders.textvqa.dataset",
+    "mmf_tpu_torch.modules.embeddings",
+    "mmf_tpu_torch.utils.m4c_evaluators",
+    "mmf_tpu_torch.models.m4c",
 ]
 
 _PROBE = """
