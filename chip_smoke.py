@@ -14,7 +14,10 @@ the script exits non-zero without a result line):
               times, and the registers and spills of the wgmma kernels
               (K1, K2, K3, K5), the f32 K1, K2 and K3 (split-TF32 on
               mma.sync), with their shared memory, and of K4-bwd's, and
-              ptxas's C75xx notes (a serialised wgmma shows there).
+              ptxas's C75xx notes (a serialised wgmma shows there); the
+              dynamic shared memory and blocks an SM
+              (cudaOccupancyMaxActiveBlocksPerMultiprocessor) of every
+              bf16 K1 and K2 block the launchers take.
 2. kernels  - each kernel against its plain PyTorch version on the card
               at the main paths' shapes, with stated tolerances, and both
               timed (best of several runs): K1 in its inference, stats
@@ -131,8 +134,9 @@ the script exits non-zero without a result line):
 10. vilbert-kernels - K1, K1-stats, K2 and K3 at ViLBERT-base's attention
               shapes (bf16, B=64, 8 heads of 128: image self-attention
               100x100, text queries over 100 regions, region queries
-              over 128 tokens, a padding mask over the keys) against
-              their plain versions, timed beside SDPA and the bound.
+              over 128 tokens, a padding mask over the keys; and the
+              text queries at a served bucket of 8) against their plain
+              versions, timed beside SDPA and the bound.
 11. vilbert-serving - ViLBERT-base from the VQA2 project config (with
               flagship.VILBERT_VQA2_OVERRIDES) behind ServingEngine at
               buckets 1-32: exact launches, one sample against the f32
@@ -235,6 +239,7 @@ last line {"ok": true, "device": {...}}. Imports nothing of JAX.
 
 import contextlib
 import copy
+import ctypes
 import dataclasses
 import itertools
 import json
@@ -584,12 +589,13 @@ def phase_build(card):
         reports[name] = [k for k in kernels if any(
             tag in k[0] for tag in ("sm90", "tf32", "ln_bwd"))]
     fwd, bwd = A._fwd_lib()[0], A._bwd_lib()[0]
-    smem = (fwd.mmf_flash_attention_fwd_smem_bytes(HEAD_DIM, 1),
-            bwd.mmf_flash_attention_bwd_smem_bytes(HEAD_DIM, 1),
+    smem = (bwd.mmf_flash_attention_bwd_smem_bytes(HEAD_DIM, 1, 0),
+            bwd.mmf_flash_attention_bwd_smem_bytes(2 * HEAD_DIM, 1, 0),
             fwd.mmf_flash_attention_fwd_smem_bytes(HEAD_DIM, 0),
             fwd.mmf_flash_attention_fwd_smem_bytes(2 * HEAD_DIM, 0),
-            bwd.mmf_flash_attention_bwd_smem_bytes(HEAD_DIM, 0),
-            bwd.mmf_flash_attention_bwd_smem_bytes(2 * HEAD_DIM, 0))
+            bwd.mmf_flash_attention_bwd_smem_bytes(HEAD_DIM, 0, 1),
+            bwd.mmf_flash_attention_bwd_smem_bytes(2 * HEAD_DIM, 0, 1))
+    blocks = attention_blocks()
     parts.append(f"layer_norm triton jit {done['layer_norm'][1]:.1f}s")
     parts.append(f"the LMDB core c++ {done['lmdb_core'][1]:.1f}s, PHOC cc "
                  f"{done['phoc'][1]:.1f}s")
@@ -598,15 +604,47 @@ def phase_build(card):
           + "; ".join(parts))
     print("  wgmma kernels, the f32 K1, K2 and K3 (split-TF32 on mma.sync) "
           "and K4-bwd's (ptxas: registers, spill store bytes; C7510, C7515 "
-          "and C7520 would mean serialised products; bf16 K1 takes "
-          f"{smem[0]} B of dynamic smem a block at D={HEAD_DIM}, K2 and K3 "
-          f"{smem[1]} B; f32 K1 {smem[2]} B, {smem[3]} B at "
+          "and C7520 would mean serialised products; bf16 K3 takes "
+          f"{smem[0]} B of dynamic smem a block at D={HEAD_DIM}, {smem[1]} "
+          f"B at D={2 * HEAD_DIM}; f32 K1 {smem[2]} B, {smem[3]} B at "
           f"D={2 * HEAD_DIM}; f32 K2 and K3 {smem[4]} B, {smem[5]} B; "
-          "K4-bwd's template arguments: dtype, 16-byte vectors a lane, "
-          "warps a row):")
+          "template arguments of the bf16 K1: head-dim boxes, form, "
+          "per-element bias, ring stages, blocks an SM by launch bounds; of "
+          "K2: the same without the form; K4-bwd's: dtype, "
+          "16-byte vectors a lane, warps a row):")
     for name, kernels in reports.items():
         print(f"    {name}: " + "; ".join(
             f"{n} {r} regs, {sp} B spills" for n, r, sp, _ in kernels))
+    print("  the bf16 K1 and K2 blocks the launchers take (dynamic smem, "
+          "blocks an SM from cudaOccupancyMaxActiveBlocksPerMultiprocessor"
+          ", a consumer warpgroup each): " + "; ".join(
+              f"{kid} D={d} {form}{' per-element bias' if elem else ''} "
+              f"{sm} B, {n} blocks" for kid, d, form, elem, sm, n in blocks))
+    # with no bias or a padding-mask row (every bf16 main path): three
+    # blocks an SM at D = 64, two at 128; a per-element bias may take one
+    for kid, d, form, elem, sm, n in blocks:
+        check(n >= (1 if elem else 2 if d > HEAD_DIM else 3),
+              f"{kid} D={d} {form}: {n} blocks an SM")
+
+
+def attention_blocks():
+    """[(kernel, D, form, per-element bias, dynamic smem bytes, blocks an
+    SM)] for every bf16 K1 and K2 block the C launchers take, from
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor."""
+    fwd, bwd = A._fwd_lib()[0], A._bwd_lib()[0]
+    rows = []
+    for d in (HEAD_DIM, 2 * HEAD_DIM):
+        for elem in (0, 1):
+            for form, label in enumerate(("inference", "stats", "raw")):
+                sm = ctypes.c_int(0)
+                n = fwd.mmf_flash_attention_fwd_occupancy(
+                    d, form, elem, ctypes.byref(sm))
+                rows.append(("K1", d, label, elem, sm.value, n))
+            sm = ctypes.c_int(0)
+            n = bwd.mmf_flash_attention_bwd_dq_occupancy(d, elem,
+                                                         ctypes.byref(sm))
+            rows.append(("K2", d, "dq", elem, sm.value, n))
+    return rows
 
 
 # -- phase 2 ---------------------------------------------------------------
@@ -2532,7 +2570,9 @@ VB_HEADS, VB_HEAD_DIM = 8, 128  # ViLBERT's image stream and co-attention
 # the text
 VILBERT_SHAPES = {"image self 100x100": (TRAIN_B, REGIONS, REGIONS),
                   "text queries 128x100": (TRAIN_B, SEQ, REGIONS),
-                  "region queries 100x128": (TRAIN_B, REGIONS, SEQ)}
+                  "region queries 100x128": (TRAIN_B, REGIONS, SEQ),
+                  # a served bucket of 8: 128 items, fewer than the 132 SMs
+                  "text queries 128x100 bucket 8": (8, SEQ, REGIONS)}
 # per forward: 12 text and 6 image self-attention calls, 2 cross calls in
 # each of 6 co-attention layers; 60 residual LayerNorms (2 a text or image
 # layer, 4 a co-attention layer) and 3 without (the text and image
@@ -2657,7 +2697,8 @@ def phase_vilbert_kernels(card):
                 b, sq, skv, torch.bfloat16, g, VB_HEADS, VB_HEAD_DIM))
             for name, (b, sq, skv) in VILBERT_SHAPES.items()}
     print(f"phase vilbert-kernels: ok K1, K1-stats, K2 and K3 at ViLBERT's "
-          f"shapes (bf16, B={TRAIN_B}, H={VB_HEADS}, D={VB_HEAD_DIM}, a "
+          f"shapes (bf16, B={TRAIN_B} and a bucket of 8, H={VB_HEADS}, "
+          f"D={VB_HEAD_DIM}, a "
           "padding mask over the keys, Skv = 100 ragged against the 64-row "
           "tiles) against their plain versions within the kernels phase's "
           "bounds; device ms (spin-queued) beside SDPA's, the plain "
@@ -2674,7 +2715,9 @@ def phase_vilbert_kernels(card):
             f"{r['bound_ms']['K1-stats']:.4f}), K2 {ms['K2']:.4f} (bound "
             f"{r['bound_ms']['K2']:.4f}), K3 {ms['K3']:.4f} (bound "
             f"{r['bound_ms']['K3']:.4f}), K2+K3 {ms['K2'] + ms['K3']:.4f} "
-            f"(sdpa bwd {lib['K2+K3']:.4f}, plain {r['plain_ms']['K2+K3']:.4f})")
+            f"(sdpa bwd {lib['K2+K3']:.4f}, plain {r['plain_ms']['K2+K3']:.4f})"
+            "; host us " + ", ".join(f"{n} {u:.1f}"
+                                     for n, u in r["host_us"].items()))
     return rows
 
 
@@ -5014,7 +5057,7 @@ def main():
         results[name]["vilbert_shapes"] = {
             shape: {"shape": r["shape"],
                     "max_abs_err": r["max_abs_err"][kid],
-                    "ms": r["ms"][kid],
+                    "ms": r["ms"][kid], "host_us": r["host_us"][kid],
                     "plain_ms": r["plain_ms"][lib],
                     "bound_ms": r["bound_ms"][kid],
                     "bound_by": r["bound_by"][kid],

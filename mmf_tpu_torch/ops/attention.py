@@ -202,6 +202,7 @@ def _fwd_lib():
         "mmf_flash_attention_fwd_raw":
             [_P] * 7 + _DIMS + [_STRIDES, _F, _P],
         "mmf_flash_attention_fwd_smem_bytes": [_I, _I],
+        "mmf_flash_attention_fwd_occupancy": [_I, _I, _I, _P],
     })
 
 
@@ -209,7 +210,8 @@ def _bwd_lib():
     return _typed_library("flash_attention_bwd", {
         "mmf_flash_attention_bwd_dq": [_P] * 10 + _DIMS + [_STRIDES, _F, _P],
         "mmf_flash_attention_bwd_dkv": [_P] * 10 + _DIMS + [_STRIDES, _F, _P],
-        "mmf_flash_attention_bwd_smem_bytes": [_I, _I],
+        "mmf_flash_attention_bwd_smem_bytes": [_I, _I, _I],
+        "mmf_flash_attention_bwd_dq_occupancy": [_I, _I, _P],
     })
 
 

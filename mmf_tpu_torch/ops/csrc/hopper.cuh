@@ -132,6 +132,38 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// One box of a 4-D map from shared memory to global memory (a TMA store,
+// in this thread's bulk group; rows and columns outside the tensor are
+// not written). The box must be in the map's swizzled layout.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          const void* src, int c0, int c1,
+                                          int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Closes this thread's bulk group of TMA stores.
+__device__ __forceinline__ void tma_store_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until every TMA store this thread committed has read its shared
+// memory (the writes to global memory go on; the kernel's end waits for
+// them).
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// Orders this thread's writes to shared memory before the async proxy's
+// reads (a TMA store that follows a barrier).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // 4 bytes from global into shared memory (cp.async), zeros when `valid` is
 // false (nothing is read then).
 __device__ __forceinline__ void cp_async_4(void* dst, const void* src,
@@ -140,6 +172,11 @@ __device__ __forceinline__ void cp_async_4(void* dst, const void* src,
                    smem_u32(dst)),
                "l"(src), "r"(valid ? 4 : 0)
                : "memory");
+}
+
+// Starts bringing the 128-byte line at `p` into L2 (no register written).
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
 }
 
 // Arrives on `bar` once this thread's earlier cp.async copies have landed

@@ -32,6 +32,15 @@ def card():
 VILBERT_SHAPES = [(4, 8, 100, 100, 128), (4, 8, 128, 100, 128),
                   (4, 8, 100, 128, 128)]
 
+# the bf16 blocks' edges: q rows that fill one 64-row block or not, or spill
+# one row into the next (1, 63-65, 100, 127-129), against kv of one row, one
+# whole ring tile, a ragged second tile and a ragged third (1, 64, 100, 130),
+# at both head-dim widths of the blocks (one and two 64-column boxes). Two
+# batches: the second's every column is masked
+EDGE_SHAPES = [(2, 2, sq, skv, d) for d in (64, 128)
+               for sq in (1, 63, 64, 65, 100, 127, 128, 129)
+               for skv in (1, 64, 100, 130)]
+
 
 # ViLT's: 40 text tokens and 577 image tokens (617 = 9 x 64 + 41), f32
 VILT_SHAPE = (2, 12, 617, 617, 64)
@@ -48,7 +57,7 @@ HM_SHAPES = [MMBT_SHAPE, BASELINE_SHAPE]
 @pytest.mark.parametrize("shape", [(2, 12, 228, 228, 64), (1, 2, 37, 37, 64),
                                    (2, 3, 9, 130, 16), (1, 2, 70, 70, 128)]
                          + VILBERT_SHAPES + [VILT_SHAPE, MMFT_SHAPE]
-                         + HM_SHAPES)
+                         + HM_SHAPES + EDGE_SHAPES)
 def test_flash_attention_matches_plain(card, dtype, shape):
     b, h, sq, skv, d = shape
     g = torch.Generator(device=card).manual_seed(0)
@@ -62,12 +71,22 @@ def test_flash_attention_matches_plain(card, dtype, shape):
     mask[-1] = 0  # one batch with every column user-masked
     bias = A.make_attention_bias(mask, dtype)
     before = A.flash_attention.launches
-    for bb in (None, bias, A.combine_biases(bias, bias)):
+    # the two masks summed overflow to -inf on the last batch
+    for bb, empty in ((None, False), (bias, False),
+                      (A.combine_biases(bias, bias), True)):
         out = A.flash_attention(q, k, v, bb)
+        out_s, m, l = A.flash_attention_with_stats(q, k, v, bb)
         torch.cuda.synchronize()
         ref = A.mha_reference(q, k, v, bb)
         assert not torch.isnan(out).any()
         torch.testing.assert_close(out, ref, **TOL[dtype])
+        if empty:  # rows whose every column is -inf: zeros
+            assert (out[-1] == 0).all()
+        # the stats form: the inference form's output, and m, l
+        assert torch.equal(out_s, out)
+        _, ref_m, ref_l = A.flash_forward_reference(q, k, v, bb)
+        torch.testing.assert_close(m, ref_m, atol=1e-4, rtol=1e-5)
+        torch.testing.assert_close(l, ref_l, atol=1e-4, rtol=1e-4)
     assert A.flash_attention.launches == before + 3
 
 
@@ -134,7 +153,10 @@ BWD_SHAPES = [(2, 12, 228, 228, 64), (2, 3, 128, 100, 64),
               (1, 2, 70, 70, 128), (1, 2, 127, 127, 64),
               (1, 2, 129, 129, 64), (1, 2, 256, 256, 64),
               (1, 2, 257, 257, 64), (1, 2, 64, 300, 64)] + VILBERT_SHAPES + [
-                  VILT_SHAPE, MMFT_SHAPE] + HM_SHAPES
+                  VILT_SHAPE, MMFT_SHAPE] + HM_SHAPES + [
+                  # one kv column: p = 1 and ds = dp - delta cancels, so dq
+                  # is zero but for rounding and no relative bound holds it
+                  s for s in EDGE_SHAPES if s[3] > 1]
 
 
 @pytest.fixture
@@ -163,6 +185,8 @@ def test_flash_stats_and_backward_match_plain(card, no_tf32, dtype, shape):
 
     ref_out, ref_m, ref_l = A.flash_forward_reference(q, k, v, bias)
     torch.testing.assert_close(out, ref_out, **TOL[dtype])
+    # the stats form computes what the inference form does
+    assert torch.equal(out, A.flash_attention(q, k, v, bias))
     torch.testing.assert_close(m, ref_m, atol=1e-4, rtol=1e-5)
     torch.testing.assert_close(l, ref_l, atol=1e-4, rtol=1e-4)
     want_delta = (dout.float() * out.float()).sum(-1)
@@ -172,7 +196,8 @@ def test_flash_stats_and_backward_match_plain(card, no_tf32, dtype, shape):
     for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
         assert got.dtype == dtype and got.shape == ref.shape
         _assert_rel(got, ref, GRAD_REL[dtype], name)
-    if b > 1:  # the -inf batch: zero gradients, not NaN
+    if b > 1:  # the -inf batch: zero outputs and gradients, not NaN
+        assert (out[-1] == 0).all()
         assert (dq[-1] == 0).all() and (dk[-1] == 0).all()
         assert (dv[-1] == 0).all()
 
@@ -269,9 +294,12 @@ def test_m4c_cached_decode_equals_the_full_pass_rows(card, no_tf32):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_backward_is_bit_equal_across_calls(card, dtype):
-    """No atomics: two calls on the same inputs give the same bits."""
-    q, k, v, bias, dout = _bwd_case(card, dtype, 2, 12, 228, 228, 64, seed=7)
+@pytest.mark.parametrize("shape", [(2, 12, 228, 228, 64),
+                                   (2, 8, 100, 128, 128)])
+def test_backward_is_bit_equal_across_calls(card, dtype, shape):
+    """No atomics: two calls on the same inputs give the same bits (the
+    main path's D = 64 and ViLBERT's region queries at D = 128)."""
+    q, k, v, bias, dout = _bwd_case(card, dtype, *shape, seed=7)
     out, m, l = A.flash_attention_with_stats(q, k, v, bias)
     first = A.flash_attention_bwd_dq(q, k, v, bias, out, m, l, dout)
     first += A.flash_attention_bwd_dkv(q, k, v, bias, dout, m, l, first[1])
@@ -391,7 +419,8 @@ def test_f32_backward_takes_views_tma_cannot_load(card, no_tf32, offset):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", BWD_SHAPES[:4])
+@pytest.mark.parametrize("shape", BWD_SHAPES[:4] + [
+    s for s in EDGE_SHAPES if s[3] > 1])  # two halves of at least a row
 def test_raw_stats_form_matches_plain_and_merges(card, no_tf32, dtype, shape):
     """K1's raw-stats form against its plain version; the merged states of
     two kv blocks against K1 over the whole kv; an all -inf row gives

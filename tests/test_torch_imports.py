@@ -138,6 +138,34 @@ def test_chip_smoke_fails_without_a_card():
     assert '"ok"' not in proc.stdout and '"kernels"' not in proc.stdout
 
 
+def test_attention_ab_fails_without_a_card():
+    """The kernels' A/B timing script, like chip_smoke.py, exits non-zero
+    without CUDA and times nothing."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: attention_ab.py would really run")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, os.path.join(repo, "attention_ab.py")],
+        capture_output=True, text=True, cwd=repo, timeout=120,
+    )
+    assert proc.returncode != 0
+    assert "attention_ab: ok" not in proc.stdout
+
+
+def test_attention_ab_names_each_other_tree():
+    """Each tree the A/B script times beside this checkout gets its own
+    arm, named by its directory, never "this"."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, repo)
+    try:
+        import attention_ab
+    finally:
+        sys.path.remove(repo)
+    assert attention_ab.arm_names(
+        ["a/parent", "b/parent/", "c/this", "probe"]) == [
+        "parent", "parent-2", "this-2", "probe"]
+
+
 def test_kernel_entries_refuse_cpu_tensors():
     from mmf_tpu_torch.ops import attention, layernorm, quant
 
