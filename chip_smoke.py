@@ -232,6 +232,31 @@ the script exits non-zero without a result line):
               passes, step by step; 3 steps through the kernels against
               the plain versions at dropout 0; the LMDB and PHOC libraries
               built from the checkout (PHOC's C against its python twin).
+25. m4c-family - mmf_run at full width for the rest of the M4C family
+              (flagship.M4C_FAMILY with its overrides; synthetic layouts
+              of 256 / 128 / 128 samples over 48 images each, B=128): the
+              M4C captioner on TextCaps (4 updates; the <unk> column at
+              -1e10 in every decoded step, textcaps_bleu4, caption
+              predictions; its update's and the greedy decode's device
+              time and idle share; 2 steps through the kernels against
+              the plain versions at dropout 0 on the run's first batch
+              without and with <unk> targets), M4C on ST-VQA (stvqa_anls,
+              stvqa_accuracy), OCR-VQA (ocrvqa_accuracy) and TextVQA
+              jointly with ST-VQA (size_proportional): 2 updates each;
+              exact launches per update and greedy-decode forward, the
+              reports' rows, the edit-distance library built from the
+              checkout.
+26. m4c-serve - mmf_serve (cli/serve.py build_server) on m4c-run's
+              TextVQA M4C folder and m4c-family's captioner folder, as a
+              fresh process holds them: the datasets' val samples through
+              the served engine's predict_many at buckets 1-32 (JAX's
+              HTTP path cannot take M4C's nested fields), exact launches
+              a batch (55 K1, 151 K4), the answers against a CPU engine
+              on the same checkpoint (within 1e-4 of the largest score,
+              up to a near-tie's argmax flip), per-bucket ms beside device
+              time, batch-1 p50 / p95; K1 at the served decode's shapes
+              ([b, 12, 12, 182] at buckets 1, 8, 32) against its plain
+              version, timed beside SDPA with the bound and host us.
 
 Then one JSON line describing the kernels, the nvidia-smi line, and the
 last line {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -246,6 +271,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -253,6 +279,7 @@ import threading
 import time
 import types
 import urllib.request
+import warnings
 
 import numpy as np
 import torch
@@ -2953,11 +2980,12 @@ class _StepRecorder(Callback):
     """A user callback of the ViLBERT ``mmf_run`` phases (registered as
     ``chip_smoke_recorder``): the initial weights, and the batches the
     train step took (it wraps the trainer's step), so that the step alone
-    can run them again; when each update's loss reached the host."""
+    can run them again; when each update's loss reached the host; the
+    validations' meters."""
 
     def __init__(self, config, trainer):
         super().__init__(config, trainer)
-        self.batches, self.loss_read = [], {}
+        self.batches, self.loss_read, self.val_meters = [], {}, []
         self.initial = None
 
     def on_init_end(self, **kwargs):
@@ -2976,6 +3004,9 @@ class _StepRecorder(Callback):
 
     def on_update_end(self, **kwargs):
         self.loss_read[self.trainer.num_updates] = time.perf_counter()
+
+    def on_validation_end(self, **kwargs):
+        self.val_meters.append(kwargs["meter"])
 
 
 def _steps_again(trainer, recorder, build, make_trainer, keys):
@@ -4704,6 +4735,9 @@ def phase_m4c_run(card):
 
     registry.register_callback("chip_smoke_recorder")(_StepRecorder)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_m4c_")
+    # the run's folder outlives the phase: m4c-serve serves it
+    save = tempfile.mkdtemp(prefix="chip_smoke_m4c_save_")
+    served = False
     trainer = None
     load_fasttext = P.FastTextProcessor._load_fasttext_model
 
@@ -4723,11 +4757,11 @@ def phase_m4c_run(card):
             tmp, "datasets", "textvqa", "**", "data.mdb"),
             recursive=True)) / 1e6
         torch.cuda.reset_peak_memory_stats()
-        opts = (_evaluated(u) + flagship.TEXTVQA_M4C_OVERRIDES
+        path, datasets, model_name = flagship.M4C_FAMILY["textvqa"]
+        opts = (_evaluated(u) + flagship.M4C_FAMILY_OVERRIDES["textvqa"]
                 + layout_opts(tmp) + ["scheduler.params.warmup_iterations=2"])
         trainer, recorder, launches, run_s = _cli_run(
-            os.path.join(tmp, "save"), flagship.TEXTVQA_M4C_CONFIG, "m4c",
-            "textvqa", u, opts, batch_size=M4C_B)
+            save, path, model_name, datasets, u, opts, batch_size=M4C_B)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         cfg = trainer.config
         mc = cfg["model_config"]["m4c"]
@@ -4834,6 +4868,8 @@ def phase_m4c_run(card):
                        allow_pickle=True)
         libs = _m4c_native_libraries(sorted({
             w for row in imdb[1:17] for w in row["ocr_tokens"]}))
+        requests = _request_samples(trainer, "textvqa", SERVE_B)
+        _prune_checkpoints(save)
         trainer.teardown()
 
         # the evaluation forward alone on a val batch: ms a batch (CUDA
@@ -4871,7 +4907,7 @@ def phase_m4c_run(card):
         # the train step alone on the run's first batch: device time by
         # kind, against the CLI's update time
         def build(c, o=None):
-            return flagship.textvqa_m4c(c, o)
+            return flagship.m4c_family_model(c, o)
 
         step_model = build(cfg)
         step_model.load_state_dict(recorder.initial, strict=True)
@@ -4889,7 +4925,7 @@ def phase_m4c_run(card):
 
         vs_plain, k_launches = _kernels_vs_plain(
             cfg, recorder.initial, batch,
-            lambda c, o: flagship.textvqa_m4c(c, M4C_NO_DROPOUT),
+            lambda c, o: flagship.m4c_family_model(c, M4C_NO_DROPOUT),
             flagship.textvqa_trainer, COMPARED_STEPS, "m4c")
         per_step = dict(ZERO_COUNTS,
                         flash_attention_fwd_stats=M4C_TRAIN_ATTENTION,
@@ -4959,12 +4995,577 @@ def phase_m4c_run(card):
               "token equal to the full passes'")
         print("  kernels vs plain versions, the run's first batch and "
               f"initial weights at dropout 0: {vs_plain}")
+        served = True
     finally:
         P.FastTextProcessor._load_fasttext_model = load_fasttext
         if trainer is not None:
             trainer.teardown()
         shutil.rmtree(tmp, ignore_errors=True)
-    return {k: launches[k] + k_launches[k] for k in launches}
+        if not served:
+            shutil.rmtree(save, ignore_errors=True)
+    return {k: launches[k] + k_launches[k] for k in launches}, (save,
+                                                                requests)
+
+
+# the rest of the M4C family (phases 25-26): each config of
+# flagship.M4C_FAMILY but TextVQA's (m4c-run) through mmf_run at full
+# width, then mmf_serve on a TextVQA M4C and a captioner checkpoint
+FAMILY_SPLITS = {"train": 256, "val": 128, "test": 128}
+FAMILY_IMAGES = 48  # images hold up to 100 objects and 50 OCR tokens
+FAMILY_UPDATES = {"textcaps": 8, "stvqa": 2, "ocrvqa": 2, "joint": 2}
+# the run whose update is timed (over updates 3-8, as m4c-run's, with
+# the loader in RUN_WORKERS workers and one epoch of train samples, so
+# that no epoch restarts the workers); the others read 5-10 batches, 0.4
+# s each in this process, less than starting the workers of three loaders
+TIMED_RUN = "textcaps"
+FAMILY_METRICS = {"textcaps": ("textcaps_bleu4",),
+                  "stvqa": ("stvqa_anls", "stvqa_accuracy"),
+                  "ocrvqa": ("ocrvqa_accuracy",),
+                  "joint": ("textvqa_accuracy",)}
+FAMILY_DATASETS = ("textvqa", "stvqa", "ocrvqa", "textcaps")
+UNK = 3  # <unk>'s index in the layouts' answer vocabularies
+# a single-dataset run's evaluation forwards: the evaluation at its end,
+# then the val and test predictions, one batch each
+FAMILY_FORWARDS = 3
+SERVE_BUCKETS = (1, 2, 4, 8, 16, 32)
+SERVED_DECODE_BUCKETS = (1, 8, 32)
+SERVE_LATENCY_CALLS = 200  # p95 is then the 10th largest
+M4C_PER_FORWARD = dict(ZERO_COUNTS, flash_attention_fwd=M4C_EVAL_ATTENTION,
+                       layer_norm=M4C_EVAL_LN)
+
+
+class _EvalForwards:
+    """Counts M4C's evaluation forwards (greedy decodes, the captioner's
+    included) while the block runs."""
+
+    def __enter__(self):
+        from mmf_tpu_torch.models.m4c import M4C
+
+        self.n, self._forward = 0, M4C.forward
+        counter = self
+
+        def forward(model, sample_list):
+            counter.n += not model.training
+            return counter._forward(model, sample_list)
+
+        M4C.forward = forward
+        return self
+
+    def __exit__(self, *exc):
+        from mmf_tpu_torch.models.m4c import M4C
+
+        M4C.forward = self._forward
+
+
+def _clear_family_state():
+    """The registry's state of the M4C family's datasets (their
+    processors and answer spaces, which a dataset of the same name reuses)
+    and the registered config: what a fresh process holds."""
+    from mmf_tpu_torch.common.registry import registry
+
+    state = registry.mapping["state"]
+    for key in [k for k in state if k == "config" or k.startswith(tuple(
+            f"{d}_" for d in FAMILY_DATASETS))]:
+        del state[key]
+
+
+def _prune_checkpoints(save_dir):
+    """A run's folder as mmf_serve needs it: config.yaml and the final
+    ``.pth``; the ``.ckpt`` files (the optimizer state too) go."""
+    import glob
+
+    for f in glob.glob(os.path.join(save_dir, "**", "*.ckpt"),
+                       recursive=True):
+        os.remove(f)
+
+
+def _request_samples(trainer, dataset_name, n):
+    """The first ``n`` val samples of a run's dataset as serving requests:
+    their array fields, the nested info dicts and the packed uint8
+    ``context_tokens`` included (M4C's samples as JAX's engine stacks
+    them)."""
+    def arrays(tree):
+        return {k: arrays(v) if isinstance(v, dict) else np.asarray(v)
+                for k, v in tree.items() if isinstance(v, dict)
+                or isinstance(v, (np.ndarray, np.generic))}
+
+    dataset = trainer.dataset_loader.datamodules[dataset_name].val_dataset
+    return [arrays(dataset[i]) for i in range(n)]
+
+
+def _family_run(key, root, card):
+    """mmf_run of ``flagship.M4C_FAMILY[key]`` on the layouts under
+    ``root``: (trainer, recorder, launches, its printed line)."""
+    import glob
+
+    from tests.torch_textvqa_layout import layout_opts
+
+    path, datasets, model_name = flagship.M4C_FAMILY[key]
+    names = datasets.split(",")
+    u = FAMILY_UPDATES[key]
+    workers = RUN_WORKERS if key == TIMED_RUN else 0
+    # one checkpoint, the final one: a full-width checkpoint with its
+    # optimizer state is ~1.1 GB
+    opts = (_evaluated(u) + flagship.M4C_FAMILY_OVERRIDES[key]
+            + [o for d in names for o in layout_opts(root, d)]
+            + ["scheduler.params.warmup_iterations=2",
+               "training.checkpoint_interval=1000",
+               f"training.num_workers={workers}"])
+    _clear_family_state()
+    with _EvalForwards() as forwards:
+        trainer, recorder, launches, run_s = _cli_run(
+            os.path.join(root, f"save_{key}"), path, model_name, datasets,
+            u, opts, batch_size=M4C_B)
+
+    cfg = trainer.config
+    mc = cfg["model_config"][model_name]
+    model = trainer.model
+    check((mc["text_bert"]["num_hidden_layers"],
+           mc["mmt"]["num_hidden_layers"], mc["mmt"]["hidden_size"],
+           str(mc.get("dtype", "float32")), tuple(model.classifier_w.shape),
+           type(model).__name__) == (
+        3, 4, HIDDEN, "float32", (flagship.M4C_ANSWERS, HIDDEN),
+        "M4CCaptioner" if key == "textcaps" else "M4C"),
+        f"{key} config {dict(mc)}")
+    losses = {d: list(trainer.meter.meters[
+        f"train/{d}/m4c_decoding_bce_with_mask"].averaged_value_deque)
+        for d in names
+        if f"train/{d}/m4c_decoding_bce_with_mask" in trainer.meter.meters}
+    check(sum(map(len, losses.values())) == u and all(
+        math.isfinite(x) for v in losses.values() for x in v),
+        f"{key} losses {losses}")
+    n = forwards.n
+    want = dict(ZERO_COUNTS, flash_attention_fwd=M4C_EVAL_ATTENTION * n,
+                layer_norm=M4C_TRAIN_LN * u + M4C_EVAL_LN * n,
+                layer_norm_bwd=M4C_TRAIN_LN * u)
+    check(launches == want and (n == FAMILY_FORWARDS or key == "joint"),
+          f"{key} launches {launches} over {n} evaluation forwards, want "
+          f"{want}")
+    save_dir = cfg["env"]["save_dir"]
+    rows = {}
+    for d in names:
+        for split in ("val", "test"):
+            files = glob.glob(os.path.join(save_dir, "reports",
+                                           f"{d}_*_{split}_*.json"))
+            check(len(files) == 1, f"{key} {d} {split} reports {files}")
+            with open(files[0]) as f:
+                rows[d, split] = json.load(f)
+    fields = ({"caption_id", "image_id", "caption", "pred_source"}
+              if key == "textcaps" else
+              {"question_id", "image_id", "answer", "pred_source"})
+    # each dataset's file holds every dataset's rows (ROADMAP C.4)
+    check(all(len(r) == len(names) * FAMILY_SPLITS[split]
+              and all(set(x) == fields for x in r)
+              for (_, split), r in rows.items()),
+          f"{key} report rows {[(k, len(r)) for k, r in rows.items()]}")
+    # the run's one validation (at its last update)
+    check(len(recorder.val_meters) == 1, f"{key} validations "
+          f"{len(recorder.val_meters)}")
+    meter = recorder.val_meters[0]
+    values = {k.split("/", 1)[1]: m.global_avg for k, m in
+              meter.meters.items() if k.startswith("val/")
+              and k.rsplit("/", 1)[1] in FAMILY_METRICS[key]}
+    check(len(values) == len(FAMILY_METRICS[key])
+          and all(0.0 <= v <= 1.0 for v in values.values()),
+          f"{key} val metrics {values}")
+    _prune_checkpoints(save_dir)
+    # the update on the host clock: over updates 3-u where the run has
+    # them (the first batches left out), else update 2
+    t, first = recorder.loss_read, min(2, u - 1)
+    update_ms = 1e3 * (t[u] - t[first]) / (u - first)
+    meters = trainer.profile_meter.meters
+    split = {k: 1e3 * meters[k].median for k in RUN_POINTS
+             if k in meters and meters[k].averaged_value_deque}
+    line = (f"  {key} ({path}, {datasets}, {type(model).__name__}): {u} "
+            f"updates at B={M4C_B}, losses " + ", ".join(
+                f"{d} {[round(x, 4) for x in v]}" for d, v in
+                losses.items()) + f"; launches {launches} (exact: "
+            f"{M4C_TRAIN_LN} K4 and K4-bwd an update, {M4C_EVAL_ATTENTION} "
+            f"K1 and {M4C_EVAL_LN} K4 in each of {n} greedy-decode "
+            "forwards); val " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                          values.items())
+            + f"; {sum(len(r) for r in rows.values())} report rows; "
+            f"{update_ms:.1f} ms an update over updates {first + 1}-{u} "
+            f"(host clock, {workers} loader workers); run {run_s:.1f}s on "
+            f"'{card}'")
+    return trainer, recorder, launches, line, (update_ms, split)
+
+
+def phase_m4c_family(card):
+    """mmf_run at full width for the M4C captioner on TextCaps (the
+    <unk> column at -1e10 in every decoded step, BLEU-4, caption
+    predictions; its update's device time and the greedy decode's; 2
+    steps through the kernels against the plain versions at dropout 0 on
+    a batch with <unk> targets and one without), and for M4C on ST-VQA,
+    OCR-VQA and TextVQA jointly with ST-VQA (ANLS and accuracies, answer
+    predictions): (launches, (captioner folder, its requests), root)."""
+    from mmf_tpu_torch.common.registry import registry
+    from mmf_tpu_torch.datasets.processors import processors as P
+    from mmf_tpu_torch.utils.native import build as native_build
+    from tests.torch_textvqa_layout import FastTextStandIn, write_layout
+
+    registry.register_callback("chip_smoke_recorder")(_StepRecorder)
+    root = tempfile.mkdtemp(prefix="chip_smoke_m4c_family_")
+    load_fasttext = P.FastTextProcessor._load_fasttext_model
+
+    def stand_in(self, model_file):  # wiki.en.bin's seeded stand-in
+        self.model = FastTextStandIn()
+
+    P.FastTextProcessor._load_fasttext_model = stand_in
+    # BLEU-4's warning for an order without a match (a decode after 8
+    # updates matches no 2-gram of the references), muted for the phase
+    muted = contextlib.ExitStack()
+    muted.enter_context(warnings.catch_warnings())
+    warnings.filterwarnings("ignore", message="\nThe hypothesis contains 0 "
+                            "counts of")
+    total, lines, trainer, done = dict(ZERO_COUNTS), [], None, False
+    try:
+        t0 = time.perf_counter()
+        for i, d in enumerate(FAMILY_DATASETS):
+            write_layout(root, n_train=max(FAMILY_SPLITS["train"], M4C_B
+                                           * FAMILY_UPDATES.get(d, 0)),
+                         n_val=FAMILY_SPLITS["val"],
+                         n_test=FAMILY_SPLITS["test"],
+                         n_images=FAMILY_IMAGES,
+                         num_answers=flagship.M4C_ANSWERS, vocab_size=VOCAB,
+                         seed=10 + i, dataset=d)
+        layout_s = time.perf_counter() - t0
+
+        # the captioner on TextCaps
+        trainer, recorder, launches, line, (update_ms, split) = \
+            _family_run("textcaps", root, card)
+        lines.append(line)
+        total = {k: total[k] + launches[k] for k in total}
+        cfg = trainer.config
+        model = trainer.model
+        requests = _request_samples(trainer, "textcaps", SERVE_B)
+        val_batch = train_state._to_device(
+            next(iter(trainer.val_loader)).pytree(), DEV)
+        val_batch.update(dataset_name="textcaps", dataset_type="val")
+        trainer.teardown()
+        model.eval()
+
+        def decode():
+            with torch.no_grad():
+                return model(val_batch)["scores"]
+
+        scores = decode()
+        check(bool((scores[..., UNK] == -1e10).all())
+              and not bool((scores.argmax(-1) == UNK).any()),
+              "the captioner's <unk> column is not -1e10 in every step")
+
+        decode_ms = time_ms(decode, iters=1, repeats=3)
+        dec_dev_ms, _ = _device_ms(decode, 2)
+        del val_batch
+        batch = recorder.batches[0]
+        check(float(batch["train_loss_mask"].sum()) > 0,
+              "no TextCaps caption of the first batch was spelled")
+
+        def build(c, o=None):
+            return flagship.m4c_family_model(c, M4C_NO_DROPOUT)
+
+        step_model = flagship.m4c_family_model(cfg)
+        step_model.load_state_dict(recorder.initial, strict=True)
+        state, step = flagship.textvqa_trainer(step_model, cfg, seed=1)
+        box = [state]
+
+        def one_step():
+            box[0], rep = step(box[0], batch)
+            float(rep["total_loss"])
+
+        one_step()
+        dev_ms, by_category = _device_ms(one_step, 2)
+        del state, step, step_model, box
+        # <unk> targets: the masked -1e10 logit adds 1e10 a target to the
+        # BCE sum on both sides; the batch without them keeps the bound
+        # meaningful
+        with_unk = dict(batch, targets=batch["targets"].clone())
+        mask = batch["train_loss_mask"].bool()
+        with_unk["targets"][..., UNK] = mask.float()
+        no_unk = dict(batch, targets=batch["targets"].clone())
+        no_unk["targets"][..., UNK] = 0.0
+        compared = []
+        for label, b in (("no <unk> target", no_unk),
+                         ("<unk> targets", with_unk)):
+            text, k_launches = _kernels_vs_plain(
+                cfg, recorder.initial, b, build, flagship.textvqa_trainer,
+                2, f"captioner ({label})")
+            check(k_launches == {k: v * 2 for k, v in dict(
+                ZERO_COUNTS, flash_attention_fwd_stats=M4C_TRAIN_ATTENTION,
+                flash_attention_bwd_dq=M4C_TRAIN_ATTENTION,
+                flash_attention_bwd_dkv=M4C_TRAIN_ATTENTION,
+                layer_norm=M4C_TRAIN_LN, layer_norm_bwd=M4C_TRAIN_LN).items()},
+                f"captioner kernel side {k_launches}")
+            total = {k: total[k] + k_launches[k] for k in total}
+            compared.append(f"{label}: {text}")
+        del model, with_unk, no_unk, batch
+        torch.cuda.empty_cache()
+        captioner = (cfg["env"]["save_dir"], requests)
+
+        for key in ("stvqa", "ocrvqa", "joint"):
+            trainer, _, launches, line, _ = _family_run(key, root, card)
+            lines.append(line)
+            total = {k: total[k] + launches[k] for k in total}
+            trainer.teardown()
+            del trainer
+            trainer = None
+            torch.cuda.empty_cache()
+        libs = native_build.loaded()
+        here = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "build", "mmf_tpu_torch", "native")
+        check(any(n.startswith("libeditdist-") and p.startswith(here)
+                  for n, p in libs.items()),
+              f"the edit-distance library was not built from the checkout: "
+              f"{libs}")
+        print(f"phase m4c-family: ok mmf_run at full width (TextBert 3 x "
+              f"768, MMT 4 x 768, {flagship.M4C_ANSWERS} answers + "
+              f"{flagship.M4C_OCR} OCR copies, f32) on synthetic layouts "
+              f"(tests/torch_textvqa_layout.py: {FAMILY_SPLITS} over "
+              f"{FAMILY_IMAGES} images a dataset, two LMDBs each, written in "
+              f"{layout_s:.1f}s), each config with its flagship."
+              "M4C_FAMILY_OVERRIDES; the edit-distance library built from "
+              "the checkout and loaded:")
+        for line in lines:
+            print(line)
+        print(f"  the captioner: <unk> at -1e10 in every decoded step; its "
+              f"update {update_ms:.1f} ms (host clock, updates 3-"
+              f"{FAMILY_UPDATES[TIMED_RUN]}, {RUN_WORKERS} loader workers; "
+              "host split, ms, median of the run's updates: " + ", ".join(
+                  f"{k} {v:.2f}" for k, v in split.items())
+              + f"), device {dev_ms:.2f} ms a step (torch.profiler, the "
+              "train step alone on the run's first batch, 2 steps; idle "
+              f"{100 * max(0.0, 1 - dev_ms / update_ms):.1f}% of the "
+              "update), by kind "
+              "(ms, launches): " + "; ".join(
+                  f"{cat} {ms:.2f} x{cnt:.0f}" for cat, (ms, cnt) in
+                  sorted(by_category.items(), key=lambda kv: -kv[1][0]))
+              + f"; greedy decode of a val batch (B={M4C_B}) {decode_ms:.2f}"
+              f" ms (CUDA events, best of 3), device {dec_dev_ms:.2f} ms "
+              f"(idle {100 * max(0.0, 1 - dec_dev_ms / decode_ms):.1f}%)")
+        for text in compared:
+            print(f"  the captioner, kernels vs plain versions, the run's "
+                  f"first batch with {text}")
+        done = True
+    finally:
+        muted.close()
+        P.FastTextProcessor._load_fasttext_model = load_fasttext
+        if trainer is not None:
+            trainer.teardown()
+        if not done:
+            shutil.rmtree(root, ignore_errors=True)
+    return total, captioner, root
+
+
+def _served_decode_cases(g):
+    """K1's inference form at a served M4C decode step, buckets 1, 8 and
+    32 ([b, 12, 12 rows, 182 keys], bias [b, 1, 12, 182]): against the
+    plain version, device ms beside SDPA's and the plain version's, host
+    us a call, the bound."""
+    rows = {}
+    for b in SERVED_DECODE_BUCKETS:
+        q, k, v, bias, _ = _m4c_attention_inputs("decode", g, b=b)
+        out = A.flash_attention(q, k, v, bias)
+        torch.cuda.synchronize()
+        err = max_err(out, A.mha_reference(q, k, v, bias), torch.float32)
+        heads, sq, skv, d = q.shape[1:3] + k.shape[2:]
+        nb = 2 * _nbytes(q) + 2 * _nbytes(k) + _nbytes(bias)
+        ops = 4 * b * heads * sq * skv * d
+        bound_ms, bound_by = max(
+            (1e3 * nb / HBM_BYTES_PER_S, "bytes"),
+            (1e3 * SPLIT_TF32_PRODUCTS * ops / TF32_FLOPS, "operations"))
+        rows[f"bucket {b}"] = {
+            "shape": [b, heads, sq, skv, d], "dtype": "float32",
+            "max_abs_err": err,
+            "ms": device_ms(lambda: A.flash_attention(q, k, v, bias),
+                            iters=50),
+            "plain_ms": time_ms(lambda: A.mha_reference(q, k, v, bias),
+                                iters=20),
+            "library_ms": device_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=bias), iters=50),
+            "host_us": host_us(lambda: A.flash_attention(q, k, v, bias)),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+        check(err <= TOL[torch.float32]["atol"] + TOL[torch.float32]["rtol"]
+              * float(out.abs().max()), f"served decode K1 at bucket {b}: "
+              f"{err}")
+        del q, k, v, bias, out
+    return rows
+
+
+def _served_vs_cpu(got, want):
+    """A served decode's scores [12, V] against the CPU engine's: the
+    largest difference over the steps up to the first where the argmax
+    differs, relative to the largest |score|, and whether that step's
+    top-2 margin in the CPU's scores lies within 10x the difference (a
+    near-tie, after which the fed-back tokens differ)."""
+    tg, tw = got.argmax(-1), want.argmax(-1)
+    differ = np.nonzero(tg != tw)[0]
+    last = int(differ[0]) + 1 if len(differ) else len(tg)
+    diff = np.abs(got[:last] - want[:last])
+    rel = float(diff.max()) / float(np.abs(want[:last]).max())
+    tie = True
+    if len(differ):
+        top2 = np.sort(want[last - 1])[-2:]
+        tie = float(top2[1] - top2[0]) <= 10 * float(diff[-1].max())
+    return rel, bool(len(differ)), tie
+
+
+class _DecodeSplit:
+    """K1 launches (inference form) inside M4C's prefill and inside its
+    cached decode steps while the block runs, read from the wrapper's
+    count before and after each call; the rest are TextBert's."""
+
+    def __enter__(self):
+        from mmf_tpu_torch.models.m4c import MMT
+
+        self.prefill = self.decode = 0
+        self._methods = MMT.prefill, MMT.decode_step
+        split = self
+
+        def counted(method, field):
+            def call(mmt, *args, **kwargs):
+                before = A.flash_attention.launches
+                out = method(mmt, *args, **kwargs)
+                setattr(split, field, getattr(split, field)
+                        + A.flash_attention.launches - before)
+                return out
+            return call
+
+        MMT.prefill = counted(MMT.prefill, "prefill")
+        MMT.decode_step = counted(MMT.decode_step, "decode")
+        return self
+
+    def __exit__(self, *exc):
+        from mmf_tpu_torch.models.m4c import MMT
+
+        MMT.prefill, MMT.decode_step = self._methods
+
+
+def phase_m4c_serve(card, folders):
+    """mmf_serve (cli/serve.py build_server, port 0) on m4c-run's TextVQA
+    M4C folder and m4c-family's captioner folder, as a fresh process
+    holds them (no dataset in the registry): the dataset's samples at
+    buckets 1-32 through the served engine's predict_many (JAX's HTTP
+    path cannot take M4C's nested fields, ROADMAP C.4), exact launches a
+    batch, the answers against a CPU engine on the same checkpoint, the
+    per-bucket decode ms beside its device time, batch-1 p50 / p95; the
+    served-decode K1 instances against their plain versions."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 parity
+    try:
+        return _m4c_serve(card, folders)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def _m4c_serve(card, folders):
+    from mmf_tpu_torch.cli import serve as serve_cli
+
+    g = torch.Generator(device=DEV).manual_seed(16)
+    decode_rows = _served_decode_cases(g)
+    total, lines, decode_launches = dict(ZERO_COUNTS), [], {}
+    for key, (folder, samples) in folders.items():
+        _clear_family_state()
+        cpu = ServingEngine.from_checkpoint(folder, device="cpu",
+                                            max_batch_size=SERVE_B)
+        # the CPU engine's answers, each sample's compared with the
+        # served one at every bucket it lies in
+        wants = [w["scores"] for w in cpu.predict_many(samples)]
+        del cpu
+        _clear_family_state()
+        t0 = time.perf_counter()
+        server = serve_cli.build_server(serve_cli.parse_opts(
+            [f"checkpoint={folder}", "port=0",
+             f"max_batch_size={SERVE_B}"])).start()
+        try:
+            engine = server.engine
+            check(engine.buckets == SERVE_BUCKETS, f"{engine.buckets}")
+            engine.predict(samples[0])
+            first_s = time.perf_counter() - t0
+            worst, flips, ties, ms, dev = 0.0, 0, 0, {}, {}
+            for b in SERVE_BUCKETS:
+                chunk = samples[:b]
+                engine.predict_many(chunk)  # the bucket's first batch
+                reset_counts()  # the main path, counted from zero
+                with _DecodeSplit() as split:
+                    outs = engine.predict_many(chunk)
+                torch.cuda.synchronize()
+                launches = read_counts()
+                check(launches == M4C_PER_FORWARD, f"{key} served launches "
+                      f"{launches} at bucket {b}, want {M4C_PER_FORWARD}")
+                # MMT's 4 layers in the prefill and in each of the 12
+                # cached decode steps; the rest, TextBert's 3
+                text_k1 = (launches["flash_attention_fwd"] - split.prefill
+                           - split.decode)
+                check((text_k1, split.prefill, split.decode) == (
+                    3, 4, 4 * flagship.M4C_STEPS), f"{key} K1 at bucket "
+                    f"{b}: {text_k1} in TextBert, {split.prefill} in the "
+                    f"prefill, {split.decode} in the decode steps")
+                decode_launches.setdefault(b, set()).add(split.decode)
+                total = {k: total[k] + launches[k] for k in total}
+                for o, want in zip(outs, wants):
+                    got = o["scores"]
+                    check(got.shape == (flagship.M4C_STEPS,
+                                        flagship.M4C_ANSWERS
+                                        + flagship.M4C_OCR)
+                          and np.isfinite(got).all() and set(o) ==
+                          {"scores"}, f"{key} served answer {got.shape}")
+                    rel, flip, tie = _served_vs_cpu(got, want)
+                    worst, flips, ties = max(worst, rel), flips + flip, \
+                        ties + (flip and tie)
+                    check(not (key == "textcaps" and (got[:, UNK] <= -1e9)
+                               .all()), "a served captioner masked <unk>")
+                best = float("inf")
+                for _ in range(3):
+                    t1 = time.perf_counter()
+                    engine.predict_many(chunk)
+                    best = min(best, 1e3 * (time.perf_counter() - t1))
+                ms[b] = best
+                dev[b] = _device_ms(lambda: engine.predict_many(chunk), 1)[0]
+            check(worst <= SERVE_F32_REL and flips == ties,
+                  f"{key} served vs CPU engine: rel {worst}, {flips} "
+                  f"argmax flips ({ties} at near-ties)")
+            lat = []
+            for i in range(SERVE_LATENCY_CALLS):
+                t1 = time.perf_counter()
+                engine.predict(samples[i % len(samples)])
+                lat.append(1e3 * (time.perf_counter() - t1))
+        finally:
+            server.shutdown()
+        p50, p95 = np.percentile(lat, 50), np.percentile(lat, 95)
+        lines.append(
+            f"  {key} ({folder}): buckets {list(SERVE_BUCKETS)}, launches "
+            f"exact a batch ({M4C_EVAL_ATTENTION} K1: {text_k1} in TextBert, "
+            f"{split.prefill} in the prefill, {split.decode} in the "
+            f"{flagship.M4C_STEPS} decode steps, counted in each; "
+            f"{M4C_EVAL_LN} K4); vs a CPU engine on the checkpoint: max rel "
+            f"{worst:.3g} of the largest score (bound {SERVE_F32_REL}; "
+            f"{flips} argmax flips, {ties} at near-ties, compared up to the "
+            f"flip); build_server to the first answer {first_s:.2f}s; "
+            "predict_many ms a batch (host clock, best of 3) / device ms "
+            "(torch.profiler): " + ", ".join(
+                f"{b}: {ms[b]:.2f} / {dev[b]:.2f}" for b in SERVE_BUCKETS)
+            + f"; batch 1 over {SERVE_LATENCY_CALLS} calls p50 {p50:.2f} "
+            f"ms, p95 {p95:.2f} ms (device {dev[1]:.2f} ms, idle "
+            f"{100 * max(0.0, 1 - dev[1] / p50):.1f}%)")
+    for b, row in decode_rows.items():
+        # the decode steps' K1 launches a served batch at this bucket, as
+        # counted above (one number: both checkpoints gave it)
+        (row["launches_per_served_batch"],) = decode_launches[
+            int(b.split()[1])]
+    print(f"phase m4c-serve: ok mmf_serve on the TextVQA M4C and the "
+          "captioner checkpoints written by mmf_run (a served captioner "
+          "masks no <unk>: no answer processor outside a run, in JAX too), "
+          f"the datasets' val samples through predict_many on '{card}':")
+    for line in lines:
+        print(line)
+    print("  served-decode K1 (f32, [b, 12, 12, 182], bias [b, 1, 12, 182]"
+          "): " + "; ".join(
+              f"{name} max_abs_err {r['max_abs_err']:.3g}, {r['ms']:.4f} ms "
+              f"(bound {r['bound_ms']:.4f} {r['bound_by']}), sdpa "
+              f"{r['library_ms']:.4f}, plain {r['plain_ms']:.4f}, host us "
+              f"{r['host_us']:.1f}, {r['launches_per_served_batch']} "
+              "launches a served batch" for name, r in decode_rows.items()))
+    return total, decode_rows
 
 
 SOURCES = {  # name -> (route, source, the TPU kernel it replaces)
@@ -5046,7 +5647,20 @@ def main():
     hm_att, hm_raw = phase_hm_kernels(card)
     hm = [phase_hm_mmbt_run(card), phase_hm_baselines(card)]
     m4c_att, m4c_raw = phase_m4c_kernels(card)
-    hm.append(phase_m4c_run(card))
+    m4c_run, textvqa_served = phase_m4c_run(card)
+    hm.append(m4c_run)
+    family_root = None
+    try:
+        family, captioner_served, family_root = phase_m4c_family(card)
+        served_m4c, decode_rows = phase_m4c_serve(card, {
+            "textvqa": textvqa_served, "textcaps": captioner_served})
+    finally:
+        shutil.rmtree(textvqa_served[0], ignore_errors=True)
+        if family_root is not None:
+            shutil.rmtree(family_root, ignore_errors=True)
+    hm += [family, served_m4c]
+    # K1 at the served M4C decode's buckets
+    results["flash_attention_fwd"]["m4c_served_decode"] = decode_rows
     results["int8_dequant_gemm"]["vb_int8_forward_ms"] = k5_vb_ms
     # the attention kernels at ViLBERT's shapes (D = 128, Sq != Skv)
     short = {"flash_attention_fwd": "K1", "flash_attention_fwd_stats":
@@ -5134,7 +5748,9 @@ def main():
             # ViLBERT's serving, training, mmf_run and mmf_serve, ViLT's
             # serving, training, pretraining, mmf_run and mmf_serve,
             # MMFT's mmf_run and mmf_serve, the Hateful Memes runs
-            # (MMBT and the baselines) and M4C's mmf_run on TextVQA
+            # (MMBT and the baselines), M4C's mmf_run on TextVQA, the rest
+            # of the M4C family's (the captioner's compared steps
+            # included) and the served M4C checkpoints
             "launches": (served[name] + trained[name] + mmbt[name]
                          + vb_int8[name] + pretrained[name]
                          + served_ckpt[name] + mmf_run[name]
@@ -5151,7 +5767,7 @@ def main():
                                  "vb_int8_forward_ms", "plain_vjp_ms",
                                  "forms", "vilbert_shapes", "vilt_shape",
                                  "mmft_shape", "hateful_memes_shapes",
-                                 "m4c_shapes",
+                                 "m4c_shapes", "m4c_served_decode",
                                  "vilt_form") if k in r},
         })
     print(json.dumps({"kernels": kernels}))

@@ -642,3 +642,50 @@ class TextVQAAccuracy(BaseMetric):
                 "pred_answer": pred_answer,
                 "gt_answers": byte_tensor_to_object(_to_np(answers[idx]))})
         return float(self.evaluator.eval_pred_list(predictions))
+
+
+@registry.register_metric("stvqa_anls")
+class STVQAANLS(TextVQAAccuracy):
+    """``textvqa_accuracy``'s decoded answers scored by ANLS."""
+
+    def __init__(self):
+        super().__init__()
+        self.name = "stvqa_anls"
+        from mmf_tpu_torch.utils import m4c_evaluators as evaluators
+
+        self.evaluator = evaluators.STVQAANLSEvaluator()
+
+
+@registry.register_metric("stvqa_accuracy")
+class STVQAAccuracy(TextVQAAccuracy):
+    """``textvqa_accuracy``'s decoded answers scored by exact match."""
+
+    def __init__(self):
+        super().__init__()
+        self.name = "stvqa_accuracy"
+        from mmf_tpu_torch.utils import m4c_evaluators as evaluators
+
+        self.evaluator = evaluators.STVQAAccuracyEvaluator()
+
+
+@registry.register_metric("ocrvqa_accuracy")
+class OCRVQAAccuracy(STVQAAccuracy):
+    def __init__(self):
+        super().__init__()
+        self.name = "ocrvqa_accuracy"
+
+
+@registry.register_metric("textcaps_bleu4")
+class TextCapsBleu4(TextVQAAccuracy):
+    """The greedy-decoded captions, read back as ``textvqa_accuracy``
+    reads answers, against the reference captions (``ref_strs``) by
+    corpus BLEU-4."""
+
+    def __init__(self):
+        super().__init__()
+        self.name = "textcaps_bleu4"
+        self.required_params = ["scores", "ref_strs", "context_tokens"]
+        self.gt_key = "ref_strs"
+        from mmf_tpu_torch.utils import m4c_evaluators as evaluators
+
+        self.evaluator = evaluators.TextCapsBleu4Evaluator()

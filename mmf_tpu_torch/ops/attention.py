@@ -29,6 +29,13 @@ additive and broadcastable to [B, H, Sq, Skv].
   was a TPU bandwidth choice), and a row whose every score is -inf gives
   zeros (and zero gradients), as the kernels do, where the JAX functions
   give NaN.
+- Attention over zero keys (Skv = 0) gives zeros of [B,H,Sq,D], as JAX's
+  ``dot_product_attention`` does, in every form and on either device; on
+  the card the wrappers return it without a launch (the kernels take
+  Skv >= 1). The stats form gives the empty-row convention m = 0, l = 1;
+  the raw form the empty block state (acc = 0, m = -inf, l = 0), which
+  ``merge_block_states`` merges as no keys. The backward gives dq = 0 and
+  empty dk, dv.
 - ``dot_product_attention``: CUDA tensors go to the kernels, CPU tensors
   to the plain version. Attention-probability dropout goes to the plain
   version on either device, as in JAX. A head dim that is not a
@@ -47,6 +54,15 @@ from typing import Optional
 import torch
 
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
+
+
+def _row_max(s: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
+    """The row max of the scores ``s`` [..., Skv], 0 on a row with no
+    finite score (and on every row when Skv = 0, where ``amax`` raises)."""
+    if s.shape[-1] == 0:
+        return s.new_zeros(s.shape[:-1] + ((1,) if keepdim else ()))
+    m = s.amax(dim=-1, keepdim=keepdim)
+    return torch.where(torch.isneginf(m), torch.zeros_like(m), m)
 
 
 def mha_reference(
@@ -68,9 +84,7 @@ def mha_reference(
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if bias is not None:
         logits = logits + bias.float()
-    m = logits.amax(dim=-1, keepdim=True)
-    m = torch.where(torch.isneginf(m), torch.zeros_like(m), m)
-    p = torch.exp(logits - m)
+    p = torch.exp(logits - _row_max(logits, keepdim=True))
     l = p.sum(dim=-1, keepdim=True)
     probs = p / torch.where(l == 0, torch.ones_like(l), l)
     if dropout_rate > 0.0 and generator is not None:
@@ -102,8 +116,7 @@ def flash_forward_reference(
     if scale is None:
         scale = q.shape[-1] ** -0.5
     s = _scores(q, k, bias, scale)
-    m = s.amax(dim=-1)
-    m = torch.where(torch.isneginf(m), torch.zeros_like(m), m)
+    m = _row_max(s)
     l = torch.exp(s - m[..., None]).sum(dim=-1)
     empty = l == 0
     return (mha_reference(q, k, v, bias, scale),
@@ -127,11 +140,13 @@ def flash_attention_block_reference(
     if scale is None:
         scale = q.shape[-1] ** -0.5
     s = _scores(q, k, bias, scale)
-    m = s.amax(dim=-1)
-    m_use = torch.where(torch.isneginf(m), torch.zeros_like(m), m)
+    m_use = _row_max(s)
     p = torch.exp(s - m_use[..., None])
     acc = torch.matmul(p.to(v.dtype).float(), v.float())
-    return acc, m, p.sum(dim=-1)
+    l = p.sum(dim=-1)
+    # a row with no finite score (or no key) keeps the raw max -inf
+    m = torch.where(l == 0, torch.full_like(m_use, float("-inf")), m_use)
+    return acc, m, l
 
 
 def merge_block_states(states):
@@ -339,6 +354,7 @@ def build_flash_attention_bwd() -> dict:
 
 
 def _flash_forward(q, k, v, bias, scale, with_stats):
+    """``(out, m, l, launched)``; m and l are None without ``with_stats``."""
     what = "flash_attention_with_stats" if with_stats else "flash_attention"
     b, h, sq, skv, d = _check_qkv(what, q, k, v)
     q, k, v = (_kernel_operand(t) for t in (q, k, v))
@@ -351,7 +367,13 @@ def _flash_forward(q, k, v, bias, scale, with_stats):
         m = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
         l = torch.empty_like(m)
     if out.numel() == 0:
-        return out, m, l  # nothing to launch
+        return out, m, l, False  # nothing to launch
+    if skv == 0:  # no keys: zeros, and the empty-row stats m = 0, l = 1
+        out.zero_()
+        if with_stats:
+            m.zero_()
+            l.fill_(1.0)
+        return out, m, l, False
     lib, _ = _fwd_lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -363,7 +385,7 @@ def _flash_forward(q, k, v, bias, scale, with_stats):
             float(scale), stream,
         )
     _check_rc(lib, rc, what)
-    return out, m, l
+    return out, m, l, True
 
 
 def flash_attention(
@@ -379,8 +401,9 @@ def flash_attention(
     free). bias: any float dtype, broadcastable to [B,H,Sq,Skv]; it is
     read in f32 with stride 0 on broadcast dims. Returns [B,H,Sq,D] in
     q's dtype, laid out as [B,Sq,H,D] in memory."""
-    out, _, _ = _flash_forward(q, k, v, bias, scale, with_stats=False)
-    flash_attention.launches += out.numel() > 0
+    out, _, _, launched = _flash_forward(q, k, v, bias, scale,
+                                         with_stats=False)
+    flash_attention.launches += launched
     return out
 
 
@@ -391,8 +414,9 @@ def flash_attention_with_stats(q, k, v, bias=None, scale=None):
     """The kernel's stats form (the TPU kernel's ``with_lse``): ``(out,
     m, l)`` with the row max and normalizer of the scores, f32 [B,H,Sq],
     for the backward kernels. Arguments as ``flash_attention``."""
-    out, m, l = _flash_forward(q, k, v, bias, scale, with_stats=True)
-    flash_attention_with_stats.launches += out.numel() > 0
+    out, m, l, launched = _flash_forward(q, k, v, bias, scale,
+                                         with_stats=True)
+    flash_attention_with_stats.launches += launched
     return out, m, l
 
 
@@ -414,6 +438,11 @@ def flash_attention_block(q, k, v, bias=None, scale=None):
     m = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
     if acc.numel() == 0:
+        return acc, m, l
+    if skv == 0:  # no keys: the empty block state
+        acc.zero_()
+        m.fill_(float("-inf"))
+        l.zero_()
         return acc, m, l
     lib, _ = _fwd_lib()
     with torch.cuda.device(q.device):
@@ -468,6 +497,9 @@ def flash_attention_bwd_dq(q, k, v, bias, out, m, l, dout, scale=None):
     delta = torch.empty_like(m)
     if dq.numel() == 0:
         return dq, delta
+    if skv == 0:  # no keys: dq = 0; delta as K2 writes it
+        torch.sum(dout.float() * out.float(), dim=-1, out=delta)
+        return dq.zero_(), delta
     zero = (0, 0, 0)
     lib, _ = _bwd_lib()
     with torch.cuda.device(q.device):

@@ -67,10 +67,16 @@ builds the step as ``vqa2_trainer`` does.
 M4C on TextVQA (``projects/m4c/configs/textvqa/defaults.yaml``: TextBert
 3 x 768 over 20 question tokens, MMT 4 x 768 over 100 objects, 50 OCR
 tokens and 12 decode steps, 5000 answers, f32): ``textvqa_m4c_config``
-reads the YAML with ``TEXTVQA_M4C_OVERRIDES``, ``textvqa_m4c`` builds
-the model, ``textvqa_m4c_batch`` draws a batch of the TextVQA dataset's
-layout with teacher-forced targets, and ``textvqa_trainer`` builds the
-step as ``vqa2_trainer`` does.
+reads the YAML with ``TEXTVQA_M4C_OVERRIDES``, ``textvqa_m4c_batch``
+draws a batch of the TextVQA dataset's layout with teacher-forced
+targets, and ``textvqa_trainer`` builds the step as ``vqa2_trainer``
+does.
+
+The M4C family: ``M4C_FAMILY`` names each config of ``mmf_run`` (M4C on
+TextVQA, ST-VQA, OCR-VQA and TextVQA jointly with ST-VQA; the M4C
+captioner on TextCaps) with its datasets, model and the overrides it
+needs (``M4C_FAMILY_OVERRIDES``, in JAX too); ``m4c_family_model``
+builds the model a config names.
 """
 
 from __future__ import annotations
@@ -159,6 +165,50 @@ TEXTVQA_M4C_OVERRIDES = [
     f"dataset_config.textvqa.features.{split}=['{TEXTVQA_FEATURES}']"
     for split in ("train", "val", "test")
 ]
+
+
+def _ocr_features_overrides(dataset: str) -> List[str]:
+    """``dataset``'s object LMDB (its YAML's) and the OCR boxes' LMDB as
+    one comma-joined features entry, as ``TEXTVQA_M4C_OVERRIDES`` gives
+    TextVQA's: the YAMLs of ST-VQA, OCR-VQA and TextCaps list the object
+    LMDB alone, and M4C reads the OCR features as image_feature_1 (in
+    JAX too, ROADMAP C.4)."""
+    features = (f"{dataset}/defaults/features/open_images/detectron.lmdb,"
+                f"{dataset}/ocr_en/features/ocr_en_frcn_features.lmdb")
+    return [f"dataset_config.{dataset}.features.{split}=['{features}']"
+            for split in ("train", "val", "test")]
+
+
+# the TextCaps YAML's m4c_answer processor asserts ten answers a sample,
+# and the dataset gives it one, the caption (AssertionError on every
+# train and val sample, in JAX too; ROADMAP C.4): one answer
+TEXTCAPS_ONE_ANSWER = ("dataset_config.textcaps.processors.answer_processor."
+                       "params.num_answers=1")
+# the joint config's early stopping watches val/textvqa/textvqa_accuracy,
+# but an evaluation over several datasets scores the combined report under
+# the name of the dataset of its last batch, which size_proportional
+# draws at random (ValueError: the metric is not present in meter, at the
+# first validation, in JAX too; ROADMAP C.4): it watches the loss
+JOINT_EARLY_STOP = ["training.early_stop.criteria=total_loss",
+                    "training.early_stop.minimize=true"]
+# key -> (project config, datasets, model)
+M4C_FAMILY = {
+    "textvqa": (TEXTVQA_M4C_CONFIG, "textvqa", "m4c"),
+    "stvqa": ("projects/m4c/configs/stvqa/defaults.yaml", "stvqa", "m4c"),
+    "ocrvqa": ("projects/m4c/configs/ocrvqa/defaults.yaml", "ocrvqa", "m4c"),
+    "joint": ("projects/m4c/configs/textvqa/joint_with_stvqa.yaml",
+              "textvqa,stvqa", "m4c"),
+    "textcaps": ("projects/m4c_captioner/configs/m4c_captioner/textcaps/"
+                 "defaults.yaml", "textcaps", "m4c_captioner"),
+}
+M4C_FAMILY_OVERRIDES = {
+    "textvqa": TEXTVQA_M4C_OVERRIDES,
+    "stvqa": _ocr_features_overrides("stvqa"),
+    "ocrvqa": _ocr_features_overrides("ocrvqa"),
+    "joint": (TEXTVQA_M4C_OVERRIDES + _ocr_features_overrides("stvqa")
+              + JOINT_EARLY_STOP),
+    "textcaps": _ocr_features_overrides("textcaps") + [TEXTCAPS_ONE_ANSWER],
+}
 
 
 def visual_bert(model_overrides: Optional[Dict[str, Any]] = None):
@@ -740,12 +790,13 @@ def textvqa_m4c_config(opts: Optional[List[str]] = None):
                            TEXTVQA_M4C_OVERRIDES + list(opts or []), "m4c")
 
 
-def textvqa_m4c(config, model_overrides: Optional[Dict[str, Any]] = None):
-    """M4C from the config's ``model_config`` (with ``model_overrides`` on
-    a copy), its classifier over ``M4C_ANSWERS`` answers unless the
-    registry holds ``textvqa_num_final_outputs`` (a TextVQA dataset
-    registers it)."""
-    return _model("m4c", config, model_overrides)
+def m4c_family_model(config,
+                     model_overrides: Optional[Dict[str, Any]] = None):
+    """The model an M4C family config names (M4C or the captioner), from
+    its ``model_config`` with ``model_overrides`` on a copy; M4C's
+    classifier is over ``M4C_ANSWERS`` answers unless the registry holds
+    ``<dataset>_num_final_outputs`` (the dataset registers it)."""
+    return _model(config["model"], config, model_overrides)
 
 
 def textvqa_m4c_batch(batch_size: int = 128, seed: int = 0,

@@ -1,18 +1,34 @@
 """Answer-string evaluators for the M4C task family.
 
-Port of the part of ``mmf_tpu/utils/m4c_evaluators.py`` (reference
-mmf/utils/m4c_evaluators.py) that TextVQA uses: ``EvalAIAnswerProcessor``
-(the VQA/EvalAI answer normalisation: contractions, number words,
-articles, punctuation; visualqa.org/evaluation.html, whose tables must
-match exactly for accuracies to be comparable) and
-``TextVQAAccuracyEvaluator`` (soft accuracy over ten human answers). The
-ST-VQA, OCR-VQA and TextCaps evaluators wait for their datasets.
+Port of ``mmf_tpu/utils/m4c_evaluators.py`` (reference
+mmf/utils/m4c_evaluators.py): ``EvalAIAnswerProcessor`` (the VQA/EvalAI
+answer normalisation: contractions, number words, articles,
+punctuation; visualqa.org/evaluation.html, whose tables must match
+exactly for accuracies to be comparable), ``TextVQAAccuracyEvaluator``
+(soft accuracy over ten human answers), ``STVQAAccuracyEvaluator``
+(exact match against any ground truth, ST-VQA and OCR-VQA),
+``STVQAANLSEvaluator`` (average normalized Levenshtein similarity, through
+the C kernels of ``utils/native/editdist``) and ``TextCapsBleu4Evaluator``
+(corpus BLEU-4 over lowercased word and punctuation tokens).
+
+``corpus_bleu`` is the port's own copy of
+``nltk.translate.bleu_score.corpus_bleu`` with its default arguments,
+which JAX's evaluator calls: uniform 4-gram weights and no smoothing,
+n-gram counts clipped by their largest count in any reference, the
+brevity penalty from each hypothesis's closest reference length over the
+corpus, 0 when no unigram matches, and an order with no match counted at
+``sys.float_info.min`` (a score of about 1e-77 times the rest) with
+nltk's warning.
 """
 
 from __future__ import annotations
 
+import math
 import re
-from typing import Dict, List
+import sys
+import warnings
+from collections import Counter
+from typing import Dict, List, Sequence
 
 
 _CONTRACTIONS = {
@@ -155,3 +171,117 @@ class TextVQAAccuracyEvaluator:
             scores = self._compute_answer_scores(entry["gt_answers"])
             pred_scores.append(scores.get(pred_answer, 0.0))
         return sum(pred_scores) / max(len(pred_scores), 1)
+
+
+def levenshtein(s1: str, s2: str) -> int:
+    """Edit distance in characters (the C kernel of
+    ``utils/native/editdist``; non-ASCII text through its character DP)."""
+    from mmf_tpu_torch.utils.native.editdist import edit_distance
+
+    return edit_distance(s1, s2)
+
+
+class STVQAAccuracyEvaluator:
+    """1 where the normalised prediction equals a normalised ground
+    truth, else 0, averaged."""
+
+    def __init__(self):
+        self.answer_processor = EvalAIAnswerProcessor()
+
+    def eval_pred_list(self, pred_list) -> float:
+        pred_scores = []
+        for entry in pred_list:
+            pred_answer = self.answer_processor(entry["pred_answer"])
+            gts = [self.answer_processor(a) for a in entry["gt_answers"]]
+            pred_scores.append(1.0 if pred_answer in gts else 0.0)
+        return sum(pred_scores) / max(len(pred_scores), 1)
+
+
+class STVQAANLSEvaluator:
+    """Average Normalized Levenshtein Similarity of the lowercased,
+    stripped strings; similarities under 0.5 count as 0."""
+
+    def get_anls(self, s1: str, s2: str) -> float:
+        s1 = s1.lower().strip()
+        s2 = s2.lower().strip()
+        if max(len(s1), len(s2)) == 0:
+            return 0.0
+        iou = 1 - levenshtein(s1, s2) / max(len(s1), len(s2))
+        return iou if iou >= 0.5 else 0.0
+
+    def eval_pred_list(self, pred_list) -> float:
+        from mmf_tpu_torch.utils.native.editdist import anls_best
+
+        pred_scores = [
+            anls_best(e["pred_answer"].lower().strip(),
+                      [gt.lower().strip() for gt in e["gt_answers"]])
+            for e in pred_list
+        ]
+        return sum(pred_scores) / max(len(pred_scores), 1)
+
+
+def _ngrams(tokens: Sequence[str], n: int) -> Counter:
+    return Counter(tuple(tokens[i:i + n])
+                   for i in range(len(tokens) - n + 1))
+
+
+def corpus_bleu(list_of_references: Sequence[Sequence[Sequence[str]]],
+                hypotheses: Sequence[Sequence[str]]) -> float:
+    """Corpus BLEU-4 exactly as nltk's ``corpus_bleu`` computes it with
+    its default arguments (see the module docstring)."""
+    assert len(list_of_references) == len(hypotheses)
+    orders = range(1, 5)
+    numerators, denominators = Counter(), Counter()
+    hyp_lengths = ref_lengths = 0
+    for references, hypothesis in zip(list_of_references, hypotheses):
+        for n in orders:
+            counts = _ngrams(hypothesis, n)
+            max_counts: Dict[tuple, int] = {}
+            for reference in references:
+                ref_counts = _ngrams(reference, n)
+                for gram in counts:
+                    max_counts[gram] = max(max_counts.get(gram, 0),
+                                           ref_counts[gram])
+            numerators[n] += sum(min(c, max_counts[g])
+                                 for g, c in counts.items())
+            denominators[n] += max(1, sum(counts.values()))
+        hyp_len = len(hypothesis)
+        hyp_lengths += hyp_len
+        ref_lengths += min((len(r) for r in references),
+                           key=lambda r: (abs(r - hyp_len), r))
+    if hyp_lengths > ref_lengths:
+        bp = 1.0
+    elif hyp_lengths == 0:
+        bp = 0.0
+    else:
+        bp = math.exp(1 - ref_lengths / hyp_lengths)
+    if numerators[1] == 0:
+        return 0.0
+    precisions = []
+    for n in orders:
+        if numerators[n] != 0:
+            precisions.append(numerators[n] / denominators[n])
+        else:
+            warnings.warn(
+                f"\nThe hypothesis contains 0 counts of {n}-gram overlaps.\n"
+                "Therefore the BLEU score evaluates to 0, independently of\n"
+                "how many N-gram overlaps of lower order it contains.\n"
+                "Consider using lower n-gram order or use "
+                "SmoothingFunction()")
+            precisions.append(sys.float_info.min)
+    return bp * math.exp(math.fsum(0.25 * math.log(p) for p in precisions))
+
+
+class TextCapsBleu4Evaluator:
+    """Corpus BLEU-4 of the predicted captions against their reference
+    captions, each lowercased and split into word and punctuation tokens
+    (JAX's tokenization; the reference's PTB tokenizer is not used)."""
+
+    @staticmethod
+    def _tok(s: str) -> List[str]:
+        return re.findall(r"\w+|[^\w\s]", s.lower())
+
+    def eval_pred_list(self, pred_list) -> float:
+        refs = [[self._tok(a) for a in e["gt_answers"]] for e in pred_list]
+        hyps = [self._tok(e["pred_answer"]) for e in pred_list]
+        return float(corpus_bleu(refs, hyps))

@@ -1,5 +1,5 @@
 """Compile-on-first-use for the port's native host-side libraries (the
-LMDB core, the PHOC featurizer).
+LMDB core, the PHOC featurizer, the edit-distance kernels).
 
 Port of ``mmf_tpu/utils/native/build.py``. A library is compiled from
 the checkout's own source into

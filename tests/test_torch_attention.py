@@ -197,3 +197,73 @@ def test_zero_padded_head_dim_matches_jax(d, monkeypatch):
     np.testing.assert_allclose(tattn.dot_product_attention(
         *map(torch.from_numpy, (q, k, v, bias_np))).numpy(), want,
         atol=F32_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("dtype,bias", [("float32", None),
+                                        ("float32", "padding"),
+                                        ("bfloat16", None)])
+def test_zero_keys_give_zeros_as_jax(dtype, bias):
+    """Attention over zero keys (ROADMAP C.9): JAX's
+    ``dot_product_attention`` gives zeros of [B, H, Sq, D], with dq = 0
+    and empty dk, dv; the port's plain versions give the same, in every
+    form: the output, the stats form's empty-row m = 0 and l = 1, the
+    raw form's empty state (acc 0, m -inf, l 0) that
+    ``merge_block_states`` merges as no keys, and the plain backward.
+    JAX's Pallas forms raise there (``ZeroDivisionError`` in
+    ``_pad_inputs``, ROADMAP C.4)."""
+    rng, q, k, v = _inputs(9, 2, 3, 5, 0, 16)
+    bias_np = None
+    if bias == "padding":
+        bias_np = np.zeros((2, 1, 1, 0), np.float32)
+    jdt, tdt = {"float32": (jnp.float32, torch.float32),
+                "bfloat16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    jq, jk, jv = (jnp.asarray(x).astype(jdt) for x in (q, k, v))
+    jb = None if bias_np is None else jnp.asarray(bias_np)
+
+    import jax
+
+    def jloss(a, b, c):
+        out = jattn.dot_product_attention(a, b, c, jb, impl="xla")
+        return out.astype(jnp.float32).sum(), out
+
+    (_, jout), jgrads = jax.value_and_grad(jloss, argnums=(0, 1, 2),
+                                           has_aux=True)(jq, jk, jv)
+    with pytest.raises(ZeroDivisionError):
+        jattn.flash_attention(jq, jk, jv, jb, interpret=True)
+
+    tq, tk, tv = (torch.from_numpy(x).to(tdt).requires_grad_()
+                  for x in (q, k, v))
+    tb = None if bias_np is None else torch.from_numpy(bias_np)
+    out = tattn.dot_product_attention(tq, tk, tv, tb)
+    out.float().sum().backward()
+    assert out.shape == (2, 3, 5, 16) and out.dtype == tdt
+    np.testing.assert_array_equal(out.detach().float().numpy(),
+                                  np.asarray(jout.astype(jnp.float32)))
+    assert not out.detach().float().numpy().any()
+    for got, want in zip((tq.grad, tk.grad, tv.grad), jgrads):
+        assert tuple(got.shape) == want.shape
+        np.testing.assert_array_equal(got.float().numpy(),
+                                      np.asarray(want.astype(jnp.float32)))
+    assert not tq.grad.float().numpy().any()
+
+    with torch.no_grad():
+        tq, tk, tv = tq.detach(), tk.detach(), tv.detach()
+        o, m, l = tattn.flash_forward_reference(tq, tk, tv, tb)
+        assert not o.float().any()
+        assert (m == 0).all() and (l == 1).all() and m.shape == (2, 3, 5)
+        acc, bm, bl = tattn.flash_attention_block_reference(tq, tk, tv, tb)
+        assert acc.shape == (2, 3, 5, 16) and not acc.any()
+        assert torch.isneginf(bm).all() and (bl == 0).all()
+        # merged with a block of keys, the empty state adds nothing
+        _, _, k2, v2 = _inputs(10, 2, 3, 5, 7, 16)
+        k2, v2 = (torch.from_numpy(x).to(tdt) for x in (k2, v2))
+        other = tattn.flash_attention_block_reference(tq, k2, v2)
+        for merged in (tattn.merge_block_states([(acc, bm, bl), other]),
+                       tattn.merge_block_states([other, (acc, bm, bl)])):
+            for got, want in zip(merged, other):
+                torch.testing.assert_close(got, want, rtol=0, atol=0)
+        dout = torch.ones_like(o)
+        dq, dk, dv = tattn.flash_backward_reference(tq, tk, tv, tb, o, m, l,
+                                                    dout)
+        assert dq.shape == tq.shape and not dq.float().any()
+        assert dk.shape == dv.shape == (2, 3, 0, 16)

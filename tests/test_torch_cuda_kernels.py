@@ -450,6 +450,62 @@ def test_raw_stats_form_matches_plain_and_merges(card, no_tf32, dtype, shape):
         assert (acc[-1] == 0).all()
 
 
+@pytest.mark.parametrize("bucket", [1, 8, 32])
+def test_m4c_served_decode_matches_plain(card, no_tf32, bucket):
+    """K1's inference form at a served M4C decode step: the buckets'
+    [b, 12, 12 rows, 182 keys] with the [b, 1, 12, 182] bias."""
+    q, k, v, bias, _ = _m4c_case(card, "decode", b=bucket, seed=13)
+    before = A.flash_attention.launches
+    out = A.flash_attention(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert A.flash_attention.launches == before + 1
+    torch.testing.assert_close(out, A.mha_reference(q, k, v, bias),
+                               **TOL[torch.float32])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 64, 128])
+def test_zero_keys_give_zeros_without_a_launch(card, dtype, d):
+    """Attention over zero keys (ROADMAP C.9): every form returns what the
+    plain versions give (zeros; the stats form's m = 0, l = 1; the raw
+    form's empty state m = -inf, l = 0), the backward dq = 0 and empty
+    dk, dv, and no kernel is launched."""
+    g = torch.Generator(device=card).manual_seed(5)
+    q = torch.randn(2, 3, 70, d, device=card, generator=g).to(dtype)
+    k = torch.empty(2, 3, 0, d, device=card, dtype=dtype)
+    bias = torch.zeros(2, 1, 1, 0, device=card)
+    kernels = (A.flash_attention, A.flash_attention_with_stats,
+               A.flash_attention_block, A.flash_attention_bwd_dq,
+               A.flash_attention_bwd_dkv)
+    counts = [f.launches for f in kernels]
+    out = A.flash_attention(q, k, k, bias)
+    out_s, m, l = A.flash_attention_with_stats(q, k, k)
+    acc, m_raw, l_raw = A.flash_attention_block(q, k, k, bias)
+    dout = torch.randn(q.shape, device=card, generator=g).to(dtype)
+    dq, delta = A.flash_attention_bwd_dq(q, k, k, bias, out_s, m, l, dout)
+    dk, dv = A.flash_attention_bwd_dkv(q, k, k, bias, dout, m, l, delta)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, k)]
+    auto = A.dot_product_attention(*leaves, bias)
+    auto.backward(dout)
+    torch.cuda.synchronize()
+    assert [f.launches for f in kernels] == counts
+    ref_out, ref_m, ref_l = A.flash_forward_reference(q, k, k, bias)
+    for got in (out, out_s, auto):
+        assert got.shape == q.shape and got.dtype == dtype
+        assert torch.equal(got, ref_out) and not got.any()
+    assert torch.equal(m, ref_m) and torch.equal(l, ref_l)
+    assert (m == 0).all() and (l == 1).all()
+    ref_acc, ref_m_raw, ref_l_raw = A.flash_attention_block_reference(
+        q, k, k, bias)
+    assert torch.equal(acc, ref_acc) and not acc.any()
+    assert torch.equal(m_raw, ref_m_raw) and torch.isneginf(m_raw).all()
+    assert torch.equal(l_raw, ref_l_raw) and not l_raw.any()
+    for grad in (dq, leaves[0].grad):
+        assert grad.shape == q.shape and not grad.any()
+    for grad in (dk, dv, leaves[1].grad, leaves[2].grad):
+        assert grad.shape == (2, 3, 0, d)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_attention_autograd_runs_the_kernels(card, no_tf32, dtype):
     """dot_product_attention with grad: stats form forward, K2 and K3 as

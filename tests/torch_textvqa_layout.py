@@ -1,13 +1,15 @@
-"""A synthetic TextVQA data layout, in the real files' formats, from a
-seed, and the fasttext stand-in its OCR tokens go through.
+"""Synthetic TextVQA, ST-VQA, OCR-VQA and TextCaps data layouts, in
+the real files' formats, from a seed, and the fasttext stand-in their
+OCR tokens go through.
 
-The CPU tests and ``chip_smoke.py`` write their TextVQA data with
-``write_layout`` and point M4C's config at it with ``layout_opts``. Only
-numpy and the port's native LMDB core (``utils/native/lmdb_shim``, which
-imports neither torch nor JAX) are used, so the same module serves the
-port, the JAX package and the card's machine.
+The CPU tests and ``chip_smoke.py`` write their M4C data with
+``write_layout(root, dataset=...)`` and point the dataset's config at it
+with ``layout_opts(root, dataset)``. Only numpy and the port's native
+LMDB core (``utils/native/lmdb_shim``, which imports neither torch nor
+JAX) are used, so the same module serves the port, the JAX package and
+the card's machine.
 
-Under ``root`` (the run's ``env.data_dir``):
+Under ``root`` (the run's ``env.data_dir``), for TextVQA:
 
 - ``datasets/textvqa/defaults/annotations/imdb_{train,val,test}_ocr_en.npy``
   (MMF's imdb): a metadata row first, then one dict a question with
@@ -25,11 +27,38 @@ Under ``root`` (the run's ``env.data_dir``):
   (``image_id``, ``features`` [n, feature_dim] f32, ``bbox``,
   ``num_boxes``, ``image_height``, ``image_width``), written by the
   port's LMDB writer;
-- ``VOCAB_FILE`` (``fixed_answer_vocab_textvqa_5k.txt``): ``num_answers``
-  answers, ``<pad>``, ``<s>``, ``</s>``, ``<unk>`` first;
+- ``textvqa/defaults/extras/vocabs/fixed_answer_vocab_textvqa_5k.txt``:
+  ``num_answers`` answers, ``<pad>``, ``<s>``, ``</s>``, ``<unk>`` first
+  (the other datasets' vocabularies hold the same answers in another
+  order);
 - ``vocab.txt``: the WordPiece vocabulary of ``tests/torch_vqa2_layout``
   (``vocab_size`` entries);
 - the zoo's ``.built`` markers of ``textvqa.defaults``.
+
+The other datasets write the same files under ``datasets/<dataset>/``
+(``DATASETS`` names each one's paths and zoo version), with their own
+annotation rows:
+
+- ST-VQA: ``image_path`` and ``feature_path`` name an image of a source
+  collection (``coco-text/COCO_train2014_<n>.jpg``, ``icdar/...``, ...);
+  the dataset reads the features at ``feature_path`` under the split's
+  folder (``train/`` or, for test, ``test_task3/``), so the LMDB keys are
+  ``train/<source>/<name>`` and ``test_task3/<source>/<name>``. The ten
+  ``answers`` repeat one or two distinct answers (ST-VQA has one or two
+  a question), some with characters beyond ASCII (``café``, ``straße``,
+  which the OCR tokens also hold).
+- OCR-VQA: book covers named by their ten-digit ASIN
+  (``<folder>/<asin>.jpg``); the ten ``answers`` repeat one answer (an
+  OCR token, two joined, a vocabulary word or words in neither).
+- TextCaps: no ``question`` and no ``answers``; each row has a
+  ``caption_id``; train and val rows a ``caption_str`` (one of the
+  image's five captions) and ``reference_strs`` (all five), test rows
+  neither. Captions are lowercase sentences of vocabulary words, OCR
+  tokens of the image (copies), and, in about half of them, words in
+  neither (``zebra``, ``lighthouse``, ...); half end in a period. The
+  ``m4c_answer`` processor cannot spell a caption with such a word, nor
+  one whose last token keeps its period (``simple_word`` strips only
+  commas and question marks), and gives it no loss.
 
 ``FastTextStandIn`` stands for ``wiki.en.bin`` and the ``fasttext``
 package, neither of which the repository carries: seeded 300-wide
@@ -50,10 +79,28 @@ from tests.torch_vqa2_layout import _mark_built, _question, _vocab
 ZOO_VERSION = "0.5.5_2020_06_30"  # configs/zoo/datasets.yaml textvqa
 SPLITS = {"train": "imdb_train_ocr_en.npy", "val": "imdb_val_ocr_en.npy",
           "test": "imdb_test_ocr_en.npy"}
-OBJ_LMDB = "textvqa/defaults/features/open_images/detectron.lmdb"
-OCR_LMDB = "textvqa/ocr_en/features/ocr_en_frcn_features.lmdb"
-VOCAB_FILE = ("textvqa/defaults/extras/vocabs/"
-              "fixed_answer_vocab_textvqa_5k.txt")
+
+
+def _paths(dataset: str, version: str) -> dict:
+    return {"version": version,
+            "obj_lmdb": f"{dataset}/defaults/features/open_images/"
+                        "detectron.lmdb",
+            "ocr_lmdb": f"{dataset}/ocr_en/features/ocr_en_frcn_features.lmdb",
+            "vocab_file": f"{dataset}/defaults/extras/vocabs/"
+                          f"fixed_answer_vocab_{dataset}_5k.txt"}
+
+
+# each dataset's files under datasets/ and its zoo version
+# (configs/zoo/datasets.yaml; the LMDBs and the vocabulary are the paths
+# of configs/datasets/<dataset>/defaults.yaml and of the OCR features'
+# override in utils/flagship.py)
+DATASETS = {"textvqa": _paths("textvqa", ZOO_VERSION),
+            "stvqa": _paths("stvqa", "1.0_2020_04_28"),
+            "ocrvqa": _paths("ocrvqa", "1.0_2020_04_28"),
+            "textcaps": _paths("textcaps", "1.0_2020_05_04")}
+_STVQA_SOURCES = ["coco-text", "icdar", "imageNet", "vizwiz", "textVQA"]
+_NON_ASCII = ["café", "straße", "niño", "résumé"]
+_CAPTION_OOV = ["zebra", "lighthouse", "umbrella", "saxophone", "giraffe"]
 
 _OCR_WORDS = ["stop", "exit", "sale", "open", "coca", "cola", "nike",
               "route", "66", "2014", "pepsi", "cafe", "hotel", "bus", "12",
@@ -64,10 +111,18 @@ _ANSWER_WORDS = ["yes", "no", "red", "blue", "two", "three", "stop",
                  "66", "2014", "hotel", "main", "apple", "sony"]
 
 
-def answer_words(num_answers: int) -> List[str]:
-    words = ["<pad>", "<s>", "</s>", "<unk>"] + _ANSWER_WORDS
-    words += [f"answer{i}" for i in range(num_answers - len(words))]
-    return words[:num_answers]
+def answer_words(num_answers: int, dataset: str = "textvqa") -> List[str]:
+    """The answer vocabulary: ``<pad>``, ``<s>``, ``</s>``, ``<unk>``, then
+    answers; each dataset other than TextVQA holds the same answers in an
+    order of its own (the real vocabularies differ)."""
+    words = _ANSWER_WORDS + [f"answer{i}" for i in
+                             range(max(0, num_answers - 4
+                                       - len(_ANSWER_WORDS)))]
+    words = words[:max(0, num_answers - 4)]
+    if dataset != "textvqa":
+        order = np.random.RandomState(zlib.crc32(dataset.encode()))
+        words = [words[i] for i in order.permutation(len(words))]
+    return (["<pad>", "<s>", "</s>", "<unk>"] + words)[:num_answers]
 
 
 class FastTextStandIn:
@@ -127,35 +182,105 @@ def _answers(rng, ocr_tokens: List[str], vocab: List[str]) -> List[str]:
                                                    p=[0.6, 0.3, 0.1])]
 
 
+def _image_ids(dataset: str, n_images: int) -> Dict[str, List[str]]:
+    """Image names of the train (train and val questions) and test
+    folders."""
+    n_test = max(1, n_images // 5)
+    counts = {"train": n_images - n_test, "test": n_test}
+    if dataset == "stvqa":
+        return {folder: [
+            f"{_STVQA_SOURCES[i % len(_STVQA_SOURCES)]}/"
+            f"COCO_{folder}2014_{i + (0 if folder == 'train' else 50000):012d}"
+            for i in range(n)] for folder, n in counts.items()}
+    if dataset == "ocrvqa":  # book covers by their ten-digit ASINs
+        bases = {"train": 1400000000, "test": 1600000000}
+        return {folder: [f"{bases[folder] + i:010d}" for i in range(n)]
+                for folder, n in counts.items()}
+    return {"train": [f"{i:016x}" for i in
+                      range(0x1a2b0000, 0x1a2b0000 + counts["train"])],
+            "test": [f"{i:016x}" for i in
+                     range(0x5c6d0000, 0x5c6d0000 + counts["test"])]}
+
+
+def _caption(rng, tokens: List[str], vocab: List[str]) -> str:
+    words = ["a"] if "a" in vocab else []
+    for _ in range(int(rng.randint(3, 10))):
+        kind = rng.rand()
+        if tokens and kind < 0.35:
+            words.append(tokens[rng.randint(len(tokens))].lower())
+        else:
+            words.append(vocab[4 + rng.randint(len(vocab) - 4)])
+    if rng.rand() < 0.5:
+        words.insert(int(rng.randint(len(words) + 1)),
+                     _CAPTION_OOV[rng.randint(len(_CAPTION_OOV))])
+    return " ".join(words) + ("." if rng.rand() < 0.5 else "")
+
+
+def _row(rng, dataset: str, split: str, folder: str, image_id: str,
+         index: int, meta, vocab: List[str]) -> dict:
+    """One annotation row of ``dataset``."""
+    tokens, obj_boxes, ocr_boxes, height, width = meta
+    row = {"image_id": image_id, "image_classes": ["Text"],
+           "image_width": width, "image_height": height,
+           "image_path": f"{folder}/{image_id}.jpg",
+           "feature_path": f"{image_id}.npy",
+           "set_name": split, "ocr_tokens": list(tokens),
+           "ocr_normalized_boxes": ocr_boxes,
+           "obj_normalized_boxes": obj_boxes}
+    if dataset == "stvqa":
+        row["image_path"] = f"{image_id}.jpg"
+    if dataset == "textcaps":
+        row["caption_id"] = index
+        if split != "test":
+            refs = [_caption(rng, tokens, vocab) for _ in range(5)]
+            row["caption_str"] = refs[index % 5]
+            row["reference_strs"] = refs
+        return row
+    row["question"] = _question(rng)
+    row["question_id"] = index
+    if split == "test":
+        return row
+    if dataset == "textvqa":
+        row["answers"] = _answers(rng, tokens, vocab)
+    else:
+        distinct = _answers(rng, tokens, vocab)[:2 if dataset == "stvqa"
+                                                 else 1]
+        if dataset == "stvqa" and rng.rand() < 0.15:
+            distinct[0] = _NON_ASCII[rng.randint(len(_NON_ASCII))]
+        row["answers"] = [distinct[i % len(distinct)] for i in range(10)]
+    return row
+
+
 def write_layout(root: str, n_train: int = 640, n_val: int = 128,
                  n_test: int = 64, n_images: int = 160, max_obj: int = 100,
                  max_ocr: int = 50, feature_dim: int = 2048,
                  num_answers: int = 5000, vocab_size: int = 30522,
-                 seed: int = 0) -> Dict[str, str]:
-    """Write the layout under ``root``; returns its main paths. An image
-    has between ``max_obj // 2`` and ``max_obj`` objects and between 0
-    and ``max_ocr`` OCR tokens (one image in eight has none)."""
+                 seed: int = 0, dataset: str = "textvqa") -> Dict[str, str]:
+    """Write ``dataset``'s layout under ``root``; returns its main paths.
+    An image has between ``max_obj // 2`` and ``max_obj`` objects and
+    between 0 and ``max_ocr`` OCR tokens (one image in eight has none).
+    Several datasets may share one ``root`` (the joint config reads
+    TextVQA's and ST-VQA's)."""
     rng = np.random.RandomState(seed)
     datasets = os.path.join(root, "datasets")
-    vocab = answer_words(num_answers)
+    files = DATASETS[dataset]
+    vocab = answer_words(num_answers, dataset)
     splits = {"train": n_train, "val": n_val, "test": n_test}
-    n_test_images = max(1, n_images // 5)
-    images = {"train": [f"{i:016x}" for i in
-                        range(0x1a2b0000, 0x1a2b0000 + n_images
-                              - n_test_images)],
-              "test": [f"{i:016x}" for i in
-                       range(0x5c6d0000, 0x5c6d0000 + n_test_images)]}
+    images = _image_ids(dataset, n_images)
+    ocr_words = _OCR_WORDS + (_NON_ASCII if dataset == "stvqa" else [])
 
     obj, ocr, meta = {}, {}, {}
     for folder, ids in images.items():
         for i, image_id in enumerate(ids):
             key = f"{folder}/{image_id}"
+            if dataset == "stvqa" and folder == "test":
+                key = f"test_task3/{image_id}"
             n_obj = int(rng.randint(max_obj // 2, max_obj + 1))
             n_ocr = 0 if i % 8 == 7 else int(rng.randint(1, max_ocr + 1))
             height, width = int(rng.randint(300, 1024)), int(
                 rng.randint(300, 1024))
-            tokens = [_OCR_WORDS[j] for j in
-                      rng.randint(len(_OCR_WORDS), size=n_ocr)]
+            tokens = [ocr_words[j] for j in
+                      rng.randint(len(ocr_words), size=n_ocr)]
             obj_boxes, ocr_boxes = _boxes(rng, n_obj), _boxes(rng, n_ocr)
             for store, n, boxes in ((obj, n_obj, obj_boxes),
                                     (ocr, n_ocr, ocr_boxes)):
@@ -167,14 +292,15 @@ def write_layout(root: str, n_train: int = 640, n_val: int = 128,
                     "num_boxes": n, "image_height": height,
                     "image_width": width,
                 }
-            meta[key] = (tokens, obj_boxes, ocr_boxes, height, width)
-    _write_lmdb(os.path.join(datasets, OBJ_LMDB), obj)
-    _write_lmdb(os.path.join(datasets, OCR_LMDB), ocr)
+            meta[f"{folder}/{image_id}"] = (tokens, obj_boxes, ocr_boxes,
+                                           height, width)
+    _write_lmdb(os.path.join(datasets, files["obj_lmdb"]), obj)
+    _write_lmdb(os.path.join(datasets, files["ocr_lmdb"]), ocr)
 
-    annotations = os.path.join(datasets, "textvqa", "defaults",
+    annotations = os.path.join(datasets, dataset, "defaults",
                                "annotations")
     os.makedirs(annotations, exist_ok=True)
-    question_id = 0
+    index = 0
     for split, n in splits.items():
         folder = "test" if split == "test" else "train"
         ids = images[folder]
@@ -182,45 +308,33 @@ def write_layout(root: str, n_train: int = 640, n_val: int = 128,
                  "dataset_type": split, "has_answer": split != "test"}]
         for i in range(n):
             image_id = ids[i % len(ids)]
-            tokens, obj_boxes, ocr_boxes, height, width = meta[
-                f"{folder}/{image_id}"]
-            question = _question(rng)
-            row = {"question": question, "question_id": question_id,
-                   "image_id": image_id, "image_classes": ["Text"],
-                   "image_width": width, "image_height": height,
-                   "image_path": f"{folder}/{image_id}.jpg",
-                   "feature_path": f"{image_id}.npy",
-                   "set_name": split, "ocr_tokens": list(tokens),
-                   "ocr_normalized_boxes": ocr_boxes,
-                   "obj_normalized_boxes": obj_boxes}
-            if split != "test":
-                row["answers"] = _answers(rng, tokens, vocab)
-            rows.append(row)
-            question_id += 1
+            rows.append(_row(rng, dataset, split, folder, image_id, index,
+                             meta[f"{folder}/{image_id}"], vocab))
+            index += 1
         np.save(os.path.join(annotations, SPLITS[split]),
                 np.array(rows, dtype=object))
 
-    vocab_path = os.path.join(datasets, VOCAB_FILE)
+    vocab_path = os.path.join(datasets, files["vocab_file"])
     os.makedirs(os.path.dirname(vocab_path), exist_ok=True)
     with open(vocab_path, "w") as f:
         f.write("\n".join(vocab) + "\n")
     vocab_file = os.path.join(root, "vocab.txt")
     with open(vocab_file, "w") as f:
         f.write("\n".join(_vocab(vocab_size)) + "\n")
-    base = os.path.join(datasets, "textvqa")
+    base = os.path.join(datasets, dataset)
     for sub in ("", "annotations", "features"):
-        _mark_built(os.path.join(base, sub), ZOO_VERSION)
+        _mark_built(os.path.join(base, sub), files["version"])
     return {"root": root, "vocab_file": vocab_file,
-            "obj_lmdb": os.path.join(datasets, OBJ_LMDB),
-            "ocr_lmdb": os.path.join(datasets, OCR_LMDB)}
+            "obj_lmdb": os.path.join(datasets, files["obj_lmdb"]),
+            "ocr_lmdb": os.path.join(datasets, files["ocr_lmdb"])}
 
 
-def layout_opts(root: str) -> List[str]:
-    """The dotlist that points TextVQA's config at the layout: the data
-    dir and the WordPiece vocabulary (the feature and annotation paths
-    are the config's own, with the OCR LMDB that
-    ``flagship.TEXTVQA_M4C_OVERRIDES`` adds)."""
+def layout_opts(root: str, dataset: str = "textvqa") -> List[str]:
+    """The dotlist that points ``dataset``'s config at the layout: the
+    data dir and the WordPiece vocabulary (the feature and annotation
+    paths are the config's own, with the OCR LMDB that the dataset's
+    ``flagship`` overrides add)."""
     return [f"env.data_dir={root}",
-            "dataset_config.textvqa.processors.text_processor.params."
+            f"dataset_config.{dataset}.processors.text_processor.params."
             "tokenizer_config.params.vocab_file="
             + os.path.join(root, "vocab.txt")]
