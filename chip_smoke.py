@@ -257,6 +257,26 @@ the script exits non-zero without a result line):
               time, batch-1 p50 / p95; K1 at the served decode's shapes
               ([b, 12, 12, 182] at buckets 1, 8, 32) against its plain
               version, timed beside SDPA with the bound and host us.
+27. vl3-kernels - K1 (its three forms), K2 and K3 in f32 at UNITER's
+              [64, 12, 228, 64], VinVL's [64, 12, 170, 64] and LXMERT's
+              100x100, 128x100, 100x128, 20x36 and 36x20, and K4 and
+              K4-bwd in f32 with the residual at their trunks' rows,
+              against their plain versions, timed beside SDPA and
+              F.layer_norm with the bounds and host us.
+28. vl3-runs - mmf_run at full width (B=64, 4 loader workers, f32) of
+              the five flagship.VL3 configs with their overrides on a
+              synthetic VQA2 and COCO layout: UNITER and LXMERT finetuned
+              on VQA2 and VinVL (3 updates; val and test predicted, val
+              evaluated by the run's trainer), UNITER
+              pretrained on masked COCO (4 updates, each of mlm, itm,
+              mrc, mrfr drawn once) and LXMERT on masked VQA2 (20 tokens,
+              36 regions, 2 updates): exact launches (training attention
+              plain at the configs' dropout 0.1), losses equal to the
+              train step's on the same batches; 3 steps through the
+              kernels against the plain versions for each config;
+              mmf_serve of the three finetuned folders, 32 requests
+              against a CPU engine on the same weights (1e-4 of the
+              largest score).
 
 Then one JSON line describing the kernels, the nvidia-smi line, and the
 last line {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -351,6 +371,9 @@ LN_PARAM_REL = 1e-5
 ROTATE_BYTES = 150e6
 LN_POOL = 7
 SERVE_B = 32  # the serving phase's bucket
+# the requests mmf_serve takes from a run's folder (one bucket): each is
+# MBs of JSON, whose encoding and parsing dominate the phase's time
+SERVED_REQUESTS = 8
 TRAIN_B, TRAIN_STEPS = 64, 6
 # training step through the kernels vs through the plain versions, same
 # weights and batch, dropout 0, bf16 compute: both round activations to
@@ -2620,7 +2643,7 @@ VILBERT_CUTS = [f"model_config.vilbert.{k}=0.0" for k in (
 # noise there): the kernels may add error independent of the plain path's
 # up to sqrt(1.5^2 - 1) = 1.1 times its size
 VILBERT_NOISY_RATIO = 1.5
-VILBERT_RUN_UPDATES = 8
+VILBERT_RUN_UPDATES = 4
 VILBERT_PRETRAIN_UPDATES = 3
 
 
@@ -3022,14 +3045,17 @@ def _steps_again(trainer, recorder, build, make_trainer, keys):
     for batch in recorder.batches:
         state, rep = step(state, batch)
         for k in keys:
-            got[k].append(float(rep["losses"][k]))
+            got[k].append(float(rep["total_loss"] if k == "train/total_loss"
+                                else rep["losses"][k]))
     rel = 0.0
     for k in keys:
         run_losses = list(trainer.meter.meters[k].averaged_value_deque)
         check(len(run_losses) == len(got[k]) and all(
             math.isfinite(x) for x in run_losses), f"{k}: {run_losses}")
-        rel = max([rel] + [abs(a - b) / abs(b) for a, b in
-                           zip(run_losses, got[k])])
+        # a loss of 0 (UNITER's itm over unpaired captions) must be 0
+        rel = max([rel] + [abs(a - b) / abs(b) if b else
+                           (0.0 if a == b else math.inf)
+                           for a, b in zip(run_losses, got[k])])
         check(rel <= RUN_LOSS_RTOL,
               f"mmf_run {k} {run_losses} vs the train step's {got[k]}")
     del state, step, model
@@ -3038,25 +3064,28 @@ def _steps_again(trainer, recorder, build, make_trainer, keys):
 
 
 def _served_folder(card, save_dir, model, samples, per_forward, meta,
-                   label):
+                   label, ref_device=DEV):
     """mmf_serve (cli/serve.py build_server, port 0) on a run's folder:
-    SERVE_B concurrent requests (their fields) against an in-memory engine
-    on the run's weights with the same meta fields, which predicts them
-    as one bucket-32 batch; the batcher waits up to SERVE_WAIT_MS for the
-    requests, so that they meet the model as one batch too (another
-    bucket takes other GEMM shapes, and bf16 the roundings those give).
-    ``per_forward`` the exact launches of one forward."""
+    one concurrent request a sample (its fields) against an in-memory
+    engine on the run's weights with the same meta fields, which predicts
+    them as one batch, the server's bucket; the batcher waits up to
+    SERVE_WAIT_MS for the requests, so that they meet the model as one
+    batch too (another bucket takes other GEMM shapes, and bf16 the
+    roundings those give).
+    ``per_forward`` the exact launches of one forward. ``ref_device``
+    "cpu" puts the in-memory engine on the CPU (the plain versions)."""
     from mmf_tpu_torch.cli import serve as serve_cli
 
     bodies = [_fields_body(s) for s in samples]
-    ref = ServingEngine(model, device=DEV, max_batch_size=SERVE_B,
+    bucket = len(samples)
+    ref = ServingEngine(model, device=ref_device, max_batch_size=bucket,
                         meta=meta).predict_many(samples)
     bf16 = str(model.config.get("dtype", "float32")) in ("bfloat16", "bf16")
     del model
     reset_counts()  # the main path, counted from zero
     t0 = time.perf_counter()
     server = serve_cli.build_server(serve_cli.parse_opts(
-        [f"checkpoint={save_dir}", "port=0", f"max_batch_size={SERVE_B}",
+        [f"checkpoint={save_dir}", "port=0", f"max_batch_size={bucket}",
          f"max_wait_ms={SERVE_WAIT_MS}"])).start()
     try:
         replies, done_at = [None] * len(samples), [None] * len(samples)
@@ -3105,7 +3134,8 @@ def _served_folder(card, save_dir, model, samples, per_forward, meta,
         f"  mmf_serve on the run's folder (cli/serve.py build_server, port "
         f"0): {len(samples)} concurrent requests all 200, {batches} "
         f"batch(es), launches {launches} (exact per forward); vs an "
-        f"in-memory engine on the run's weights: max error {max(errs):.3g} "
+        f"in-memory engine on the run's weights ({ref_device}): max error "
+        f"{max(errs):.3g} "
         f"{unit} (bound {bound_err}), cosine min {min(coss):.7f} (bound "
         f"{SERVE_BATCH_MIN_COSINE}); build_server to the first answer "
         f"{first_s:.2f}s (a batch goes when full or after "
@@ -3257,7 +3287,7 @@ def phase_vilbert_runs(card):
         served_launches, served = _served_folder(
             card, trainer.config["env"]["save_dir"], model,
             flagship.split_samples(flagship.vilbert_example_batch(
-                SERVE_B, SEQ, REGIONS, VDIM, seed=9)),
+                SERVED_REQUESTS, SEQ, REGIONS, VDIM, seed=9)),
             dict(ZERO_COUNTS, flash_attention_fwd=VILBERT_ATTENTION,
                  layer_norm=VILBERT_LN), None, "vilbert")
         del trainer, recorder
@@ -3339,7 +3369,7 @@ VILT_SERVE_MIN_COSINE = 0.99999
 # served f32 scores vs the same kernels and weights in another batch:
 # other GEMM summation orders, relative to the largest score
 SERVE_F32_REL = 1e-4
-VILT_RUN_UPDATES = 8
+VILT_RUN_UPDATES = 4
 # the served folders' batching window: long enough for the 32 requests
 # (MB of JSON each) to fill one bucket-32 batch, as the in-memory engine
 # predicts them; a full batch goes at once
@@ -3349,7 +3379,7 @@ MMFT_S = flagship.MMFT_SEQ + REGIONS  # 114
 # embedding LayerNorm, the features' projection LayerNorm, two a layer,
 # the MLP head's
 MMFT_ATTENTION, MMFT_LN = 12, 2 + 1 + 2 * 12 + 1
-MMFT_RUN_UPDATES = 8
+MMFT_RUN_UPDATES = 4
 
 
 def _no_attention_dropout(model):
@@ -3903,8 +3933,8 @@ def phase_vilt_run(card):
                               strict=True)
         served_launches, served = _served_folder(
             card, trainer.config["env"]["save_dir"], model,
-            flagship.split_samples(flagship.vilt_example_batch(SERVE_B,
-                                                               seed=9)),
+            flagship.split_samples(flagship.vilt_example_batch(
+                SERVED_REQUESTS, seed=9)),
             dict(ZERO_COUNTS, flash_attention_fwd=VILT_ATTENTION,
                  layer_norm=VILT_LN), VILT_META, "vilt")
         print(f"phase vilt-run: ok mmf_run (cli/run.py's run(opts)) "
@@ -4087,7 +4117,7 @@ def phase_mmft_run(card):
 HM_MMBT_S, HM_TEXT_S = 3 + SEQ, SEQ
 HM_B = 32  # projects/hateful_memes/configs/mmbt/defaults.yaml's batch
 HM_BASELINE_B = 64  # concat_bert's and late_fusion's
-HM_UPDATES = 8
+HM_UPDATES = 4
 HM_SPLITS = {"train": 256, "val": 64, "test": 64}
 HM_IMAGES = 64  # memes of 300-800 px a side; samples share them
 HM_LN = 26  # MMBT: 24 in the layers, the embedding LayerNorm twice
@@ -5029,7 +5059,7 @@ UNK = 3  # <unk>'s index in the layouts' answer vocabularies
 FAMILY_FORWARDS = 3
 SERVE_BUCKETS = (1, 2, 4, 8, 16, 32)
 SERVED_DECODE_BUCKETS = (1, 8, 32)
-SERVE_LATENCY_CALLS = 200  # p95 is then the 10th largest
+SERVE_LATENCY_CALLS = 60  # p95 is then the 3rd largest
 M4C_PER_FORWARD = dict(ZERO_COUNTS, flash_attention_fwd=M4C_EVAL_ATTENTION,
                        layer_norm=M4C_EVAL_LN)
 
@@ -5568,6 +5598,415 @@ def _m4c_serve(card, folders):
     return total, decode_rows
 
 
+# -- phases 27-28: UNITER, LXMERT and VinVL -----------------------------------
+VINVL_SEQ = flagship.VL3_SEQ["vinvl_vqa2"]  # 70 caption and tag tokens
+LX_TEXT = flagship.VL3_SEQ["lxmert_pretrain"]  # masked VQA2's 20 tokens
+LX_REGIONS = flagship.VL3_REGIONS["lxmert_pretrain"]  # and 36 regions
+# their f32 attention calls at B=TRAIN_B (12 heads of 64): label -> (Sq,
+# Skv). UNITER over 128 + 100 tokens, VinVL over 70 + 100; LXMERT's
+# relational self-attention over the regions and its cross layer both ways
+# (its text self-attention's 128 is the Hateful Memes baselines' shape),
+# and the same at its pretraining's 20 tokens and 36 regions
+VL3_ATTENTION_SHAPES = {
+    "uniter": (S, S),
+    "vinvl": (VINVL_SEQ + REGIONS, VINVL_SEQ + REGIONS),
+    "lxmert regions": (REGIONS, REGIONS),
+    "lxmert text-regions": (SEQ, REGIONS),
+    "lxmert regions-text": (REGIONS, SEQ),
+    "lxmert pretrain text-regions": (LX_TEXT, LX_REGIONS),
+    "lxmert pretrain regions-text": (LX_REGIONS, LX_TEXT),
+}
+# their trunks' f32 residual LayerNorms at B=TRAIN_B: label -> rows
+VL3_LN_ROWS = {"uniter": TRAIN_B * S,
+               "vinvl": TRAIN_B * (VINVL_SEQ + REGIONS),
+               "lxmert text": TRAIN_B * SEQ,
+               "lxmert pretrain regions": TRAIN_B * LX_REGIONS}
+# launches a forward. UNITER: 12 attention calls; the text embeddings'
+# LayerNorm, the image embeddings' three (features, boxes, their sum), two
+# a layer, and the VQA2 mlp head's: 29; a pretraining task runs the trunk
+# (28) and its head (the mlm, mrc and mrfr transforms' 1, itm's 0)
+UNITER_ATTENTION, UNITER_LN = 12, 1 + 3 + 2 * 12 + 1
+UNITER_TASK_LN = {"mlm": 29, "itm": 28, "mrc": 29, "mrfr": 29}
+# LXMERT: 9 language and 5 relational layers, and 5 cross layers of two
+# cross-attention calls (one module, both ways) and two self-attention
+# calls: 34; the embeddings', the region encoder's two, two a language or
+# relational layer, six a cross layer: 61, and the classifier's transform
+# (62), or the masked LM's and the feature regression's transforms (63)
+LXMERT_ATTENTION = 9 + 5 + 5 * 4
+LXMERT_TRUNK_LN = 1 + 2 + 2 * 9 + 2 * 5 + 5 * 6
+LXMERT_LN, LXMERT_PRETRAIN_LN = LXMERT_TRUNK_LN + 1, LXMERT_TRUNK_LN + 2
+# the classifier reads the text stream alone: the last cross layer's
+# region outputs (its region-queries cross call and LayerNorm, the region
+# self-attention and its LayerNorm, the feed-forward's LayerNorm) reach no
+# loss, and autograd runs no backward there: 2 attention calls and 3
+# LayerNorms fewer a step
+LXMERT_BWD_ATTENTION, LXMERT_BWD_LN = LXMERT_ATTENTION - 2, LXMERT_LN - 3
+# VinVL: 12 attention calls; the embeddings', the regions', two a layer
+VINVL_ATTENTION, VINVL_LN = 12, 1 + 1 + 2 * 12
+VL3_PER_FORWARD = {  # key -> (attention calls, LayerNorms) a forward,
+    # and (attention backwards, LayerNorm backwards) a step
+    "uniter_vqa2": (UNITER_ATTENTION, UNITER_LN, UNITER_ATTENTION,
+                    UNITER_LN),
+    "lxmert_vqa2": (LXMERT_ATTENTION, LXMERT_LN, LXMERT_BWD_ATTENTION,
+                    LXMERT_BWD_LN),
+    "lxmert_pretrain": (LXMERT_ATTENTION, LXMERT_PRETRAIN_LN,
+                        LXMERT_ATTENTION, LXMERT_PRETRAIN_LN),
+    "vinvl_vqa2": (VINVL_ATTENTION, VINVL_LN, VINVL_ATTENTION, VINVL_LN),
+}
+# the layout's questions: a batch each for val and test, three for train
+VL3_SPLITS = {"train": 3 * RUN_B, "val": RUN_B, "test": RUN_B}
+VL3_UPDATES = {"uniter_vqa2": 3, "uniter_masked_coco": 4, "lxmert_vqa2": 3,
+               "lxmert_pretrain": 2, "vinvl_vqa2": 3}
+# UNITER's masked-COCO run at training.seed 4: Python's random, seeded
+# with it, draws itm, mrc, mlm, mrfr for the first four updates (the
+# loader's workers draw the masks in their own processes)
+VL3_TASK_SEED = 4
+# the configs of the compared steps: UNITER's trunk through its VQA2
+# config, LXMERT's through both
+VL3_COMPARED = ("uniter_vqa2", "lxmert_vqa2", "lxmert_pretrain",
+                "vinvl_vqa2")
+
+
+def _vl3_layer_norm_case(g, rows):
+    """K4 and K4-bwd in f32 with the residual at ``rows`` x 768 (a
+    trunk's LayerNorms at B=TRAIN_B): against their plain versions, by
+    device_ms over rotating input sets beside F.layer_norm's forward and
+    backward, with host time and the bound."""
+    dt = torch.float32
+    row_bytes = rows * HIDDEN * 4
+    n_sets = max(3, math.ceil(ROTATE_BYTES / (2 * row_bytes)))
+    pool = [torch.randn(1, n_sets * rows, HIDDEN, device=DEV, generator=g)
+            for _ in range(3)]
+    w = 1.0 + 0.1 * torch.randn(HIDDEN, device=DEV, generator=g)
+    bb = 0.1 * torch.randn(HIDDEN, device=DEV, generator=g)
+    sets = _ln_sets(pool, rows, 2 * row_bytes)
+    x, res, dy = sets[0]
+    out = L.layer_norm_kernel(x, w, bb, res)
+    got = L.layer_norm_backward_kernel(x, w, dy, res)
+    torch.cuda.synchronize()
+    f_err = max_err(out, L._ln_reference(x, res, w, bb, 1e-12), dt)
+    want = L._ln_backward_reference(x, res, w, bb, dy, 1e-12)
+    b_err = max(rel_err(a, b_, rel, f"K4-bwd vl3 {rows} {n}")
+                for n, a, b_, rel in zip(
+                    ("dx", "dscale", "dbias"), got,
+                    (want[0], want[2], want[3]),
+                    (LN_DX_REL[dt], LN_PARAM_REL, LN_PARAM_REL)))
+    lib = [_ln_library_backward(x_, r_, w, bb, dy_) for x_, r_, dy_ in sets]
+    fwd = {"ms": device_ms(rotating(
+        lambda x_, r_, _: L.layer_norm_kernel(x_, w, bb, r_), sets)),
+        "library_ms": device_ms(rotating(
+            lambda x_, r_, _: F.layer_norm(x_ + r_, (HIDDEN,), w, bb, 1e-12),
+            sets)),
+        "plain_ms": device_ms(rotating(
+            lambda x_, r_, _: L._ln_reference(x_, r_, w, bb, 1e-12), sets),
+            iters=5),
+        "host_us": host_us(lambda: L.layer_norm_kernel(x, w, bb, res)),
+        "max_abs_err": f_err}
+    fwd["bound_ms"], fwd["bound_by"] = bound(_nbytes(x, res, w, bb, out),
+                                             8 * x.numel(), dt)
+    bwd = {"ms": device_ms(rotating(
+        lambda x_, r_, dy_: L.layer_norm_backward_kernel(x_, w, dy_, r_),
+        sets)),
+        "library_ms": device_ms(rotating(lambda f_: f_(),
+                                         [(f_,) for f_ in lib])),
+        "plain_ms": device_ms(rotating(
+            lambda x_, r_, dy_: L._ln_backward_reference(x_, r_, w, bb, dy_,
+                                                         1e-12), sets),
+            iters=5),
+        "host_us": host_us(lambda: L.layer_norm_backward_kernel(x, w, dy,
+                                                                res)),
+        "max_abs_err": b_err}
+    bwd["bound_ms"], bwd["bound_by"] = bound(
+        _nbytes(x, res, w, dy, got[0], got[1], got[2]), 10 * x.numel(), dt)
+    del lib, pool, sets
+    torch.cuda.empty_cache()
+    return {"rows": rows, "sets": n_sets, "K4": fwd, "K4-bwd": bwd}
+
+
+def phase_vl3_kernels(card):
+    """K1 (its three forms), K2 and K3 in f32 at UNITER's, VinVL's and
+    LXMERT's attention shapes, and K4 and K4-bwd in f32 at their trunks'
+    LayerNorm rows, against their plain versions, timed beside SDPA and
+    F.layer_norm with the bounds and host time."""
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 parity
+    g = torch.Generator(device=DEV).manual_seed(17)
+    rows, raws = {}, {}
+    for label, (sq, skv) in VL3_ATTENTION_SHAPES.items():
+        q, k, v, bias, dout = _attention_inputs(TRAIN_B, sq, skv,
+                                                torch.float32, g)
+        rows[label] = _attention_case(f"vl3 {label}", q, k, v, bias, dout,
+                                      iters=10, plain_iters=5, repeats=3)
+        raws[label] = _raw_case(q, k, v, bias, f"vl3 {label}", iters=10,
+                                plain_iters=3)
+        del q, k, v, bias, dout
+        torch.cuda.empty_cache()
+    ln = {label: _vl3_layer_norm_case(g, n)
+          for label, n in VL3_LN_ROWS.items()}
+    print(f"phase vl3-kernels: ok K1, K1-stats, K1-raw, K2 and K3 in f32 at "
+          f"UNITER's, VinVL's and LXMERT's shapes (B={TRAIN_B}, 12 heads of "
+          "64, a padding mask over the keys), K4 and K4-bwd in f32 with the "
+          "residual at their trunks' rows, against their plain versions "
+          "within the kernels phase's bounds; device ms (spin-queued; the "
+          "LayerNorms over rotating input sets), SDPA's or F.layer_norm's, "
+          "the plain versions', host us a call and the bound (split-TF32 "
+          f"operations or bytes, the FP32 FMA bound beside it) on '{card}':")
+    for label, r in rows.items():
+        ms, lib, raw, fma = r["ms"], r["library_ms"], raws[label], \
+            r["fma_bound_ms"]
+        print(f"  {label} {r['shape']}: max_abs_err " + ", ".join(
+            f"{n} {e:.3g}" for n, e in r["max_abs_err"].items())
+            + f", K1-raw {raw['max_abs_err']:.3g}; " + ", ".join(
+                f"{n} {ms[n]:.4f} (bound {r['bound_ms'][n]:.4f} "
+                f"{r['bound_by'][n]}, FMA {fma[n]:.4f})" for n in ms)
+            + f", K1-raw {raw['ms']:.4f} (bound {raw['bound_ms']:.4f}); sdpa"
+            f" fwd {lib['K1']:.4f}, fwd+lse {lib['K1-stats']:.4f}, bwd "
+            f"{lib['K2+K3']:.4f} (K2+K3 {ms['K2'] + ms['K3']:.4f}); plain "
+            + ", ".join(f"{n} {t:.4f}" for n, t in r["plain_ms"].items())
+            + "; host us " + ", ".join(f"{n} {u:.1f}" for n, u in
+                                       r["host_us"].items()))
+    for label, r in ln.items():
+        print(f"  LayerNorm {label} f32 [{r['rows']}, {HIDDEN}] residual "
+              f"({r['sets']} rotating sets): " + "; ".join(
+                  f"{n} max_abs_err {c['max_abs_err']:.3g}, {c['ms']:.4f} "
+                  f"(F.layer_norm {c['library_ms']:.4f}, plain "
+                  f"{c['plain_ms']:.4f}, bound {c['bound_ms']:.4f} "
+                  f"{c['bound_by']}), host us {c['host_us']:.1f}"
+                  for n, c in ((n, r[n]) for n in ("K4", "K4-bwd"))))
+    return rows, raws, ln
+
+
+def _vl3_build(cfg, overrides=None):
+    """The config's model at dropout 0 (the compared steps)."""
+    return _without_dropout(flagship.vl3_model(cfg, overrides))
+
+
+def _vl3_compared(key, card):
+    """3 steps through the kernels against 3 through the plain versions
+    at dropout 0 from seeded weights on a batch of the config's widths
+    (B=TRAIN_B): the training phase's bounds; exact launches."""
+    cfg = flagship.vl3_config(key, ["scheduler.params.num_warmup_steps=2"])
+    model = flagship.vl3_model(cfg)
+    model.init_weights(torch.Generator().manual_seed(0))
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    del model
+    batch = flagship.vl3_batch(key, TRAIN_B, seed=7)
+    line, launches = _kernels_vs_plain(cfg, init, batch, _vl3_build,
+                                       flagship.vl3_trainer, COMPARED_STEPS,
+                                       key)
+    att, ln, att_bwd, ln_bwd = VL3_PER_FORWARD[key]
+    want = dict(ZERO_COUNTS, flash_attention_fwd_stats=att * COMPARED_STEPS,
+                flash_attention_bwd_dq=att_bwd * COMPARED_STEPS,
+                flash_attention_bwd_dkv=att_bwd * COMPARED_STEPS,
+                layer_norm=ln * COMPARED_STEPS,
+                layer_norm_bwd=ln_bwd * COMPARED_STEPS)
+    check(launches == want, f"{key} compared launches {launches}, want "
+          f"{want}")
+    return f"  {key} compared steps: {line}", launches
+
+
+def _vl3_opts(key, root):
+    """A ``VL3`` run's options on the layout at ``root``: its overrides,
+    the layout's paths and vocabulary, no epoch limit (LXMERT's project
+    defaults set 20 epochs)."""
+    from tests.torch_vqa2_layout import layout_opts
+
+    _, dataset, _ = flagship.VL3[key]
+    vocab = os.path.join(root, "vocab.txt")
+    opts = [*flagship.VL3_OVERRIDES[key], "training.max_epochs=null"]
+    if key == "uniter_masked_coco":
+        return opts + [
+            "run_type=train", f"training.seed={VL3_TASK_SEED}",
+            *layout_opts(root, dataset, "masked_token_processor")]
+    if key == "lxmert_pretrain":
+        return opts + [
+            "run_type=train",
+            *layout_opts(root, dataset, "masked_token_processor",
+                         train_files=2),
+            f"dataset_config.{dataset}.processors.text_processor.params."
+            f"tokenizer_config.params.vocab_file={vocab}"]
+    # no validation inside the run: its early stopping would write the
+    # best and current checkpoints, 1.3-2.4 GB each with the optimizer
+    # state (f32), and read the best back; the run predicts val and test
+    # and writes the final weights, and the trainer then evaluates val
+    opts += ["run_type=train_val_inference", "evaluation.predict=true",
+             "training.evaluation_interval=1000",
+             "training.checkpoint_interval=1000", *layout_opts(root, "vqa2")]
+    if key == "vinvl_vqa2":
+        opts.append("dataset_config.vinvl.processors.text_processor.params."
+                    f"tokenizer_config.params.vocab_file={vocab}")
+    return opts
+
+
+def _vl3_run(key, root, card):
+    """``mmf_run`` of a ``VL3`` config at full width (B=RUN_B, the loader's
+    workers): exact launches (training attention takes the plain path at
+    the configs' attention dropout 0.1, as in JAX; K4 and K4-bwd an
+    update; K1 and K4 a prediction forward), its losses against the
+    train step alone on the batches it took, and, for the finetuning
+    configs, the final weights, the reports and the run's trainer's val
+    vqa_accuracy. (line, launches, trainer)."""
+    import glob
+
+    from mmf_tpu_torch.common.registry import registry
+
+    path, dataset, model = flagship.VL3[key]
+    state = registry.mapping["state"]
+    for name in [k for k in state if k.startswith(("vqa2_", "vinvl_"))]:
+        del state[name]
+    u = VL3_UPDATES[key]
+    trainer, recorder, launches, run_s = _cli_run(
+        os.path.join(root, f"save_{key}"), path, model, dataset, u,
+        _vl3_opts(key, root))
+    mc = trainer.config["model_config"][model]
+    check(mc.get("hidden_size", 768) == HIDDEN and mc.get("dtype", "float32")
+          == "float32", f"{key} config {dict(mc)}")
+    losses = [k for k in trainer.meter.meters if k.startswith("train/")
+              and k != "train/total_loss"]
+    tasks = [b.get("task") for b in recorder.batches]
+    if key == "uniter_masked_coco":
+        check(set(tasks) == set(flagship.UNITER_PRETRAIN_TASKS),
+              f"UNITER's drawn tasks {tasks}")
+        ln = sum(UNITER_TASK_LN[t] for t in tasks)
+        want = dict(ZERO_COUNTS, layer_norm=ln, layer_norm_bwd=ln)
+        # an update's loss is its task's: the run's total is compared
+        keys = ["train/total_loss"]
+    else:
+        att, per, _, per_bwd = VL3_PER_FORWARD[key]
+        forwards = 0
+        if key != "lxmert_pretrain":  # the val and test predictions
+            forwards = -(-VL3_SPLITS["val"] // RUN_B) + -(
+                -VL3_SPLITS["test"] // RUN_B)
+        want = dict(ZERO_COUNTS, flash_attention_fwd=att * forwards,
+                    layer_norm=per * (u + forwards),
+                    layer_norm_bwd=per_bwd * u)
+        keys = losses
+    check(launches == want, f"{key} mmf-run launches {launches}, want "
+          f"{want}")
+    rel, got = _steps_again(trainer, recorder, flagship.vl3_model,
+                            flagship.vl3_trainer, keys)
+    # the last update, loss read to loss read (host clock): the loader,
+    # the step and the loss's copy
+    t = recorder.loss_read
+    line = (f"  {key}: mmf_run of {path} with flagship.VL3_OVERRIDES, B="
+            f"{RUN_B}, {RUN_WORKERS} loader workers: {u} updates, "
+            + ", ".join(f"{k} {[round(x, 6) for x in got[k]]}" for k in keys)
+            + f" equal to the train step's on the same batches (max rel "
+            f"{rel:.3g}, bound {RUN_LOSS_RTOL}); launches {launches} "
+            f"(exact); run {run_s:.1f}s, the last update "
+            f"{1e3 * (t[u] - t[u - 1]):.1f} ms")
+    if key == "uniter_masked_coco":
+        line += f"; tasks drawn {tasks}"
+    if key in ("uniter_vqa2", "lxmert_vqa2", "vinvl_vqa2"):
+        save_dir = trainer.config["env"]["save_dir"]
+        check(os.path.exists(os.path.join(save_dir, f"{model}_final.pth")),
+              f"{key}: no final model in {save_dir}")
+        reports = {split: json.load(open(f)) for split in ("val", "test")
+                   for f in glob.glob(os.path.join(
+                       save_dir, "reports", f"{dataset}_*_{split}_*.json"))}
+        rows = {k: len(v) for k, v in reports.items()}
+        # VinVL's dataset formats no prediction rows, in JAX too
+        want_rows = ({"val": 0, "test": 0} if key == "vinvl_vqa2" else
+                     {"val": VL3_SPLITS["val"], "test": VL3_SPLITS["test"]})
+        check(rows == want_rows, f"{key} report rows {rows}")
+        report, meter = trainer.evaluation_loop("val")
+        acc = meter.meters[f"val/{dataset}/vqa_accuracy"].global_avg
+        check(report.batch_size == VL3_SPLITS["val"] and 0.0 <= acc <= 1.0,
+              f"{key} val vqa_accuracy {acc}")
+        line += (f"; val vqa_accuracy {acc:.4f} over {VL3_SPLITS['val']} "
+                 f"questions, report rows {rows}")
+    return line, launches, trainer
+
+
+def phase_vl3_runs(card):
+    """UNITER, LXMERT and VinVL at full width: mmf_run of the five
+    ``flagship.VL3`` configs on a synthetic VQA2 and COCO layout, the
+    compared steps, and mmf_serve of the three finetuned folders against
+    a CPU engine on the same weights."""
+    from mmf_tpu_torch.common.registry import registry
+    from tests.torch_vqa2_layout import write_layout
+
+    registry.register_callback("chip_smoke_recorder")(_StepRecorder)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_vl3_")
+    total = dict(ZERO_COUNTS)
+    lines, trainers, seconds = [], [], {}
+
+    def add(counts):
+        for k in total:
+            total[k] += counts[k]
+
+    try:
+        t0 = time.perf_counter()
+        write_layout(tmp, n_train=VL3_SPLITS["train"],
+                     n_val=VL3_SPLITS["val"], n_test=VL3_SPLITS["test"],
+                     n_images=RUN_IMAGES, regions=REGIONS, feature_dim=VDIM,
+                     num_answers=RUN_ANSWERS, vocab_size=VOCAB, seed=0,
+                     full_boxes=True, cls_prob_width=flagship.V_TARGET_SIZE,
+                     coco=True, object_labels=True)
+        # masked VQA2 for LXMERT at its 36 regions an image, as MMF's
+        # VQA2 features have them: the features database cuts the
+        # features to max_features, and the boxes in their info stay as
+        # many as the file holds, in JAX too
+        lx_root = os.path.join(tmp, "lxmert_36")
+        write_layout(lx_root, n_train=VL3_SPLITS["train"],
+                     n_val=VL3_SPLITS["val"], n_test=VL3_SPLITS["test"],
+                     n_images=RUN_IMAGES, regions=LX_REGIONS,
+                     feature_dim=VDIM, num_answers=RUN_ANSWERS,
+                     vocab_size=VOCAB, seed=0, full_boxes=True)
+        seconds["layout"] = time.perf_counter() - t0
+        for key in flagship.VL3:
+            t0 = time.perf_counter()
+            line, launches, trainer = _vl3_run(
+                key, lx_root if key == "lxmert_pretrain" else tmp, card)
+            trainer.teardown()
+            add(launches)
+            lines.append(line)
+            if key in ("uniter_vqa2", "lxmert_vqa2", "vinvl_vqa2"):
+                trainers.append((key, trainer))
+            else:
+                del trainer
+            seconds[key] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+        for key in VL3_COMPARED:
+            t0 = time.perf_counter()
+            line, launches = _vl3_compared(key, card)
+            add(launches)
+            lines.append(line)
+            seconds[f"{key} compared"] = time.perf_counter() - t0
+        for key, trainer in trainers:
+            t0 = time.perf_counter()
+            att, ln = VL3_PER_FORWARD[key][:2]
+            model = flagship.vl3_model(trainer.config)
+            model.load_state_dict({k: v.cpu() for k, v in
+                                   trainer.model.state_dict().items()},
+                                  strict=True)
+            batch = flagship.vl3_batch(key, SERVED_REQUESTS, seed=9)
+            batch.pop("targets")
+            launches, line = _served_folder(
+                card, trainer.config["env"]["save_dir"], model,
+                flagship.split_samples(batch),
+                dict(ZERO_COUNTS, flash_attention_fwd=att, layer_norm=ln),
+                None, key, ref_device="cpu")
+            add(launches)
+            lines.append(f"  {key} served:" + line[1:])
+            seconds[f"{key} served"] = time.perf_counter() - t0
+            del model
+            torch.cuda.empty_cache()
+    finally:
+        for _, trainer in trainers:
+            trainer.teardown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase vl3-runs: ok UNITER, LXMERT and VinVL (BERT-base, 768 wide, "
+          f"12 heads, f32) through mmf_run, the compared steps and mmf_serve "
+          f"on a synthetic VQA2 and COCO layout ({VL3_SPLITS} questions over "
+          f"{RUN_IMAGES} images, {REGIONS} boxes of {VDIM}, cls_prob "
+          f"{flagship.V_TARGET_SIZE} wide, object labels, COCO's imdb files "
+          f"and VinVL's label map) on '{card}'; seconds "
+          + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()) + ":")
+    for line in lines:
+        print(line)
+    return total
+
+
 SOURCES = {  # name -> (route, source, the TPU kernel it replaces)
     "flash_attention_fwd": ("cuda",
                             "mmf_tpu_torch/ops/csrc/flash_attention_fwd.cu",
@@ -5625,40 +6064,54 @@ LIBRARY = {  # name -> the PyTorch call timed as its library_ms
 }
 
 
+def timed(fn, *args):
+    """``fn(*args)``, and a line with the phase's seconds."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args)
+    finally:
+        print(f"phase-seconds {fn.__name__[len('phase_'):]}: "
+              f"{time.perf_counter() - t0:.1f}", flush=True)
+
+
 def main():
     card = card_line()
-    phase_build(card)
-    results = phase_kernels(card)
-    served, serving = phase_serving(card)
-    trained, training = phase_training(card)
-    mmbt = phase_mmbt(card)
-    vb_int8, k5_vb_ms = phase_vb_int8(card, serving)
-    pretrained = phase_pretrain(card)
-    served_ckpt = phase_serve_ckpt(card, training)
-    mmf_run = phase_mmf_run(card, training)
-    vilbert_rows = phase_vilbert_kernels(card)
-    vilbert = [phase_vilbert_serving(card), phase_vilbert_training(card),
-               phase_vilbert_runs(card)]
-    vilt_att, vilt_raw, vilt_ln, vilt_ln_bwd = phase_vilt_kernels(card)
-    vilt = [phase_vilt_serving(card), phase_vilt_training(card),
-            phase_vilt_run(card)]
-    mmft_att = phase_mmft_kernels(card)
-    vilt.append(phase_mmft_run(card))
-    hm_att, hm_raw = phase_hm_kernels(card)
-    hm = [phase_hm_mmbt_run(card), phase_hm_baselines(card)]
-    m4c_att, m4c_raw = phase_m4c_kernels(card)
-    m4c_run, textvqa_served = phase_m4c_run(card)
+    timed(phase_build, card)
+    results = timed(phase_kernels, card)
+    served, serving = timed(phase_serving, card)
+    trained, training = timed(phase_training, card)
+    mmbt = timed(phase_mmbt, card)
+    vb_int8, k5_vb_ms = timed(phase_vb_int8, card, serving)
+    pretrained = timed(phase_pretrain, card)
+    served_ckpt = timed(phase_serve_ckpt, card, training)
+    mmf_run = timed(phase_mmf_run, card, training)
+    vilbert_rows = timed(phase_vilbert_kernels, card)
+    vilbert = [timed(phase_vilbert_serving, card),
+               timed(phase_vilbert_training, card),
+               timed(phase_vilbert_runs, card)]
+    vilt_att, vilt_raw, vilt_ln, vilt_ln_bwd = timed(phase_vilt_kernels,
+                                                     card)
+    vilt = [timed(phase_vilt_serving, card), timed(phase_vilt_training, card),
+            timed(phase_vilt_run, card)]
+    mmft_att = timed(phase_mmft_kernels, card)
+    vilt.append(timed(phase_mmft_run, card))
+    hm_att, hm_raw = timed(phase_hm_kernels, card)
+    hm = [timed(phase_hm_mmbt_run, card), timed(phase_hm_baselines, card)]
+    m4c_att, m4c_raw = timed(phase_m4c_kernels, card)
+    m4c_run, textvqa_served = timed(phase_m4c_run, card)
     hm.append(m4c_run)
     family_root = None
     try:
-        family, captioner_served, family_root = phase_m4c_family(card)
-        served_m4c, decode_rows = phase_m4c_serve(card, {
+        family, captioner_served, family_root = timed(phase_m4c_family, card)
+        served_m4c, decode_rows = timed(phase_m4c_serve, card, {
             "textvqa": textvqa_served, "textcaps": captioner_served})
     finally:
         shutil.rmtree(textvqa_served[0], ignore_errors=True)
         if family_root is not None:
             shutil.rmtree(family_root, ignore_errors=True)
     hm += [family, served_m4c]
+    vl3_att, vl3_raw, vl3_ln = timed(phase_vl3_kernels, card)
+    hm.append(timed(phase_vl3_runs, card))
     # K1 at the served M4C decode's buckets
     results["flash_attention_fwd"]["m4c_served_decode"] = decode_rows
     results["int8_dequant_gemm"]["vb_int8_forward_ms"] = k5_vb_ms
@@ -5720,6 +6173,26 @@ def main():
             "bound_ms": mmft_att["bound_ms"][kid],
             "bound_by": mmft_att["bound_by"][kid],
             "library_ms": mmft_att["library_ms"][lib]}
+    # and in f32 at UNITER's, VinVL's and LXMERT's
+    for name, kid in short.items():
+        lib = "K2+K3" if kid in ("K2", "K3") else kid
+        results[name]["vl3_shapes"] = {
+            label: {"shape": r["shape"], "dtype": "float32",
+                    "max_abs_err": r["max_abs_err"][kid],
+                    "ms": r["ms"][kid], "host_us": r["host_us"][kid],
+                    "plain_ms": r["plain_ms"][lib],
+                    "bound_ms": r["bound_ms"][kid],
+                    "bound_by": r["bound_by"][kid],
+                    "fma_bound_ms": r["fma_bound_ms"][kid],
+                    "library_ms": r["library_ms"][lib]}
+            for label, r in vl3_att.items()}
+    results["flash_attention_fwd_raw"]["vl3_shapes"] = {
+        label: dict(r, shape=vl3_att[label]["shape"], dtype="float32")
+        for label, r in vl3_raw.items()}
+    for name, kid in (("layer_norm", "K4"), ("layer_norm_bwd", "K4-bwd")):
+        results[name]["vl3_forms"] = {
+            f"float32 [{r['rows']}, {HIDDEN}] residual ({label})": r[kid]
+            for label, r in vl3_ln.items()}
     results["flash_attention_fwd_raw"]["vilt_shape"] = dict(
         vilt_raw, shape=vilt_att["shape"], dtype="float32")
     results["flash_attention_fwd_raw"]["hateful_memes_shapes"] = {
@@ -5750,7 +6223,8 @@ def main():
             # MMFT's mmf_run and mmf_serve, the Hateful Memes runs
             # (MMBT and the baselines), M4C's mmf_run on TextVQA, the rest
             # of the M4C family's (the captioner's compared steps
-            # included) and the served M4C checkpoints
+            # included), the served M4C checkpoints, and UNITER's,
+            # LXMERT's and VinVL's mmf_run, compared steps and mmf_serve
             "launches": (served[name] + trained[name] + mmbt[name]
                          + vb_int8[name] + pretrained[name]
                          + served_ckpt[name] + mmf_run[name]
@@ -5768,7 +6242,8 @@ def main():
                                  "forms", "vilbert_shapes", "vilt_shape",
                                  "mmft_shape", "hateful_memes_shapes",
                                  "m4c_shapes", "m4c_served_decode",
-                                 "vilt_form") if k in r},
+                                 "vilt_form", "vl3_shapes", "vl3_forms")
+               if k in r},
         })
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -1,7 +1,8 @@
 """BERT tokenizer processors.
 
-Port of ``masked_token``, ``bert_tokenizer`` and ``vilt_text_tokenizer``
-from ``mmf_tpu/datasets/processors/bert_processors.py``. JAX wraps Hugging
+Port of ``masked_token``, ``bert_tokenizer``, ``vilt_text_tokenizer``,
+``uniter_text_tokenizer`` and ``vinvl_text_tokenizer`` from
+``mmf_tpu/datasets/processors/bert_processors.py``. JAX wraps Hugging
 Face's ``BertTokenizerFast``; the port has its own WordPiece tokenizer in
 plain Python (``BertWordPieceTokenizer``), written to give the same
 tokens: the special tokens are matched in the raw text first; then the
@@ -361,4 +362,107 @@ class VILTTextTokenizer(MaskedTokenProcessor):
         output = self._convert_to_indices(tokens_a, None,
                                           probability=self._probability)
         output["text"] = output["tokens"]
+        return output
+
+
+@registry.register_processor("uniter_text_tokenizer")
+class UNITERTextTokenizer(MaskedTokenProcessor):
+    """UNITER's tokenizer (reference bert_processors.py:434-523): one
+    sentence twice, masked at ``mask_probability`` (0 by default) and
+    plain. The plain ids are ``input_ids``; the masked ones
+    ``input_ids_masked`` with their ``lm_label_ids``, for the ``mlm``
+    task. The masked pass draws first, as in JAX."""
+
+    def __init__(self, config, *args, **kwargs):
+        super().__init__(config, *args, **kwargs)
+        self._probability = config.get("mask_probability", 0)
+
+    def __call__(self, item: Dict[str, Any]) -> Dict[str, Any]:
+        if "text" in item:
+            text_a = item["text"]
+        else:
+            text_a = " ".join(item["tokens"])
+        tokens_a = self.tokenize(text_a)
+        self._truncate_seq_pair(tokens_a, None, self._max_seq_length)
+        masked = self._convert_to_indices(list(tokens_a), None,
+                                          probability=self._probability)
+        unmasked = self._convert_to_indices(list(tokens_a), None,
+                                            probability=0.0)
+        output = dict(unmasked)
+        output["input_ids_masked"] = masked["input_ids"]
+        output["lm_label_ids"] = masked["lm_label_ids"]
+        output["text"] = output["tokens"]
+        return output
+
+
+@registry.register_processor("vinvl_text_tokenizer")
+class VinVLTextTokenizer(MaskedTokenProcessor):
+    """VinVL's caption and object-tag pair (reference
+    bert_processors.py:524-653): ``text`` (or ``text_a``) and the tags
+    ``text_b`` tokenized as a pair, masked at ``mask_probability``; the
+    masked ids are ``input_ids_masked`` and the unmasked sequence
+    ``input_ids``. With ``corrupt_probability`` above 0, a second pair,
+    drawn with numpy: kept (label 0), its caption swapped for one of
+    ``random_captions`` (1, at ``corrupt_caption_probability`` of the
+    corruptions) or its tags for one of ``random_labels`` (2), gives the
+    ``*_corrupt`` inputs and ``contrastive_label`` (and, as JAX emits
+    both, ``contrastive_labels``, the key the model reads)."""
+
+    def __init__(self, config, *args, **kwargs):
+        super().__init__(config, *args, **kwargs)
+        self._max_seq_length = config.get("max_seq_length", 70)
+        self._probability = config.get("mask_probability", 0)
+        self._corrupt_prob = config.get("corrupt_probability", 0)
+        self._corrupt_caption_prob = config.get(
+            "corrupt_caption_probability", 0)
+
+    def _pair_output(self, item):
+        text_a = item.get("text", item.get("text_a", ""))
+        text_b = item.get("text_b", None)
+        if isinstance(text_a, list):
+            text_a = " ".join(text_a)
+        tokens_a = self.tokenize(text_a)
+        tokens_b = self.tokenize(text_b) if text_b else None
+        self._truncate_seq_pair(tokens_a, tokens_b, self._max_seq_length)
+        output = self._convert_to_indices(
+            list(tokens_a),
+            list(tokens_b) if tokens_b is not None else None,
+            probability=self._probability)
+        output["input_ids_masked"] = output["input_ids"]
+        output["tokens_masked"] = output["tokens"]
+        plain = [self._CLS_TOKEN] + tokens_a + [self._SEP_TOKEN]
+        if tokens_b:
+            plain += tokens_b + [self._SEP_TOKEN]
+        ids = self._convert_tokens_to_ids(plain)
+        ids += [self._PAD_TOKEN_ID] * (self._max_seq_length - len(ids))
+        output["input_ids"] = np.asarray(ids, np.int64)
+        output["text"] = output["tokens_masked"]
+        return output
+
+    def _contrastive_output(self, item):
+        for key in ("random_captions", "random_labels", "text_b"):
+            if key not in item:
+                raise KeyError(
+                    f"'{key}' is required for VinVL contrastive corruption;"
+                    " set corrupt_probability to 0 to disable")
+        p_match = 1 - self._corrupt_prob
+        p_caption = self._corrupt_prob * self._corrupt_caption_prob
+        p_label = self._corrupt_prob * (1 - self._corrupt_caption_prob)
+        label = int(np.random.choice(3, p=[p_match, p_caption, p_label]))
+        corrupt_item = dict(item)
+        if label == 1:
+            corrupt_item["text"] = random.choice(item["random_captions"])
+        elif label == 2:
+            corrupt_item["text_b"] = random.choice(item["random_labels"])
+        return label, self._pair_output(corrupt_item)
+
+    def __call__(self, item: Dict[str, Any]) -> Dict[str, Any]:
+        output = self._pair_output(item)
+        if self._corrupt_prob > 0:
+            label, corrupt = self._contrastive_output(item)
+            output["input_ids_corrupt"] = corrupt["input_ids"]
+            output["segment_ids_corrupt"] = corrupt["segment_ids"]
+            output["input_mask_corrupt"] = corrupt["input_mask"]
+            output["contrastive_label"] = np.int64(label)
+            output["contrastive_labels"] = np.int64(label)
         return output

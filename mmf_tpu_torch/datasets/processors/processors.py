@@ -5,7 +5,8 @@ that the VQA2, masked-VQA2 and TextVQA paths build: the ``Processor``
 wrapper (type + params dispatch through the registry), ``vqa_answer``
 (soft VQA-accuracy scores over the answer vocabulary) and
 ``multi_hot_answer_from_vocab``, ``vocab`` (words to indices through a
-vocabulary file), ``simple_word``, ``simple_sentence``, ``bbox``,
+vocabulary file), ``caption`` (COCO's caption ids back to words),
+``simple_word``, ``simple_sentence``, ``bbox``,
 ``masked_region`` (region masks for masked-region pretraining, drawn
 from Python's ``random`` as in JAX) and ``transformer_bbox`` (normalised
 box geometry with the area), and M4C's: ``fasttext`` (OCR tokens to
@@ -361,6 +362,32 @@ class SimpleSentenceProcessor(BaseProcessor):
 
     def __call__(self, item, *args, **kwargs):
         return {"text": self.tokenizer(item["text"], *args, **kwargs)}
+
+
+@registry.register_processor("caption")
+class CaptionProcessor(BaseProcessor):
+    """Caption ids back to words (reference processors.py:1142-1171): up
+    to the first end-of-sentence id, without the start, end and padding
+    ids, joined with spaces."""
+
+    def __init__(self, config, *args, **kwargs):
+        if not config.get("vocab"):
+            raise AttributeError(
+                "CaptionProcessor needs a 'vocab' block in its config")
+        from mmf_tpu_torch.utils.vocab import Vocab
+
+        self.vocab = Vocab(*args, **config["vocab"], **kwargs)
+
+    def __call__(self, item):
+        for idx, v in enumerate(item):
+            if v == self.vocab.EOS_INDEX:
+                item = item[:idx]
+                break
+        skip = {self.vocab.SOS_INDEX, self.vocab.EOS_INDEX,
+                self.vocab.PAD_INDEX}
+        tokens = [self.vocab.get_itos()[int(w)] for w in item
+                  if w not in skip]
+        return {"tokens": tokens, "caption": " ".join(tokens)}
 
 
 @registry.register_processor("bbox")

@@ -554,3 +554,13 @@ def masked_lm_loss(logits, labels):
     picked = logprobs.gather(-1, safe[..., None])[..., 0]
     total = torch.where(valid, picked, torch.zeros_like(picked)).sum()
     return -total / valid.sum().clamp(min=1)
+
+
+def picked_log_prob(logits, labels):
+    """log_softmax(logits)[label] a row, in float32 (a classifier's
+    cross entropy is its negative mean); a negative label counts from
+    the end, as JAX's ``take_along_axis`` reads it."""
+    labels = labels.long()
+    labels = torch.where(labels < 0, labels + logits.shape[-1], labels)
+    logprobs = torch.log_softmax(logits.float(), dim=-1)
+    return logprobs.gather(-1, labels[:, None])[:, 0]

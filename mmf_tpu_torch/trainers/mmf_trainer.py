@@ -309,6 +309,11 @@ class MMFTrainer(TrainerProfilingMixin, BaseTrainer):
                 self._fire("on_update_start")
 
                 meta = self._batch_meta(batch)
+                # a model's per-update host choice (UNITER's pretraining
+                # task, drawn from Python's random after the batch's own
+                # draws, as in JAX) rides in the batch with the meta
+                if hasattr(self.model, "get_step_meta"):
+                    meta.update(self.model.get_step_meta() or {})
                 with self.trace("batch_prepare"):
                     device_batch = self._device_batch(batch, meta)
                 self.profile("Batch prepare time")

@@ -16,6 +16,12 @@ the flax paths with dots, so the mapping is mechanical:
 - a ``WeightNorm`` wrapper's gain (``fc1/{Dense_0/kernel/scale}``, flax
   names it after the wrapped kernel) -> ``fc1.scale``
 
+A module that flax applies more than once holds one scope, and so one
+parameter here: UNITER's token-type table, which its image stream reads
+from the text stream's; LXMERT's cross-attention module, applied both
+ways in each cross layer; VinVL's trunk, run again on the corrupted
+pair. Each maps once by the same rule.
+
 and, from a ``variables["batch_stats"]`` tree, BatchNorm ``mean`` ->
 ``running_mean`` and ``var`` -> ``running_var``, with a zero
 ``num_batches_tracked`` beside them (flax keeps no such counter), so

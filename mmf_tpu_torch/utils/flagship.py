@@ -77,6 +77,17 @@ TextVQA, ST-VQA, OCR-VQA and TextVQA jointly with ST-VQA; the M4C
 captioner on TextCaps) with its datasets, model and the overrides it
 needs (``M4C_FAMILY_OVERRIDES``, in JAX too); ``m4c_family_model``
 builds the model a config names.
+
+UNITER, LXMERT and VinVL (each BERT-base: 768 wide, 12 heads, f32):
+``VL3`` names each config of ``mmf_run`` (UNITER finetuned on VQA2 and
+pretrained on masked COCO, LXMERT finetuned on VQA2 and pretrained on
+masked VQA2, VinVL finetuned on VQA2) with its dataset and model, and
+``VL3_OVERRIDES`` what each YAML lacks to run (in JAX too);
+``vl3_config(key, opts)`` reads one, ``vl3_model`` builds its model
+(sized by an example batch where the model takes a width from the
+data), ``vl3_batch(key, ...)`` draws a batch of the config's layout at
+its widths, and ``vl3_trainer`` builds the step with the dataset's meta
+fields.
 """
 
 from __future__ import annotations
@@ -209,6 +220,52 @@ M4C_FAMILY_OVERRIDES = {
               + JOINT_EARLY_STOP),
     "textcaps": _ocr_features_overrides("textcaps") + [TEXTCAPS_ONE_ANSWER],
 }
+
+
+# UNITER, LXMERT and VinVL. Each YAML lacks something to run (ROADMAP
+# C.4, in JAX too): the VQA2 defaults' GloVe ``vocab`` text processor
+# yields no ``input_ids``, and ``return_features_info: false`` no boxes,
+# so UNITER's and LXMERT's VQA2 configs take ViLBERT's overrides; LXMERT's
+# VQA2 config keeps the defaults' pretraining head (the masked LM scores
+# [B·T, 30522] meet the 3129 VQA2 targets at the first evaluation); the
+# masked datasets' ``transformer_bbox`` reads the features' info that
+# ``return_features_info: false`` drops (KeyError: 'image_info_0'); UNITER's
+# masked-COCO config names no pretraining heads, so every task builds a
+# 2-label ``mlp`` that returns no loss; LXMERT's pretraining config
+# inherits ``vqa_accuracy``, which its scores cannot meet; VinVL's base
+# VQA2 dataset must give its question as text (the ``vocab`` processor
+# gives indices) and the features' info its tags read, and its early
+# stopping watches vqa2/vqa_accuracy where the dataset is named vinvl
+UNITER_PRETRAIN_TASKS = ("mlm", "itm", "mrc", "mrfr")
+VL3 = {  # key -> (project config, dataset, model)
+    "uniter_vqa2": ("projects/uniter/configs/vqa2/defaults.yaml", "vqa2",
+                    "uniter"),
+    "uniter_masked_coco": ("projects/uniter/configs/masked_coco/"
+                           "defaults.yaml", "masked_coco", "uniter"),
+    "lxmert_vqa2": ("projects/lxmert/configs/vqa2/defaults.yaml", "vqa2",
+                    "lxmert"),
+    "lxmert_pretrain": ("projects/lxmert/configs/vqa2/pretrain.yaml",
+                        "masked_vqa2", "lxmert"),
+    "vinvl_vqa2": ("projects/vinvl/configs/vqa2/defaults.yaml", "vinvl",
+                   "vinvl"),
+}
+VL3_OVERRIDES = {
+    "uniter_vqa2": list(VILBERT_VQA2_OVERRIDES),
+    "uniter_masked_coco": [
+        "dataset_config.masked_coco.return_features_info=true"] + [
+        f"model_config.uniter.heads.{task}={{type: {task}}}"
+        for task in UNITER_PRETRAIN_TASKS],
+    "lxmert_vqa2": VILBERT_VQA2_OVERRIDES + [
+        "model_config.lxmert.training_head_type=classification"],
+    "lxmert_pretrain": ["evaluation.metrics=[]"],
+    "vinvl_vqa2": [VILBERT_VQA2_OVERRIDES[0],
+                   "dataset_config.vqa2.return_features_info=true",
+                   "training.early_stop.criteria=vinvl/vqa_accuracy"],
+}
+# the widths the configs give their inputs: tokens and regions
+VL3_SEQ = {"uniter_vqa2": 128, "uniter_masked_coco": 128,
+           "lxmert_vqa2": 128, "lxmert_pretrain": 20, "vinvl_vqa2": 70}
+VL3_REGIONS = {"lxmert_pretrain": 36}
 
 
 def visual_bert(model_overrides: Optional[Dict[str, Any]] = None):
@@ -852,3 +909,66 @@ def textvqa_m4c_batch(batch_size: int = 128, seed: int = 0,
 def textvqa_trainer(model, config, seed: int = 0, device: Any = "cuda"):
     """``vqa2_trainer`` with the TextVQA meta fields."""
     return vqa2_trainer(model, config, seed, device, TEXTVQA_META)
+
+
+def vl3_config(key: str, opts: Optional[List[str]] = None):
+    """The ``VL3`` config of ``key`` merged over the root defaults, then
+    its ``VL3_OVERRIDES`` and ``opts``; the schedule's
+    ``num_training_steps`` is read as the number it names."""
+    path, dataset, model = VL3[key]
+    cfg = _project_config(path, dataset, VL3_OVERRIDES[key]
+                          + list(opts or []), model)
+    params = (cfg.get("scheduler", {}) or {}).get("params", {}) or {}
+    if isinstance(params.get("num_training_steps"), str):
+        params["num_training_steps"] = int(params["num_training_steps"])
+    return cfg
+
+
+def vl3_model(config, model_overrides: Optional[Dict[str, Any]] = None,
+              example: Optional[Dict[str, Any]] = None):
+    """The model of a ``VL3`` config, from its ``model_config`` with
+    ``model_overrides`` on a copy; a layer flax sizes from the data
+    (VinVL's region projection, UNITER's ``mrc`` decoder) is sized by
+    ``example`` (a 1-sample ``vl3_batch`` of the model by default)."""
+    model = _model(config["model"], config, model_overrides)
+    if model.has_uninitialized_params():
+        key = {"vinvl": "vinvl_vqa2", "uniter": "uniter_masked_coco"}[
+            config["model"]]
+        _sized(model, vl3_batch(key, 1, seq_len=2, regions=2)
+               if example is None else example)
+    return model
+
+
+def vl3_batch(key: str, batch_size: int = 8,
+              seq_len: Optional[int] = None,
+              regions: Optional[int] = None, vdim: int = 2048,
+              vocab_size: int = 30522, num_labels: int = VQA2_NUM_LABELS,
+              seed: int = 0) -> Dict[str, Any]:
+    """A batch of the ``VL3`` config ``key``'s layout at its widths
+    (``VL3_SEQ`` tokens and ``VL3_REGIONS`` regions unless given), from a
+    numpy seed: ``vilbert_train_batch``'s (boxes, ragged region counts,
+    VQA2 targets) for the VQA2 configs, with two segments (caption and
+    tags) for VinVL's; ``masked_vqa2_train_batch``'s (masked-LM labels,
+    masked regions, class probabilities) for the pretraining configs,
+    with ``is_correct`` -1 (neither masked dataset pairs a mismatch in
+    these configs)."""
+    seq_len = VL3_SEQ[key] if seq_len is None else seq_len
+    regions = VL3_REGIONS.get(key, 100) if regions is None else regions
+    if key in ("uniter_masked_coco", "lxmert_pretrain"):
+        batch = masked_vqa2_train_batch(batch_size, seq_len, regions, vdim,
+                                        vocab_size, seed=seed)
+        batch["is_correct"] = np.full((batch_size,), -1, np.int64)
+        return batch
+    batch = vilbert_train_batch(batch_size, seq_len, regions, vdim,
+                                vocab_size, num_labels, seed)
+    if key == "vinvl_vqa2":
+        batch["segment_ids"][:, seq_len // 2:] = 1
+    return batch
+
+
+def vl3_trainer(model, config, seed: int = 0, device: Any = "cuda"):
+    """``vqa2_trainer`` with the meta fields of the config's dataset (a
+    UNITER pretraining batch carries the task the trainer drew)."""
+    return vqa2_trainer(model, config, seed, device,
+                        {"dataset_name": config["datasets"],
+                         "dataset_type": "train"})

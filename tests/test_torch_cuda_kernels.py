@@ -281,6 +281,53 @@ def test_m4c_shapes_match_plain(card, no_tf32, case):
         _assert_rel(got, ref, GRAD_REL[torch.float32], name)
 
 
+# UNITER's, VinVL's and LXMERT's f32 attention (12 heads of 64): UNITER's
+# 128 + 100 = 228 tokens, VinVL's 70 + 100 = 170; LXMERT's self-attention
+# over 128 text tokens and 100 regions and its cross-attention both ways
+# (128 x 100, 100 x 128), and the same at its pretraining's 20 tokens and
+# 36 regions (one ragged tile each way)
+VL3_SHAPES = [(2, 12, 228, 228, 64), (2, 12, 170, 170, 64),
+              (2, 12, 100, 100, 64), (2, 12, 128, 100, 64),
+              (2, 12, 100, 128, 64), (2, 12, 20, 20, 64),
+              (2, 12, 36, 36, 64), (2, 12, 20, 36, 64), (2, 12, 36, 20, 64)]
+
+
+@pytest.mark.parametrize("shape", VL3_SHAPES)
+def test_vl3_shapes_match_plain(card, no_tf32, shape):
+    """K1 in its three forms, K2 and K3 in f32 at UNITER's, VinVL's and
+    LXMERT's shapes, with their keys' padding bias (-10000 past a ragged
+    length, at least half the keys kept), against their plain versions
+    (the f32 bounds above)."""
+    b, h, sq, skv, d = shape
+    g = torch.Generator(device=card).manual_seed(sq * 1000 + skv)
+    keep = torch.arange(skv, device=card)[None] < torch.randint(
+        skv // 2, skv + 1, (b, 1), device=card, generator=g)
+    bias = ((1.0 - keep.float()) * -10000.0)[:, None, None, :]
+
+    def proj(n):
+        return torch.randn(b, n, h, d, device=card,
+                           generator=g).transpose(1, 2)
+
+    q, k, v, dout = proj(sq), proj(skv), proj(skv), proj(sq)
+    out = A.flash_attention(q, k, v, bias)
+    out_s, m, l = A.flash_attention_with_stats(q, k, v, bias)
+    acc, m_raw, _ = A.flash_attention_block(q, k, v, bias)
+    dq, delta = A.flash_attention_bwd_dq(q, k, v, bias, out_s, m, l, dout)
+    dk, dv = A.flash_attention_bwd_dkv(q, k, v, bias, dout, m, l, delta)
+    torch.cuda.synchronize()
+    ref_out, ref_m, ref_l = A.flash_forward_reference(q, k, v, bias)
+    torch.testing.assert_close(out, ref_out, **TOL[torch.float32])
+    assert torch.equal(out, out_s)
+    torch.testing.assert_close(m, ref_m, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(l, ref_l, atol=1e-4, rtol=1e-4)
+    raw = A.flash_attention_block_reference(q, k, v, bias)
+    _assert_rel(acc, raw[0], 1e-5, "acc")
+    torch.testing.assert_close(m_raw, raw[1], atol=1e-4, rtol=1e-5)
+    want = A.flash_backward_reference(q, k, v, bias, out_s, m, l, dout)
+    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        _assert_rel(got, ref, GRAD_REL[torch.float32], name)
+
+
 def test_m4c_cached_decode_equals_the_full_pass_rows(card, no_tf32):
     """K1 over the decode's 12 queries with the prefix's K/V prepended
     (M4C's cached greedy decode) against K1 over the whole 182-token

@@ -73,6 +73,13 @@ SLICE_MODULES = [
     "mmf_tpu_torch.modules.embeddings",
     "mmf_tpu_torch.utils.m4c_evaluators",
     "mmf_tpu_torch.models.m4c",
+    "mmf_tpu_torch.models.uniter",
+    "mmf_tpu_torch.models.lxmert",
+    "mmf_tpu_torch.models.vinvl",
+    "mmf_tpu_torch.datasets.builders.coco.builder",
+    "mmf_tpu_torch.datasets.builders.coco.dataset",
+    "mmf_tpu_torch.datasets.builders.coco.masked_dataset",
+    "mmf_tpu_torch.datasets.builders.vinvl.builder",
 ]
 
 _PROBE = """

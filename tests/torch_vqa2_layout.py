@@ -18,16 +18,31 @@ Under ``root`` (the run's ``env.data_dir``):
   region features [regions, feature_dim] float32, each with its
   ``<image>_info.npy`` (``bbox``, ``num_boxes``, ``image_height``,
   ``image_width`` and, with ``cls_prob_width``, the detector's class
-  probabilities ``cls_prob`` [num_boxes, cls_prob_width]); these stand
-  for the config's LMDB files, which the port does not read yet. An
-  image has between ``regions // 2`` and ``regions`` boxes, or exactly
-  ``regions`` with ``full_boxes`` (as MMF's VQA2 features have: the side
-  files' boxes then batch, which ViLBERT's box locations need);
+  probabilities ``cls_prob`` [num_boxes, cls_prob_width] and, with
+  ``object_labels``, the detector's ``labels`` and ``attr_labels``
+  [num_boxes], ids into the label map); these stand for the config's
+  LMDB files: the features database of either package reads a folder of
+  ``.npy`` files as it reads an LMDB (``tests/torch_textvqa_layout.py``
+  writes real LMDBs). An image has between ``regions // 2`` and
+  ``regions`` boxes, or exactly ``regions`` with ``full_boxes`` (as
+  MMF's VQA2 features have: the side files' boxes then batch, which
+  ViLBERT's box locations need);
 - ``datasets/vqa2/defaults/extras/vocabs/answers_vqa.txt``:
   ``num_answers`` answers, ``<unk>`` first;
 - ``vocab.txt``: a WordPiece vocabulary of ``vocab_size`` entries, BERT's
   special tokens at BERT's ids, the questions' words, ``##`` pieces and
   punctuation, and ``[unusedN]`` filler;
+- with ``coco``: ``datasets/coco/defaults/annotations/imdb_karpathy_
+  {train,val,test}_by_image.npy`` (the masked COCO datasets' imdb: a row
+  an image with its five ``captions``), ``imdb_karpathy_{train,val,
+  test}.npy`` (the ``coco`` captioning imdb: a row a caption, with
+  ``caption_tokens``, ``caption_id`` and the image's five
+  ``reference_tokens``; test images from ``test2015``) and
+  ``extras/vocabs/vocabulary_captioning_thresh5.txt`` (the captions'
+  words, every one of them in ``glove``'s vectors);
+- with ``object_labels``: VinVL's label map,
+  ``datasets/vinvl/defaults/annotations/VG-SGG-dicts-vgoi6-clipped.json``
+  (``idx_to_label`` and ``idx_to_attribute``, ids as strings);
 - the zoo's ``.built`` markers, so that the JAX package, which would
   download the zoo's resources otherwise, takes the layout as built.
 
@@ -48,6 +63,7 @@ different versions, so JAX's ``mmf_run`` would download one of them.
 
 from __future__ import annotations
 
+import json
 import os
 import struct
 import zlib
@@ -124,6 +140,69 @@ def _answers(rng, answer_words: List[str]) -> List[str]:
                                                    p=[0.6, 0.3, 0.1])]
 
 
+# the label map's names: object classes, then attributes
+_OBJECTS = ["man", "dog", "cat", "table", "ball", "bus", "street", "shirt",
+            "tree", "sign"]
+_ATTRIBUTES = ["red", "blue", "small", "wooden", "open", "white"]
+LABEL_MAP = "vinvl/defaults/annotations/VG-SGG-dicts-vgoi6-clipped.json"
+COCO_SPLITS = ("train", "val", "test")
+
+
+def _caption(rng) -> str:
+    n = int(rng.randint(4, 11))
+    return " ".join(_WORDS[rng.randint(len(_WORDS))] for _ in range(n))
+
+
+def _write_coco(datasets: str, images: Dict[str, List[str]], seed: int):
+    """COCO's annotation files over the layout's images, from their own
+    generator (so the VQA2 files stay as they are without them)."""
+    rng = np.random.RandomState(seed + 3)
+    coco = os.path.join(datasets, "coco", "defaults")
+    os.makedirs(os.path.join(coco, "annotations"), exist_ok=True)
+    train_val = images["trainval2014"]
+    cut = max(1, (2 * len(train_val)) // 3)
+    by_split = {"train": train_val[:cut], "val": train_val[cut:] or
+                train_val[:1], "test": images["test2015"]}
+    caption_id = 0
+    for split in COCO_SPLITS:
+        head = {"creation_time": 0.0, "version": 1.0,
+                "dataset_type": split, "has_answer": split != "test"}
+        by_image, by_caption = [dict(head)], [dict(head)]
+        for name in by_split[split]:
+            captions = [_caption(rng) for _ in range(5)]
+            base = {"image_id": int(name.rsplit("_", 1)[1]),
+                    "image_name": name, "feature_path": name + ".npy"}
+            by_image.append(dict(base, captions=captions))
+            references = [c.split() for c in captions]
+            for caption in captions:
+                by_caption.append(dict(
+                    base, image_path=name + ".jpg", caption_id=caption_id,
+                    caption_str=caption, caption_tokens=caption.split(),
+                    reference_tokens=references))
+                caption_id += 1
+        folder = os.path.join(coco, "annotations")
+        np.save(os.path.join(folder, f"imdb_karpathy_{split}_by_image.npy"),
+                np.array(by_image, dtype=object))
+        np.save(os.path.join(folder, f"imdb_karpathy_{split}.npy"),
+                np.array(by_caption, dtype=object))
+    vocab_dir = os.path.join(coco, "extras", "vocabs")
+    os.makedirs(vocab_dir, exist_ok=True)
+    with open(os.path.join(vocab_dir, "vocabulary_captioning_thresh5.txt"),
+              "w") as f:
+        f.write("\n".join(sorted(set(_WORDS))) + "\n")
+
+
+def _write_label_map(datasets: str):
+    path = os.path.join(datasets, LABEL_MAP)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump({"idx_to_label": {str(i + 1): w
+                                    for i, w in enumerate(_OBJECTS)},
+                   "idx_to_attribute": {str(i + 1): w
+                                        for i, w in enumerate(_ATTRIBUTES)}},
+                  f)
+
+
 def _mark_built(path: str, version: str):
     os.makedirs(path, exist_ok=True)
     with open(os.path.join(path, ".built"), "w") as f:
@@ -136,15 +215,19 @@ def write_layout(root: str, n_train: int = 640, n_val: int = 128,
                  vocab_size: int = 30522, seed: int = 0,
                  full_boxes: bool = False,
                  cls_prob_width: int = 0,
-                 glove: bool = False) -> Dict[str, str]:
+                 glove: bool = False, coco: bool = False,
+                 object_labels: bool = False) -> Dict[str, str]:
     """Write the layout under ``root``; returns its main paths. The
-    class probabilities come from a second generator, so the other
-    fields are the same with and without them. ``glove`` also writes
+    class probabilities and the object labels come from generators of
+    their own, so the other fields are the same with and without them
+    (the object labels are 1-based ids, a quarter of them 0, which the
+    label map does not name). ``glove`` also writes
     what VQA2's ``vocab`` text processor reads: ``vocabulary_100k.txt``
     (every word a question can hold) and 300-wide random vectors in
     ``datasets/vectors/glove.6B.300d.txt``."""
     rng = np.random.RandomState(seed)
     cls_rng = np.random.RandomState(seed + 1)
+    label_rng = np.random.RandomState(seed + 4)
     datasets = os.path.join(root, "datasets")
     vqa2 = os.path.join(datasets, "vqa2", "defaults")
     coco = os.path.join(datasets, "coco", "defaults")
@@ -177,6 +260,11 @@ def write_layout(root: str, n_train: int = 640, n_val: int = 128,
                 probs = np.exp(logits - logits.max(1, keepdims=True))
                 info["cls_prob"] = (probs / probs.sum(1, keepdims=True)
                                     ).astype(np.float32)
+            if object_labels:
+                info["labels"] = label_rng.randint(
+                    0, len(_OBJECTS) + 1, n_boxes).astype(np.int64)
+                info["attr_labels"] = label_rng.randint(
+                    0, len(_ATTRIBUTES) + 1, n_boxes).astype(np.int64)
             np.save(os.path.join(out, name + "_info.npy"), info)
 
     os.makedirs(os.path.join(vqa2, "annotations"), exist_ok=True)
@@ -209,6 +297,10 @@ def write_layout(root: str, n_train: int = 640, n_val: int = 128,
     vocab_file = os.path.join(root, "vocab.txt")
     with open(vocab_file, "w") as f:
         f.write("\n".join(_vocab(vocab_size)) + "\n")
+    if coco:
+        _write_coco(datasets, images, seed)
+    if object_labels:
+        _write_label_map(datasets)
     if glove:
         words = sorted({w + s for w in _WORDS for s in _SUFFIXES})
         with open(os.path.join(vocab_dir, "vocabulary_100k.txt"), "w") as f:
@@ -229,15 +321,20 @@ def write_layout(root: str, n_train: int = 640, n_val: int = 128,
 
 
 def layout_opts(root: str, dataset: str = "vqa2",
-                text_processor: str = "text_processor") -> List[str]:
+                text_processor: str = "text_processor",
+                train_files: int = 1) -> List[str]:
     """The dotlist that points ``dataset``'s config (VQA2's, or one of
     its variants') at the layout; ``text_processor`` names the processor
     that reads the WordPiece vocabulary (``masked_token_processor`` for
-    ``masked_vqa2``)."""
+    ``masked_vqa2``); ``train_files`` is the number of annotation files
+    the config trains on (LXMERT's masked VQA2 trains on two), each paired
+    with the features folder."""
     opts = [f"env.data_dir={root}"]
     for split, folder in FEATURES.items():
-        opts.append(f"dataset_config.{dataset}.features.{split}="
-                    f"[coco/defaults/features/{folder}]")
+        n = train_files if split == "train" else 1
+        opts.append(f"dataset_config.{dataset}.features.{split}=["
+                    + ", ".join([f"coco/defaults/features/{folder}"] * n)
+                    + "]")
     opts.append(f"dataset_config.{dataset}.processors.{text_processor}."
                 "params.tokenizer_config.params.vocab_file="
                 + os.path.join(root, "vocab.txt"))
