@@ -273,15 +273,25 @@ the script exits non-zero without a result line):
               36 regions, 2 updates): exact launches (training attention
               plain at the configs' dropout 0.1), losses equal to the
               train step's on the same batches; 3 steps through the
-              kernels against the plain versions for each config;
-              mmf_serve of the three finetuned folders, 32 requests
-              against a CPU engine on the same weights (1e-4 of the
-              largest score).
+              kernels against the plain versions for each config, the
+              kernels' steps' device time and their LayerNorm backward
+              (K4-bwd) by torch.profiler; mmf_serve of the three
+              finetuned folders, 32 requests against a CPU engine on the
+              same weights (1e-4 of the largest score).
+29. ln-bwd-shapes - K4-bwd at every (rows, hidden, dtype, residual) at
+              which the optimizer steps of phases 1-28 ran it (recorded
+              as they ran: LnBwdRecord), with the phases' steps and calls
+              a step: against its plain backward within the kernels
+              phase's tolerances, bit-equal across two calls, by
+              device_ms over rotating input sets beside F.layer_norm's
+              backward, with the byte bound and host us a call; and K4,
+              the forward, at the same shape beside F.layer_norm.
 
 Then one JSON line describing the kernels, the nvidia-smi line, and the
 last line {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
+import collections
 import contextlib
 import copy
 import ctypes
@@ -360,10 +370,10 @@ STATS_TOL = dict(atol=1e-4, rtol=1e-4)
 RAW_REL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 LONG_S = 1024  # the long-kv case: B=8, Sq = Skv = 1024
 # K4-bwd against its plain backward, relative to the largest entry: dx in
-# f32 the same formulas in other summation orders, in bf16 rounded to bf16
-# (one ulp is 2^-8 relative); dscale and dbias are f32 sums of the same
-# f32 products in both dtypes
-LN_DX_REL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# f32 the same formulas in other summation orders, in bf16 and f16 rounded
+# to their dtype (one ulp is 2^-8 and 2^-11 relative); dscale and dbias
+# are f32 sums of the same f32 products in every dtype
+LN_DX_REL = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float16: 1e-3}
 LN_PARAM_REL = 1e-5
 # LayerNorm timings rotate over input sets that together hold at least
 # this many bytes of what a call reads (L2 holds 50 MB), cut from a pool
@@ -984,7 +994,7 @@ def _ln_library_backward(x, residual, w, bb, dy):
     h = (x if residual is None else x + residual).detach().requires_grad_()
     leaves = [h] + [t.detach().to(x.dtype, copy=True).requires_grad_()
                     for t in (w, bb)]
-    y = F.layer_norm(h, (HIDDEN,), leaves[1], leaves[2], 1e-12)
+    y = F.layer_norm(h, h.shape[-1:], leaves[1], leaves[2], 1e-12)
     return lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True)
 
 
@@ -1473,25 +1483,34 @@ def _compared_steps(cfg, state_dict, batch, steps=COMPARED_STEPS,
                     trainer=flagship.vqa2_trainer,
                     build=flagship.vqa2_visual_bert,
                     no_dropout=(("hidden_dropout_prob", 0.0),),
-                    stats_out=None):
+                    stats_out=None, device_out=None):
     """``steps`` steps at dropout 0 from ``state_dict``: (losses,
     gradients of the first step, None for a parameter that got none,
     parameter updates after all, launch counts). The schedule's update 0
     runs at lr 0, so the first two losses are taken at the initial
     weights and the third after an update at lr > 0. ``stats_out``, a
-    dict, receives the BatchNorms' running statistics after the steps."""
+    dict, receives the BatchNorms' running statistics after the steps;
+    ``device_out``, a list, the steps' device time per step and its split
+    by kind (``_by_category``; torch.profiler around the steps)."""
+    from torch.profiler import ProfilerActivity, profile
+
     model = build(cfg, dict(no_dropout))
     model.load_state_dict(state_dict, strict=True)
     state, step = trainer(model, cfg, seed=1)
     losses, grads = [], None
     reset_counts()
-    for _ in range(steps):
-        state, rep = step(state, batch)
-        losses.append(float(rep["total_loss"]))
-        if grads is None:
-            grads = {n: None if p.grad is None else
-                     p.grad.detach().float().cpu()
-                     for n, p in model.named_parameters()}
+    with (contextlib.nullcontext() if device_out is None else profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])) as prof:
+        for _ in range(steps):
+            state, rep = step(state, batch)
+            losses.append(float(rep["total_loss"]))
+            if grads is None:
+                grads = {n: None if p.grad is None else
+                         p.grad.detach().float().cpu()
+                         for n, p in model.named_parameters()}
+        torch.cuda.synchronize()
+    if device_out is not None:
+        device_out.append(_by_category(prof, steps))
     launches = read_counts()
     updates = {n: p.detach().cpu() - state_dict[n]
                for n, p in model.named_parameters()}
@@ -3672,17 +3691,19 @@ def _vilt_build(cfg, overrides):
 
 
 def _kernels_vs_plain(cfg, init, batch, build, trainer, steps, label,
-                      stats=None, update_held=None):
+                      stats=None, update_held=None, device_out=None):
     """``steps`` steps through the kernels and through the plain versions
     from ``init``: (losses, worst gradient cosine, worst norm-relative
     error, worst update cosine, launches), each bound checked. ``stats``,
     a list, receives the two sides' BatchNorm statistics after the
     steps. ``update_held(name)``: the parameters the update cosine's
-    bound holds on (all by default); the others' worst is printed."""
+    bound holds on (all by default); the others' worst is printed.
+    ``device_out``, a list, receives the kernels' steps' device time
+    (``_compared_steps``)."""
     k_stats, p_stats = {}, {}
     k_losses, k_grads, k_upd, k_launches = _compared_steps(
         cfg, init, batch, steps=steps, trainer=trainer, build=build,
-        no_dropout=(), stats_out=k_stats)
+        no_dropout=(), stats_out=k_stats, device_out=device_out)
     with plain_versions():
         p_losses, p_grads, p_upd, p_launches = _compared_steps(
             cfg, init, batch, steps=steps, trainer=trainer, build=build,
@@ -5790,9 +5811,15 @@ def _vl3_compared(key, card):
     init = {k: v.detach().clone() for k, v in model.state_dict().items()}
     del model
     batch = flagship.vl3_batch(key, TRAIN_B, seed=7)
+    device = []
     line, launches = _kernels_vs_plain(cfg, init, batch, _vl3_build,
                                        flagship.vl3_trainer, COMPARED_STEPS,
-                                       key)
+                                       key, device_out=device)
+    dev_ms, by_category = device[0]
+    ln_ms, ln_n = by_category.get("LayerNorm backward K4-bwd", (0.0, 0.0))
+    line += (f"; the kernels' steps' device time {dev_ms:.2f} ms a step "
+             f"(torch.profiler over the {COMPARED_STEPS} steps), of it "
+             f"LayerNorm backward K4-bwd {ln_ms:.3f} ms x{ln_n:.0f}")
     att, ln, att_bwd, ln_bwd = VL3_PER_FORWARD[key]
     want = dict(ZERO_COUNTS, flash_attention_fwd_stats=att * COMPARED_STEPS,
                 flash_attention_bwd_dq=att_bwd * COMPARED_STEPS,
@@ -6007,6 +6034,174 @@ def phase_vl3_runs(card):
     return total
 
 
+# -- phase 29: K4-bwd at the shapes the main paths ran it at -----------------
+class LnBwdRecord:
+    """The shapes K4-bwd ran at on the main paths, by phase: each
+    optimizer step that launched K4-bwd is filed under its phase with its
+    calls' multiset of (rows, hidden, dtype, residual), as K4-bwd reads
+    them (``L.kernel_operands``). It wraps ``L.layer_norm_backward``, the
+    autograd backward's dispatch (the kernels phases call the wrapper
+    directly and are not recorded), and closes a step at each optimizer
+    step (torch's global post-step hook). Calls outside any step are
+    filed under the phase's end."""
+
+    def __init__(self):
+        self.phase = "start"
+        self.pending = []  # this step's calls so far
+        self.steps = {}  # phase -> {step's calls (sorted tuple): steps}
+        self._dispatch = None
+        self._hook = None
+
+    def _key(self, x, residual):
+        native = x.dtype in L._DTYPE_CODE and (residual is None
+                                               or residual.dtype == x.dtype)
+        return (x.numel() // x.shape[-1], x.shape[-1],
+                str(x.dtype if native else torch.float32)[6:],
+                residual is not None and native)
+
+    def _close(self, *_):
+        if self.pending:
+            sig = tuple(sorted(collections.Counter(self.pending).items()))
+            per = self.steps.setdefault(self.phase, {})
+            per[sig] = per.get(sig, 0) + 1
+            self.pending = []
+
+    def set_phase(self, name):
+        self._close()
+        self.phase = name
+
+    def start(self):
+        from torch.optim.optimizer import register_optimizer_step_post_hook
+
+        dispatch = self._dispatch = L.layer_norm_backward
+
+        def recording(x, residual, scale, bias, dy, eps):
+            before = L.layer_norm_backward_kernel.launches
+            out = dispatch(x, residual, scale, bias, dy, eps)
+            if L.layer_norm_backward_kernel.launches > before:
+                self.pending.append(self._key(x, residual))
+            return out
+
+        L.layer_norm_backward = recording
+        self._hook = register_optimizer_step_post_hook(self._close)
+
+    def stop(self):
+        self._close()
+        L.layer_norm_backward = self._dispatch
+        self._hook.remove()
+
+    def shapes(self):
+        """{(rows, hidden, dtype, residual): [(phase, steps, calls a
+        step)]} over every recorded step."""
+        out = {}
+        for phase, per in self.steps.items():
+            for sig, n in per.items():
+                for key, calls in sig:
+                    out.setdefault(key, []).append((phase, n, calls))
+        return out
+
+
+def _ln_bwd_shape_case(g, rows, hidden, dtype, residual):
+    """K4-bwd at one recorded shape: against its plain backward within
+    the kernels phase's tolerances, bit-equal across two calls, timed by
+    device_ms over rotating input sets (ROTATE_BYTES) beside
+    F.layer_norm's backward, with the byte bound and host us a call."""
+    dt = getattr(torch, dtype)
+    elt = torch.empty((), dtype=dt).element_size()
+    per_call = (3 if residual else 2) * rows * hidden * elt
+    n_sets = max(3, math.ceil(ROTATE_BYTES / per_call))
+    pool = [torch.randn(1, n_sets * rows, hidden, device=DEV,
+                        generator=g).to(dt) for _ in range(3)]
+    w = 1.0 + 0.1 * torch.randn(hidden, device=DEV, generator=g)
+    bb = 0.1 * torch.randn(hidden, device=DEV, generator=g)
+    sets = [(x_, r_ if residual else None, dy_)
+            for x_, r_, dy_ in _ln_sets(pool, rows, per_call)]
+    x, res, dy = sets[0]
+    got = L.layer_norm_backward_kernel(x, w, dy, res)
+    again = L.layer_norm_backward_kernel(x, w, dy, res)
+    torch.cuda.synchronize()
+    form = (f"{dtype} [{rows}, {hidden}] "
+            f"{'residual' if residual else 'no residual'}")
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"K4-bwd {form}: not bit-equal across calls")
+    want = L._ln_backward_reference(x, res, w, bb, dy, 1e-12)
+    errs = [rel_err(a, b, rel, f"K4-bwd {name} {form}")
+            for name, a, b, rel in zip(
+                ("dx", "dscale", "dbias"), got, (want[0], want[2], want[3]),
+                (LN_DX_REL[dt], LN_PARAM_REL, LN_PARAM_REL))]
+    del want
+    lib = [_ln_library_backward(x_, r_, w, bb, dy_) for x_, r_, dy_ in sets]
+    r = {"form": form, "max_abs_err": max(errs),
+         "ms": device_ms(rotating(
+             lambda x_, r_, dy_: L.layer_norm_backward_kernel(x_, w, dy_,
+                                                              r_), sets),
+             repeats=3),
+         "library_ms": device_ms(rotating(lambda f_: f_(),
+                                          [(f_,) for f_ in lib]), repeats=3),
+         "host_us": host_us(lambda: L.layer_norm_backward_kernel(
+             x, w, dy, res), iters=30),
+         "sets": n_sets}
+    r["bound_ms"], r["bound_by"] = bound(
+        _nbytes(x, res, w, dy, got[0], got[1], got[2]), 10 * x.numel(), dt)
+    # K4, the forward, at the same shape beside F.layer_norm (after the
+    # add; its weights in x's dtype)
+    y = L.layer_norm_kernel(x, w, bb, res)
+    torch.cuda.synchronize()
+    if dt in TOL:
+        max_err(y, L._ln_reference(x, res, w, bb, 1e-12), dt)
+    w_dt, bb_dt = w.to(dt), bb.to(dt)
+    k4 = {"ms": device_ms(rotating(
+        lambda x_, r_, _: L.layer_norm_kernel(x_, w, bb, r_), sets),
+        repeats=3),
+        "library_ms": device_ms(rotating(
+            lambda x_, r_, _: F.layer_norm(x_ if r_ is None else x_ + r_,
+                                           (hidden,), w_dt, bb_dt, 1e-12),
+            sets), repeats=3)}
+    k4["bound_ms"], k4["bound_by"] = bound(_nbytes(x, res, w, bb, y),
+                                           8 * x.numel(), dt)
+    r["K4"] = k4
+    del lib, pool, sets, got, again, y
+    torch.cuda.empty_cache()
+    return r
+
+
+def phase_ln_bwd_shapes(card, record):
+    """K4-bwd at every (rows, hidden, dtype, residual) the main paths'
+    optimizer steps ran it at (``LnBwdRecord``), each checked and timed
+    by ``_ln_bwd_shape_case``; the phases and their steps' calls beside
+    it."""
+    g = torch.Generator(device=DEV).manual_seed(18)
+    shapes = record.shapes()
+    check(shapes, "no K4-bwd call was recorded on the main paths")
+    rows = {}
+    for key in sorted(shapes, key=lambda k: (k[1], k[2], k[0], k[3])):
+        r = _ln_bwd_shape_case(g, *key)
+        r["steps"] = [{"phase": ph, "steps": n, "calls_a_step": c}
+                      for ph, n, c in shapes[key]]
+        rows[r["form"]] = r
+    print(f"phase ln-bwd-shapes: ok K4-bwd at the {len(rows)} shapes the "
+          "main paths' optimizer steps ran it at, each against its plain "
+          f"backward (dx {LN_DX_REL[torch.float32]} f32 / "
+          f"{LN_DX_REL[torch.bfloat16]} bf16 and f16, dscale and dbias "
+          f"{LN_PARAM_REL} of the largest entry), bit-equal across two "
+          "calls, device ms over rotating input sets beside F.layer_norm's "
+          "backward, the byte bound and host us a call, and K4 (the "
+          f"forward) beside F.layer_norm, on '{card}' (phase: steps x calls "
+          "a step):")
+    for form, r in rows.items():
+        print(f"  {form}: max_abs_err {r['max_abs_err']:.3g}; kernel "
+              f"{r['ms']:.4f} ms, F.layer_norm backward "
+              f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} by "
+              f"{r['bound_by']} (kernel at "
+              f"{100 * r['bound_ms'] / r['ms']:.0f}%), host "
+              f"{r['host_us']:.1f} us; K4 forward {r['K4']['ms']:.4f} "
+              f"(F.layer_norm {r['K4']['library_ms']:.4f}, bound "
+              f"{r['K4']['bound_ms']:.4f}); " + ", ".join(
+                  f"{s['phase']}: {s['steps']} x {s['calls_a_step']}"
+                  for s in r["steps"]))
+    return rows
+
+
 SOURCES = {  # name -> (route, source, the TPU kernel it replaces)
     "flash_attention_fwd": ("cuda",
                             "mmf_tpu_torch/ops/csrc/flash_attention_fwd.cu",
@@ -6064,8 +6259,15 @@ LIBRARY = {  # name -> the PyTorch call timed as its library_ms
 }
 
 
+# K4-bwd's shapes on the main paths, recorded from the build to the last
+# training phase (main)
+LN_BWD_RECORD = LnBwdRecord()
+
+
 def timed(fn, *args):
-    """``fn(*args)``, and a line with the phase's seconds."""
+    """``fn(*args)``, and a line with the phase's seconds; K4-bwd's calls
+    on the way are filed under the phase (``LN_BWD_RECORD``)."""
+    LN_BWD_RECORD.set_phase(fn.__name__[len("phase_"):])
     t0 = time.perf_counter()
     try:
         return fn(*args)
@@ -6076,6 +6278,7 @@ def timed(fn, *args):
 
 def main():
     card = card_line()
+    LN_BWD_RECORD.start()
     timed(phase_build, card)
     results = timed(phase_kernels, card)
     served, serving = timed(phase_serving, card)
@@ -6112,6 +6315,9 @@ def main():
     hm += [family, served_m4c]
     vl3_att, vl3_raw, vl3_ln = timed(phase_vl3_kernels, card)
     hm.append(timed(phase_vl3_runs, card))
+    LN_BWD_RECORD.stop()
+    results["layer_norm_bwd"]["recorded_shapes"] = timed(
+        phase_ln_bwd_shapes, card, LN_BWD_RECORD)
     # K1 at the served M4C decode's buckets
     results["flash_attention_fwd"]["m4c_served_decode"] = decode_rows
     results["int8_dequant_gemm"]["vb_int8_forward_ms"] = k5_vb_ms
@@ -6242,7 +6448,8 @@ def main():
                                  "forms", "vilbert_shapes", "vilt_shape",
                                  "mmft_shape", "hateful_memes_shapes",
                                  "m4c_shapes", "m4c_served_decode",
-                                 "vilt_form", "vl3_shapes", "vl3_forms")
+                                 "vilt_form", "vl3_shapes", "vl3_forms",
+                                 "recorded_shapes")
                if k in r},
         })
     print(json.dumps({"kernels": kernels}))

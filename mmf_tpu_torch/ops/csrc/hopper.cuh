@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks for the flash-attention kernels (K1, K2,
-// K3) and the int8 GEMM (K5): mbarriers, TMA tile loads, wgmma on
-// 128-byte-swizzled bf16 and int8 tiles, and the host-side TMA descriptors.
+// K3), the int8 GEMM (K5) and the LayerNorm backward (K4-bwd): mbarriers,
+// TMA tile loads and bulk copies, wgmma on 128-byte-swizzled bf16 and int8
+// tiles, and the host-side TMA descriptors.
 //
 // Tile layout. Every operand tile in shared memory is a TMA box of 64 rows
 // x 64 bf16 (128 bytes a row) under CU_TENSOR_MAP_SWIZZLE_128B: the 16-byte
@@ -129,6 +130,18 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) of contiguous global memory into shared
+// memory by one bulk copy (TMA without a tensor map; both addresses
+// 16-byte aligned); completion is counted in bytes on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

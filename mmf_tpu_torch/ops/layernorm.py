@@ -15,9 +15,11 @@ output in x's dtype.
   centred sum of squares in registers, and writes only the output.
 - ``layer_norm_backward_kernel``: wrapper of the CUDA C++ kernel
   ``ops/csrc/layer_norm_bwd.cu`` (K4-bwd), the gradient of the above:
-  dx (= dresidual), dscale and dbias in one pass over x, the residual
-  and dy, the statistics recomputed, dscale and dbias reduced over the
-  rows without atomics (two calls give the same bits). It takes float32,
+  dx (= dresidual), dscale and dbias in one launch and one pass over x,
+  the residual and dy, the statistics recomputed, dscale and dbias
+  reduced over the rows in a fixed order without float atomics (two
+  calls give the same bits; ``bwd_row_plan`` and ``bwd_row_run`` say
+  which rows each block takes). It takes float32,
   bfloat16 and float16 rows of any width (a width that is not whole
   16-byte vectors is zero-padded to them). JAX has no Pallas backward
   here: ``_ln_pallas_bwd`` takes the VJP of ``_ln_reference``. CUDA
@@ -146,7 +148,7 @@ def _bwd_lib():
     if not getattr(lib, "_mmf_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.mmf_layer_norm_bwd.argtypes = [p] * 8 + [i] * 4 + [
-            ctypes.c_float, i, p]
+            ctypes.c_float, i, i, p]
         lib.mmf_layer_norm_bwd.restype = i
         lib.mmf_layer_norm_bwd_geometry.argtypes = [
             i, i, ctypes.POINTER(i), ctypes.POINTER(i)]
@@ -172,23 +174,81 @@ def _check_rc(lib, rc, what):
 
 @functools.lru_cache(maxsize=None)
 def _bwd_geometry(code: int, ld: int, index: int):
-    """(blocks the card holds at once, rows a block takes per step) of
-    K4-bwd's main kernel for rows of ``ld`` elements of dtype ``code`` on
-    card ``index``."""
+    """(SMs, blocks of K4-bwd's kernel one SM holds, rows a block takes at
+    once) for rows of ``ld`` elements of dtype ``code`` on card ``index``.
+    The query also lets the kernel take its shared memory on that card,
+    which its launch needs."""
     lib, _ = _bwd_lib()
-    per_sm, step = ctypes.c_int(0), ctypes.c_int(0)
+    per_sm, tile = ctypes.c_int(0), ctypes.c_int(0)
     with torch.cuda.device(index):
         rc = lib.mmf_layer_norm_bwd_geometry(code, ld, ctypes.byref(per_sm),
-                                             ctypes.byref(step))
+                                             ctypes.byref(tile))
     _check_rc(lib, rc, "layer_norm_backward_kernel's occupancy query")
     sms = torch.cuda.get_device_properties(index).multi_processor_count
-    return max(per_sm.value, 1) * sms, step.value
+    return sms, max(per_sm.value, 1), tile.value
+
+
+# the blocks whose partial column sums one block adds: the best of 4 to
+# 132 at 132 blocks (12 within 0.3 us, one group of all 132 slower by 5-6
+# us a call; NVIDIA H100 80GB HBM3, 700 W, PERF.md)
+_GROUP = 16
+# fewer rows than SMs take a block a tile, at most this many blocks (one
+# group)
+_FEW_BLOCKS = 16
+
+
+@functools.lru_cache(maxsize=4096)
+def bwd_row_plan(rows: int, sms: int, per_sm: int, tile: int):
+    """K4-bwd's grid for ``rows`` rows on a card of ``sms`` SMs that hold
+    ``per_sm`` of its blocks each, a block taking ``tile`` rows at once:
+    ``(grid, group)``. A block a tile, but at least one an SM whenever
+    rows >= sms and at most as many as the card holds at once (the
+    blocks then walk their runs of rows, ``bwd_row_run``); below sms at
+    most 16 blocks, one group. ``group``: the blocks whose partial column
+    sums one block adds (up to 16; the groups' sums are then added in
+    one more step)."""
+    grid = -(-rows // tile)
+    if rows >= sms:
+        grid = max(grid, sms)
+    else:
+        grid = min(grid, _FEW_BLOCKS)
+    grid = max(1, min(grid, sms * per_sm))
+    return grid, min(grid, _GROUP)
+
+
+def bwd_row_run(block: int, rows: int, grid: int):
+    """(first row, rows) of K4-bwd's block ``block`` of ``grid``: one
+    contiguous run of floor(rows / grid) or ceil(rows / grid) rows, as the
+    kernel takes them."""
+    q, rem = divmod(rows, grid)
+    return block * q + min(block, rem), q + (block < rem)
+
+
+_scratch = {}  # (card, stream) -> (partials f32, tickets int32)
+_TICKET_STRIDE = 32  # the kernel's ticket counters sit 128 bytes apart
+
+
+def _bwd_scratch(device, stream, floats, tickets):
+    """K4-bwd's scratch on ``device`` for calls on ``stream``: partial
+    column sums (f32, written before they are read) and the ticket
+    counters (zero; each call leaves them zero). Calls on one stream run
+    in order, so they share it; it grows, and is never cleared."""
+    key = (device.index, stream)
+    got = _scratch.get(key)
+    if got is None or got[0].numel() < floats or got[1].numel() < tickets:
+        old = (0, 0) if got is None else (got[0].numel(), got[1].numel())
+        got = (torch.empty(max(floats, old[0]), dtype=torch.float32,
+                           device=device),
+               torch.zeros(max(tickets, old[1]), dtype=torch.int32,
+                           device=device))
+        _scratch[key] = got
+    return got
 
 
 def row_stride(hidden: int, dtype: torch.dtype) -> int:
     """The row length K4-bwd reads: ``hidden`` rounded up to whole
     16-byte vectors of ``dtype``."""
-    per = 16 // torch.empty((), dtype=dtype).element_size()
+    per = 16 // dtype.itemsize
     return -(-hidden // per) * per
 
 
@@ -215,7 +275,9 @@ def layer_norm_backward_kernel(
     residual]) for the output gradient ``dy``. dx has x's shape and dtype
     and is also the residual's gradient; dscale and dbias are f32
     [hidden]. x, residual and dy of one shape and one dtype (float32,
-    bfloat16 or float16), any hidden size; scale [hidden]."""
+    bfloat16 or float16), any hidden size; scale [hidden]. One kernel
+    launch; inputs that are contiguous and 16-byte aligned at a width of
+    whole 16-byte vectors are read in place."""
     for name, t in (("x", x), ("scale", scale), ("dy", dy),
                     ("residual", residual)):
         if t is not None and not t.is_cuda:
@@ -249,25 +311,26 @@ def layer_norm_backward_kernel(
     r2d = None if residual is None else _rows(residual, hidden, ld)
     dy2d = _rows(dy.to(x.dtype), hidden, ld)
     w = _rows(scale.to(torch.float32), hidden, ld).view(ld)
-    rows = x2d.shape[0]
-    dx = torch.empty_like(x2d)
-    dscale = torch.empty(ld, dtype=torch.float32, device=x.device)
-    dbias = torch.empty_like(dscale)
+    rows, code, index = x2d.shape[0], _DTYPE_CODE[x.dtype], x.device.index
     lib, _ = _bwd_lib()
-    blocks, step = _bwd_geometry(_DTYPE_CODE[x.dtype], ld, x.device.index)
-    grid = min(blocks, -(-rows // step))
-    part = torch.empty((2, grid, ld), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+    grid, group = bwd_row_plan(rows, *_bwd_geometry(code, ld, index))
+    groups = -(-grid // group)
+    dx = torch.empty_like(x2d)
+    out = torch.empty((2, ld), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(index):
+        stream = torch.cuda.current_stream().cuda_stream
+        part, tickets = _bwd_scratch(x.device, stream,
+                                     (grid + groups) * 2 * ld,
+                                     (groups + 1) * _TICKET_STRIDE)
         rc = lib.mmf_layer_norm_bwd(
             x2d.data_ptr(), None if r2d is None else r2d.data_ptr(),
             w.data_ptr(), dy2d.data_ptr(), dx.data_ptr(), part.data_ptr(),
-            dscale.data_ptr(), dbias.data_ptr(), _DTYPE_CODE[x.dtype], rows,
-            hidden, ld, float(eps), grid, stream,
+            tickets.data_ptr(), out.data_ptr(), code, rows, hidden, ld,
+            float(eps), grid, group, stream,
         )
     _check_rc(lib, rc, "layer_norm_backward_kernel launch")
     layer_norm_backward_kernel.launches += 1
-    return dx[:, :hidden].view(x.shape), dscale[:hidden], dbias[:hidden]
+    return dx[:, :hidden].view(x.shape), out[0, :hidden], out[1, :hidden]
 
 
 layer_norm_backward_kernel.launches = 0

@@ -649,6 +649,16 @@ def _ln_case(card, dtype, shape, with_residual, seed=3):
 LN_BWD_SHAPES = [(4, 57, 768), (4, 57, 1024), (3, 41, 200), (3, 7, 204),
                  (2, 5, 37), (5, 33, 4096), (2, 9, 8192), (3, 5, 12288),
                  (2, 3, 20002), (14592, 768)]
+# the grid's edges on an H100 (132 SMs, one block an SM at these widths,
+# several at the narrow ones): one row, an SM's worth of rows and two, the
+# parent kernel's pass of 2112 rows, LXMERT's 2304, each +- 1; and
+# VisualBERT's and ViLT's rows. At the main paths' widths, 1024, narrow
+# and ragged rows, and rows of 4 and 8 warps
+LN_BWD_EDGE_ROWS = [1, 131, 132, 133, 263, 264, 265, 2111, 2112, 2113, 2303,
+                    2304, 2305, 14592, 39488]
+LN_BWD_SHAPES += [(rows, hidden) for hidden in (768, 1024, 200, 37, 4096,
+                                                8192)
+                  for rows in LN_BWD_EDGE_ROWS]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
@@ -658,16 +668,26 @@ LN_BWD_SHAPES = [(4, 57, 768), (4, 57, 1024), (3, 41, 200), (3, 7, 204),
 def test_layer_norm_backward_kernel_matches_plain(card, dtype, with_residual,
                                                   shape):
     """K4-bwd at any width: dx, dscale and dbias against the plain
-    backward; one launch a call; a second call gives the same bits (no
-    atomics)."""
+    backward; one launch a call; calls back to back, and calls on two
+    streams at once, give the same bits (no float atomics; the scratch
+    of each stream resets itself)."""
     x, res, w, bias, dy = _ln_case(card, dtype, shape, with_residual)
     before = L.layer_norm_backward_kernel.launches
     dx, dw, db = L.layer_norm_backward_kernel(x, w, dy, res)
     again = L.layer_norm_backward_kernel(x, w, dy, res)
+    side = [torch.cuda.Stream(card) for _ in range(2)]
+    for s in side:
+        s.wait_stream(torch.cuda.current_stream(card))
+    streamed = []
+    for _ in range(2):
+        for s in side:
+            with torch.cuda.stream(s):
+                streamed.append(L.layer_norm_backward_kernel(x, w, dy, res))
     torch.cuda.synchronize()
-    assert L.layer_norm_backward_kernel.launches == before + 2
-    for first, second in zip((dx, dw, db), again):
-        assert torch.equal(first, second)
+    assert L.layer_norm_backward_kernel.launches == before + 6
+    for other in [again] + streamed:
+        for first, second in zip((dx, dw, db), other):
+            assert torch.equal(first, second)
     want = L._ln_backward_reference(x, res, w, bias, dy, 1e-12)
     assert dx.dtype == dtype and dx.shape == x.shape
     assert dw.dtype == db.dtype == torch.float32
