@@ -278,8 +278,37 @@ the script exits non-zero without a result line):
               (K4-bwd) by torch.profiler; mmf_serve of the three
               finetuned folders, 32 requests against a CPU engine on the
               same weights (1e-4 of the largest score).
-29. ln-bwd-shapes - K4-bwd at every (rows, hidden, dtype, residual) at
-              which the optimizer steps of phases 1-28 ran it (recorded
+29. butd-run - BUTD at full width (B=256, 100 regions x 2048, LSTMs and
+              attention 1024, words 300, a 9,491-word COCO vocabulary,
+              52 steps, f32) through mmf_run on a synthetic COCO layout:
+              the defaults config (flagship.BUTD_OVERRIDES) trains 3
+              updates on the reference's targets (text[:, 1:]) and
+              evaluates BLEU-4; beam_search.yaml (k = 5) and
+              nucleus_sampling.yaml evaluate the trained weights and
+              write {image_id, caption} rows; the step's and each
+              decode's device time by kind, wall time, idle share and
+              peak memory; teacher-forced scores and greedy captions
+              against the CPU; the beam config's folder served by
+              ServingEngine.from_checkpoint at batch 1 (p50 / p95) and
+              bucket 32, its captions against a CPU engine's. No
+              hand-written kernel runs on this path (launches 0).
+30. pythia-run - Pythia at full width (B=512, combine and classifier
+              5000 wide, the attention text embedding 1024 wide, 3129
+              answers, f32) through mmf_run on the synthetic VQA2
+              layout: 3 updates, val accuracy, prediction rows, the
+              step's device time by kind, the card against the CPU,
+              served at bucket 32 from the run's folder;
+              pythia_question_only and pythia_image_only one forward
+              each against the CPU. Launches 0.
+31. m4c-coco-joint - the M4C captioner trained jointly on TextCaps and
+              COCO (flagship.JOINT_COCO, B=128, full width) through
+              mmf_run on write_joint_coco_layout: exact K4 and K4-bwd
+              launches an update and K1 and K4 in each greedy-decode
+              forward, BLEU-4, caption rows, and the first batch through
+              the kernels (K1-stats, K2, K3, K4, K4-bwd) against the
+              plain versions.
+32. ln-bwd-shapes - K4-bwd at every (rows, hidden, dtype, residual) at
+              which the optimizer steps of phases 1-31 ran it (recorded
               as they ran: LnBwdRecord), with the phases' steps and calls
               a step: against its plain backward within the kernels
               phase's tolerances, bit-equal across two calls, by
@@ -296,6 +325,7 @@ import contextlib
 import copy
 import ctypes
 import dataclasses
+import gc
 import itertools
 import json
 import math
@@ -1390,14 +1420,17 @@ def plain_versions():
 
 
 def _cosine(a, b):
-    a, b = a.double().flatten(), b.double().flatten()
+    # on the card: in float64 on the host's cores a model's gradients take
+    # seconds
+    a = a.to(DEV, torch.float64).flatten()
+    b = b.to(DEV, torch.float64).flatten()
     den = float(a.norm() * b.norm())
     return 1.0 if den == 0.0 else float(a @ b) / den
 
 
 def _norm_rel(got, want):
     """||got - want|| / ||want||: unlike the cosine, it sees scale."""
-    got, want = got.double(), want.double()
+    got, want = got.to(DEV, torch.float64), want.to(DEV, torch.float64)
     den = float(want.norm())
     return float((got - want).norm()) / den if den else float(got.norm())
 
@@ -1430,13 +1463,19 @@ def _op_device_ms(prof, n, dim):
     """(ms per step, calls per step) of the GEMM operators that have an
     operand dimension ``dim``, from their recorded input shapes."""
     ms = calls = 0.0
-    for e in prof.key_averages(group_by_input_shape=True):
+    for e in prof.events():
         if e.key in ("aten::mm", "aten::addmm") and any(
                 dim in (shape or []) for shape in e.input_shapes):
             total = getattr(e, "device_time_total", None)
             ms += (e.cuda_time_total if total is None else total) / 1e3 / n
             calls += e.count / n
     return ms, calls
+
+
+# steps (or forwards) a device-time breakdown profiles: the device time of
+# a step varies by 2% between steps, and summing a capture's events
+# takes seconds of the host's time
+PROFILED_STEPS = 1
 
 
 def _device_ms(step_fn, n, gemm_dim=None):
@@ -1455,22 +1494,115 @@ def _device_ms(step_fn, n, gemm_dim=None):
     return _by_category(prof, n, gemm_dim)
 
 
+def _device_event(key, is_user_annotation):
+    """Whether a device event of that name counts in a step's device
+    time: kernels, copies and sets, not user annotations (the optimizer's
+    record_function range) that span kernels and would count them
+    twice."""
+    return not is_user_annotation and not key.startswith(
+        ("Optimizer.", "ProfilerStep"))
+
+
+def _averaged_kernel_times(prof):
+    """{name: (device us, launches)} of a finished capture's device
+    events through key_averages()."""
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA or not \
+                _device_event(e.key, getattr(e, "is_user_annotation", False)):
+            continue
+        us = (getattr(e, "self_device_time_total", None)
+              or e.self_cuda_time_total)
+        total, count = out.get(e.key, (0.0, 0))
+        out[e.key] = (total + us, count + e.count)
+    return out
+
+
+def _raw_kernel_times(prof):
+    """The same sums from the capture's raw kineto events, named and
+    filtered as torch.profiler names and filters them when it parses a
+    capture into FunctionEvents, without that parse."""
+    from torch.autograd import profiler_util
+
+    cuda = torch.autograd.DeviceType.CUDA
+    names, out = {}, {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != cuda:
+            continue
+        raw = ev.name()
+        if profiler_util._filter_name(raw) or getattr(
+                ev, "is_hidden_event", lambda: False)():
+            continue
+        key = names.get(raw)
+        if key is None:
+            key = names[raw] = profiler_util._rewrite_name(
+                raw, with_wildcard=True)
+        if not _device_event(key, ev.is_user_annotation()):
+            continue
+        is_async = ev.is_async() or (ev.start_thread_id()
+                                     != ev.end_thread_id())
+        us = 0.0 if is_async else (ev.end_ns() - ev.start_ns()) / 1e3
+        total, count = out.get(key, (0.0, 0))
+        out[key] = (total + us, count + 1)
+    return out
+
+
+# whether the raw events sum as key_averages() does on this torch: None
+# until the first capture checks it
+_RAW_EVENTS_AGREE = None
+
+
+def _kernel_times(prof):
+    """{name: (device us, launches)} of a finished capture's device
+    events, as key_averages() sums them. torch.profiler parses a capture
+    into FunctionEvents on the host before key_averages() folds them, and
+    that takes seconds a capture. So the raw events' sums are used, once
+    the first capture found them equal to key_averages()' (each name's
+    launches, its time within 1e-6; both timed there); where they differ,
+    or this torch lacks an accessor, key_averages() is used
+    throughout."""
+    global _RAW_EVENTS_AGREE
+    if _RAW_EVENTS_AGREE is False:
+        return _averaged_kernel_times(prof)
+    t0 = time.perf_counter()
+    try:
+        raw = _raw_kernel_times(prof)
+    except (AttributeError, TypeError) as exc:
+        print(f"  (raw profiler events unreadable: {exc!r}; key_averages() "
+              "from here on)")
+        _RAW_EVENTS_AGREE = False
+        return _averaged_kernel_times(prof)
+    if _RAW_EVENTS_AGREE is None:
+        t1 = time.perf_counter()
+        ref = _averaged_kernel_times(prof)
+        t2 = time.perf_counter()
+        _RAW_EVENTS_AGREE = set(raw) == set(ref) and all(
+            raw[k][1] == ref[k][1]
+            and abs(raw[k][0] - ref[k][0]) <= 1e-6 * max(1.0, ref[k][0])
+            for k in ref)
+        print(f"  (raw profiler events against key_averages() on "
+              f"{len(ref)} kernel names: "
+              f"{'equal' if _RAW_EVENTS_AGREE else 'different'}, "
+              f"{t1 - t0:.3f} s against {t2 - t1:.3f} s of the host's time "
+              "(the parse into FunctionEvents included); "
+              f"{'raw events' if _RAW_EVENTS_AGREE else 'key_averages()'}"
+              " from here on)")
+        return ref
+    return raw
+
+
 def _by_category(prof, n, gemm_dim=None):
     """(device ms per step, {category: (ms, launches) per step}) of a
     finished torch.profiler capture of ``n`` steps (``_device_ms``)."""
+    # the parse into FunctionEvents that _kernel_times skips allocated
+    # enough to set off the collector here, and the phases' peaks on the
+    # card left room only for that: what sits in reference cycles goes
+    gc.collect()
     by_category = {}
-    for e in prof.key_averages():
-        # device-side kernels only; user annotations (the optimizer's
-        # record_function range) span kernels and would count them twice
-        if e.device_type != torch.autograd.DeviceType.CUDA or getattr(
-                e, "is_user_annotation", False) or e.key.startswith(
-                ("Optimizer.", "ProfilerStep")):
-            continue
-        ms = (getattr(e, "self_device_time_total", None)
-              or e.self_cuda_time_total) / 1e3 / n
-        cat = _category(e.key)
+    for key, (us, launches) in _kernel_times(prof).items():
+        cat = _category(key)
         total, count = by_category.get(cat, (0.0, 0.0))
-        by_category[cat] = (total + ms, count + e.count / n)
+        by_category[cat] = (total + us / 1e3 / n, count + launches / n)
     if gemm_dim is not None:
         ms, calls = _op_device_ms(prof, n, gemm_dim)
         total, count = by_category.get("GEMMs", (0.0, 0.0))
@@ -1494,6 +1626,10 @@ def _compared_steps(cfg, state_dict, batch, steps=COMPARED_STEPS,
     by kind (``_by_category``; torch.profiler around the steps)."""
     from torch.profiler import ProfilerActivity, profile
 
+    # the other side's model, optimizer state and gradients may be held
+    # by reference cycles until a collection: freed before this side
+    # allocates (ViLT's plain side ran out of the card's memory without)
+    gc.collect()
     model = build(cfg, dict(no_dropout))
     model.load_state_dict(state_dict, strict=True)
     state, step = trainer(model, cfg, seed=1)
@@ -1626,7 +1762,7 @@ def phase_training(card):
         nonlocal state
         state, _ = step(state, batch)
 
-    dev_ms, by_category = _device_ms(one_step, 2)
+    dev_ms, by_category = _device_ms(one_step, PROFILED_STEPS)
     best_ms = min(step_ms)
     trained = {k: v.detach().cpu().clone()
                for k, v in model.state_dict().items()}
@@ -1662,7 +1798,7 @@ def phase_training(card):
           f"{[round(x, 2) for x in step_ms]} (best {best_ms:.2f}), "
           f"{TRAIN_B * 1e3 / best_ms:.1f} samples/s at best, "
           f"{TRAIN_B * 1e3 * TRAIN_STEPS / sum(step_ms):.1f} mean; device "
-          f"time {dev_ms:.2f} ms per step (torch.profiler, 2 steps) against "
+          f"time {dev_ms:.2f} ms per step (torch.profiler, 1 step) against "
           f"{best_ms:.2f} ms wall; max_memory_allocated {peak_gb:.2f} GB")
     print("  device time per step by kind of kernel (ms, launches): "
           + "; ".join(f"{cat} {ms:.2f} x{cnt:.0f}" for cat, (ms, cnt) in
@@ -2055,7 +2191,7 @@ def phase_pretrain(card):
     def one_step():
         trainer.train(batch)
 
-    dev_ms, by_category = _device_ms(one_step, 2, gemm_dim=VOCAB)
+    dev_ms, by_category = _device_ms(one_step, PROFILED_STEPS, gemm_dim=VOCAB)
     best_ms = min(step_ms)
     del trainer, rep
     torch.cuda.empty_cache()
@@ -2161,7 +2297,7 @@ def phase_pretrain(card):
           f"{[round(x, 2) for x in step_ms]} (best {best_ms:.2f}), "
           f"{TRAIN_B * 1e3 / best_ms:.1f} samples/s at best, "
           f"{TRAIN_B * 1e3 * PRETRAIN_STEPS / sum(step_ms):.1f} mean; device "
-          f"time {dev_ms:.2f} ms per step (torch.profiler, 2 steps) against "
+          f"time {dev_ms:.2f} ms per step (torch.profiler, 1 step) against "
           f"{best_ms:.2f} ms wall; max_memory_allocated {peak_gb:.2f} GB")
     print("  device time per pretraining step by kind of kernel (ms, "
           "launches; the decoder GEMMs' count is of operators): "
@@ -2345,6 +2481,11 @@ RUN_SPLITS = {"train": 640, "val": 128, "test": 64}
 RUN_IMAGES = 160
 RUN_ANSWERS = 3129
 RUN_WORKERS = 4
+# the loader in the main process, for runs whose loader no number reads:
+# starting and stopping 4 workers for each of a run's three loaders, and
+# passing 200-420 MB batches of regions through their shared memory and
+# the pinning thread, costs more than the few batches they load
+LOADER_IN_PROCESS = ("training.num_workers=0", "training.pin_memory=false")
 # the CLI's update is the train step's: bit-equal losses expected
 RUN_LOSS_RTOL = 1e-6
 RUN_LOSS_KEY = "train/vqa2/logit_bce"
@@ -2922,7 +3063,7 @@ def phase_vilbert_training(card):
         nonlocal state
         state, _ = step(state, batch)
 
-    dev_ms, by_category = _device_ms(one_step, 2)
+    dev_ms, by_category = _device_ms(one_step, PROFILED_STEPS)
     best_ms = min(step_ms)
     del state, step, model, rep
     torch.cuda.empty_cache()
@@ -2989,8 +3130,8 @@ def phase_vilbert_training(card):
           f"{VILBERT_LN} K4 and K4-bwd, 0 inference-form K1)")
     print(f"  on '{card}': ms per step {[round(x, 2) for x in step_ms]} "
           f"(best {best_ms:.2f}), {TRAIN_B * 1e3 / best_ms:.1f} samples/s at "
-          f"best; device time {dev_ms:.2f} ms per step (torch.profiler, 2 "
-          f"steps) against {best_ms:.2f} ms wall: idle "
+          f"best; device time {dev_ms:.2f} ms per step (torch.profiler, 1 "
+          f"step) against {best_ms:.2f} ms wall: idle "
           f"{100 * (1 - dev_ms / best_ms):.1f}%; max_memory_allocated "
           f"{peak_gb:.2f} GB")
     print("  device time per step by kind of kernel (ms, launches): "
@@ -3195,9 +3336,13 @@ def _cli_run(save_dir, config, model, dataset, updates, opts,
 
 def _evaluated(updates):
     """The options of a run that evaluates and checkpoints once, at its
-    end, and writes the val and test prediction reports."""
+    end, and writes the val and test prediction reports. The
+    validation's early stopping writes the checkpoint (models/model_N,
+    current and best: a validation's first finite value is its best); an
+    interval checkpoint at the same update would write it again, 1.3-2.4
+    GB with the optimizer state."""
     return [f"training.evaluation_interval={updates}",
-            f"training.checkpoint_interval={updates}",
+            "training.checkpoint_interval=1000",
             "run_type=train_val_inference", "evaluation.predict=true"]
 
 
@@ -3786,7 +3931,7 @@ def phase_vilt_training(card):
         nonlocal state
         state, _ = step(state, batch)
 
-    dev_ms, by_category = _device_ms(one_step, 2)
+    dev_ms, by_category = _device_ms(one_step, PROFILED_STEPS)
     best_ms = min(step_ms)
     del state, step, model
     torch.cuda.empty_cache()
@@ -3809,7 +3954,7 @@ def phase_vilt_training(card):
     print(f"  on '{card}': ms per step {[round(x, 2) for x in step_ms]} "
           f"(best {best_ms:.2f}), {TRAIN_B * 1e3 / best_ms:.1f} samples/s "
           f"at best; device time {dev_ms:.2f} ms per step (torch.profiler, "
-          f"2 steps) against {best_ms:.2f} ms wall: idle "
+          f"1 step) against {best_ms:.2f} ms wall: idle "
           f"{100 * (1 - dev_ms / best_ms):.1f}%; max_memory_allocated "
           f"{peak_gb:.2f} GB")
     print("  device time per step by kind of kernel (ms, launches): "
@@ -3852,7 +3997,7 @@ def _vilt_pretraining(card):
         nonlocal state
         state, _ = step(state, batch)
 
-    dev_ms, by_category = _device_ms(one_step, 2, gemm_dim=VOCAB)
+    dev_ms, by_category = _device_ms(one_step, PROFILED_STEPS, gemm_dim=VOCAB)
     best_ms = min(step_ms)
     del state, step, model, rep
     torch.cuda.empty_cache()
@@ -4139,8 +4284,8 @@ HM_MMBT_S, HM_TEXT_S = 3 + SEQ, SEQ
 HM_B = 32  # projects/hateful_memes/configs/mmbt/defaults.yaml's batch
 HM_BASELINE_B = 64  # concat_bert's and late_fusion's
 HM_UPDATES = 4
-HM_SPLITS = {"train": 256, "val": 64, "test": 64}
-HM_IMAGES = 64  # memes of 300-800 px a side; samples share them
+HM_SPLITS = {"train": 256, "val": 32, "test": 32}
+HM_IMAGES = 32  # memes of 300-800 px a side; samples share them
 HM_LN = 26  # MMBT: 24 in the layers, the embedding LayerNorm twice
 BERT_LN = 25  # the baselines' TransformerModel: 24 and the embeddings'
 HM_ATTENTION = 12
@@ -4239,9 +4384,11 @@ def _hm_opts(tmp, key, updates):
     opts = _evaluated(updates) + layout_opts(tmp, bert) + \
         flagship.HATEFUL_MEMES_OVERRIDES.get(key, [])
     if key != "mmbt":
-        # the final model only: a baseline's checkpoints with its
-        # optimizer state take 0.8-2 GB each
-        opts.append("training.checkpoint_interval=1000")
+        # the final model only: no validation inside a baseline's run (the
+        # trainer evaluates val after it, _hm_reports), whose early
+        # stopping would write the best and current checkpoints, 0.8-2 GB
+        # each with the optimizer state, and read the best back
+        opts += ["training.evaluation_interval=1000", *LOADER_IN_PROCESS]
     return opts
 
 
@@ -4274,7 +4421,7 @@ def _hm_reports(trainer, label):
 
 
 def _hm_step_device_ms(cfg, recorder):
-    """Device time of the train step alone (torch.profiler, 2 steps after
+    """Device time of the train step alone (torch.profiler, 1 step after
     a warm-up) from the run's initial weights on its first batch: (ms a
     step, {category: (ms, launches)})."""
     model = flagship.hateful_memes_model(cfg)
@@ -4288,15 +4435,17 @@ def _hm_step_device_ms(cfg, recorder):
         float(rep["total_loss"])
 
     one_step()
-    result = _device_ms(one_step, 2)
+    result = _device_ms(one_step, PROFILED_STEPS)
     del state, step, model, box
     torch.cuda.empty_cache()
     return result
 
 
-def _hm_forwards(batch_size):
+def _hm_forwards(batch_size, validated=True):
+    """A run's evaluation forwards: the validation inside the run (where
+    ``validated``), then the val and test predictions."""
     val = -(-HM_SPLITS["val"] // batch_size)
-    return 2 * val + -(-HM_SPLITS["test"] // batch_size)
+    return (1 + validated) * val + -(-HM_SPLITS["test"] // batch_size)
 
 
 def phase_hm_mmbt_run(card):
@@ -4419,8 +4568,8 @@ def phase_hm_mmbt_run(card):
               f"tokenizer) in this process {batch_s:.2f}s; host split (ms, "
               "median of the run's updates): " + ", ".join(
                   f"{k} {v:.2f}" for k, v in split.items())
-              + f"; device time {dev_ms:.2f} ms a step (torch.profiler, 2 "
-              f"steps of the train step alone on the run's first batch): "
+              + f"; device time {dev_ms:.2f} ms a step (torch.profiler, 1 "
+              f"step of the train step alone on the run's first batch): "
               f"idle {100 * max(0.0, 1 - dev_ms / update_ms):.1f}% of the "
               f"CLI's update; run {run_s:.1f}s; max_memory_allocated "
               f"{peak_gb:.2f} GB")
@@ -4507,7 +4656,7 @@ def phase_hm_baselines(card):
                 check(len(losses) == u and all(math.isfinite(x)
                                                for x in losses),
                       f"{key} losses {losses}")
-                forwards = _hm_forwards(b)
+                forwards = _hm_forwards(b, validated=False)
                 want = dict(ZERO_COUNTS)
                 if bert:
                     want.update(flash_attention_fwd=HM_ATTENTION * forwards,
@@ -4546,8 +4695,10 @@ def phase_hm_baselines(card):
                 torch.cuda.empty_cache()
         err, cos, top = served
         print(f"phase hm-baselines: ok mmf_run trains each Hateful Memes "
-              f"baseline from its project config ({u} updates, one "
-              "evaluation, csv predictions; the synthetic layout written in "
+              f"baseline from its project config ({u} updates, no "
+              "validation inside the run, the loader in the main process, "
+              "csv predictions, then one evaluation of val; the synthetic "
+              "layout written in "
               f"{layout_s:.1f}s; warmup cut to 2; the unimodal text configs "
               "with flagship.HATEFUL_MEMES_OVERRIDES' optimizer); the BERT "
               "text encoders in f32, their training attention plain at "
@@ -4556,8 +4707,8 @@ def phase_hm_baselines(card):
             print(line)
         dev_ms, by_category = step_ms
         print(f"  concat_bert's step (B={HM_BASELINE_B}) alone on its run's "
-              f"first batch: device time {dev_ms:.2f} ms (torch.profiler, 2 "
-              "steps), GEMMs "
+              f"first batch: device time {dev_ms:.2f} ms (torch.profiler, 1 "
+              "step), GEMMs "
               f"{100 * by_category.get('GEMMs', (0.0, 0))[0] / dev_ms:.0f}% "
               "of it (the f32 BERT's, TF32 off, and the classifier's); by "
               "kind (ms, launches): " + "; ".join(
@@ -4946,7 +5097,7 @@ def phase_m4c_run(card):
             end.synchronize()
             events.append(start.elapsed_time(end))
         decode_ms = min(events)
-        dec_dev_ms, dec_by_category = _device_ms(decode, 2)
+        dec_dev_ms, dec_by_category = _device_ms(decode, PROFILED_STEPS)
         worst, mismatches, ties, own = _m4c_decode_against_full_passes(
             model, val_batch)
         check(worst <= M4C_DECODE_REL and mismatches == ties and own,
@@ -4970,7 +5121,7 @@ def phase_m4c_run(card):
             float(rep["total_loss"])
 
         one_step()
-        dev_ms, by_category = _device_ms(one_step, 2)
+        dev_ms, by_category = _device_ms(one_step, PROFILED_STEPS)
         del state, step, step_model, box
         torch.cuda.empty_cache()
 
@@ -5020,8 +5171,8 @@ def phase_m4c_run(card):
               f"tokenizer, m4c_answer) in this process {batch_s:.2f}s; "
               "host split (ms, median of the run's updates): " + ", ".join(
                   f"{k} {v:.2f}" for k, v in split.items())
-              + f"; device time {dev_ms:.2f} ms a step (torch.profiler, 2 "
-              f"steps of the train step alone on the run's first batch): "
+              + f"; device time {dev_ms:.2f} ms a step (torch.profiler, 1 "
+              f"step of the train step alone on the run's first batch): "
               f"idle {100 * max(0.0, 1 - dev_ms / update_ms):.1f}% of the "
               f"CLI's update; run {run_s:.1f}s; max_memory_allocated "
               f"{peak_gb:.2f} GB; evaluation of {M4C_SPLITS['val']} val "
@@ -5033,7 +5184,7 @@ def phase_m4c_run(card):
         print(f"  greedy decode of a val batch (B={M4C_B}: TextBert, the "
               f"prefill, {steps} decode steps over the cached prefix K/V): "
               f"{decode_ms:.2f} ms a batch (CUDA events, best of 3), device "
-              f"{dec_dev_ms:.2f} ms (torch.profiler, 2 forwards; idle "
+              f"{dec_dev_ms:.2f} ms (torch.profiler, 1 forward; idle "
               f"{100 * max(0.0, 1 - dec_dev_ms / decode_ms):.1f}%); by kind "
               "(ms, launches): " + "; ".join(
                   f"{cat} {ms:.2f} x{cnt:.0f}" for cat, (ms, cnt) in
@@ -5063,24 +5214,27 @@ def phase_m4c_run(card):
 # width, then mmf_serve on a TextVQA M4C and a captioner checkpoint
 FAMILY_SPLITS = {"train": 256, "val": 128, "test": 128}
 FAMILY_IMAGES = 48  # images hold up to 100 objects and 50 OCR tokens
-FAMILY_UPDATES = {"textcaps": 8, "stvqa": 2, "ocrvqa": 2, "joint": 2}
-# the run whose update is timed (over updates 3-8, as m4c-run's, with
+FAMILY_UPDATES = {"textcaps": 5, "stvqa": 2, "ocrvqa": 2, "joint": 2,
+                  "joint_coco": 3}
+# the run whose update is timed (over updates 3-5, with
 # the loader in RUN_WORKERS workers and one epoch of train samples, so
 # that no epoch restarts the workers); the others read 5-10 batches, 0.4
 # s each in this process, less than starting the workers of three loaders
 TIMED_RUN = "textcaps"
 FAMILY_METRICS = {"textcaps": ("textcaps_bleu4",),
+                  "joint_coco": ("textcaps_bleu4",),
                   "stvqa": ("stvqa_anls", "stvqa_accuracy"),
                   "ocrvqa": ("ocrvqa_accuracy",),
                   "joint": ("textvqa_accuracy",)}
 FAMILY_DATASETS = ("textvqa", "stvqa", "ocrvqa", "textcaps")
+CAPTIONER_RUNS = ("textcaps", "joint_coco")
 UNK = 3  # <unk>'s index in the layouts' answer vocabularies
 # a single-dataset run's evaluation forwards: the evaluation at its end,
 # then the val and test predictions, one batch each
 FAMILY_FORWARDS = 3
 SERVE_BUCKETS = (1, 2, 4, 8, 16, 32)
 SERVED_DECODE_BUCKETS = (1, 8, 32)
-SERVE_LATENCY_CALLS = 60  # p95 is then the 3rd largest
+SERVE_LATENCY_CALLS = 20  # p95 is then the largest
 M4C_PER_FORWARD = dict(ZERO_COUNTS, flash_attention_fwd=M4C_EVAL_ATTENTION,
                        layer_norm=M4C_EVAL_LN)
 
@@ -5176,7 +5330,7 @@ def _family_run(key, root, card):
            str(mc.get("dtype", "float32")), tuple(model.classifier_w.shape),
            type(model).__name__) == (
         3, 4, HIDDEN, "float32", (flagship.M4C_ANSWERS, HIDDEN),
-        "M4CCaptioner" if key == "textcaps" else "M4C"),
+        "M4CCaptioner" if key in CAPTIONER_RUNS else "M4C"),
         f"{key} config {dict(mc)}")
     losses = {d: list(trainer.meter.meters[
         f"train/{d}/m4c_decoding_bce_with_mask"].averaged_value_deque)
@@ -5202,7 +5356,7 @@ def _family_run(key, root, card):
             with open(files[0]) as f:
                 rows[d, split] = json.load(f)
     fields = ({"caption_id", "image_id", "caption", "pred_source"}
-              if key == "textcaps" else
+              if key in CAPTIONER_RUNS else
               {"question_id", "image_id", "answer", "pred_source"})
     # each dataset's file holds every dataset's rows (ROADMAP C.4)
     check(all(len(r) == len(names) * FAMILY_SPLITS[split]
@@ -5306,7 +5460,7 @@ def phase_m4c_family(card):
               "the captioner's <unk> column is not -1e10 in every step")
 
         decode_ms = time_ms(decode, iters=1, repeats=3)
-        dec_dev_ms, _ = _device_ms(decode, 2)
+        dec_dev_ms, _ = _device_ms(decode, PROFILED_STEPS)
         del val_batch
         batch = recorder.batches[0]
         check(float(batch["train_loss_mask"].sum()) > 0,
@@ -5325,7 +5479,7 @@ def phase_m4c_family(card):
             float(rep["total_loss"])
 
         one_step()
-        dev_ms, by_category = _device_ms(one_step, 2)
+        dev_ms, by_category = _device_ms(one_step, PROFILED_STEPS)
         del state, step, step_model, box
         # <unk> targets: the masked -1e10 logit adds 1e10 a target to the
         # BCE sum on both sides; the batch without them keeps the bound
@@ -5384,7 +5538,7 @@ def phase_m4c_family(card):
               "host split, ms, median of the run's updates: " + ", ".join(
                   f"{k} {v:.2f}" for k, v in split.items())
               + f"), device {dev_ms:.2f} ms a step (torch.profiler, the "
-              "train step alone on the run's first batch, 2 steps; idle "
+              "train step alone on the run's first batch, 1 step; idle "
               f"{100 * max(0.0, 1 - dev_ms / update_ms):.1f}% of the "
               "update), by kind "
               "(ms, launches): " + "; ".join(
@@ -5443,7 +5597,7 @@ def _served_decode_cases(g):
 
 
 def _served_vs_cpu(got, want):
-    """A served decode's scores [12, V] against the CPU engine's: the
+    """A greedy decode's scores [steps, V] against the CPU's: the
     largest difference over the steps up to the first where the argmax
     differs, relative to the largest |score|, and whether that step's
     top-2 margin in the CPU's scores lies within 10x the difference (a
@@ -5854,10 +6008,13 @@ def _vl3_opts(key, root):
     # no validation inside the run: its early stopping would write the
     # best and current checkpoints, 1.3-2.4 GB each with the optimizer
     # state (f32), and read the best back; the run predicts val and test
-    # and writes the final weights, and the trainer then evaluates val
+    # and writes the final weights, and the trainer then evaluates val.
+    # The loader in the main process (the pretraining runs keep their
+    # workers: the workers draw the masks and tasks)
     opts += ["run_type=train_val_inference", "evaluation.predict=true",
              "training.evaluation_interval=1000",
-             "training.checkpoint_interval=1000", *layout_opts(root, "vqa2")]
+             "training.checkpoint_interval=1000", *LOADER_IN_PROCESS,
+             *layout_opts(root, "vqa2")]
     if key == "vinvl_vqa2":
         opts.append("dataset_config.vinvl.processors.text_processor.params."
                     f"tokenizer_config.params.vocab_file={vocab}")
@@ -5865,8 +6022,8 @@ def _vl3_opts(key, root):
 
 
 def _vl3_run(key, root, card):
-    """``mmf_run`` of a ``VL3`` config at full width (B=RUN_B, the loader's
-    workers): exact launches (training attention takes the plain path at
+    """``mmf_run`` of a ``VL3`` config at full width (B=RUN_B): exact
+    launches (training attention takes the plain path at
     the configs' attention dropout 0.1, as in JAX; K4 and K4-bwd an
     update; K1 and K4 a prediction forward), its losses against the
     train step alone on the batches it took, and, for the finetuning
@@ -5915,7 +6072,8 @@ def _vl3_run(key, root, card):
     # the step and the loss's copy
     t = recorder.loss_read
     line = (f"  {key}: mmf_run of {path} with flagship.VL3_OVERRIDES, B="
-            f"{RUN_B}, {RUN_WORKERS} loader workers: {u} updates, "
+            f"{RUN_B}, {trainer.config['training']['num_workers']} loader "
+            f"workers: {u} updates, "
             + ", ".join(f"{k} {[round(x, 6) for x in got[k]]}" for k in keys)
             + f" equal to the train step's on the same batches (max rel "
             f"{rel:.3g}, bound {RUN_LOSS_RTOL}); launches {launches} "
@@ -6165,6 +6323,549 @@ def _ln_bwd_shape_case(g, rows, hidden, dtype, residual):
     return r
 
 
+# BUTD on COCO and Pythia on VQA2 at full width, on one synthetic layout
+# (tests/torch_vqa2_layout.py with COCO's captions): 100 regions x 2048,
+# BUTD's COCO vocabulary at CAPTION_VOCAB words (MMF's thresh-5 file holds
+# ~9,500 and is not in the repository), 52 decode steps, f32
+CAPTION_VOCAB = 9487
+CAPTION_IMAGES = 200  # 106 train images: 530 captions; 1536 questions
+CAPTION_SPLITS = {"train": 1536, "val": 256, "test": 256}  # VQA2 questions
+BUTD_B, PYTHIA_B, JOINT_B = 256, 512, 128
+BUTD_UPDATES, PYTHIA_UPDATES, JOINT_UPDATES = 3, 3, 3
+BUTD_SERVED_CALLS = 8  # batch-1 beam searches served (p95: the largest)
+BUTD_CPU_REQUESTS = 4  # served captions held against the CPU engine's
+# a card forward against the CPU's on the same weights and inputs, f32
+# with TF32 off: the largest |difference| over the largest |output|
+CARD_VS_CPU_RTOL = 1e-4
+
+
+def _caption_layout():
+    """The layout both phases read, under a fresh folder: (root, seconds)."""
+    from tests.torch_vqa2_layout import write_layout
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_captions_")
+    t0 = time.perf_counter()
+    write_layout(root, n_train=CAPTION_SPLITS["train"],
+                 n_val=CAPTION_SPLITS["val"], n_test=CAPTION_SPLITS["test"],
+                 n_images=CAPTION_IMAGES, glove=True, coco=True,
+                 caption_vocab=CAPTION_VOCAB)
+    return root, time.perf_counter() - t0
+
+
+def phase_caption_layout(card):
+    """The layout of butd-run and pythia-run: its folder."""
+    root, seconds = _caption_layout()
+    print(f"phase caption-layout: ok BUTD's COCO captions and Pythia's "
+          f"VQA2 questions over {CAPTION_IMAGES} images of 100 regions x "
+          f"2048 (tests/torch_vqa2_layout.py), written in {seconds:.1f}s",
+          flush=True)
+    return root
+
+
+def _features_opts(root, dataset):
+    """The layout's data dir and ``dataset``'s region features (the
+    layout's folders of .npy files stand for the config's LMDBs)."""
+    return [f"env.data_dir={root}"] + [
+        f"dataset_config.{dataset}.features.{split}=[coco/defaults/"
+        f"features/{folder}]" for split, folder in (
+            ("train", "trainval2014"), ("val", "trainval2014"),
+            ("test", "test2015"))]
+
+
+def _card_vs_cpu(model, batch, field):
+    """``field`` of ``model``'s eval forward on the card and on a CPU
+    copy of it: (|card - cpu| max / |cpu| max, card, cpu)."""
+    cpu = copy.deepcopy(model).to("cpu").eval()
+    model.eval()
+    with torch.no_grad():
+        got = model(train_state._to_device(dict(batch), DEV))[field]
+        want = cpu(train_state._to_device(dict(batch), torch.device("cpu")))[
+            field]
+    got = got.float().cpu()
+    rel = float((got - want.float()).abs().max()) / max(
+        float(want.float().abs().max()), 1e-30)
+    del cpu
+    return rel, got, want
+
+
+def _run_update_ms(recorder, u):
+    """An update on the host clock over updates 2-u (the first left out)."""
+    t = recorder.loss_read
+    return 1e3 * (t[u] - t[1]) / (u - 1)
+
+
+def phase_butd_run(card, root):
+    """BUTD through mmf_run at full width on COCO (B=256): the defaults
+    config trains teacher-forced on ``text[:, 1:]`` (the reference's
+    targets, ROADMAP C.10) and evaluates BLEU-4 on the greedy argmax;
+    ``beam_search.yaml`` (k = 5) and ``nucleus_sampling.yaml`` evaluate
+    the trained weights and write ``{image_id, caption}`` rows; a step's
+    device time by kind, the decodes' ms, the served beam search at batch
+    1 and bucket 32 from the beam config's checkpoint, the card against
+    the CPU: the launches (no hand-written kernel runs here)."""
+    import glob
+
+    from mmf_tpu_torch.common.registry import registry
+    from mmf_tpu_torch.serving import ServingEngine
+
+    total = dict(ZERO_COUNTS)
+    registry.register_callback("chip_smoke_recorder")(_StepRecorder)
+    u = BUTD_UPDATES
+    # one validation, at the end; greedy captions give no prediction
+    # rows (KeyError: 'captions', in JAX too, ROADMAP C.4)
+    opts = (flagship.BUTD_OVERRIDES + _features_opts(root, "coco")
+            + [f"training.evaluation_interval={u}",
+               "training.checkpoint_interval=1000", "run_type=train_val",
+               *LOADER_IN_PROCESS])
+    trainer, recorder, launches, run_s = _cli_run(
+        os.path.join(root, "save_butd"), flagship.BUTD["defaults"], "butd",
+        "coco", u, opts, batch_size=BUTD_B)
+    total = {k: total[k] + launches[k] for k in total}
+    check(launches == ZERO_COUNTS, f"butd launches {launches}")
+    vocab = registry.get("coco_text_processor").get_vocab_size()
+    mc = trainer.config["model_config"]["butd"]
+    model = trainer.model
+    check((model.vocab_size, model.max_length, model.hidden_dim,
+           tuple(model.step.top_down_attention.Dense_0.weight.shape)) == (
+        vocab, 52, 1024, (1024, 2048)), f"butd model {dict(mc)}")
+    losses = list(trainer.meter.meters[
+        "train/coco/caption_cross_entropy"].averaged_value_deque)
+    check(len(losses) == u and all(math.isfinite(x) for x in losses),
+          f"butd losses {losses}")
+    check(len(recorder.val_meters) == 1, "butd validations")
+    meter = recorder.val_meters[0]
+    bleu = meter.meters["val/coco/caption_bleu4"].global_avg
+    val_loss = meter.meters["val/coco/caption_cross_entropy"].global_avg
+    check(0.0 <= bleu <= 1.0 and math.isfinite(val_loss),
+          f"butd val {bleu} {val_loss}")
+    update_ms = _run_update_ms(recorder, u)
+    trainer.teardown()
+    batch = recorder.batches[0]
+    weights = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    final = os.path.join(root, "butd_trained.pth")
+    torch.save(weights, final)
+
+    # the step alone on the run's first batch: device time by kind
+    cfg = trainer.config
+    step_model = flagship.caption_model(cfg)
+    step_model.load_state_dict(recorder.initial, strict=True)
+    state, step = flagship.caption_trainer(step_model, cfg, seed=1)
+    box = [state]
+    torch.cuda.reset_peak_memory_stats()
+
+    def one_step():
+        box[0], rep = step(box[0], batch)
+        float(rep["total_loss"])
+
+    one_step()
+    t0 = time.perf_counter()
+    one_step()
+    step_wall_ms = 1e3 * (time.perf_counter() - t0)
+    step_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    dev_ms, by_category = _device_ms(one_step, 1)
+    del state, step, step_model, box
+
+    # the card against the CPU: teacher-forced scores and greedy captions
+    # of 4 captions on the trained weights
+    small = {k: v[:4] for k, v in batch.items() if torch.is_tensor(v)}
+    small.update(dataset_name="coco", dataset_type="val")
+    tf_rel, _, _ = _card_vs_cpu(model, small, "scores")
+    check(tf_rel <= CARD_VS_CPU_RTOL, f"butd teacher forcing card vs cpu "
+          f"{tf_rel}")
+    # greedy: each caption's scores up to its first step whose argmax
+    # differs, and such a step only at a near-tie (_served_vs_cpu)
+    greedy = {k: v for k, v in small.items() if k != "text"}
+    _, g_card, g_cpu = _card_vs_cpu(model, greedy, "scores")
+    g_cmp = [_served_vs_cpu(a.numpy(), b.float().numpy())
+             for a, b in zip(g_card, g_cpu)]
+    g_rel = max(r for r, _, _ in g_cmp)
+    greedy_same = sum(not differs for _, differs, _ in g_cmp)
+    check(g_rel <= CARD_VS_CPU_RTOL and all(tie for _, _, tie in g_cmp),
+          f"butd greedy card vs cpu: {g_cmp}")
+
+    # beam search and nucleus sampling through mmf_run on the trained
+    # weights: one update (no loss under these types, in JAX too) writes
+    # the folder, then the val evaluation (BLEU-4) and the predictions
+    decodes, lines = {}, []
+    for key in ("beam_search", "nucleus_sampling"):
+        dopts = (flagship.BUTD_OVERRIDES + _features_opts(root, "coco")
+                 + _evaluated(1)
+                 + [f"checkpoint.resume_file={final}",
+                    f"model_config.butd.text_vocab_size={vocab}",
+                    *LOADER_IN_PROCESS])
+        dtrainer, drecorder, dlaunches, drun_s = _cli_run(
+            os.path.join(root, f"save_butd_{key}"), flagship.BUTD[key],
+            "butd", "coco", 1, dopts, batch_size=BUTD_B)
+        total = {k: total[k] + dlaunches[k] for k in total}
+        check(dlaunches == ZERO_COUNTS, f"butd {key} launches {dlaunches}")
+        dmodel = dtrainer.model
+        check(all(torch.equal(v, weights[k]) for k, v in
+                  dmodel.state_dict().items()),
+              f"butd {key}: an update without a loss moved the weights")
+        check(len(drecorder.val_meters) == 1, f"butd {key} validations")
+        dbleu = drecorder.val_meters[0].meters[
+            "val/coco/caption_bleu4"].global_avg
+        save_dir = dtrainer.config["env"]["save_dir"]
+        rows = {}
+        for split in ("val", "test"):
+            files = glob.glob(os.path.join(save_dir, "reports",
+                                           f"coco_*_{split}_*.json"))
+            check(len(files) == 1, f"butd {key} {split} reports {files}")
+            with open(files[0]) as f:
+                rows[split] = json.load(f)
+        check(all(r and all(set(x) == {"image_id", "caption"} for x in r)
+                  for r in rows.values()) and 0.0 <= dbleu <= 1.0,
+              f"butd {key} rows {[len(r) for r in rows.values()]} {dbleu}")
+        val_batch = train_state._to_device(dict(batch), DEV)
+        val_batch.update(dataset_name="coco", dataset_type="val")
+        val_batch.pop("text")
+        dmodel.eval()
+
+        def decode():
+            with torch.no_grad():
+                return dmodel(val_batch)["captions"]
+
+        caps = decode()
+        check(tuple(caps.shape) == (BUTD_B, 52) and int(caps.min()) >= 0
+              and int(caps.max()) < vocab, f"butd {key} captions "
+              f"{tuple(caps.shape)}")
+        torch.cuda.reset_peak_memory_stats()
+        decode_ms = time_ms(decode, iters=1, repeats=3)
+        decode_peak = torch.cuda.max_memory_allocated() / 1e9
+        dec_dev_ms, dec_by = _device_ms(decode, 1)
+        decodes[key] = (decode_ms, dec_dev_ms, dec_by, decode_peak)
+        lines.append(
+            f"  {key}: val BLEU-4 {dbleu:.4f}, {sum(map(len, rows.values()))}"
+            f" prediction rows {{image_id, caption}} (val {len(rows['val'])},"
+            f" test {len(rows['test'])}); a decode of B={BUTD_B} "
+            f"{decode_ms:.1f} ms (CUDA events, best of 3), device "
+            f"{dec_dev_ms:.1f} ms (idle "
+            f"{100 * max(0.0, 1 - dec_dev_ms / decode_ms):.1f}%), peak "
+            f"{decode_peak:.2f} GB, by kind (ms, launches): " + "; ".join(
+                f"{c} {ms:.2f} x{n:.0f}" for c, (ms, n) in sorted(
+                    dec_by.items(), key=lambda kv: -kv[1][0])[:4])
+            + f"; run {drun_s:.1f}s")
+        if key == "beam_search":
+            beam_dir = save_dir
+            requests = [{"image_feature_0": batch["image_feature_0"][i]
+                         .cpu().numpy()} for i in range(SERVE_B)]
+            cpu_model = flagship.caption_model(dtrainer.config).eval()
+            cpu_model.load_state_dict(
+                {k: v.cpu() for k, v in dmodel.state_dict().items()})
+        dtrainer.teardown()
+        del dtrainer, dmodel, val_batch
+        torch.cuda.empty_cache()
+
+    # served: the beam config's checkpoint through from_checkpoint
+    _prune_checkpoints(beam_dir)
+    engine = ServingEngine.from_checkpoint(beam_dir, max_batch_size=SERVE_B)
+    reset_counts()
+    engine.predict(requests[0])
+    lat = []
+    for i in range(BUTD_SERVED_CALLS):
+        t0 = time.perf_counter()
+        out = engine.predict(requests[i % SERVE_B])
+        lat.append(1e3 * (time.perf_counter() - t0))
+    check(tuple(out["captions"].shape) == (52,), f"served caption "
+          f"{out['captions'].shape}")
+    engine.predict_many(requests)
+    t0 = time.perf_counter()
+    served = engine.predict_many(requests)
+    bucket_ms = 1e3 * (time.perf_counter() - t0)
+    served_launches = read_counts()
+    check(served_launches == ZERO_COUNTS, f"served butd {served_launches}")
+    # the CPU engine decodes the first BUTD_CPU_REQUESTS of them (a
+    # full-width beam search on the host's cores takes seconds a sample)
+    cpu_engine = ServingEngine(cpu_model, device="cpu",
+                               max_batch_size=BUTD_CPU_REQUESTS,
+                               meta=dict(engine.meta))
+    want = cpu_engine.predict_many(requests[:BUTD_CPU_REQUESTS])
+    same = sum(bool(np.array_equal(g["captions"], w["captions"]))
+               for g, w in zip(served, want))
+    check(same == BUTD_CPU_REQUESTS, f"served beam search: {same}/"
+          f"{BUTD_CPU_REQUESTS} captions equal to the CPU engine's")
+    del engine, cpu_engine, cpu_model
+    torch.cuda.empty_cache()
+    print(f"phase butd-run: ok BUTD at full width (B={BUTD_B}, 100 regions x "
+          f"2048 through fc7 2048, attention 1024, LSTMs 1024, words 300, "
+          f"{vocab} words in the COCO vocabulary (synthetic: "
+          f"{CAPTION_VOCAB} in the file), 52 steps, f32), "
+          f"{flagship.BUTD['defaults']} with flagship.BUTD_OVERRIDES: "
+          f"{u} updates, losses {[round(x, 4) for x in losses]}, val "
+          f"caption_cross_entropy {val_loss:.4f}, BLEU-4 {bleu:.4f}; "
+          f"{update_ms:.1f} ms an update over updates 2-{u} (host clock, "
+          f"the loader in the main process; run {run_s:.1f}s); the step alone "
+          f"{step_wall_ms:.1f} ms wall, device {dev_ms:.2f} ms (idle "
+          f"{100 * max(0.0, 1 - dev_ms / step_wall_ms):.1f}%), peak "
+          f"{step_peak_gb:.2f} GB, by kind (ms, launches): " + "; ".join(
+              f"{c} {ms:.2f} x{n:.0f}" for c, (ms, n) in sorted(
+                  by_category.items(), key=lambda kv: -kv[1][0]))
+          + f"; card vs CPU on 4 captions: teacher-forced scores rel "
+          f"{tf_rel:.2e} (bound {CARD_VS_CPU_RTOL}), greedy scores rel "
+          f"{g_rel:.2e} (bound {CARD_VS_CPU_RTOL}), {greedy_same}/4 greedy "
+          "captions equal (a difference only at a near-tie); launches "
+          f"{launches} (no hand-written kernel on this path); on '{card}'")
+    for line in lines:
+        print(line)
+    print(f"  served beam search (k = 5) from {os.path.basename(beam_dir)}"
+          f" through ServingEngine.from_checkpoint: batch 1 p50 "
+          f"{np.percentile(lat, 50):.1f} ms, p95 {np.percentile(lat, 95):.1f}"
+          f" ms over {BUTD_SERVED_CALLS} calls (host clock); bucket "
+          f"{SERVE_B} {bucket_ms:.1f} ms; {same}/{BUTD_CPU_REQUESTS} of its "
+          "captions equal to the CPU engine's on the same weights")
+    return total
+
+
+def phase_pythia_run(card, root):
+    """Pythia through mmf_run at full width on VQA2 (B=512; the combine
+    and classifier 5000 wide, the attention text embedding 1024 wide,
+    3129 answers): the updates' losses, val accuracy, prediction rows, a
+    step's device time by kind, served at bucket 32 from the run's
+    folder; ``pythia_question_only`` and ``pythia_image_only``: one
+    forward each on the card against the CPU."""
+    import glob
+
+    from mmf_tpu_torch.common.registry import registry
+    from mmf_tpu_torch.serving import ServingEngine
+
+    registry.register_callback("chip_smoke_recorder")(_StepRecorder)
+    u = PYTHIA_UPDATES
+    opts = _features_opts(root, "vqa2") + _evaluated(u) + [
+        *LOADER_IN_PROCESS]
+    trainer, recorder, launches, run_s = _cli_run(
+        os.path.join(root, "save_pythia"), flagship.PYTHIA_VQA2_CONFIG,
+        "pythia", "vqa2", u, opts, batch_size=PYTHIA_B)
+    check(launches == ZERO_COUNTS, f"pythia launches {launches}")
+    model = trainer.model
+    check((model.classifier.module.f_o_image.Dense_0.weight.shape[0],
+           model.text_dim, model.classifier.module.linear_text.weight.shape[
+               0]) == (5000, 2048, flagship.VQA2_NUM_LABELS),
+          "pythia widths")
+    losses = list(trainer.meter.meters[
+        "train/vqa2/logit_bce"].averaged_value_deque)
+    check(len(losses) == u and all(math.isfinite(x) for x in losses),
+          f"pythia losses {losses}")
+    check(len(recorder.val_meters) == 1, "pythia validations")
+    acc = recorder.val_meters[0].meters["val/vqa2/vqa_accuracy"].global_avg
+    check(0.0 <= acc <= 1.0, f"pythia accuracy {acc}")
+    save_dir = trainer.config["env"]["save_dir"]
+    rows = {}
+    for split in ("val", "test"):
+        files = glob.glob(os.path.join(save_dir, "reports",
+                                       f"vqa2_*_{split}_*.json"))
+        check(len(files) == 1, f"pythia {split} reports {files}")
+        with open(files[0]) as f:
+            rows[split] = json.load(f)
+    check(len(rows["val"]) == CAPTION_SPLITS["val"]
+          and len(rows["test"]) == CAPTION_SPLITS["test"],
+          f"pythia rows {[len(r) for r in rows.values()]}")
+    update_ms = _run_update_ms(recorder, u)
+    trainer.teardown()
+    batch = recorder.batches[0]
+    cfg = trainer.config
+    step_model = flagship.caption_model(cfg)
+    step_model.load_state_dict(recorder.initial, strict=True)
+    state, step = flagship.caption_trainer(step_model, cfg, seed=1)
+    box = [state]
+    torch.cuda.reset_peak_memory_stats()
+
+    def one_step():
+        box[0], rep = step(box[0], batch)
+        float(rep["total_loss"])
+
+    one_step()
+    t0 = time.perf_counter()
+    one_step()
+    step_wall_ms = 1e3 * (time.perf_counter() - t0)
+    step_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    dev_ms, by_category = _device_ms(one_step, 1)
+    del state, step, step_model, box
+    small = {k: (v[:8] if torch.is_tensor(v) else
+                 {kk: vv[:8] for kk, vv in v.items()})
+             for k, v in batch.items() if torch.is_tensor(v)
+             or isinstance(v, dict)}
+    small.update(dataset_name="vqa2", dataset_type="val")
+    rel, _, _ = _card_vs_cpu(model, small, "scores")
+    check(rel <= CARD_VS_CPU_RTOL, f"pythia card vs cpu {rel}")
+
+    # served at bucket 32 from the run's folder
+    _prune_checkpoints(save_dir)
+    engine = ServingEngine.from_checkpoint(save_dir, max_batch_size=SERVE_B)
+    fields = {k: v for k, v in batch.items()
+              if k in ("text", "image_feature_0", "image_info_0")}
+    requests = [{k: ({kk: vv[i].cpu().numpy() for kk, vv in v.items()}
+                     if isinstance(v, dict) else v[i].cpu().numpy())
+                 for k, v in fields.items()} for i in range(SERVE_B)]
+    engine.predict_many(requests)
+    t0 = time.perf_counter()
+    served = engine.predict_many(requests)
+    bucket_ms = 1e3 * (time.perf_counter() - t0)
+    with torch.no_grad():
+        model.eval()
+        want = model({k: (v[:SERVE_B] if torch.is_tensor(v) else
+                          {kk: vv[:SERVE_B] for kk, vv in v.items()})
+                      for k, v in fields.items()})["scores"].float(
+                          ).cpu().numpy()
+    got = np.stack([o["scores"] for o in served])
+    served_rel = float(np.abs(got - want).max() / np.abs(want).max())
+    check(served_rel <= CARD_VS_CPU_RTOL, f"pythia served {served_rel}")
+    del engine
+
+    # the ablations: one forward each, card against CPU
+    ablations = []
+    words = model.word_embedding.weight.shape[0]
+    for name in flagship.PYTHIA_MODELS[1:]:
+        acfg = flagship.pythia_config(
+            [f"env.data_dir={root}",
+             f"model_config.{name}.text_vocab_size={words}"], model=name)
+        amodel = flagship.caption_model(acfg)
+        amodel.init_weights(torch.Generator().manual_seed(5))
+        amodel.to(DEV)
+        arel, scores, _ = _card_vs_cpu(amodel, small, "scores")
+        check(arel <= CARD_VS_CPU_RTOL and tuple(scores.shape) == (
+            8, flagship.VQA2_NUM_LABELS), f"{name} card vs cpu {arel}")
+        ablations.append(f"{name} rel {arel:.2e}")
+        del amodel
+    del model
+    torch.cuda.empty_cache()
+    print(f"phase pythia-run: ok Pythia at full width (B={PYTHIA_B}, 100 "
+          "regions x 2048 through fc7, the attention text embedding 1024 "
+          "wide (2 glimpses), combine and classifier 5000 wide, "
+          f"{flagship.VQA2_NUM_LABELS} answers, f32), "
+          f"{flagship.PYTHIA_VQA2_CONFIG}: {u} updates, losses "
+          f"{[round(x, 4) for x in losses]}, val vqa_accuracy {acc:.4f}, "
+          f"{len(rows['val'])} + {len(rows['test'])} prediction rows; "
+          f"{update_ms:.1f} ms an update over updates 2-{u} (host clock, "
+          f"the loader in the main process; run {run_s:.1f}s); the step alone "
+          f"{step_wall_ms:.1f} ms wall, device {dev_ms:.2f} ms (idle "
+          f"{100 * max(0.0, 1 - dev_ms / step_wall_ms):.1f}%), peak "
+          f"{step_peak_gb:.2f} GB, by kind (ms, launches): " + "; ".join(
+              f"{c} {ms:.2f} x{n:.0f}" for c, (ms, n) in sorted(
+                  by_category.items(), key=lambda kv: -kv[1][0]))
+          + f"; card vs CPU on 8 questions rel {rel:.2e} (bound "
+          f"{CARD_VS_CPU_RTOL}); served from the run's folder at bucket "
+          f"{SERVE_B}: {bucket_ms:.1f} ms, rel {served_rel:.2e} against the "
+          "in-memory model; one forward each: " + ", ".join(ablations)
+          + f"; launches {launches} (no hand-written kernel on this path); "
+          f"on '{card}'")
+    return dict(ZERO_COUNTS)
+
+
+def phase_m4c_coco_joint(card):
+    """The M4C captioner trained jointly on TextCaps and COCO
+    (``flagship.JOINT_COCO``, B=128) at full width: the family run's
+    checks (exact K4 / K4-bwd launches an update, K1 and K4 in each
+    greedy-decode forward, BLEU-4, caption rows), and its first batch
+    through the kernels against the plain versions (K1-stats, K2, K3):
+    the launches."""
+    from mmf_tpu_torch.datasets.processors import processors as P
+    from tests.torch_textvqa_layout import (
+        FastTextStandIn,
+        write_joint_coco_layout,
+    )
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_joint_coco_")
+    load_fasttext = P.FastTextProcessor._load_fasttext_model
+
+    def stand_in(self, model_file):  # wiki.en.bin's seeded stand-in
+        self.model = FastTextStandIn()
+
+    P.FastTextProcessor._load_fasttext_model = stand_in
+    muted = contextlib.ExitStack()
+    muted.enter_context(warnings.catch_warnings())
+    warnings.filterwarnings("ignore", message="\nThe hypothesis contains 0 "
+                            "counts of")
+    trainer = None
+    try:
+        t0 = time.perf_counter()
+        write_joint_coco_layout(
+            root, n_train=JOINT_B * JOINT_UPDATES // 2,
+            n_val=FAMILY_SPLITS["val"], n_test=FAMILY_SPLITS["test"],
+            n_images=FAMILY_IMAGES, coco_images=FAMILY_IMAGES,
+            num_answers=flagship.M4C_ANSWERS, vocab_size=VOCAB, seed=30)
+        layout_s = time.perf_counter() - t0
+        trainer, recorder, launches, line, (update_ms, split) = \
+            _family_run("joint_coco", root, card)
+        total = dict(launches)
+        cfg = trainer.config
+        batch = recorder.batches[0]
+        model = trainer.model
+        val_batch = train_state._to_device(
+            next(iter(trainer.val_loader)).pytree(), DEV)
+        val_batch.update(dataset_name="textcaps", dataset_type="val")
+        trainer.teardown()
+        model.eval()
+
+        def decode():
+            with torch.no_grad():
+                return model(val_batch)["scores"]
+
+        torch.cuda.reset_peak_memory_stats()
+        decode_ms = time_ms(decode, iters=1, repeats=3)
+        dec_dev_ms, _ = _device_ms(decode, 1)
+        decode_peak = torch.cuda.max_memory_allocated() / 1e9
+        del model, val_batch
+        step_model = flagship.m4c_family_model(cfg)
+        step_model.load_state_dict(recorder.initial, strict=True)
+        state, step = flagship.textvqa_trainer(step_model, cfg, seed=1)
+        box = [state]
+
+        def one_step():
+            box[0], rep = step(box[0], batch)
+            float(rep["total_loss"])
+
+        one_step()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        one_step()
+        step_wall_ms = 1e3 * (time.perf_counter() - t0)
+        step_peak = torch.cuda.max_memory_allocated() / 1e9
+        dev_ms, by_category = _device_ms(one_step, 1)
+        del state, step, step_model, box
+        torch.cuda.empty_cache()
+
+        def build(c, o=None):
+            return flagship.m4c_family_model(c, M4C_NO_DROPOUT)
+
+        text, k_launches = _kernels_vs_plain(
+            cfg, recorder.initial, batch, build, flagship.textvqa_trainer, 1,
+            "joint captioner")
+        check(k_launches == dict(
+            ZERO_COUNTS, flash_attention_fwd_stats=M4C_TRAIN_ATTENTION,
+            flash_attention_bwd_dq=M4C_TRAIN_ATTENTION,
+            flash_attention_bwd_dkv=M4C_TRAIN_ATTENTION,
+            layer_norm=M4C_TRAIN_LN, layer_norm_bwd=M4C_TRAIN_LN),
+            f"joint captioner kernel side {k_launches}")
+        total = {k: total[k] + k_launches[k] for k in total}
+        print(f"phase m4c-coco-joint: ok {flagship.JOINT_COCO[0]} with "
+              "flagship.M4C_FAMILY_OVERRIDES['joint_coco'] at full width "
+              "(TextBert 3 x 768, MMT 4 x 768, "
+              f"{flagship.M4C_ANSWERS} answers + {flagship.M4C_OCR} OCR "
+              f"copies, f32) on the joint layout (write_joint_coco_layout: "
+              f"32 TextCaps tiles and COCO's captions, written in "
+              f"{layout_s:.1f}s):")
+        print(line)
+        print(f"  the step alone on the run's first batch: {step_wall_ms:.1f}"
+              f" ms wall, device {dev_ms:.2f} ms (idle "
+              f"{100 * max(0.0, 1 - dev_ms / step_wall_ms):.1f}%), peak "
+              f"{step_peak:.2f} GB, by kind (ms, launches): " + "; ".join(
+                  f"{c} {ms:.2f} x{n:.0f}" for c, (ms, n) in sorted(
+                      by_category.items(), key=lambda kv: -kv[1][0]))
+              + f"; a greedy decode of a val batch (B={JOINT_B}) "
+              f"{decode_ms:.2f} ms (CUDA events, best of 3), device "
+              f"{dec_dev_ms:.2f} ms (idle "
+              f"{100 * max(0.0, 1 - dec_dev_ms / decode_ms):.1f}%), peak "
+              f"{decode_peak:.2f} GB")
+        print(f"  the first batch, kernels vs plain versions: {text}")
+        return total
+    finally:
+        muted.close()
+        P.FastTextProcessor._load_fasttext_model = load_fasttext
+        if trainer is not None:
+            trainer.teardown()
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def phase_ln_bwd_shapes(card, record):
     """K4-bwd at every (rows, hidden, dtype, residual) the main paths'
     optimizer steps ran it at (``LnBwdRecord``), each checked and timed
@@ -6264,16 +6965,24 @@ LIBRARY = {  # name -> the PyTorch call timed as its library_ms
 LN_BWD_RECORD = LnBwdRecord()
 
 
+# each phase's seconds, in order (timed), summed in a line before the
+# kernels' JSON line
+PHASE_SECONDS = {}
+
+
 def timed(fn, *args):
     """``fn(*args)``, and a line with the phase's seconds; K4-bwd's calls
     on the way are filed under the phase (``LN_BWD_RECORD``)."""
-    LN_BWD_RECORD.set_phase(fn.__name__[len("phase_"):])
+    name = fn.__name__[len("phase_"):]
+    LN_BWD_RECORD.set_phase(name)
     t0 = time.perf_counter()
+    gc.collect()  # what the last phase left in reference cycles
     try:
         return fn(*args)
     finally:
-        print(f"phase-seconds {fn.__name__[len('phase_'):]}: "
-              f"{time.perf_counter() - t0:.1f}", flush=True)
+        PHASE_SECONDS[name] = time.perf_counter() - t0
+        print(f"phase-seconds {name}: {PHASE_SECONDS[name]:.1f}",
+              flush=True)
 
 
 def main():
@@ -6315,6 +7024,13 @@ def main():
     hm += [family, served_m4c]
     vl3_att, vl3_raw, vl3_ln = timed(phase_vl3_kernels, card)
     hm.append(timed(phase_vl3_runs, card))
+    caption_root = timed(phase_caption_layout, card)
+    try:
+        hm.append(timed(phase_butd_run, card, caption_root))
+        hm.append(timed(phase_pythia_run, card, caption_root))
+    finally:
+        shutil.rmtree(caption_root, ignore_errors=True)
+    hm.append(timed(phase_m4c_coco_joint, card))
     LN_BWD_RECORD.stop()
     results["layer_norm_bwd"]["recorded_shapes"] = timed(
         phase_ln_bwd_shapes, card, LN_BWD_RECORD)
@@ -6430,7 +7146,9 @@ def main():
             # (MMBT and the baselines), M4C's mmf_run on TextVQA, the rest
             # of the M4C family's (the captioner's compared steps
             # included), the served M4C checkpoints, and UNITER's,
-            # LXMERT's and VinVL's mmf_run, compared steps and mmf_serve
+            # LXMERT's and VinVL's mmf_run, compared steps and mmf_serve,
+            # and the joint TextCaps + COCO captioner's run and compared
+            # step (BUTD and Pythia run none)
             "launches": (served[name] + trained[name] + mmbt[name]
                          + vb_int8[name] + pretrained[name]
                          + served_ckpt[name] + mmf_run[name]
@@ -6452,6 +7170,9 @@ def main():
                                  "recorded_shapes")
                if k in r},
         })
+    print("phase-seconds, all: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in PHASE_SECONDS.items())
+        + f"; total {sum(PHASE_SECONDS.values()):.1f}")
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -6,8 +6,9 @@ database (``use_features``) or the image itself (``use_images``:
 ``<image_name>.jpg`` from the image database, through the
 ``image_processor``, as ``image`` [3, H, W] float32), the soft answer
 scores as ``targets``, and the predictions formatted as
-``{"question_id", "answer"}`` rows. The OCR fields wait for the
-``vqa2_ocr`` builder.
+``{"question_id", "answer"}`` rows. The OCR fields
+(``add_ocr_details``, which COCO's captions never call) wait for the
+``vqa2_ocr`` builder: a VQA2 sample with ``use_ocr`` raises.
 """
 
 from __future__ import annotations
@@ -28,11 +29,8 @@ class VQA2Dataset(MMFDataset):
         name = kwargs.get("name", kwargs.get("dataset_name", "vqa2"))
         super().__init__(name, config, dataset_type, index=imdb_file_index)
         self._should_fast_read = self.config.get("fast_read", False)
-        if self.config.get("use_ocr", False) or self.config.get(
-                "use_ocr_info", False):
-            raise NotImplementedError(
-                "use_ocr / use_ocr_info: the OCR fields come with the "
-                "vqa2_ocr builder, which is not ported yet")
+        self.use_ocr = self.config.get("use_ocr", False)
+        self.use_ocr_info = self.config.get("use_ocr_info", False)
 
     def init_processors(self):
         super().init_processors()
@@ -98,7 +96,16 @@ class VQA2Dataset(MMFDataset):
             current_sample.image = self.image_db.from_path(image_path)[
                 "images"][0]
 
-        return self.add_answer_info(sample_info, current_sample)
+        return self.add_answer_info(sample_info,
+                                    self.add_ocr_details(sample_info,
+                                                         current_sample))
+
+    def add_ocr_details(self, sample_info, sample):
+        if self.use_ocr or self.use_ocr_info:
+            raise NotImplementedError(
+                "use_ocr / use_ocr_info: the OCR fields come with the "
+                "vqa2_ocr builder, which is not ported yet")
+        return sample
 
     def add_answer_info(self, sample_info, sample):
         if "answers" in sample_info:

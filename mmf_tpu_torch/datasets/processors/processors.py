@@ -16,7 +16,8 @@ as in JAX), ``phoc`` (OCR tokens to 604-d PHOC vectors through the C
 featurizer), ``copy`` (an array padded to ``max_length``) and
 ``m4c_answer`` (fixed-vocabulary + OCR-copy decoding targets; the
 teacher-forced spelling is drawn from numpy's global generator, as in
-JAX). They run on the host and emit fixed-shape numpy arrays.
+JAX) and ``m4c_caption`` (its form for captions). They run on the host
+and emit fixed-shape numpy arrays.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from __future__ import annotations
 import logging
 import os
 import random
+import re
 from collections import Counter, defaultdict
 from itertools import islice, product
 
@@ -590,3 +592,28 @@ class M4CAnswerProcessor(BaseProcessor):
             "train_prev_inds": train_prev_inds,
             "train_loss_mask": train_loss_mask,
         }
+
+
+@registry.register_processor("m4c_caption")
+class M4CCaptionProcessor(M4CAnswerProcessor):
+    """``m4c_answer`` for captions (``mmf_tpu/datasets/processors/
+    processors.py:711``): a caption is lower-cased, loses ``,``, ``?``
+    and ``.``, splits ``'s`` off and splits on non-word characters; a
+    word in neither the vocabulary nor the OCR tokens is spelled
+    ``<unk>``; every caption scores 1.0."""
+
+    SENTENCE_SPLIT_REGEX = re.compile(r"(\W+)")
+
+    def __init__(self, config, *args, **kwargs):
+        super().__init__(config, *args, **kwargs)
+        self.match_answer_to_unk = True
+
+    def tokenize(self, sentence):
+        sentence = sentence.lower()
+        sentence = (sentence.replace(",", "").replace("?", "")
+                    .replace(".", "").replace("'s", " 's"))
+        tokens = self.SENTENCE_SPLIT_REGEX.split(sentence)
+        return [t.strip() for t in tokens if len(t.strip()) > 0]
+
+    def compute_answer_scores(self, answers):
+        return {a: 1.0 for a in answers}

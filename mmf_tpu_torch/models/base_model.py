@@ -81,10 +81,15 @@ class BaseModel(nn.Module):
         order: dense (``Dense`` and ``QuantDense``) and embedding weights
         ~ N(0, std), dense biases 0, LayerNorm scale 1 and bias 0;
         convolution kernels He-normal over the fan-out (std sqrt(2 /
-        (out_channels * kh * kw)), so activations stay O(1) through a
-        deep ResNet), BatchNorm weight 1, bias 0, running mean 0 and
+        (out_channels * kh * kw)), a 1-D one's over out_channels * w, so
+        activations stay O(1) through a deep ResNet), BatchNorm weight 1,
+        bias 0, running mean 0 and
         running variance 1. A module with weights from files
-        (``ImageFinetune``'s pickles) takes them again afterwards."""
+        (``ImageFinetune``'s pickles) takes them again afterwards, and one
+        with a constant initialiser (``LanguageDecoder``'s
+        ``fc_bias_init``) its constants; an LSTM cell's products are
+        Dense layers, weight-norm gains stay 1."""
+        from mmf_tpu_torch.modules.embeddings import Conv1d
         from mmf_tpu_torch.modules.resnet import BatchNorm
         from mmf_tpu_torch.modules.transformer import (
             Dense,
@@ -101,7 +106,8 @@ class BaseModel(nn.Module):
         for module in self.modules():
             if isinstance(module, (Dense, QuantDense, Embed)):
                 normal(module.weight, std)
-                if isinstance(module, (Dense, QuantDense)):
+                if isinstance(module, (Dense, QuantDense)) and \
+                        module.bias is not None:
                     module.bias.zero_()
             elif isinstance(module, ResidualLayerNorm):
                 module.weight.fill_(1.0)
@@ -111,12 +117,18 @@ class BaseModel(nn.Module):
                 normal(module.weight, (2.0 / (o * kh * kw)) ** 0.5)
                 if module.bias is not None:
                     module.bias.zero_()
+            elif isinstance(module, Conv1d):
+                w, _, o = module.weight.shape
+                normal(module.weight, (2.0 / (o * w)) ** 0.5)
+                module.bias.zero_()
             elif isinstance(module, BatchNorm):
                 module.weight.fill_(1.0)
                 module.bias.zero_()
                 module.running_mean.zero_()
                 module.running_var.fill_(1.0)
         for module in self.modules():
+            if hasattr(module, "init_constants"):
+                module.init_constants()
             if hasattr(module, "load_pretrained"):
                 module.load_pretrained()
         return self

@@ -1,14 +1,16 @@
-"""Text embeddings (the part of ``mmf_tpu/modules/embeddings.py`` that
-the Hateful Memes baselines use) and ``ImageFinetune``, M4C's fc6 -> fc7
-layer over region features.
+"""Text embeddings, top-down image-feature attention pooling and
+``ImageFinetune``, the fc6 -> fc7 layer over region features.
 
 ``TextEmbedding`` dispatches on the config's type: ``identity``,
 ``vocab`` (``VocabEmbedding``, a trainable table; JAX does not load
-pretrained vectors into it either) and ``torch`` (a bare table). The
-other types (``projection``, ``bilstm``, ``attention``, ``mcan``, ``pre
-extracted``) raise, naming the module they wait for. Module names mirror
-the flax scopes (``module`` at each level), so ``params_from_jax`` maps
-the table mechanically.
+pretrained vectors into it either), ``torch`` (a bare table) and
+``attention`` (``AttentionTextEmbedding``, Pythia's LSTM with
+convolutional attention over the words). The other types
+(``projection``, ``bilstm``, ``mcan``, ``preextracted``) raise, naming
+the module they wait for. ``ImageFeatureEmbedding`` is Pythia's
+question-guided pooling of the regions. Module names mirror the flax
+scopes (``module`` at each level, ``lstm_0_fwd``, ``conv1``), so
+``params_from_jax`` maps the weights mechanically.
 """
 
 from __future__ import annotations
@@ -22,12 +24,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mmf_tpu_torch.modules.transformer import Dense, Embed
+from mmf_tpu_torch.modules.transformer import Dense, Dropout, Embed
 
 _NOT_PORTED = {
     "projection": "ProjectionEmbedding",
     "bilstm": "BiLSTMTextEmbedding",
-    "attention": "AttentionTextEmbedding",
     "mcan": "SAEmbedding",
     "preextracted": "PreExtractedEmbedding",
 }
@@ -64,6 +65,12 @@ class TextEmbedding(nn.Module):
                                          p.get("vocab_size", 30522))
         elif emb_type == "torch":
             self.module = Embed(p["vocab_size"], p["embedding_dim"])
+        elif emb_type == "attention":
+            self.module = AttentionTextEmbedding(
+                p["hidden_dim"], p["embedding_dim"], p.get("num_layers", 1),
+                p.get("dropout", 0.0), p.get("conv1_out", 512),
+                p.get("conv2_out", 2), p.get("kernel_size", 1),
+                p.get("padding", 0), p.get("bidirectional", False))
         elif emb_type in _NOT_PORTED:
             raise NotImplementedError(
                 f"text embedding {emb_type!r} needs "
@@ -74,12 +81,121 @@ class TextEmbedding(nn.Module):
 
     @property
     def out_dim(self):
+        if self.emb_type == "attention":
+            return self.module.text_out_dim
         return getattr(self.module, "embedding_dim", None)
 
     def forward(self, x, *args, **kwargs):
         if self.emb_type == "torch":
             return self.module(x.long())
         return self.module(x)
+
+
+class Conv1d(nn.Module):
+    """flax ``nn.Conv`` over the one axis between batch and channels,
+    [B, T, in] -> [B, T', out], padded ``padding`` on both sides. The
+    kernel stays in flax's [W, in, out] layout (``weight``), which JAX's
+    ``convert_torch_state_dict`` takes back as it is."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 kernel_size: int = 1, padding: int = 0):
+        super().__init__()
+        self.padding = padding
+        self.weight = nn.Parameter(torch.zeros(kernel_size, in_features,
+                                               out_features))
+        self.bias = nn.Parameter(torch.zeros(out_features))
+
+    def forward(self, x):
+        if self.weight.shape[0] == 1 and self.padding == 0:
+            return F.linear(x, self.weight[0].t(), self.bias)
+        return F.conv1d(x.transpose(1, 2), self.weight.permute(2, 1, 0),
+                        self.bias, padding=self.padding).transpose(1, 2)
+
+
+class AttentionTextEmbedding(nn.Module):
+    """An LSTM over the words (flax ``nn.RNN`` over an
+    ``OptimizedLSTMCell`` named ``lstm_<layer>_fwd``, and ``_bwd`` run
+    backwards in time when bidirectional), dropout, then two
+    convolutions over time (``conv1``, ReLU, ``conv2``: ``conv2_out``
+    attention maps), a softmax over time and the maps' weighted sums of
+    the LSTM's outputs, flattened: [B, T, E] -> [B, conv2_out * H]."""
+
+    def __init__(self, hidden_dim: int, embedding_dim: int,
+                 num_layers: int = 1, dropout: float = 0.0,
+                 conv1_out: int = 512, conv2_out: int = 2,
+                 kernel_size: int = 1, padding: int = 0,
+                 bidirectional: bool = False):
+        super().__init__()
+        from mmf_tpu_torch.modules.layers import LSTMCell
+
+        self.bidirectional = bidirectional
+        self.num_layers = num_layers
+        self.text_out_dim = hidden_dim * conv2_out
+        hid = hidden_dim // 2 if bidirectional else hidden_dim
+        width = embedding_dim
+        for i in range(num_layers):
+            self.add_module(f"lstm_{i}_fwd", LSTMCell(width, hid))
+            if bidirectional:
+                self.add_module(f"lstm_{i}_bwd", LSTMCell(width, hid))
+            width = 2 * hid if bidirectional else hid
+        self.dropout = Dropout(dropout)
+        self.conv1 = Conv1d(width, conv1_out, kernel_size, padding)
+        self.conv2 = Conv1d(conv1_out, conv2_out, kernel_size, padding)
+
+    @staticmethod
+    def _run(cell, x, reverse: bool = False):
+        b = x.shape[0]
+        zeros = x.new_zeros(b, cell.features)
+        carry, weights, outs = (zeros, zeros), cell.fused(), []
+        steps = range(x.shape[1] - 1, -1, -1) if reverse else range(
+            x.shape[1])
+        for t in steps:
+            carry, h = cell(carry, x[:, t], weights)
+            outs.append(h)
+        if reverse:
+            outs.reverse()
+        return torch.stack(outs, dim=1)
+
+    def forward(self, x):
+        out = x
+        for i in range(self.num_layers):
+            fwd = self._run(getattr(self, f"lstm_{i}_fwd"), out)
+            if self.bidirectional:
+                bwd = self._run(getattr(self, f"lstm_{i}_bwd"), out, True)
+                fwd = torch.cat([fwd, bwd], dim=-1)
+            out = fwd
+        lstm_drop = self.dropout(out)  # [B, T, H]
+        h = F.relu(self.conv1(lstm_drop))
+        attn = torch.softmax(self.conv2(h), dim=1)  # [B, T, A]
+        feat = torch.bmm(attn.transpose(1, 2), lstm_drop)  # [B, A, H]
+        return feat.reshape(x.shape[0], -1)
+
+
+class ImageFeatureEmbedding(nn.Module):
+    """Top-down attention pooling of the regions
+    (``mmf_tpu/modules/embeddings.py:230``): the attention
+    (``image_attention_model``, [B, K, A]) weighs the regions (with
+    ``order_vectors`` appended when ``extra`` has them) into A pooled
+    features, flattened. Returns (pooled, attention)."""
+
+    def __init__(self, img_dim: int, question_dim: int,
+                 modal_combine: Dict[str, Any], transform: Dict[str, Any],
+                 normalization: str = "softmax"):
+        super().__init__()
+        from mmf_tpu_torch.modules.attention import AttentionLayer
+
+        self.image_attention_model = AttentionLayer(
+            img_dim, question_dim, modal_combine, transform, normalization)
+
+    def forward(self, image_feat, question_embedding, image_dims,
+                extra: Optional[Dict[str, Any]] = None):
+        attention = self.image_attention_model(
+            image_feat, question_embedding, image_dims)
+        order_vectors = (extra or {}).get("order_vectors", None)
+        if order_vectors is not None:
+            image_feat = torch.cat([image_feat, order_vectors], dim=-1)
+        pooled = torch.bmm(attention.transpose(1, 2), image_feat)
+        return pooled.reshape(pooled.shape[0], -1), attention
 
 
 class ImageFinetune(nn.Module):

@@ -1,16 +1,20 @@
-"""Classifier layers (the part of ``mmf_tpu/modules/layers.py`` that the
-Hateful Memes baselines use).
+"""Layers of ``mmf_tpu/modules/layers.py``: the classifiers, the
+weight-normalised products, the LSTM cell and the Pythia / BUTD combine
+and transform layers.
 
 ``ClassifierLayer`` dispatches on the config's type: ``mlp``
 (``MLPClassifier``: per layer Dense, BatchNorm with flax's semantics,
 activation and dropout, then the output Dense), ``linear``, ``bert``
 (``BertClassifierHead``: dropout, BERT's prediction-head transform, a
-Dense) and ``weight_norm`` (two weight-normalised Dense layers around a
-ReLU and dropout). ``logit``, ``triple_linear`` and ``language_decoder``
-raise, naming their families. Module names mirror the flax scopes
-(``module``, ``dense_0``, ``norm_0``, ``out``, ...), so
+Dense), ``weight_norm`` (two weight-normalised Dense layers around a
+ReLU and dropout), ``logit`` (Pythia's two-branch head) and
+``language_decoder`` (BUTD's, ``modules/decoders.py``).
+``triple_linear`` raises, naming its family. Module names mirror the
+flax scopes (``module``, ``dense_0``, ``norm_0``, ``out``, ...), so
 ``params_from_jax`` maps a JAX init mechanically, ``batch_stats``
-included.
+included: a ``wn_dense`` is two modules, the gain under its name and the
+Dense as the parent's ``Dense_<n>`` (``add_wn_dense``), and an LSTM cell
+keeps flax's eight products (``ii`` ... ``ho``).
 
 flax infers a Dense layer's input width from its first input; here the
 caller gives it (``in_features``, the width of what the classifier
@@ -35,9 +39,7 @@ from mmf_tpu_torch.modules.transformer import (
 )
 
 _NOT_PORTED = {
-    "logit": "LogitClassifier (the pythia family)",
     "triple_linear": "TripleLinear (the movie_mcan family)",
-    "language_decoder": "LanguageDecoder (modules/decoders.py, BUTD)",
 }
 
 
@@ -88,47 +90,292 @@ class BertClassifierHead(nn.Module):
         return self.decoder(self.transform(self.dropout(x)))
 
 
-class _WeightNormScale(nn.Module):
-    """The scalar gain of one weight-normalised Dense (flax keeps it in
-    the ``WeightNorm`` wrapper's scope; the Dense's own kernel and bias
-    sit in the parent's)."""
+class WeightNormGain(nn.Module):
+    """The gain of one flax ``nn.WeightNorm(nn.Dense)``. flax keeps it in
+    the wrapper's scope under the wrapped kernel's name
+    (``fc1/{Dense_0/kernel/scale}``) and the Dense's own kernel and bias
+    in the parent's (``Dense_0``): the parameter here carries that name,
+    so the port's ``state_dict`` key (``fc1.Dense_0/kernel/scale``) is
+    flax's path with dots. ``features=None`` is one gain for the whole
+    kernel (``feature_axes=None``), else one an output
+    (``feature_axes=-1``)."""
 
-    def __init__(self):
+    def __init__(self, dense_name: str, features: Optional[int] = None):
         super().__init__()
-        self.scale = nn.Parameter(torch.ones(()))
+        self.key = f"{dense_name}/kernel/scale"
+        shape = () if features is None else (features,)
+        self.register_parameter(self.key, nn.Parameter(torch.ones(shape)))
+
+    @property
+    def scale(self) -> torch.Tensor:
+        return getattr(self, self.key)
 
 
-def _weight_norm_dense(dense: Dense, gain: _WeightNormScale, x):
-    """flax ``nn.WeightNorm(nn.Dense, feature_axes=None)``: the kernel
-    over its Frobenius norm (eps 1e-12 under the root), times the
-    scalar gain."""
+def weight_norm_weight(dense: Dense, gain: WeightNormGain) -> torch.Tensor:
+    """flax ``WeightNorm``'s kernel: over its L2 norm (eps 1e-12 under the
+    root), the whole kernel's or each output's, times the gain."""
     w = dense.weight
-    w = w * torch.rsqrt((w * w).sum() + 1e-12) * gain.scale
-    return F.linear(x, w, dense.bias)
+    if gain.scale.dim() == 0:
+        return w * torch.rsqrt((w * w).sum() + 1e-12) * gain.scale
+    return (w * torch.rsqrt((w * w).sum(1, keepdim=True) + 1e-12)
+            * gain.scale[:, None])
+
+
+def weight_norm_dense(dense: Dense, gain: WeightNormGain, x):
+    """``wn_dense``: the weight-normalised Dense applied to ``x``."""
+    return F.linear(x, weight_norm_weight(dense, gain), dense.bias)
+
+
+def add_wn_dense(parent: nn.Module, name: str, index: int, in_features: int,
+                 out_features: int, per_output: bool = False):
+    """Give ``parent`` the two modules of flax's ``wn_dense(out, name)``
+    made as the parent's ``index``-th unnamed Dense: the gain ``name``
+    and the Dense ``Dense_<index>``."""
+    dense = f"Dense_{index}"
+    parent.add_module(name, WeightNormGain(
+        dense, out_features if per_output else None))
+    parent.add_module(dense, Dense(in_features, out_features))
+
+
+def apply_wn_dense(parent: nn.Module, name: str, x):
+    gain = getattr(parent, name)
+    return weight_norm_dense(getattr(parent, gain.key.split("/")[0]), gain, x)
 
 
 class WeightNormClassifier(nn.Module):
     def __init__(self, in_features: int, out_dim: int, hidden_dim: int,
                  dropout: float):
         super().__init__()
-        self.Dense_0 = Dense(in_features, hidden_dim)
-        self.Dense_1 = Dense(hidden_dim, out_dim)
-        self.fc1 = _WeightNormScale()
-        self.fc2 = _WeightNormScale()
+        add_wn_dense(self, "fc1", 0, in_features, hidden_dim)
+        add_wn_dense(self, "fc2", 1, hidden_dim, out_dim)
         self.dropout = Dropout(dropout)
 
     def forward(self, x):
-        x = F.relu(_weight_norm_dense(self.Dense_0, self.fc1, x))
-        return _weight_norm_dense(self.Dense_1, self.fc2, self.dropout(x))
+        x = F.relu(apply_wn_dense(self, "fc1", x))
+        return apply_wn_dense(self, "fc2", self.dropout(x))
+
+
+class ReLUWithWeightNormFC(nn.Module):
+    """``relu(wn_dense(x))``, the gain ``fc`` over ``Dense_0``."""
+
+    def __init__(self, in_features: int, out_dim: int):
+        super().__init__()
+        add_wn_dense(self, "fc", 0, in_features, out_dim)
+
+    def forward(self, x):
+        return F.relu(apply_wn_dense(self, "fc", x))
+
+
+class LogitClassifier(nn.Module):
+    """Pythia's two-branch head: ``linear_text(f_o_text(x)) +
+    linear_image(f_o_image(x))``; ``branch="text"`` scores the text
+    branch alone (``pythia_question_only``)."""
+
+    def __init__(self, in_features: int, out_dim: int, text_hidden_dim: int,
+                 img_hidden_dim: int, text_only: bool = False):
+        super().__init__()
+        self.f_o_text = ReLUWithWeightNormFC(in_features, text_hidden_dim)
+        self.linear_text = Dense(text_hidden_dim, out_dim)
+        if not text_only:  # flax builds what is called
+            self.f_o_image = ReLUWithWeightNormFC(in_features,
+                                                  img_hidden_dim)
+            self.linear_image = Dense(img_hidden_dim, out_dim)
+
+    def forward(self, x, branch: Optional[str] = None):
+        text = self.linear_text(self.f_o_text(x))
+        if branch == "text":
+            return text
+        return text + self.linear_image(self.f_o_image(x))
+
+
+GATES = ("i", "f", "g", "o")
+
+
+class LSTMCell(nn.Module):
+    """flax ``nn.OptimizedLSTMCell``: the input products ``ii``, ``if``,
+    ``ig``, ``io`` without a bias, the hidden products ``hi``, ``hf``,
+    ``hg``, ``ho`` with the one bias a gate; gates in the order i, f, g, o
+    (sigmoid, sigmoid, tanh, sigmoid); ``c' = f c + i g``, ``h' = o
+    tanh(c')``; the carry is ``(c, h)``. The four products of each kind
+    run as one, on the gates' weights concatenated (``fused``), which a
+    decode loop takes once and passes to every step."""
+
+    def __init__(self, in_features: int, features: int):
+        super().__init__()
+        self.features = features
+        for g in GATES:
+            self.add_module(f"i{g}", Dense(in_features, features, bias=False))
+            self.add_module(f"h{g}", Dense(features, features))
+
+    def fused(self):
+        """(input weight [4H, in], hidden weight [4H, H], bias [4H])."""
+        def cat(kind, leaf):
+            return torch.cat([getattr(getattr(self, kind + g), leaf)
+                              for g in GATES])
+        return cat("i", "weight"), cat("h", "weight"), cat("h", "bias")
+
+    def forward(self, carry, x, fused=None):
+        c, h = carry
+        wi, wh, bh = self.fused() if fused is None else fused
+        y = F.linear(h, wh, bh) + F.linear(x, wi)
+        i, f, g, o = y.split(self.features, dim=-1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h = torch.sigmoid(o) * torch.tanh(c)
+        return (c, h), h
+
+
+class TopDownAttentionLSTM(nn.Module):
+    """BUTD's attention LSTM (``mmf_tpu/modules/layers.py:404``): an LSTM
+    over ``[h2, mean of the regions, the word]``, then ``relu(fa_image(
+    regions) + fa_hidden(h1))`` and dropout. ``fa_image`` and
+    ``fa_hidden`` are weight-normalised with a gain an output. The state
+    is threaded explicitly: ``{"td_hidden": (h1, c1), "lm_hidden": (h2,
+    c2)}``. A decode loop computes the step-invariant parts once
+    (``prepare``): the regions' projection and their mean do not change
+    between steps, and the dropout comes after the sum, so the values are
+    the same as recomputing them at every step."""
+
+    def __init__(self, image_dim: int, embedding_dim: int,
+                 attention_dim: int, hidden_dim: int, dropout: float):
+        super().__init__()
+        self.top_down_lstm = LSTMCell(hidden_dim + image_dim + embedding_dim,
+                                      hidden_dim)
+        add_wn_dense(self, "fa_image", 0, image_dim, attention_dim, True)
+        add_wn_dense(self, "fa_hidden", 1, hidden_dim, attention_dim, True)
+        self.dropout = Dropout(dropout)
+
+    def prepare(self, image_feat):
+        """What every step shares: (regions' mean, fa_image(regions), the
+        LSTM's and fa_hidden's weights)."""
+        return (image_feat.mean(dim=1), apply_wn_dense(self, "fa_image",
+                                                       image_feat),
+                self.top_down_lstm.fused(),
+                weight_norm_weight(self.Dense_1, self.fa_hidden))
+
+    def forward(self, image_feat, embedding, state, prepared=None):
+        image_mean, image_fa, lstm_w, hidden_w = (
+            self.prepare(image_feat) if prepared is None else prepared)
+        (h1, c1), (h2, _) = state["td_hidden"], state["lm_hidden"]
+        (c1, h1), _ = self.top_down_lstm(
+            (c1, h1), torch.cat([h2, image_mean, embedding], dim=1), lstm_w)
+        new_state = dict(state)
+        new_state["td_hidden"] = (h1, c1)
+        hidden_fa = F.linear(h1, hidden_w, self.Dense_1.bias)
+        joint = F.relu(image_fa + hidden_fa[:, None, :])
+        return self.dropout(joint), new_state
+
+
+class NonLinearElementMultiply(nn.Module):
+    """``dropout(fa_image(i) * fa_txt(t))`` with ReLU'd weight-normalised
+    arms (``mmf_tpu/modules/layers.py:369``); ``branch`` keeps one arm,
+    built and called alone (the ``pythia_question_only`` /
+    ``pythia_image_only`` ablations). ``context_dim`` adds the
+    ``fa_context`` arm."""
+
+    def __init__(self, image_dim: int, text_dim: int, hidden_dim: int,
+                 dropout: float, context_dim: Optional[int] = None,
+                 branch: Optional[str] = None):
+        super().__init__()
+        # flax builds the arms that are called
+        if branch != "text":
+            self.fa_image = ReLUWithWeightNormFC(image_dim, hidden_dim)
+        if branch != "image":
+            self.fa_txt = ReLUWithWeightNormFC(text_dim, hidden_dim)
+        if context_dim is not None:
+            self.fa_context = ReLUWithWeightNormFC(context_dim, hidden_dim)
+        self.dropout = Dropout(dropout)
+        self.out_dim = hidden_dim
+
+    def forward(self, image_feat, question_embedding, context_embedding=None,
+                branch: Optional[str] = None):
+        if branch == "text":
+            return self.dropout(self.fa_txt(question_embedding))
+        if branch == "image":
+            return self.dropout(self.fa_image(image_feat))
+        image_fa = self.fa_image(image_feat)
+        question_fa = self.fa_txt(question_embedding)
+        if image_feat.dim() == 3 and question_fa.dim() != 3:
+            question_fa = question_fa[:, None, :]
+        joint = image_fa * question_fa
+        if context_embedding is not None:
+            context_fa = self.fa_context(context_embedding)
+            joint = torch.cat([joint, context_fa * question_fa], dim=1)
+        return self.dropout(joint)
+
+
+# the combine types the ported families use; the others name theirs
+_COMBINE_NOT_PORTED = {
+    "MFH": "MFHCombine (the pythia multihead / movie_mcan families)",
+    "two_layer_element_multiply": "TwoLayerElementMultiply",
+    "top_down_attention_lstm": "TopDownAttentionLSTM through the combine "
+                               "dispatcher (BUTD builds it directly)",
+}
+
+
+class ModalCombineLayer(nn.Module):
+    """The dispatcher (``mmf_tpu/modules/layers.py:636``) for
+    ``non_linear_element_multiply``."""
+
+    def __init__(self, combine_type: str, image_dim: int, text_dim: int,
+                 params: Dict[str, Any] = None, branch: Optional[str] = None):
+        super().__init__()
+        p = dict(params or {})
+        if combine_type == "non_linear_element_multiply":
+            self.module = NonLinearElementMultiply(
+                image_dim, text_dim, p["hidden_dim"], p.get("dropout", 0.0),
+                p.get("context_dim"), branch)
+        elif combine_type in _COMBINE_NOT_PORTED:
+            raise NotImplementedError(
+                f"combine type {combine_type!r} needs "
+                f"{_COMBINE_NOT_PORTED[combine_type]}, which is not ported "
+                "yet")
+        else:
+            raise NotImplementedError(
+                f"Not implemented combine type: {combine_type}")
+        self.out_dim = self.module.out_dim
+
+    def forward(self, *args, **kwargs):
+        return self.module(*args, **kwargs)
+
+
+class LinearTransform(nn.Module):
+    """``wn_dense(out_dim, name="lc")``, one gain for the kernel."""
+
+    def __init__(self, in_dim: int, out_dim: int):
+        super().__init__()
+        add_wn_dense(self, "lc", 0, in_dim, out_dim)
+
+    def forward(self, x):
+        return apply_wn_dense(self, "lc", x)
+
+
+class TransformLayer(nn.Module):
+    def __init__(self, transform_type: str, in_dim: int, out_dim: int,
+                 hidden_dim: Optional[int] = None):
+        super().__init__()
+        if transform_type == "linear":
+            self.module = LinearTransform(in_dim, out_dim)
+        elif transform_type == "conv":
+            raise NotImplementedError(
+                "transform 'conv' needs ConvTransform, which is not ported "
+                "yet")
+        else:
+            raise NotImplementedError(
+                f"Unknown post combine transform type: {transform_type}")
+
+    def forward(self, x):
+        return self.module(x)
 
 
 class ClassifierLayer(nn.Module):
     """The dispatcher: ``classifier_type`` with its ``params``, reading
-    ``in_features``-wide inputs (``in_dim`` when not given)."""
+    ``in_features``-wide inputs (``in_dim`` when not given);
+    ``branch="text"`` builds the ``logit`` head's text branch alone."""
 
     def __init__(self, classifier_type: str, in_dim: int, out_dim: int,
                  params: Dict[str, Any] = None,
-                 in_features: Optional[int] = None):
+                 in_features: Optional[int] = None,
+                 branch: Optional[str] = None):
         super().__init__()
         p = dict(params or {})
         width = in_dim if in_features is None else in_features
@@ -147,6 +394,16 @@ class ClassifierLayer(nn.Module):
                                              p.get("hidden_size", 768))
         elif t == "linear":
             self.module = Dense(width, out_dim)
+        elif t == "logit":
+            self.module = LogitClassifier(
+                width, out_dim, p.get("text_hidden_dim", in_dim),
+                p.get("img_hidden_dim", in_dim), branch == "text")
+        elif t == "language_decoder":
+            from mmf_tpu_torch.modules.decoders import LanguageDecoder
+
+            self.module = LanguageDecoder(width, out_dim, **{
+                k: v for k, v in p.items()
+                if k in ("hidden_dim", "dropout", "fc_bias_init")})
         elif t in _NOT_PORTED:
             raise NotImplementedError(
                 f"classifier {t!r} needs {_NOT_PORTED[t]}, which is not "
@@ -154,5 +411,5 @@ class ClassifierLayer(nn.Module):
         else:
             raise NotImplementedError(f"Unknown classifier type: {t}")
 
-    def forward(self, x):
-        return self.module(x)
+    def forward(self, x, *args, **kwargs):
+        return self.module(x, *args, **kwargs)

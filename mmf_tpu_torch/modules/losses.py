@@ -3,8 +3,9 @@
 Port of part of ``mmf_tpu/modules/losses.py``: the containers ``Losses``
 and ``MMFLoss`` (the ``<dataset_type>/<dataset_name>/<loss>`` key
 contract), ``sigmoid_bce_with_logits``, and the ``logit_bce`` (VQA2),
-``cross_entropy`` (nlvr2 head), ``mse`` and ``m4c_decoding_bce_with_mask``
-(M4C's decode steps) losses. The other losses are
+``cross_entropy`` (nlvr2 head), ``mse``, ``m4c_decoding_bce_with_mask``
+(M4C's decode steps) and ``caption_cross_entropy`` (BUTD's) losses. The
+other losses are
 not ported yet. Every loss is ``loss(sample_list, model_output) ->
 scalar | dict`` on tensors, differentiable by autograd.
 """
@@ -168,3 +169,26 @@ class M4CDecodingBCEWithMaskLoss:
         losses = losses * loss_mask[..., None]
         count = torch.clamp(loss_mask.sum(), min=1.0)
         return losses.sum() / count
+
+
+@registry.register_loss("caption_cross_entropy")
+class CaptionCrossEntropyLoss:
+    """Per-word cross entropy over each caption's decode steps: step t of
+    the scores against ``targets[:, t]``, for t < ``caption_len - 1``
+    (every step without ``caption_len``), averaged over the steps kept
+    (at least 1). Scores longer than the targets are cut to them: BUTD's
+    targets, ``text[:, 1:]``, are a step shorter than its scores."""
+
+    def __call__(self, sample_list, model_output):
+        targets = sample_list["targets"].long()  # [B, T]
+        b, t = targets.shape[:2]
+        scores = model_output["scores"][:, :t]
+        if "caption_len" in sample_list:
+            decode_lengths = sample_list["caption_len"] - 1
+        else:
+            decode_lengths = torch.full((b,), t, device=targets.device)
+        pos = torch.arange(t, device=targets.device)[None, :]
+        mask = (pos < decode_lengths[:, None]).float()
+        logprobs = torch.log_softmax(scores, dim=-1)
+        tok_ll = logprobs.gather(-1, targets[..., None])[..., 0]
+        return -(tok_ll * mask).sum() / mask.sum().clamp(min=1.0)

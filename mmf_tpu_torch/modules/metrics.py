@@ -8,9 +8,10 @@ with sklearn's semantics: ``f1`` (``macro_``, ``micro_``, ``binary_``,
 ``multilabel_`` and its ``micro``/``macro`` forms),
 ``f1_precision_recall`` (``binary_``, ``macro_``, ``micro_``),
 ``roc_auc`` (``micro_``, ``macro_``) and ``ap`` (``binary_``,
-``micro_``, ``macro_``), and ``textvqa_accuracy`` (M4C's decoded answers
-against TextVQA's ten, ``utils/m4c_evaluators``). Metrics run on the
-host over the gathered report (numpy in, numpy out), as JAX's do; the
+``micro_``, ``macro_``), ``textvqa_accuracy`` (M4C's decoded answers
+against TextVQA's ten, ``utils/m4c_evaluators``), the M4C family's and
+``caption_bleu4`` (BUTD's captions, corpus BLEU-4 without nltk).
+Metrics run on the host over the gathered report (numpy in, numpy out), as JAX's do; the
 trainer accumulates the fields in ``Metrics.required_params``. The other metrics wait for the
 models and datasets that use them.
 """
@@ -689,3 +690,33 @@ class TextCapsBleu4(TextVQAAccuracy):
         from mmf_tpu_torch.utils import m4c_evaluators as evaluators
 
         self.evaluator = evaluators.TextCapsBleu4Evaluator()
+
+
+@registry.register_metric("caption_bleu4")
+class CaptionBleu4Metric(BaseMetric):
+    """Corpus BLEU-4 of the decoded captions (``captions``, else the
+    scores' argmax) against each image's reference captions
+    (``answers``), both decoded to words by the registry's
+    ``coco_caption_processor``; nltk's ``corpus_bleu`` with its default
+    arguments (``utils/m4c_evaluators.py::corpus_bleu``)."""
+
+    def __init__(self):
+        super().__init__("caption_bleu4")
+        self.caption_processor = registry.get("coco_caption_processor")
+        self.required_params = ["scores", "answers", "captions"]
+
+    def calculate(self, sample_list, model_output, *args, **kwargs):
+        from mmf_tpu_torch.utils.m4c_evaluators import corpus_bleu
+
+        references = [
+            [self.caption_processor(c)["tokens"]
+             for c in np.asarray(_to_np(target)).tolist()]
+            for target in _to_np(sample_list["answers"])]
+        if "captions" in model_output:
+            decoded = _to_np(model_output["captions"])
+        else:
+            decoded = _to_np(model_output["scores"]).argmax(axis=-1)
+        hypotheses = [self.caption_processor(row.tolist())["tokens"]
+                      for row in decoded]
+        assert len(references) == len(hypotheses)
+        return float(corpus_bleu(references, hypotheses))

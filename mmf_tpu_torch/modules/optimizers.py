@@ -8,7 +8,9 @@ scale_by_schedule -> lr multipliers``. Here:
   groups (``utils/modeling.py::param_groups``) that carry the weight-decay
   mask and the lr multipliers, with the same translation of
   ``optimizer.params`` (``lr``, ``betas``, ``eps``, ``weight_decay``;
-  ``adam_w`` defaults ``weight_decay`` to 0.01 as torch does);
+  ``adam_w`` defaults ``weight_decay`` to 0.01 as torch does; Adamax,
+  RMSprop and Adagrad raise JAX's ``TypeError`` on a ``weight_decay``,
+  which their optax aliases do not take);
 - the schedule is ``modules/schedulers.py::build_lr_scheduler``, a
   ``LambdaLR`` whose multiplier scales every group's lr, and so the
   decoupled weight decay too, as ``scale_by_schedule`` scales the whole
@@ -39,6 +41,11 @@ _TORCH_OPTIMIZERS = {
     "RMSprop": torch.optim.RMSprop, "rmsprop": torch.optim.RMSprop,
     "Adagrad": torch.optim.Adagrad, "adagrad": torch.optim.Adagrad,
 }
+
+
+# the optimizers whose optax alias takes no weight_decay: the JAX package
+# raises TypeError when the config gives one
+_NO_WEIGHT_DECAY = ("adamax", "rmsprop", "adagrad")
 
 
 def _coerce_numeric(v):
@@ -123,6 +130,11 @@ def build_optimizer(
     opt_cls = registry.get_optimizer_class(name) or _TORCH_OPTIMIZERS.get(name)
     if opt_cls is None:
         raise ValueError(f"No optimizer '{name}' in torch.optim or registry")
+    if name.lower() in _NO_WEIGHT_DECAY and "weight_decay" in params:
+        # JAX hands the key to an optax alias that has no such argument
+        # (BUTD's COCO config sets weight_decay: 0; ROADMAP C.4)
+        raise TypeError(f"{name.lower()}() got an unexpected keyword "
+                        "argument 'weight_decay'")
     if issubclass(opt_cls, torch.optim.AdamW):
         # torch.optim.AdamW's own default, stated: optax's 1e-4 default
         # would diverge from the reference

@@ -175,20 +175,23 @@ def apply_padding_idx(embeds, input_ids, pad_token_id=0):
 class Dense(nn.Linear):
     """flax ``nn.Dense(dtype=compute, param_dtype=float32)``: input, weight
     and bias are cast to the compute dtype; the product accumulates in
-    f32 inside the matmul and returns the compute dtype."""
+    f32 inside the matmul and returns the compute dtype. ``bias=False`` is
+    ``use_bias=False`` (an LSTM cell's input products)."""
 
     def __init__(self, in_features: int, out_features: int,
-                 dtype: torch.dtype = torch.float32):
-        super().__init__(in_features, out_features)
+                 dtype: torch.dtype = torch.float32, bias: bool = True):
+        super().__init__(in_features, out_features, bias=bias)
         self.compute_dtype = dtype
 
     def reset_parameters(self):
         nn.init.zeros_(self.weight)
-        nn.init.zeros_(self.bias)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
 
     def forward(self, x):
         dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
 # a table of at most this many rows (the token-type embeddings) is read as

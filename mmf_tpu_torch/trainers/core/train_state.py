@@ -148,15 +148,16 @@ def make_train_step(
                 mb_losses = dict(output["losses"])
             else:
                 mb_losses = dict(losses_fn(batch_in, output))
-            total = sum(v.mean() for v in mb_losses.values())
-            (total / update_frequency).backward()
+            if mb_losses:  # none: the gradients stay 0, as jax.grad's
+                total = sum(v.mean() for v in mb_losses.values())
+                (total / update_frequency).backward()
             for k, v in mb_losses.items():
                 mean = v.detach().mean() / update_frequency
                 losses[k] = losses[k] + mean if k in losses else mean
             reported.append({k: output[k].detach() for k in report_fields
                              if k in output})
 
-        total_loss = sum(losses.values())
+        total_loss = sum(losses.values(), torch.zeros((), device=device))
         nan_flag = ~torch.isfinite(total_loss)
         for p in model.parameters():
             # jax.grad gives every leaf a gradient: a parameter the loss
@@ -186,17 +187,23 @@ def make_train_step(
 
 def make_eval_step(losses_fn: Optional[Callable] = None,
                    meta: Optional[Dict[str, Any]] = None) -> Callable:
-    """``eval_step(model, batch) -> output``: the model in eval mode
-    without gradients, plus ``losses`` when ``losses_fn`` is given and
-    the model returned none."""
+    """``eval_step(model, batch, generator=None) -> output``: the model in
+    eval mode without gradients, plus ``losses`` when ``losses_fn`` is
+    given and the model returned none (a decode's dummy loss skips the
+    configured one). ``generator`` is installed as the sampling stream
+    of stochastic decoders (``utils.text.sampling_generator``; JAX's
+    ``"sampling"`` rng)."""
+    from mmf_tpu_torch.utils.text import sampling_generator
+
     meta = meta or {}
 
-    def eval_step(model: torch.nn.Module, batch: Dict[str, Any]):
+    def eval_step(model: torch.nn.Module, batch: Dict[str, Any],
+                  generator: Optional[torch.Generator] = None):
         device = next(model.parameters()).device
         batch_in = dict(_to_device(batch, device))
         batch_in.update(meta)
         model.eval()
-        with torch.no_grad():
+        with torch.no_grad(), sampling_generator(generator):
             output = dict(model(batch_in))
             if losses_fn is not None and "losses" not in output:
                 output["losses"] = dict(losses_fn(batch_in, output))

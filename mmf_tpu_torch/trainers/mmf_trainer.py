@@ -50,12 +50,16 @@ from mmf_tpu_torch.trainers.core.profiling import TrainerProfilingMixin
 from mmf_tpu_torch.trainers.core.train_state import (
     TrainState,
     create_train_state,
+    fold_in,
     make_eval_step,
     make_train_step,
 )
 from mmf_tpu_torch.utils.general import get_max_updates
 
 logger = logging.getLogger("mmf_tpu_torch")
+
+# the evaluation's sampling stream, apart from the training's dropout
+SAMPLING_STREAM = 0x53414D50
 
 
 @registry.register_trainer("mmf")
@@ -400,12 +404,23 @@ class MMFTrainer(TrainerProfilingMixin, BaseTrainer):
         meta = self._batch_meta(batch)
         meta["dataset_type"] = dataset_type
         output = self._get_eval_step()(self.model,
-                                       self._device_batch(batch, meta))
+                                       self._device_batch(batch, meta),
+                                       self._sampling_generator())
         report = Report(batch, output).to_numpy()
         true_bs = getattr(batch, "_true_batch_size", None)
         if true_bs is not None:
             report.trim_to_batch_size(true_bs)
         return report
+
+    def _sampling_generator(self) -> torch.Generator:
+        """A fresh sampling stream for each evaluation batch, from the
+        run's seed and the count of batches evaluated (JAX folds the
+        count into its evaluation key)."""
+        self._eval_batch_counter = getattr(self, "_eval_batch_counter",
+                                           0) + 1
+        seed = fold_in(fold_in(int(self.seed or 0), SAMPLING_STREAM),
+                       self._eval_batch_counter)
+        return torch.Generator(device=self.device).manual_seed(seed)
 
     def evaluation_loop(self, dataset_type: str, use_tqdm: bool = False,
                         single_batch: bool = False):

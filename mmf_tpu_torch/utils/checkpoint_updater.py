@@ -6,7 +6,10 @@ arrays) onto the port's ``state_dict``. The port's parameter names mirror
 the flax paths with dots, so the mapping is mechanical:
 
 - Dense ``kernel`` [in, out]  -> ``weight`` [out, in] (transposed)
-- Conv ``kernel`` [H, W, I, O] -> ``weight`` [O, I, H, W]
+- Conv ``kernel`` [H, W, I, O] -> ``weight`` [O, I, H, W]; a 1-D Conv's
+  [W, I, O] stays as it is (``modules/embeddings.py::Conv1d`` keeps
+  flax's layout, which JAX's ``convert_torch_state_dict`` takes back
+  untransposed)
 - Embed ``embedding``         -> ``weight``
 - LayerNorm/BatchNorm ``scale`` -> ``weight``
 - ``bias``                    -> ``bias``
@@ -14,7 +17,9 @@ the flax paths with dots, so the mapping is mechanical:
   patch embeddings' ``cls_token`` and ``position_embeddings``) keeps
   its name
 - a ``WeightNorm`` wrapper's gain (``fc1/{Dense_0/kernel/scale}``, flax
-  names it after the wrapped kernel) -> ``fc1.scale``
+  names it after the wrapped kernel) keeps its name:
+  ``fc1.Dense_0/kernel/scale`` (``modules/layers.py::WeightNormGain``)
+- an LSTM cell's products (``ii`` ... ``ho``) are Dense layers
 
 A module that flax applies more than once holds one scope, and so one
 parameter here: UNITER's token-type table, which its image stream reads
@@ -79,7 +84,8 @@ def params_from_jax(
     def put(key, arr):
         if key in state:
             raise KeyError(f"two flax leaves map onto {key}")
-        state[key] = torch.from_numpy(np.ascontiguousarray(arr).copy())
+        # np.array keeps a 0-d array 0-d (ascontiguousarray makes it 1-d)
+        state[key] = torch.from_numpy(np.array(arr, order="C", copy=True))
 
     for path, value in _flatten(params).items():
         leaf = path[-1]
@@ -88,18 +94,20 @@ def params_from_jax(
             put(".".join(path), arr)
             continue
         if leaf.endswith("/kernel/scale"):  # a WeightNorm wrapper's gain
-            put(".".join(path[:-1] + ("scale",)), arr)
+            put(".".join(path), arr)
             continue
         if leaf not in _LEAF:
             raise KeyError(f"no port mapping for flax leaf {'/'.join(path)}")
         if leaf == "kernel":
             if arr.ndim == 2:
                 arr = arr.T
+            elif arr.ndim == 3:
+                pass  # a Conv1d keeps flax's [W, I, O] (modules/embeddings.py)
             elif arr.ndim == 4:
                 arr = arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
             else:
                 raise ValueError(
-                    f"{'/'.join(path)}: only 2-D Dense and 4-D Conv kernels "
+                    f"{'/'.join(path)}: only 2-D Dense and 3-D or 4-D Conv kernels "
                     f"map, got shape {arr.shape}"
                 )
         put(".".join(path[:-1] + (_LEAF[leaf],)), arr)

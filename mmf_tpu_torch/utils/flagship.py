@@ -78,6 +78,16 @@ captioner on TextCaps) with its datasets, model and the overrides it
 needs (``M4C_FAMILY_OVERRIDES``, in JAX too); ``m4c_family_model``
 builds the model a config names.
 
+The M4C captioner trained jointly on TextCaps and COCO is
+``M4C_FAMILY["joint_coco"]``.
+
+BUTD on COCO (``BUTD`` names its three configs: teacher forcing with
+greedy evaluation, beam search, nucleus sampling; each with
+``BUTD_OVERRIDES``) and Pythia on VQA2 (``PYTHIA_VQA2_CONFIG``, for each
+of ``PYTHIA_MODELS``): ``pythia_config`` reads Pythia's, ``caption_model``
+builds the model a config names, and ``caption_trainer`` builds the step
+as ``vqa2_trainer`` does.
+
 UNITER, LXMERT and VinVL (each BERT-base: 768 wide, 12 heads, f32):
 ``VL3`` names each config of ``mmf_run`` (UNITER finetuned on VQA2 and
 pretrained on masked COCO, LXMERT finetuned on VQA2 and pretrained on
@@ -220,6 +230,33 @@ M4C_FAMILY_OVERRIDES = {
               + JOINT_EARLY_STOP),
     "textcaps": _ocr_features_overrides("textcaps") + [TEXTCAPS_ONE_ANSWER],
 }
+# the captioner trained jointly on TextCaps and COCO: the YAML's own train
+# features and annotations (32 tiles of TextCaps', read from TextVQA's
+# LMDBs, and COCO's); val and test keep TextCaps' object LMDB alone, which
+# needs the OCR features' (as the TextCaps config does), and the
+# ``m4c_answer`` processor one answer a caption. Its zoo requirements name
+# textvqa.defaults and textvqa.ocr_en, whose versions differ and share
+# datasets/textvqa's build markers, so JAX downloads one of them on every
+# run: the override keeps textvqa.defaults (ROADMAP C.4)
+JOINT_COCO = ("projects/m4c_captioner/configs/m4c_captioner/textcaps/"
+              "joint_with_coco.yaml", "textcaps", "m4c_captioner")
+M4C_FAMILY["joint_coco"] = JOINT_COCO
+M4C_FAMILY_OVERRIDES["joint_coco"] = [
+    o for o in _ocr_features_overrides("textcaps") if ".train=" not in o
+] + [TEXTCAPS_ONE_ANSWER,
+     "dataset_config.textcaps.zoo_requirements=[textvqa.defaults,"
+     "textcaps.defaults,coco.m4c_captioner,coco.ocr_en]"]
+
+# BUTD on COCO and Pythia on VQA2. BUTD's COCO config hands Adamax a
+# ``weight_decay: 0``, which optax.adamax does not take: JAX raises
+# TypeError before the first update (so does the port, ROADMAP C.4); the
+# override drops the key. Pythia's VQA2 config runs as it is
+BUTD = {"defaults": "projects/butd/configs/coco/defaults.yaml",
+        "beam_search": "projects/butd/configs/coco/beam_search.yaml",
+        "nucleus_sampling": "projects/butd/configs/coco/nucleus_sampling.yaml"}
+BUTD_OVERRIDES = ["optimizer.params={lr: 0.01, eps: 1.0e-08}"]
+PYTHIA_VQA2_CONFIG = "projects/pythia/configs/vqa2/defaults.yaml"
+PYTHIA_MODELS = ("pythia", "pythia_question_only", "pythia_image_only")
 
 
 # UNITER, LXMERT and VinVL. Each YAML lacks something to run (ROADMAP
@@ -969,6 +1006,29 @@ def vl3_batch(key: str, batch_size: int = 8,
 def vl3_trainer(model, config, seed: int = 0, device: Any = "cuda"):
     """``vqa2_trainer`` with the meta fields of the config's dataset (a
     UNITER pretraining batch carries the task the trainer drew)."""
+    return vqa2_trainer(model, config, seed, device,
+                        {"dataset_name": config["datasets"],
+                         "dataset_type": "train"})
+
+
+def pythia_config(opts: Optional[List[str]] = None, model: str = "pythia"):
+    """Pythia's VQA2 config over the root defaults for ``model`` (one of
+    ``PYTHIA_MODELS``), then ``opts``."""
+    return _project_config(PYTHIA_VQA2_CONFIG, "vqa2", opts, model)
+
+
+def caption_model(config,
+                  model_overrides: Optional[Dict[str, Any]] = None):
+    """The model a BUTD or Pythia config names, from its
+    ``model_config`` with ``model_overrides`` on a copy (the vocabulary
+    and the answers from the registry's processors when a run registered
+    them, else the config's ``text_vocab_size`` and ``num_labels``)."""
+    return _model(config["model"], config, model_overrides)
+
+
+def caption_trainer(model, config, seed: int = 0, device: Any = "cuda"):
+    """``vqa2_trainer`` with the meta fields of the config's dataset
+    (COCO's for BUTD, VQA2's for Pythia)."""
     return vqa2_trainer(model, config, seed, device,
                         {"dataset_name": config["datasets"],
                          "dataset_type": "train"})

@@ -103,8 +103,18 @@ def test_classifier_layer_matches_jax(ctype, params, train):
 @pytest.mark.parametrize("ctype", ["logit", "triple_linear",
                                    "language_decoder"])
 def test_unported_classifiers_name_their_family(ctype):
+    """``triple_linear`` raises, naming its family; ``logit`` (Pythia's)
+    and ``language_decoder`` (BUTD's) are ported and build
+    (``tests/test_torch_pythia.py``, ``tests/test_torch_butd.py`` hold
+    them against JAX)."""
     from mmf_tpu_torch.modules.layers import ClassifierLayer
 
+    if ctype in ("logit", "language_decoder"):
+        layer = ClassifierLayer(ctype, 8, 3, in_features=8)
+        assert type(layer.module).__name__ == {
+            "logit": "LogitClassifier",
+            "language_decoder": "LanguageDecoder"}[ctype]
+        return
     with pytest.raises(NotImplementedError, match="not ported yet"):
         ClassifierLayer(ctype, 8, 3, in_features=8)
 
@@ -134,7 +144,13 @@ def test_text_embedding_matches_jax(etype, params):
 @pytest.mark.parametrize("etype", ["projection", "bilstm", "attention",
                                    "mcan", "preextracted"])
 def test_unported_text_embeddings_name_their_module(etype):
+    """The unported types raise, naming their module; ``attention``
+    (Pythia's) is ported and builds (``tests/test_torch_pythia.py``)."""
     from mmf_tpu_torch.modules.embeddings import TextEmbedding
 
+    if etype == "attention":
+        emb = TextEmbedding(etype, {"embedding_dim": 4, "hidden_dim": 4})
+        assert emb.out_dim == 4 * 2  # two glimpses by default
+        return
     with pytest.raises(NotImplementedError, match="not ported yet"):
         TextEmbedding(etype, {"embedding_dim": 4, "hidden_dim": 4})

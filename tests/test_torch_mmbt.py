@@ -250,8 +250,12 @@ def test_params_from_jax_maps_convs_and_batch_stats():
                         if k.startswith("m.bn.")}, strict=True)
     with pytest.raises(KeyError):
         params_from_jax(params, {"m": {"bn": {"running_mean": np.zeros(5)}}})
+    # a 1-D Conv's [W, I, O] kernel keeps flax's layout
+    # (modules/embeddings.py::Conv1d); other ranks raise
+    assert tuple(params_from_jax({"c": {"kernel": np.zeros((2, 3, 4))}})[
+        "c.weight"].shape) == (2, 3, 4)
     with pytest.raises(ValueError):
-        params_from_jax({"c": {"kernel": np.zeros((2, 2, 2))}})
+        params_from_jax({"c": {"kernel": np.zeros((2, 2, 2, 2, 2))}})
 
 
 def test_mmbt_grid_and_hateful_memes_batch():

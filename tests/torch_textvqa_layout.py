@@ -97,7 +97,22 @@ def _paths(dataset: str, version: str) -> dict:
 DATASETS = {"textvqa": _paths("textvqa", ZOO_VERSION),
             "stvqa": _paths("stvqa", "1.0_2020_04_28"),
             "ocrvqa": _paths("ocrvqa", "1.0_2020_04_28"),
-            "textcaps": _paths("textcaps", "1.0_2020_05_04")}
+            "textcaps": _paths("textcaps", "1.0_2020_05_04"),
+            # the COCO captions of configs/datasets/coco/ocr_en.yaml and of
+            # the joint TextCaps + COCO config, with their joint vocabulary
+            "coco_m4c": {
+                "version": "1.0_2020_05_04",
+                "obj_lmdb": "coco/m4c_captioner/features/detectron.lmdb",
+                "ocr_lmdb": "coco/ocr_en/features/ocr_en_frcn_features.lmdb",
+                "vocab_file": "coco/m4c_captioner/extras/vocabs/"
+                              "vocab_joint_textcaps_coco_threshold_10.txt",
+                "annotations": "coco/m4c_captioner/annotations",
+                "splits": {"train": "imdb_karpathy_train.npy",
+                           "val": "imdb_karpathy_val_filtered_by_image_id"
+                                  ".npy",
+                           "test": "imdb_karpathy_test_filtered_by_image_id"
+                                   ".npy"}}}
+CAPTIONS = ("textcaps", "coco_m4c")
 _STVQA_SOURCES = ["coco-text", "icdar", "imageNet", "vizwiz", "textVQA"]
 _NON_ASCII = ["café", "straße", "niño", "résumé"]
 _CAPTION_OOV = ["zebra", "lighthouse", "umbrella", "saxophone", "giraffe"]
@@ -229,12 +244,15 @@ def _row(rng, dataset: str, split: str, folder: str, image_id: str,
            "obj_normalized_boxes": obj_boxes}
     if dataset == "stvqa":
         row["image_path"] = f"{image_id}.jpg"
-    if dataset == "textcaps":
+    if dataset in CAPTIONS:
         row["caption_id"] = index
         if split != "test":
             refs = [_caption(rng, tokens, vocab) for _ in range(5)]
             row["caption_str"] = refs[index % 5]
             row["reference_strs"] = refs
+            if dataset == "coco_m4c":  # COCO's imdb also holds the tokens
+                row["caption_tokens"] = refs[index % 5].split()
+                row["reference_tokens"] = [r.split() for r in refs]
         return row
     row["question"] = _question(rng)
     row["question_id"] = index
@@ -297,8 +315,8 @@ def write_layout(root: str, n_train: int = 640, n_val: int = 128,
     _write_lmdb(os.path.join(datasets, files["obj_lmdb"]), obj)
     _write_lmdb(os.path.join(datasets, files["ocr_lmdb"]), ocr)
 
-    annotations = os.path.join(datasets, dataset, "defaults",
-                               "annotations")
+    annotations = os.path.join(datasets, files.get(
+        "annotations", f"{dataset}/defaults/annotations"))
     os.makedirs(annotations, exist_ok=True)
     index = 0
     for split, n in splits.items():
@@ -311,7 +329,8 @@ def write_layout(root: str, n_train: int = 640, n_val: int = 128,
             rows.append(_row(rng, dataset, split, folder, image_id, index,
                              meta[f"{folder}/{image_id}"], vocab))
             index += 1
-        np.save(os.path.join(annotations, SPLITS[split]),
+        np.save(os.path.join(annotations,
+                             files.get("splits", SPLITS)[split]),
                 np.array(rows, dtype=object))
 
     vocab_path = os.path.join(datasets, files["vocab_file"])
@@ -321,7 +340,7 @@ def write_layout(root: str, n_train: int = 640, n_val: int = 128,
     vocab_file = os.path.join(root, "vocab.txt")
     with open(vocab_file, "w") as f:
         f.write("\n".join(_vocab(vocab_size)) + "\n")
-    base = os.path.join(datasets, dataset)
+    base = os.path.join(datasets, files["obj_lmdb"].split("/")[0])
     for sub in ("", "annotations", "features"):
         _mark_built(os.path.join(base, sub), files["version"])
     return {"root": root, "vocab_file": vocab_file,
@@ -338,3 +357,39 @@ def layout_opts(root: str, dataset: str = "textvqa") -> List[str]:
             f"dataset_config.{dataset}.processors.text_processor.params."
             "tokenizer_config.params.vocab_file="
             + os.path.join(root, "vocab.txt")]
+
+
+def write_joint_coco_layout(root: str, n_train: int = 64, n_val: int = 16,
+                            n_test: int = 16, n_images: int = 40,
+                            coco_images: int = 40, **kwargs) -> Dict[str, str]:
+    """The files of ``projects/m4c_captioner/configs/m4c_captioner/
+    textcaps/joint_with_coco.yaml`` under ``root``: TextCaps' layout
+    (``write_layout(dataset="textcaps")``), its train annotations also as
+    ``imdb_train.npy`` and its LMDBs also under TextVQA's paths (the
+    config reads TextCaps' images there, as MMF's TextCaps shares
+    TextVQA's Open Images features), and COCO's captions in TextCaps'
+    row format (``dataset="coco_m4c"``: their own images, LMDBs and
+    annotations, and the joint vocabulary, which is what the config's
+    answer processor reads; it holds the same answers as TextCaps' in
+    another order). ``kwargs`` go to both ``write_layout`` calls."""
+    import shutil
+
+    paths = write_layout(root, n_train, n_val, n_test, n_images,
+                         dataset="textcaps", **kwargs)
+    write_layout(root, n_train, n_val, n_test, coco_images,
+                 dataset="coco_m4c", **dict(kwargs, seed=kwargs.get(
+                     "seed", 0) + 1))
+    datasets = os.path.join(root, "datasets")
+    annotations = os.path.join(datasets, "textcaps", "defaults",
+                               "annotations")
+    shutil.copy(os.path.join(annotations, SPLITS["train"]),
+                os.path.join(annotations, "imdb_train.npy"))
+    for key in ("obj_lmdb", "ocr_lmdb"):
+        target = os.path.join(datasets, DATASETS["textvqa"][key])
+        if os.path.exists(target):
+            shutil.rmtree(target)
+        shutil.copytree(os.path.join(datasets, DATASETS["textcaps"][key]),
+                        target)
+    for sub in ("", "annotations", "features"):
+        _mark_built(os.path.join(datasets, "textvqa", sub), ZOO_VERSION)
+    return paths

@@ -39,7 +39,9 @@ Under ``root`` (the run's ``env.data_dir``):
   ``caption_tokens``, ``caption_id`` and the image's five
   ``reference_tokens``; test images from ``test2015``) and
   ``extras/vocabs/vocabulary_captioning_thresh5.txt`` (the captions'
-  words, every one of them in ``glove``'s vectors);
+  words, every one of them in ``glove``'s vectors, then filler words
+  ``word<i>`` up to ``caption_vocab`` entries, without vectors: MMF's
+  thresh-5 COCO vocabulary holds ~9,500 words);
 - with ``object_labels``: VinVL's label map,
   ``datasets/vinvl/defaults/annotations/VG-SGG-dicts-vgoi6-clipped.json``
   (``idx_to_label`` and ``idx_to_attribute``, ids as strings);
@@ -153,7 +155,8 @@ def _caption(rng) -> str:
     return " ".join(_WORDS[rng.randint(len(_WORDS))] for _ in range(n))
 
 
-def _write_coco(datasets: str, images: Dict[str, List[str]], seed: int):
+def _write_coco(datasets: str, images: Dict[str, List[str]], seed: int,
+                caption_vocab: int = 0):
     """COCO's annotation files over the layout's images, from their own
     generator (so the VQA2 files stay as they are without them)."""
     rng = np.random.RandomState(seed + 3)
@@ -187,9 +190,11 @@ def _write_coco(datasets: str, images: Dict[str, List[str]], seed: int):
                 np.array(by_caption, dtype=object))
     vocab_dir = os.path.join(coco, "extras", "vocabs")
     os.makedirs(vocab_dir, exist_ok=True)
+    words = sorted(set(_WORDS))
+    words += [f"word{i}" for i in range(max(0, caption_vocab - len(words)))]
     with open(os.path.join(vocab_dir, "vocabulary_captioning_thresh5.txt"),
               "w") as f:
-        f.write("\n".join(sorted(set(_WORDS))) + "\n")
+        f.write("\n".join(words) + "\n")
 
 
 def _write_label_map(datasets: str):
@@ -216,7 +221,8 @@ def write_layout(root: str, n_train: int = 640, n_val: int = 128,
                  full_boxes: bool = False,
                  cls_prob_width: int = 0,
                  glove: bool = False, coco: bool = False,
-                 object_labels: bool = False) -> Dict[str, str]:
+                 object_labels: bool = False,
+                 caption_vocab: int = 0) -> Dict[str, str]:
     """Write the layout under ``root``; returns its main paths. The
     class probabilities and the object labels come from generators of
     their own, so the other fields are the same with and without them
@@ -298,7 +304,7 @@ def write_layout(root: str, n_train: int = 640, n_val: int = 128,
     with open(vocab_file, "w") as f:
         f.write("\n".join(_vocab(vocab_size)) + "\n")
     if coco:
-        _write_coco(datasets, images, seed)
+        _write_coco(datasets, images, seed, caption_vocab)
     if object_labels:
         _write_label_map(datasets)
     if glove:
