@@ -307,8 +307,33 @@ the script exits non-zero without a result line):
               forward, BLEU-4, caption rows, and the first batch through
               the kernels (K1-stats, K2, K3, K4, K4-bwd) against the
               plain versions.
-32. ln-bwd-shapes - K4-bwd at every (rows, hidden, dtype, residual) at
-              which the optimizer steps of phases 1-31 ran it (recorded
+32. multihead-run - Pythia's multihead (B=512: the 2048-wide question
+              over 100 regions in 8 heads of 256, the wide f32 kernels)
+              and Pythia on Visual Genome (B=128) through mmf_run on the
+              caption layout: exact launches (multihead: 1 K1-stats, K2
+              and K3 an update, 1 K1 an evaluation forward; Pythia none),
+              the losses against the train step, multihead's step device
+              time by kind, card against CPU, one served bucket of 32 of
+              each from its run's folder. Runs right after pythia-run.
+33. pythia2-kernels - K1 (inference and stats forms), K2 and K3 in f32
+              at mmf_bert's shapes (B=512, 8 heads of 96: the text
+              self-attention over 128 tokens with its key padding, the
+              regions' intra-attention over 100, the text over the
+              regions) and multihead's [512, 8, 1 x 100, 256], against
+              the plain versions, by device_ms beside SDPA (its backend
+              named), with the bound and host us a call; the wide
+              kernels' edges at D=256 (Sq 1-17 x Skv 1-130).
+34. mmf-bert-run - mmf_bert at full width through mmf_run: VQA2
+              finetuning at B=512 (exact launches an update and a
+              prediction forward; the training attention is plain at the
+              config's dropout 0.1), served at bucket 32 from its folder,
+              masked-VQA2 pretraining at B=480 (flagship.
+              PYTHIA2_OVERRIDES), the losses against the train step, and
+              3 steps of each head through the kernels against the plain
+              versions at dropout 0 (3 K1-stats, K2, K3 and 2 K4, K4-bwd
+              a step).
+35. ln-bwd-shapes - K4-bwd at every (rows, hidden, dtype, residual) at
+              which the optimizer steps of phases 1-34 ran it (recorded
               as they ran: LnBwdRecord), with the phases' steps and calls
               a step: against its plain backward within the kernels
               phase's tolerances, bit-equal across two calls, by
@@ -677,14 +702,17 @@ def phase_build(card):
                          f"{c} x{notes.count(c)}" for c in sorted(set(
                              notes))) or "none") + ")")
         reports[name] = [k for k in kernels if any(
-            tag in k[0] for tag in ("sm90", "tf32", "ln_bwd"))]
+            tag in k[0] for tag in ("sm90", "tf32", "wide", "ln_bwd"))]
     fwd, bwd = A._fwd_lib()[0], A._bwd_lib()[0]
     smem = (bwd.mmf_flash_attention_bwd_smem_bytes(HEAD_DIM, 1, 0),
             bwd.mmf_flash_attention_bwd_smem_bytes(2 * HEAD_DIM, 1, 0),
             fwd.mmf_flash_attention_fwd_smem_bytes(HEAD_DIM, 0),
             fwd.mmf_flash_attention_fwd_smem_bytes(2 * HEAD_DIM, 0),
             bwd.mmf_flash_attention_bwd_smem_bytes(HEAD_DIM, 0, 1),
-            bwd.mmf_flash_attention_bwd_smem_bytes(2 * HEAD_DIM, 0, 1))
+            bwd.mmf_flash_attention_bwd_smem_bytes(2 * HEAD_DIM, 0, 1),
+            fwd.mmf_flash_attention_fwd_smem_bytes(4 * HEAD_DIM, 0),
+            bwd.mmf_flash_attention_bwd_smem_bytes(4 * HEAD_DIM, 0, 1),
+            bwd.mmf_flash_attention_bwd_smem_bytes(4 * HEAD_DIM, 0, 0))
     blocks = attention_blocks()
     parts.append(f"layer_norm triton jit {done['layer_norm'][1]:.1f}s")
     parts.append(f"the LMDB core c++ {done['lmdb_core'][1]:.1f}s, PHOC cc "
@@ -692,12 +720,14 @@ def phase_build(card):
     print(f"phase build: ok card='{card}' torch={torch.__version__} "
           f"cuda={torch.version.cuda}; built in parallel in {wall:.1f}s: "
           + "; ".join(parts))
-    print("  wgmma kernels, the f32 K1, K2 and K3 (split-TF32 on mma.sync) "
-          "and K4-bwd's (ptxas: registers, spill store bytes; C7510, C7515 "
+    print("  wgmma kernels, the f32 K1, K2 and K3 (split-TF32 on mma.sync; "
+          "above D=128 the wide FMA kernels) and K4-bwd's (ptxas: registers, spill store bytes; C7510, C7515 "
           "and C7520 would mean serialised products; bf16 K3 takes "
           f"{smem[0]} B of dynamic smem a block at D={HEAD_DIM}, {smem[1]} "
           f"B at D={2 * HEAD_DIM}; f32 K1 {smem[2]} B, {smem[3]} B at "
           f"D={2 * HEAD_DIM}; f32 K2 and K3 {smem[4]} B, {smem[5]} B; "
+          f"the f32 wide FMA kernels at D={4 * HEAD_DIM}: K1 {smem[6]} B, K2 "
+          f"{smem[7]} B, K3 {smem[8]} B; "
           "template arguments of the bf16 K1: head-dim boxes, form, "
           "per-element bias, ring stages, blocks an SM by launch bounds; of "
           "K2: the same without the form; K4-bwd's: dtype, "
@@ -778,6 +808,9 @@ def _sdpa_with_lse(q, k, v, bias):
     rows' logsumexp (m + log l), as SDPA calls it when a backward will
     follow. The bias is padded to an aligned row and broadcast by
     stride, as SDPA's own dispatch does."""
+    if bias is None:
+        return lambda: torch.ops.aten._scaled_dot_product_efficient_attention(
+            q, k, v, None, True)
     skv = bias.shape[-1]
     padded = F.pad(bias, (0, -skv % 16))[..., :skv]
     padded = padded.expand(q.shape[0], q.shape[1], q.shape[2], skv)
@@ -1671,7 +1704,9 @@ def _compared_names(k_grads, p_grads):
     (a head the dataset does not call): those are printed and left out,
     a gradient missing on one side only fails. The attention key biases'
     true gradient is 0 (softmax is shift-invariant along keys): both
-    sides hold rounding noise there, so they are left out too."""
+    sides hold rounding noise there, so they are left out too (``key``,
+    ``key1``, ``key2`` in the BERT trunks, ``k_proj`` in mmf_bert's
+    multi-head attention)."""
     check(set(k_grads) == set(p_grads), "kernel vs plain parameters: "
           f"{sorted(set(k_grads) ^ set(p_grads))}")
     k_none = sorted(n for n, g in k_grads.items() if g is None)
@@ -1681,7 +1716,7 @@ def _compared_names(k_grads, p_grads):
     if k_none:
         print(f"  no gradient on either side (left out): {k_none}")
     return [n for n in k_grads if k_grads[n] is not None
-            and not re.search(r"key\d?\.bias$", n)]
+            and not re.search(r"(key\d?|k_proj)\.bias$", n)]
 
 
 def _check_gradients(k_grads, p_grads, resolved=None):
@@ -6348,15 +6383,17 @@ def _caption_layout():
     write_layout(root, n_train=CAPTION_SPLITS["train"],
                  n_val=CAPTION_SPLITS["val"], n_test=CAPTION_SPLITS["test"],
                  n_images=CAPTION_IMAGES, glove=True, coco=True,
-                 caption_vocab=CAPTION_VOCAB)
+                 caption_vocab=CAPTION_VOCAB, visual_genome=True)
     return root, time.perf_counter() - t0
 
 
 def phase_caption_layout(card):
-    """The layout of butd-run and pythia-run: its folder."""
+    """The layout of butd-run, pythia-run and multihead-run: its
+    folder."""
     root, seconds = _caption_layout()
     print(f"phase caption-layout: ok BUTD's COCO captions and Pythia's "
-          f"VQA2 questions over {CAPTION_IMAGES} images of 100 regions x "
+          f"VQA2 questions (and their copy as Visual Genome's) over "
+          f"{CAPTION_IMAGES} images of 100 regions x "
           f"2048 (tests/torch_vqa2_layout.py), written in {seconds:.1f}s",
           flush=True)
     return root
@@ -6866,6 +6903,529 @@ def phase_m4c_coco_joint(card):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# -- phases 32-34: mmf_bert and Pythia's multihead --------------------------
+PYTHIA2_B, MMF_BERT_MASKED_B = 512, 480  # the configs' batches
+MMF_BERT_SEQ = flagship.MMF_BERT_SEQ  # bert_tokenizer's 128 tokens
+# the attention calls and their shapes (sq, skv, head dim, a padding bias):
+# mmf_bert's 768 wide over 8 heads (D = 96): the text self-attention with
+# the key padding, the regions' intra-attention, the text's queries over
+# the regions; multihead's 2048-wide question over 8 heads (D = 256, the
+# wide kernels): one query row over the 100 regions
+PYTHIA2_ATTENTION_SHAPES = {
+    "mmf_bert text self 128x128": (MMF_BERT_SEQ, MMF_BERT_SEQ, 96, True),
+    "mmf_bert intra 100x100": (REGIONS, REGIONS, 96, False),
+    "mmf_bert cross 128x100": (MMF_BERT_SEQ, REGIONS, 96, False),
+    "multihead 1x100": (1, REGIONS, 256, False),
+}
+# the wide kernels' edges at D = 256: q rows of one 16-row block or not,
+# or one row into the next, against kv of one row, a 32-row ring tile, a
+# ragged second, several tiles
+WIDE_EDGES = [(sq, skv) for sq in (1, 2, 15, 16, 17)
+              for skv in (1, 31, 32, 33, 100, 130)]
+# from the code: a forward runs the text self-attention, the regions'
+# intra-attention and one cross-attention (VQA2's one feature set, the
+# config's one embedding), and LayerNorms in TextEmbeddings and in the
+# head's transform (VQA: classifier_transform; pretraining: cls.transform);
+# multihead runs one attention a feature set and no LayerNorm
+MMF_BERT_ATTENTION, MMF_BERT_LN, MULTIHEAD_ATTENTION = 3, 2, 1
+PYTHIA2_UPDATES = 2
+PYTHIA2_SPLITS = {"train": 1024, "val": 512, "test": 512}
+VG_B = 128  # projects/pythia/configs/visual_genome/defaults.yaml's batch
+
+
+def _sdpa_backend(q, k, v, bias):
+    """The backend F.scaled_dot_product_attention dispatches (q, k, v,
+    bias) to, by name."""
+    from torch.nn.attention import SDPBackend
+
+    return SDPBackend(torch._fused_sdp_choice(q, k, v, bias, 0.0,
+                                              False)).name
+
+
+def _wide_edges(g):
+    """K1 (both forms), K2 and K3 at D = 256 over WIDE_EDGES (B=2, 2
+    heads, a padding bias, the second batch's every key -inf) against the
+    plain versions: the largest relative error of each."""
+    worst = collections.defaultdict(float)
+    for sq, skv in WIDE_EDGES:
+        q, k, v, _, dout = _attention_inputs(2, sq, skv, torch.float32, g,
+                                             heads=2, head_dim=256)
+        mask = torch.ones(2, skv, device=DEV, dtype=torch.int32)
+        mask[:, skv // 2 + 1:] = 0
+        mask[1] = 0
+        bias = A.combine_biases(A.make_attention_bias(mask),
+                                A.make_attention_bias(mask))
+        out = A.flash_attention(q, k, v, bias)
+        out_s, m, l = A.flash_attention_with_stats(q, k, v, bias)
+        dq, delta = A.flash_attention_bwd_dq(q, k, v, bias, out_s, m, l,
+                                             dout)
+        dk, dv = A.flash_attention_bwd_dkv(q, k, v, bias, dout, m, l, delta)
+        torch.cuda.synchronize()
+        ref_out, ref_m, ref_l = A.flash_forward_reference(q, k, v, bias)
+        check(torch.equal(out, out_s) and bool((out[1] == 0).all()),
+              f"wide edge {sq}x{skv}: forms differ or the -inf batch")
+        worst["K1"] = max(worst["K1"], max_err(out, ref_out, torch.float32))
+        torch.testing.assert_close(m, ref_m, **STATS_TOL)
+        torch.testing.assert_close(l, ref_l, **STATS_TOL)
+        ref = A.flash_backward_reference(q, k, v, bias, out_s, m, l, dout)
+        # one key: ds = dp - delta cancels, dq and dk are rounding
+        for n, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+            if skv > 1 or n == "dv":
+                scale = max(float(want.abs().max()), 1e-6)
+                worst[n] = max(worst[n], rel_err(
+                    got, want, GRAD_REL[torch.float32],
+                    f"wide edge {sq}x{skv} {n}") / scale)
+    return dict(worst)
+
+
+def phase_pythia2_kernels(card):
+    """K1 (inference and stats forms), K2 and K3 in f32 at mmf_bert's
+    (D = 96) and multihead's (D = 256, the wide kernels) shapes at B=512,
+    against their plain versions, timed beside SDPA (its backend named)
+    and the plain versions with the bounds and host time; the wide
+    kernels' edges at D = 256."""
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 parity
+    g = torch.Generator(device=DEV).manual_seed(23)
+    rows, backends = {}, {}
+    for label, (sq, skv, d, padded) in PYTHIA2_ATTENTION_SHAPES.items():
+        q, k, v, bias, dout = _attention_inputs(PYTHIA2_B, sq, skv,
+                                                torch.float32, g, heads=8,
+                                                head_dim=d)
+        bias = bias if padded else None
+        backends[label] = _sdpa_backend(q, k, v, bias)
+        rows[label] = _attention_case(f"pythia2 {label}", q, k, v, bias,
+                                      dout, iters=10, plain_iters=3,
+                                      repeats=3)
+        del q, k, v, bias, dout
+        torch.cuda.empty_cache()
+    edges = _wide_edges(g)
+    print(f"phase pythia2-kernels: ok K1, K1-stats, K2 and K3 in f32 at "
+          f"mmf_bert's shapes (B={PYTHIA2_B}, 8 heads of 96, the text "
+          "self-attention with its key padding) and multihead's (8 heads of "
+          "256: the wide FMA kernels), against their plain versions within "
+          "the kernels phase's bounds; device ms (spin-queued), SDPA's (the "
+          "backend it dispatches to named), the plain versions', host us a "
+          "call and the bound (bytes, or split-TF32 operations; the FP32 FMA "
+          f"bound beside it) on '{card}':")
+    for label, r in rows.items():
+        ms, lib, fma = r["ms"], r["library_ms"], r["fma_bound_ms"]
+        print(f"  {label} {r['shape']}: max_abs_err " + ", ".join(
+            f"{n} {e:.3g}" for n, e in r["max_abs_err"].items()) + "; "
+            + ", ".join(f"{n} {ms[n]:.4f} (bound {r['bound_ms'][n]:.4f} "
+                        f"{r['bound_by'][n]}, FMA {fma[n]:.4f}, "
+                        f"{100 * r['bound_ms'][n] / ms[n]:.0f}% of it)"
+                        for n in ms)
+            + f"; sdpa ({backends[label]}) fwd {lib['K1']:.4f}, fwd+lse "
+            f"{lib['K1-stats']:.4f}, bwd {lib['K2+K3']:.4f} (K2+K3 "
+            f"{ms['K2'] + ms['K3']:.4f}); plain " + ", ".join(
+                f"{n} {t:.4f}" for n, t in r["plain_ms"].items())
+            + "; host us " + ", ".join(f"{n} {u:.1f}" for n, u in
+                                       r["host_us"].items()))
+    print(f"  D=256 edges ({len(WIDE_EDGES)} cases, Sq 1-17 x Skv 1-130, B=2, "
+          "2 heads, a padding bias and a batch of -inf keys): max error over "
+          "the largest entry " + ", ".join(f"{n} {e:.3g}"
+                                           for n, e in edges.items())
+          + f" (bound: K1 {TOL[torch.float32]}, gradients "
+          f"{GRAD_REL[torch.float32]})")
+    for label, b in backends.items():
+        rows[label]["sdpa_backend"] = b
+    return rows
+
+
+def _pythia2_layout(tmp):
+    """mmf_bert's VQA2 layout: full boxes (its config returns the
+    features' info, whose boxes must batch), BERT's vocabulary size."""
+    from tests.torch_vqa2_layout import write_layout
+
+    write_layout(tmp, n_train=PYTHIA2_SPLITS["train"],
+                 n_val=PYTHIA2_SPLITS["val"], n_test=PYTHIA2_SPLITS["test"],
+                 n_images=RUN_IMAGES, regions=REGIONS, feature_dim=VDIM,
+                 num_answers=RUN_ANSWERS, vocab_size=VOCAB, seed=0,
+                 full_boxes=True)
+
+
+def _no_mha_dropout(model):
+    """Dropout 0 on the built modules, attention probabilities too (the
+    compared steps)."""
+    from mmf_tpu_torch.modules.attention import TorchMultiheadAttention
+
+    for m in model.modules():
+        if isinstance(m, TorchMultiheadAttention):
+            m.dropout = 0.0
+    return _without_dropout(model)
+
+
+def _pythia2_build(cfg, overrides=None):
+    return _no_mha_dropout(flagship.pythia2_model(cfg, overrides))
+
+
+def _mmf_bert_compared(cfg, head, card):
+    """3 steps of mmf_bert's ``head`` through the kernels against 3
+    through the plain versions at dropout 0 from seeded weights (B=64,
+    128 tokens, 100 regions): the training phase's bounds; exact
+    launches a step."""
+    model = flagship.pythia2_model(cfg)
+    model.init_weights(torch.Generator().manual_seed(0))
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    del model
+    batch = flagship.mmf_bert_batch(TRAIN_B, pretraining=head ==
+                                    "pretraining", seed=7)
+    device = []
+    line, launches = _kernels_vs_plain(cfg, init, batch, _pythia2_build,
+                                       flagship.vl3_trainer, COMPARED_STEPS,
+                                       f"mmf_bert {head}", device_out=device)
+    dev_ms, by_category = device[0]
+    att_ms, att_n = by_category.get("attention K1/K2/K3", (0.0, 0.0))
+    n = COMPARED_STEPS
+    want = dict(ZERO_COUNTS, flash_attention_fwd_stats=MMF_BERT_ATTENTION * n,
+                flash_attention_bwd_dq=MMF_BERT_ATTENTION * n,
+                flash_attention_bwd_dkv=MMF_BERT_ATTENTION * n,
+                layer_norm=MMF_BERT_LN * n, layer_norm_bwd=MMF_BERT_LN * n)
+    check(launches == want, f"mmf_bert {head} compared launches {launches}, "
+          f"want {want}")
+    return (f"  {head} compared steps (B={TRAIN_B}): {line}; the kernels' "
+            f"steps' device time {dev_ms:.2f} ms a step, of it attention "
+            f"{att_ms:.3f} ms x{att_n:.0f}"), launches
+
+
+def phase_mmf_bert_run(card):
+    """mmf_bert at full width (768 wide, 8 heads of 96, f32) through
+    mmf_run: VQA2 finetuning at B=512 (2 updates, the val and test
+    predictions) and masked-VQA2 pretraining at B=480 (2 updates), exact
+    launches an update and a prediction forward, the losses against the
+    train step on the batches the runs took; mmf_serve's engine on the
+    VQA2 folder at bucket 32 (exact launches a forward) against the
+    in-memory model; 3 compared steps of each head at dropout 0."""
+    import glob
+
+    from mmf_tpu_torch.common.registry import registry
+    from mmf_tpu_torch.serving import ServingEngine
+    from tests.torch_vqa2_layout import layout_opts
+
+    registry.register_callback("chip_smoke_recorder")(_StepRecorder)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mmf_bert_")
+    total = dict(ZERO_COUNTS)
+    lines, seconds = [], {}
+
+    def add(counts):
+        for k in total:
+            total[k] += counts[k]
+
+    trainer = None
+    try:
+        t0 = time.perf_counter()
+        _pythia2_layout(tmp)
+        seconds["layout"] = time.perf_counter() - t0
+        u = PYTHIA2_UPDATES
+        # VQA2: no validation inside the run (its early stopping would
+        # write and read back checkpoints no number needs); the run
+        # predicts val and test, then the trainer evaluates val
+        t0 = time.perf_counter()
+        path, dataset, model_name = flagship.PYTHIA2["mmf_bert_vqa2"]
+        trainer, recorder, launches, run_s = _cli_run(
+            os.path.join(tmp, "save_vqa2"), path, model_name, dataset, u,
+            flagship.PYTHIA2_OVERRIDES["mmf_bert_vqa2"] + [
+                "run_type=train_val_inference", "evaluation.predict=true",
+                "training.evaluation_interval=1000",
+                "training.checkpoint_interval=1000", *LOADER_IN_PROCESS,
+                *layout_opts(tmp, "vqa2")], batch_size=PYTHIA2_B)
+        forwards = -(-PYTHIA2_SPLITS["val"] // PYTHIA2_B) + -(
+            -PYTHIA2_SPLITS["test"] // PYTHIA2_B)
+        # training attention is plain at the config's dropout 0.1
+        want = dict(ZERO_COUNTS,
+                    flash_attention_fwd=MMF_BERT_ATTENTION * forwards,
+                    layer_norm=MMF_BERT_LN * (u + forwards),
+                    layer_norm_bwd=MMF_BERT_LN * u)
+        check(launches == want, f"mmf_bert vqa2 launches {launches}, want "
+              f"{want}")
+        add(launches)
+        mc = trainer.config["model_config"]["mmf_bert"]
+        check(mc["hidden_size"] == HIDDEN and trainer.model.head == "vqa"
+              and trainer.model.text_embedding.num_heads == 8,
+              f"mmf_bert config {dict(mc)}")
+        key = "train/vqa2/logit_bce"
+        rel, got = _steps_again(trainer, recorder, flagship.pythia2_model,
+                                flagship.vl3_trainer, [key])
+        save_dir = trainer.config["env"]["save_dir"]
+        rows = {split: len(json.load(open(f))) for split in ("val", "test")
+                for f in glob.glob(os.path.join(
+                    save_dir, "reports", f"vqa2_*_{split}_*.json"))}
+        check(rows == {"val": PYTHIA2_SPLITS["val"],
+                       "test": PYTHIA2_SPLITS["test"]},
+              f"mmf_bert report rows {rows}")
+        report, meter = trainer.evaluation_loop("val")
+        acc = meter.meters["val/vqa2/vqa_accuracy"].global_avg
+        check(0.0 <= acc <= 1.0, f"mmf_bert val vqa_accuracy {acc}")
+        t = recorder.loss_read
+        lines.append(
+            f"  vqa2: mmf_run of {path}, B={PYTHIA2_B}: {u} updates, {key} "
+            f"{[round(x, 6) for x in got[key]]} equal to the train step's on "
+            f"the same batches (max rel {rel:.3g}, bound {RUN_LOSS_RTOL}); "
+            f"launches {launches} (exact: {MMF_BERT_ATTENTION} K1 and "
+            f"{MMF_BERT_LN} K4 a prediction forward, {MMF_BERT_LN} K4 and "
+            f"K4-bwd an update); val vqa_accuracy {acc:.4f}, report rows "
+            f"{rows}; run {run_s:.1f}s, the last update "
+            f"{1e3 * (t[u] - t[u - 1]):.1f} ms (host clock, the loader in "
+            "the main process)")
+        # the step alone on the run's first batch (the config's dropout:
+        # training attention plain), its device time by kind
+        batch = recorder.batches[0]
+        step_model = flagship.pythia2_model(trainer.config)
+        step_model.load_state_dict(recorder.initial, strict=True)
+        state, step = flagship.vl3_trainer(step_model, trainer.config, seed=1)
+        box = [state]
+        torch.cuda.reset_peak_memory_stats()
+
+        def one_step():
+            box[0], rep = step(box[0], batch)
+            float(rep["total_loss"])
+
+        one_step()
+        t1 = time.perf_counter()
+        one_step()
+        step_wall_ms = 1e3 * (time.perf_counter() - t1)
+        step_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        dev_ms, by_category = _device_ms(one_step, 1)
+        del state, step, step_model, box
+        lines.append(
+            f"  vqa2 step alone (B={PYTHIA2_B}): {step_wall_ms:.1f} ms wall, "
+            f"device {dev_ms:.2f} ms (idle "
+            f"{100 * max(0.0, 1 - dev_ms / step_wall_ms):.1f}%), peak "
+            f"{step_peak_gb:.2f} GB, by kind (ms, launches): " + "; ".join(
+                f"{c} {ms:.3f} x{n:.0f}" for c, (ms, n) in sorted(
+                    by_category.items(), key=lambda kv: -kv[1][0])))
+        # served: one bucket of 32 from the run's folder
+        fields = ("input_ids", "input_mask", "segment_ids",
+                  "image_feature_0")
+        requests = [{k: batch[k][i].cpu().numpy() for k in fields}
+                    for i in range(SERVE_B)]
+        model = trainer.model.eval()
+        trainer.teardown()
+        _prune_checkpoints(save_dir)
+        engine = ServingEngine.from_checkpoint(save_dir,
+                                               max_batch_size=SERVE_B)
+        engine.predict_many(requests)
+        reset_counts()
+        t0s = time.perf_counter()
+        served = engine.predict_many(requests)
+        bucket_ms = 1e3 * (time.perf_counter() - t0s)
+        per = read_counts()
+        check(per == dict(ZERO_COUNTS, flash_attention_fwd=MMF_BERT_ATTENTION,
+                          layer_norm=MMF_BERT_LN),
+              f"mmf_bert served launches {per}")
+        add(per)
+        with torch.no_grad():
+            want_s = model({k: batch[k][:SERVE_B] for k in fields})[
+                "scores"].float().cpu().numpy()
+        got_s = np.stack([o["scores"] for o in served])
+        served_rel = float(np.abs(got_s - want_s).max()
+                           / np.abs(want_s).max())
+        check(served_rel <= CARD_VS_CPU_RTOL, f"mmf_bert served "
+              f"{served_rel}")
+        small = {k: batch[k][:8] for k in fields}
+        cpu_rel, _, _ = _card_vs_cpu(model, small, "scores")
+        check(cpu_rel <= CARD_VS_CPU_RTOL, f"mmf_bert card vs cpu {cpu_rel}")
+        lines.append(
+            f"  served from the run's folder (ServingEngine.from_checkpoint) "
+            f"at bucket {SERVE_B}: {bucket_ms:.1f} ms, launches {per} (exact "
+            f"a forward), rel {served_rel:.2e} against the in-memory model; "
+            f"card vs CPU on 8 questions rel {cpu_rel:.2e} (bound "
+            f"{CARD_VS_CPU_RTOL})")
+        del engine, model, trainer, recorder
+        trainer = None
+        seconds["vqa2"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+
+        # masked VQA2 pretraining at B=480
+        t0 = time.perf_counter()
+        path, dataset, model_name = flagship.PYTHIA2["mmf_bert_masked_vqa2"]
+        trainer, recorder, launches, run_s = _cli_run(
+            os.path.join(tmp, "save_masked"), path, model_name, dataset, u,
+            flagship.PYTHIA2_OVERRIDES["mmf_bert_masked_vqa2"] + [
+                "run_type=train", *LOADER_IN_PROCESS,
+                *layout_opts(tmp, "masked_vqa2", "masked_token_processor")],
+            batch_size=MMF_BERT_MASKED_B)
+        want = dict(ZERO_COUNTS, layer_norm=MMF_BERT_LN * u,
+                    layer_norm_bwd=MMF_BERT_LN * u)
+        check(launches == want, f"mmf_bert masked launches {launches}, "
+              f"want {want}")
+        add(launches)
+        keys = ["masked_vqa2/train/masked_lm_loss",
+                "masked_vqa2/train/next_sentence_loss"]
+        rel, got = _steps_again(trainer, recorder, flagship.pythia2_model,
+                                flagship.vl3_trainer, keys)
+        t = recorder.loss_read
+        lines.append(
+            f"  masked_vqa2: mmf_run of {path} with "
+            f"flagship.PYTHIA2_OVERRIDES, B={MMF_BERT_MASKED_B}: {u} updates, "
+            + ", ".join(f"{k} {[round(x, 6) for x in got[k]]}" for k in keys)
+            + f" equal to the train step's on the same batches (max rel "
+            f"{rel:.3g}); launches {launches} (exact); run {run_s:.1f}s, "
+            f"the last update {1e3 * (t[u] - t[u - 1]):.1f} ms")
+        cfg_masked = trainer.config
+        trainer.teardown()
+        del trainer, recorder
+        trainer = None
+        seconds["masked_vqa2"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        for head, cfg in (("vqa", flagship.pythia2_config("mmf_bert_vqa2")),
+                          ("pretraining", cfg_masked)):
+            line, launches = _mmf_bert_compared(cfg, head, card)
+            add(launches)
+            lines.append(line)
+        seconds["compared"] = time.perf_counter() - t0
+    finally:
+        if trainer is not None:
+            trainer.teardown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase mmf-bert-run: ok mmf_bert (768 wide, 8 heads of 96, f32, "
+          f"{MMF_BERT_SEQ} tokens, 100 regions x 2048 through fc7 and the "
+          f"shared projection) on a synthetic VQA2 layout "
+          f"({PYTHIA2_SPLITS} questions, full boxes) on '{card}'; seconds "
+          + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()) + ":")
+    for line in lines:
+        print(line)
+    return total
+
+
+def phase_multihead_run(card, root):
+    """Pythia's multihead at full width (B=512: the 2048-wide question
+    over the 100 regions in 8 heads of 256) and Pythia on Visual Genome
+    (B=128) through mmf_run: exact launches an update and an evaluation
+    forward, the losses against the train step, a multihead step's device
+    time by kind, card against CPU, one served bucket of each model from
+    its run's folder."""
+    import glob
+
+    from mmf_tpu_torch.common.registry import registry
+    from mmf_tpu_torch.serving import ServingEngine
+
+    registry.register_callback("chip_smoke_recorder")(_StepRecorder)
+    u = PYTHIA2_UPDATES
+    lines, total = [], dict(ZERO_COUNTS)
+    for key, b in (("multihead", PYTHIA2_B), ("pythia_visual_genome", VG_B)):
+        t0 = time.perf_counter()
+        path, dataset, model_name = flagship.PYTHIA2[key]
+        trainer, recorder, launches, run_s = _cli_run(
+            os.path.join(root, f"save_{key}"), path, model_name, dataset, u,
+            _features_opts(root, dataset) + _evaluated(u)
+            + flagship.PYTHIA2_OVERRIDES[key] + [*LOADER_IN_PROCESS],
+            batch_size=b)
+        val = -(-CAPTION_SPLITS["val"] // b)
+        forwards = 2 * val + -(-CAPTION_SPLITS["test"] // b)
+        att = MULTIHEAD_ATTENTION if key == "multihead" else 0
+        want = dict(ZERO_COUNTS, flash_attention_fwd=att * forwards,
+                    flash_attention_fwd_stats=att * u,
+                    flash_attention_bwd_dq=att * u,
+                    flash_attention_bwd_dkv=att * u)
+        check(launches == want, f"{key} launches {launches}, want {want}")
+        for k in total:
+            total[k] += launches[k]
+        model = trainer.model
+        if key == "multihead":
+            emb = model.image_feature_embeddings_0_0
+            check((model.text_dim, emb.num_heads, emb.q_proj.weight.shape[0])
+                  == (2048, 8, 2048), "multihead widths")
+        loss_key = f"train/{dataset}/logit_bce"
+        rel, got = _steps_again(trainer, recorder, flagship.pythia2_model,
+                                flagship.caption_trainer, [loss_key])
+        acc = recorder.val_meters[0].meters[
+            f"val/{dataset}/vqa_accuracy"].global_avg
+        save_dir = trainer.config["env"]["save_dir"]
+        rows = {split: len(json.load(open(f))) for split in ("val", "test")
+                for f in glob.glob(os.path.join(
+                    save_dir, "reports", f"{dataset}_*_{split}_*.json"))}
+        check(rows == {"val": CAPTION_SPLITS["val"],
+                       "test": CAPTION_SPLITS["test"]},
+              f"{key} report rows {rows}")
+        trainer.teardown()
+        batch = recorder.batches[0]
+        line = (f"  {key}: mmf_run of {path}, B={b}: {u} updates, {loss_key} "
+                f"{[round(x, 6) for x in got[loss_key]]} equal to the train "
+                f"step's on the same batches (max rel {rel:.3g}); launches "
+                f"{launches} (exact: {att} K1-stats, K2 and K3 an update, "
+                f"{att} K1 an evaluation forward); val vqa_accuracy "
+                f"{acc:.4f}, report rows {rows}; run {run_s:.1f}s")
+        if key == "multihead":
+            cfg = trainer.config
+            step_model = flagship.pythia2_model(cfg)
+            step_model.load_state_dict(recorder.initial, strict=True)
+            state, step = flagship.caption_trainer(step_model, cfg, seed=1)
+            box = [state]
+            torch.cuda.reset_peak_memory_stats()
+
+            def one_step():
+                box[0], rep = step(box[0], batch)
+                float(rep["total_loss"])
+
+            one_step()
+            t1 = time.perf_counter()
+            one_step()
+            step_wall_ms = 1e3 * (time.perf_counter() - t1)
+            step_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            dev_ms, by_category = _device_ms(one_step, 1)
+            del state, step, step_model, box
+            line += (f"; the step alone {step_wall_ms:.1f} ms wall, device "
+                     f"{dev_ms:.2f} ms (idle "
+                     f"{100 * max(0.0, 1 - dev_ms / step_wall_ms):.1f}%), "
+                     f"peak {step_peak_gb:.2f} GB, by kind (ms, launches): "
+                     + "; ".join(f"{c} {ms:.3f} x{n:.0f}" for c, (ms, n) in
+                                 sorted(by_category.items(),
+                                        key=lambda kv: -kv[1][0])))
+        fields = {k: v for k, v in batch.items()
+                  if k in ("text", "image_feature_0", "image_info_0")}
+        small = {k: (v[:8] if torch.is_tensor(v) else
+                     {kk: vv[:8] for kk, vv in v.items()})
+                 for k, v in fields.items()}
+        small.update(dataset_name=dataset, dataset_type="val")
+        cpu_rel, _, _ = _card_vs_cpu(model, small, "scores")
+        check(cpu_rel <= CARD_VS_CPU_RTOL, f"{key} card vs cpu {cpu_rel}")
+        _prune_checkpoints(save_dir)
+        engine = ServingEngine.from_checkpoint(save_dir,
+                                               max_batch_size=SERVE_B)
+        requests = [{k: ({kk: vv[i].cpu().numpy() for kk, vv in v.items()}
+                         if isinstance(v, dict) else v[i].cpu().numpy())
+                     for k, v in fields.items()} for i in range(SERVE_B)]
+        engine.predict_many(requests)
+        reset_counts()
+        t1 = time.perf_counter()
+        served = engine.predict_many(requests)
+        bucket_ms = 1e3 * (time.perf_counter() - t1)
+        per = read_counts()
+        check(per == dict(ZERO_COUNTS, flash_attention_fwd=att),
+              f"{key} served launches {per}")
+        for k in total:
+            total[k] += per[k]
+        with torch.no_grad():
+            model.eval()
+            want_s = model({k: (v[:SERVE_B] if torch.is_tensor(v) else
+                                {kk: vv[:SERVE_B] for kk, vv in v.items()})
+                            for k, v in fields.items()})["scores"].float(
+                                ).cpu().numpy()
+        got_s = np.stack([o["scores"] for o in served])
+        served_rel = float(np.abs(got_s - want_s).max()
+                           / np.abs(want_s).max())
+        check(served_rel <= CARD_VS_CPU_RTOL, f"{key} served {served_rel}")
+        line += (f"; card vs CPU on 8 questions rel {cpu_rel:.2e} (bound "
+                 f"{CARD_VS_CPU_RTOL}); served from the run's folder at "
+                 f"bucket {SERVE_B}: {bucket_ms:.1f} ms, launches {per} "
+                 f"(exact a forward), rel {served_rel:.2e} against the "
+                 f"in-memory model; {time.perf_counter() - t0:.1f}s")
+        lines.append(line)
+        del engine, model, trainer, recorder, batch
+        torch.cuda.empty_cache()
+    print(f"phase multihead-run: ok multihead (the 2048-wide question over "
+          "100 regions x 2048 through fc7, 8 heads of 256, combine 1000 "
+          "wide, 3129 answers, f32) and Pythia on Visual Genome (the same "
+          "questions under visual_genome's config tree) through mmf_run on "
+          f"the caption layout on '{card}':")
+    for line in lines:
+        print(line)
+    return total
+
+
 def phase_ln_bwd_shapes(card, record):
     """K4-bwd at every (rows, hidden, dtype, residual) the main paths'
     optimizer steps ran it at (``LnBwdRecord``), each checked and timed
@@ -7028,9 +7588,12 @@ def main():
     try:
         hm.append(timed(phase_butd_run, card, caption_root))
         hm.append(timed(phase_pythia_run, card, caption_root))
+        hm.append(timed(phase_multihead_run, card, caption_root))
     finally:
         shutil.rmtree(caption_root, ignore_errors=True)
     hm.append(timed(phase_m4c_coco_joint, card))
+    pythia2_att = timed(phase_pythia2_kernels, card)
+    hm.append(timed(phase_mmf_bert_run, card))
     LN_BWD_RECORD.stop()
     results["layer_norm_bwd"]["recorded_shapes"] = timed(
         phase_ln_bwd_shapes, card, LN_BWD_RECORD)
@@ -7108,6 +7671,20 @@ def main():
                     "fma_bound_ms": r["fma_bound_ms"][kid],
                     "library_ms": r["library_ms"][lib]}
             for label, r in vl3_att.items()}
+    # and in f32 at mmf_bert's (D = 96) and multihead's (D = 256)
+    for name, kid in short.items():
+        lib = "K2+K3" if kid in ("K2", "K3") else kid
+        results[name]["pythia2_shapes"] = {
+            label: {"shape": r["shape"], "dtype": "float32",
+                    "max_abs_err": r["max_abs_err"][kid],
+                    "ms": r["ms"][kid], "host_us": r["host_us"][kid],
+                    "plain_ms": r["plain_ms"][lib],
+                    "bound_ms": r["bound_ms"][kid],
+                    "bound_by": r["bound_by"][kid],
+                    "fma_bound_ms": r["fma_bound_ms"][kid],
+                    "library_ms": r["library_ms"][lib],
+                    "library_backend": r["sdpa_backend"]}
+            for label, r in pythia2_att.items()}
     results["flash_attention_fwd_raw"]["vl3_shapes"] = {
         label: dict(r, shape=vl3_att[label]["shape"], dtype="float32")
         for label, r in vl3_raw.items()}
@@ -7147,8 +7724,10 @@ def main():
             # of the M4C family's (the captioner's compared steps
             # included), the served M4C checkpoints, and UNITER's,
             # LXMERT's and VinVL's mmf_run, compared steps and mmf_serve,
-            # and the joint TextCaps + COCO captioner's run and compared
-            # step (BUTD and Pythia run none)
+            # the joint TextCaps + COCO captioner's run and compared
+            # step (BUTD and Pythia run none), multihead's mmf_run and
+            # served bucket, and mmf_bert's mmf_runs, served bucket and
+            # compared steps
             "launches": (served[name] + trained[name] + mmbt[name]
                          + vb_int8[name] + pretrained[name]
                          + served_ckpt[name] + mmf_run[name]
@@ -7167,7 +7746,7 @@ def main():
                                  "mmft_shape", "hateful_memes_shapes",
                                  "m4c_shapes", "m4c_served_decode",
                                  "vilt_form", "vl3_shapes", "vl3_forms",
-                                 "recorded_shapes")
+                                 "pythia2_shapes", "recorded_shapes")
                if k in r},
         })
     print("phase-seconds, all: " + ", ".join(

@@ -1,5 +1,5 @@
-"""The Pythia family: ``pythia``, ``pythia_question_only`` and
-``pythia_image_only``.
+"""The Pythia family: ``pythia``, ``pythia_question_only``,
+``pythia_image_only`` and ``multihead``.
 
 Port of ``mmf_tpu/models/pythia.py``. A word table (300 wide) feeds the
 configured text embeddings (Pythia's VQA2 config: an LSTM with
@@ -35,6 +35,7 @@ from mmf_tpu_torch.common.registry import registry
 from mmf_tpu_torch.models.base_model import BaseModel
 from mmf_tpu_torch.modules.embeddings import (
     ImageFeatureEmbedding,
+    MultiHeadImageFeatureEmbedding,
     TextEmbedding,
 )
 from mmf_tpu_torch.modules.encoders import build_image_encoder
@@ -134,15 +135,20 @@ class Pythia(BaseModel):
             self.encoder_names.append(name)
             for j, fe_cfg in enumerate(
                     self.config["image_feature_embeddings"]):
-                emb = ImageFeatureEmbedding(
-                    encoder.out_dim, text_dim, fe_cfg["modal_combine"],
-                    fe_cfg["transform"],
-                    fe_cfg.get("normalization", "softmax"))
+                emb, out_dim = self._feature_embedding(
+                    encoder.out_dim, text_dim, fe_cfg)
                 self.add_module(f"image_feature_embeddings_{i}_{j}", emb)
-                out = (fe_cfg["transform"].get("params", {}) or {}).get(
-                    "out_dim", 1)
-                width += encoder.out_dim * out
+                width += out_dim
         return width
+
+    def _feature_embedding(self, image_dim: int, text_dim: int, fe_cfg):
+        """One image-feature embedding and the width it gives: Pythia's
+        top-down pooling, ``out_dim`` maps of the regions."""
+        emb = ImageFeatureEmbedding(
+            image_dim, text_dim, fe_cfg["modal_combine"],
+            fe_cfg["transform"], fe_cfg.get("normalization", "softmax"))
+        out = (fe_cfg["transform"].get("params", {}) or {}).get("out_dim", 1)
+        return emb, image_dim * out
 
     def _text_total(self, sample_list):
         words = self.word_embedding(sample_list["text"].long())
@@ -208,3 +214,16 @@ class PythiaImageOnly(Pythia):
         joint = self.image_text_multi_modal_combine_layer(
             image_total, image_total, branch="image")
         return {"scores": self.classifier(joint)}
+
+
+@registry.register_model("multihead")
+class PythiaMultiHead(Pythia):
+    """Pythia with multi-head attention from the question to the regions
+    (``mmf_tpu/models/pythia.py:186``): each image-feature embedding is a
+    ``MultiHeadImageFeatureEmbedding`` of the config's ``num_heads``
+    (8), as wide as the text embedding."""
+
+    def _feature_embedding(self, image_dim: int, text_dim: int, fe_cfg):
+        return MultiHeadImageFeatureEmbedding(
+            image_dim, text_dim, num_heads=fe_cfg.get("num_heads", 8)), \
+            text_dim

@@ -3,14 +3,17 @@
 
 ``TextEmbedding`` dispatches on the config's type: ``identity``,
 ``vocab`` (``VocabEmbedding``, a trainable table; JAX does not load
-pretrained vectors into it either), ``torch`` (a bare table) and
+pretrained vectors into it either), ``torch`` (a bare table),
 ``attention`` (``AttentionTextEmbedding``, Pythia's LSTM with
-convolutional attention over the words). The other types
-(``projection``, ``bilstm``, ``mcan``, ``preextracted``) raise, naming
-the module they wait for. ``ImageFeatureEmbedding`` is Pythia's
-question-guided pooling of the regions. Module names mirror the flax
-scopes (``module`` at each level, ``lstm_0_fwd``, ``conv1``), so
-``params_from_jax`` maps the weights mechanically.
+convolutional attention over the words) and ``projection``
+(``ProjectionEmbedding``, a ``linear`` layer or a stack of ``conv``
+layers). The other types (``bilstm``, ``mcan``, ``preextracted``) raise,
+naming the module they wait for. ``ImageFeatureEmbedding`` is Pythia's
+question-guided pooling of the regions, ``MultiHeadImageFeatureEmbedding``
+the ``multihead`` model's multi-head attention from the question to the
+regions. Module names mirror the flax scopes (``module`` at each level,
+``lstm_0_fwd``, ``conv1``), so ``params_from_jax`` maps the weights
+mechanically.
 """
 
 from __future__ import annotations
@@ -27,7 +30,6 @@ from torch import nn
 from mmf_tpu_torch.modules.transformer import Dense, Dropout, Embed
 
 _NOT_PORTED = {
-    "projection": "ProjectionEmbedding",
     "bilstm": "BiLSTMTextEmbedding",
     "mcan": "SAEmbedding",
     "preextracted": "PreExtractedEmbedding",
@@ -71,6 +73,10 @@ class TextEmbedding(nn.Module):
                 p.get("dropout", 0.0), p.get("conv1_out", 512),
                 p.get("conv2_out", 2), p.get("kernel_size", 1),
                 p.get("padding", 0), p.get("bidirectional", False))
+        elif emb_type == "projection":
+            self.module = ProjectionEmbedding(
+                p.get("module", "linear"), p.get("in_dim"), p.get("out_dim"),
+                p.get("convs"))
         elif emb_type in _NOT_PORTED:
             raise NotImplementedError(
                 f"text embedding {emb_type!r} needs "
@@ -83,6 +89,8 @@ class TextEmbedding(nn.Module):
     def out_dim(self):
         if self.emb_type == "attention":
             return self.module.text_out_dim
+        if self.emb_type == "projection":
+            return self.module.out_dim
         return getattr(self.module, "embedding_dim", None)
 
     def forward(self, x, *args, **kwargs):
@@ -110,6 +118,43 @@ class Conv1d(nn.Module):
             return F.linear(x, self.weight[0].t(), self.bias)
         return F.conv1d(x.transpose(1, 2), self.weight.permute(2, 1, 0),
                         self.bias, padding=self.padding).transpose(1, 2)
+
+
+class ProjectionEmbedding(nn.Module):
+    """A ``linear`` layer (``layers``) from ``in_dim`` to ``out_dim``, or
+    a stack of ``conv`` layers (``conv_<i>``, flax ``nn.Conv`` over the
+    axis between batch and channels: ``out_channels`` and
+    ``kernel_size`` from each of ``convs``, padded as flax's default
+    ``SAME``, no activation between them; each takes the width the one
+    before gives, the first ``in_dim``)."""
+
+    def __init__(self, module: str, in_dim: int, out_dim: int,
+                 convs: Optional[Any] = None):
+        super().__init__()
+        self.kind = module
+        if module == "linear":
+            self.layers = Dense(in_dim, out_dim)
+            self.out_dim = out_dim
+        elif module == "conv":
+            self.n_convs = len(convs or [])
+            width = in_dim
+            for i, conv in enumerate(convs or []):
+                self.add_module(f"conv_{i}", Conv1d(
+                    width, conv["out_channels"], conv.get("kernel_size", 1)))
+                width = conv["out_channels"]
+            self.out_dim = width
+        else:
+            raise TypeError("Unknown module type for 'ProjectionEmbedding', "
+                            "use 'linear' or 'conv'")
+
+    def forward(self, x):
+        if self.kind == "linear":
+            return self.layers(x)
+        for i in range(self.n_convs):
+            conv = getattr(self, f"conv_{i}")
+            width = conv.weight.shape[0]  # SAME: (w - 1) // 2 before
+            x = conv(F.pad(x, (0, 0, (width - 1) // 2, width // 2)))
+        return x
 
 
 class AttentionTextEmbedding(nn.Module):
@@ -232,3 +277,38 @@ class ImageFinetune(nn.Module):
 
     def forward(self, image):
         return F.relu(self.lc(image))
+
+
+class MultiHeadImageFeatureEmbedding(nn.Module):
+    """The ``multihead`` model's attention from the question to the
+    regions (``mmf_tpu/modules/embeddings.py:259``): ``q_proj`` of the
+    question [B, question_dim] as one query row, ``k_proj`` and ``v_proj``
+    of the regions [B, K, img_dim], ``num_heads`` heads of
+    ``question_dim / num_heads`` (256 at Pythia's 2048-wide question and 8
+    heads), no mask (``image_dims`` is unread, as in JAX), ``out_proj``.
+    The attention is ``dot_product_attention``: the kernels on the card.
+    Returns (the [B, question_dim] output, None)."""
+
+    def __init__(self, img_dim: int, question_dim: int, num_heads: int = 8):
+        super().__init__()
+        self.num_heads = num_heads
+        self.out_dim = question_dim
+        self.q_proj = Dense(question_dim, question_dim)
+        self.k_proj = Dense(img_dim, question_dim)
+        self.v_proj = Dense(img_dim, question_dim)
+        self.out_proj = Dense(question_dim, question_dim)
+
+    def forward(self, image_feat, question_embedding, image_dims=None,
+                extra: Optional[Dict[str, Any]] = None):
+        from mmf_tpu_torch.ops.attention import dot_product_attention
+
+        b, h = image_feat.shape[0], self.num_heads
+
+        def split(t):
+            return t.reshape(b, t.shape[1], h, -1).transpose(1, 2)
+
+        ctx = dot_product_attention(
+            split(self.q_proj(question_embedding[:, None, :])),
+            split(self.k_proj(image_feat)), split(self.v_proj(image_feat)))
+        out = self.out_proj(ctx.transpose(1, 2).reshape(b, 1, -1))
+        return out[:, 0], None

@@ -9,8 +9,8 @@ pooled output). ``build_image_encoder`` and ``build_text_encoder`` keep
 the JAX factories' config contract (``embedding`` is the text factory's
 alias of ``text_embedding``); with ``direct_features`` the image factory
 builds ``identity`` (``default``) and ``finetune_faster_rcnn_fpn_fc7``
-(``ImageFinetune`` over region features); ``projection`` raises
-``NotImplementedError`` naming the module that is not ported.
+(``ImageFinetune`` over region features) and ``projection``
+(``ProjectionEmbedding``, ``module`` defaulting to ``linear``).
 Pretrained ImageNet weights are not loaded (``pretrained`` is accepted
 and ignored, as in the JAX package): ``BaseModel.init_weights`` fills the
 ResNet from a seed.
@@ -213,11 +213,10 @@ def build_image_encoder(config, direct_features: bool = False):
         if etype == "finetune_faster_rcnn_fpn_fc7":
             return _construct(FinetuneFasterRcnnFpnFc7, params)
         if etype == "projection":
-            raise NotImplementedError(
-                "image feature encoder 'projection' needs "
-                "ProjectionEmbedding, which is not ported yet; use type "
-                "identity"
-            )
+            from mmf_tpu_torch.modules.embeddings import ProjectionEmbedding
+
+            params.setdefault("module", "linear")
+            return _construct(ProjectionEmbedding, params)
         raise NotImplementedError(f"Unknown Image Feature Encoder: {etype}")
     cls = registry.get_encoder_class(etype)
     if cls is None:

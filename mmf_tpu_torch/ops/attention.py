@@ -15,10 +15,14 @@ additive and broadcastable to [B, H, Sq, Skv].
 - ``flash_attention_bwd_dq`` / ``flash_attention_bwd_dkv``: wrappers of
   ``ops/csrc/flash_attention_bwd.cu``, which replaces
   ``_flash_bwd_dq_kernel`` (K2) and ``_flash_bwd_dkv_kernel`` (K3).
-  ``delta = rowsum(dO O)`` is folded into K2's prologue, which writes it
-  for K3.
+  ``delta = rowsum(dO O)`` is folded into K2, which writes it for K3
+  (bf16: from dO and O in its prologue; f32: summed as rowsum(p dp) over
+  a first pass of the kv tiles, from the p and dp that form ds).
 - ``FlashAttentionFunction``: the autograd Function over them, the
-  counterpart of JAX's ``_flash_attention`` custom_vjp.
+  counterpart of JAX's ``_flash_attention`` custom_vjp; in f32 it hands
+  K2 and K3 v and the output centred on v's mean row
+  (``centered_values``: ds is unchanged, the products' rounding falls on
+  the rows' spread).
   The kernel sources say what bounds them on the H100 and how their
   design answers that. Every kernel wrapper takes CUDA tensors only: it
   launches or raises, and counts its launches.
@@ -41,7 +45,9 @@ additive and broadcastable to [B, H, Sq, Skv].
   version on either device, as in JAX. A head dim that is not a
   multiple of 8 is zero-padded to one for the kernels (exact: the padded
   q and k columns add nothing to the scores, the padded output columns
-  are cut off); head dims above 128 raise on the card. No
+  are cut off); f32 runs head dims up to 256 (above 128 the wide FMA
+  kernels: inference and stats forms, K2 and K3), bf16 and the raw-stats
+  form up to 128; larger ones raise on the card. No
   sequence-length crossover: the TPU's ``PALLAS_MIN_SEQ`` numbers do not
   carry over.
 """
@@ -171,8 +177,8 @@ def flash_backward_reference(q, k, v, bias, out, m, l, dout, scale=None):
     """Plain version of the backward kernels: ``(dq, dk, dv)`` in the
     input dtypes from the forward's ``out``, ``m`` and ``l``, by the
     formulas of the kernels in f32: p = exp(s - m) / l, delta =
-    rowsum(dO O), ds = p (dO v^T - delta), dq = scale ds k, dk = scale
-    ds^T q, dv = p^T dO."""
+    rowsum(dO O) (the f32 K2 sums the same value as rowsum(p dp)), ds =
+    p (dO v^T - delta), dq = scale ds k, dk = scale ds^T q, dv = p^T dO."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     p = torch.exp(_scores(q, k, bias, scale) - m[..., None]) / l[..., None]
@@ -277,17 +283,28 @@ def _check_qkv(what: str, q, k, v):
             f"shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, "
             f"v {tuple(v.shape)}"
         )
-    if d % 8 != 0 or d > 128:
-        raise ValueError(f"head dim {d} must be a multiple of 8 up to 128")
+    if d % 8 != 0 or d > MAX_HEAD_DIM:
+        raise ValueError(
+            f"head dim {d} must be a multiple of 8 up to {MAX_HEAD_DIM}")
+    if d > MAX_BF16_HEAD_DIM and q.dtype != torch.float32:
+        raise ValueError(
+            f"{what}: head dim {d} in {q.dtype}: the bf16 kernels take head "
+            f"dims up to {MAX_BF16_HEAD_DIM} (bf16 above it is ROADMAP "
+            "A.9's open item; f32 runs up to 256)")
     return b, h, sq, skv, d
+
+
+# the kernels' head dims: f32 up to 256 (above 128 the wide FMA kernels of
+# ops/csrc/flash_attention_f32_wide.cuh), bf16 up to 128
+MAX_HEAD_DIM, MAX_BF16_HEAD_DIM = 256, 128
 
 
 def padded_head_dim(d: int) -> int:
     """The head dim the kernels run a head dim ``d`` at: ``d`` rounded up
-    to a multiple of 8. The kernels take up to 128."""
-    if not 0 < d <= 128:
-        raise ValueError(f"the attention kernels take head dims 1 to 128, "
-                         f"got {d}")
+    to a multiple of 8. The kernels take up to 256 (bf16 up to 128)."""
+    if not 0 < d <= MAX_HEAD_DIM:
+        raise ValueError(f"the attention kernels take head dims 1 to "
+                         f"{MAX_HEAD_DIM}, got {d}")
     return -(-d // 8) * 8
 
 
@@ -397,8 +414,8 @@ def flash_attention(
 ) -> torch.Tensor:
     """Flash-attention forward on the card, inference form (no stats).
     q: [B,H,Sq,D], k/v: [B,H,Skv,D], all float32 or all bfloat16, D a
-    multiple of 8 up to 128, last dim contiguous (other strides are
-    free). bias: any float dtype, broadcastable to [B,H,Sq,Skv]; it is
+    multiple of 8 up to 256 in f32, 128 in bf16, last dim contiguous
+    (other strides are free). bias: any float dtype, broadcastable to [B,H,Sq,Skv]; it is
     read in f32 with stride 0 on broadcast dims. Returns [B,H,Sq,D] in
     q's dtype, laid out as [B,Sq,H,D] in memory."""
     out, _, _, launched = _flash_forward(q, k, v, bias, scale,
@@ -430,6 +447,10 @@ def flash_attention_block(q, k, v, bias=None, scale=None):
     (contiguous), m and l f32 [B,H,Sq]. Arguments as ``flash_attention``.
     Merge the states of several kv blocks with ``merge_block_states``."""
     b, h, sq, skv, d = _check_qkv("flash_attention_block", q, k, v)
+    if d > MAX_BF16_HEAD_DIM:
+        raise ValueError(
+            f"flash_attention_block: head dim {d}: the raw-stats form takes "
+            f"head dims up to {MAX_BF16_HEAD_DIM} (ring attention only)")
     q, k, v = (_kernel_operand(t) for t in (q, k, v))
     if scale is None:
         scale = d ** -0.5
@@ -483,8 +504,9 @@ def flash_attention_bwd_dq(q, k, v, bias, out, m, l, dout, scale=None):
     """K2 on the card: ``(dq, delta)``. ``out``, ``m``, ``l`` come from
     ``flash_attention_with_stats``; ``dout`` is the gradient of ``out``.
     The kernel also writes ``delta = rowsum(dout * out)``, f32 [B,H,Sq],
-    which ``flash_attention_bwd_dkv`` reads. dq is [B,H,Sq,D] in q's
-    dtype, laid out as [B,Sq,H,D]."""
+    which ``flash_attention_bwd_dkv`` reads (in f32 summed as rowsum(p
+    dp), the same value, and ``out`` is not read). dq is [B,H,Sq,D] in
+    q's dtype, laid out as [B,Sq,H,D]."""
     b, h, sq, skv, d = _check_backward_args(
         "flash_attention_bwd_dq", q, k, v, {"m": m, "l": l},
         {"out": out, "dout": dout})
@@ -572,11 +594,31 @@ class FlashAttentionFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, bias, out, m, l = ctx.saved_tensors
-        dq, delta = flash_attention_bwd_dq(q, k, v, bias, out, m, l, dout,
-                                           ctx.scale)
-        dk, dv = flash_attention_bwd_dkv(q, k, v, bias, dout, m, l, delta,
+        v_dp, out_dp = centered_values(v, out)
+        dq, delta = flash_attention_bwd_dq(q, k, v_dp, bias, out_dp, m, l,
+                                           dout, ctx.scale)
+        dk, dv = flash_attention_bwd_dkv(q, k, v_dp, bias, dout, m, l, delta,
                                          ctx.scale)
         return dq, dk, dv, None, None
+
+
+def centered_values(v, out):
+    """(v, out) as the f32 backward kernels take them: one vector, the
+    mean of v's rows over the keys, taken off every row of both. K2 and
+    K3 read v and out only in ds = p (dO v^T - delta), delta = rowsum(dO
+    out), which that shift leaves as it is (the rows of p sum to 1), and
+    dv = p^T dO does not read v. Where the values are nearly alike (an
+    attention over another attention's output: mmf_bert's cross-attention
+    reads keys and values whose rows differ by ~1% at its init), dO v^T
+    and delta are nearly equal, and the tensor cores' rounding of dO v^T,
+    relative to its operands (split-TF32, sums truncated toward zero),
+    swamps their difference; shifted, the products see only the rows'
+    spread. bf16 (its probabilities rounded to bf16 anyway) and Skv = 0
+    pass through as they are."""
+    if v.dtype != torch.float32 or v.shape[-2] == 0:
+        return v, out
+    center = v.mean(dim=-2, keepdim=True)
+    return v - center, out - center
 
 
 def dot_product_attention(

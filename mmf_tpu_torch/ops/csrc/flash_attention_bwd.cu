@@ -13,9 +13,21 @@
 // Accumulation is f32; outputs are written in the input dtype. The bias is
 // a mask: it gets no gradient (the JAX backward returns zeros for it).
 //
-// delta is folded into K2's prologue: each K2 item reads its q rows of dO
-// and O once, keeps delta in shared memory and writes it to a float32
-// [B, H, Sq] buffer that K3, launched after K2 on the same stream, reads.
+// delta is folded into K2 and written to a float32 [B, H, Sq] buffer that
+// K3, launched after K2 on the same stream, reads. bf16: each K2 item
+// reads its q rows of dO and O once in its prologue. f32: K2 walks the
+// kv tiles twice, the first pass summing delta = rowsum(p dp) from the
+// very p and dp the second forms ds from, so that each row of ds sums to
+// 0 but for the sums' rounding. From dO O (another rounding of the same
+// value), a row of ds sums to that difference, and dq and dk carry it
+// along the keys' common part: where keys and values are nearly alike
+// (mmf_bert's cross-attention over another attention's output) it
+// swamps the gradients of q and k (a tenth of the query and key
+// projections' gradient norm on an H100, in chip_smoke.py's compared
+// steps, where the plain versions agree with float64). The
+// autograd Function also hands K2 and K3 v and O less v's mean row
+// (ops/attention.py::centered_values), which leaves ds as it is and keeps
+// dp, and so the rounding left in delta, small.
 //
 // What bounds them on the H100: K2 does 3 and K3 4 products of ~2 S S D
 // FLOPs per (b, h) against ~6 S D elements read, a few hundred FLOPs a
@@ -78,13 +90,14 @@
 #include <limits.h>
 #include <math.h>
 
+#include "flash_attention_f32_wide.cuh"
 #include "flash_attention_tf32.cuh"
 
 namespace {
 
 using namespace mmf_flash_tf32;
 
-constexpr int MAX_D = 128;
+constexpr int MAX_D = 128;  // bf16; f32 takes up to mmf_flash_wide::W_MAX_D
 
 struct Strides {
   // (batch, head, seq) element strides; the head dim is contiguous
@@ -150,6 +163,28 @@ __device__ __forceinline__ void dq_tile_ds(
     const float p =
         exp2f((fmaf(sc[e], scale, bias) - mr[i]) * LOG2E) * lir[i];
     sc[e] = (kv0 + c < Skv ? p : 0.f) * (dp[e] - dr[i]);
+  }
+}
+
+// K2's first pass in f32: this lane's share of delta = rowsum(p dp) for
+// its rows `i`, with p formed exactly as dq_tile_ds forms it, so that ds
+// sums to 0 over a row's keys but for the sums' rounding (delta taken from
+// dO O instead, the gradients of q and k carry the difference, which
+// swamps them where the keys are nearly alike).
+template <bool ELEM_BIAS>
+__device__ __forceinline__ void dq_tile_p_dp(
+    const float (&sc)[32], const float (&dp)[32], const float* bias_row,
+    const float* const (&brow)[2], int kv0, int Skv, float scale,
+    const float (&mr)[2], const float (&lir)[2], float (&dsum)[2]) {
+  const int t4 = threadIdx.x & 3;
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    const int i = (e >> 1) & 1, c = 8 * (e >> 2) + 2 * t4 + (e & 1);
+    const float bias =
+        ELEM_BIAS ? brow[i][min(kv0 + c, Skv - 1)] : bias_row[c];
+    const float p =
+        exp2f((fmaf(sc[e], scale, bias) - mr[i]) * LOG2E) * lir[i];
+    dsum[i] = fmaf(kv0 + c < Skv ? p : 0.f, dp[e], dsum[i]);
   }
 }
 
@@ -510,7 +545,9 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 
 // K2 in f32: replaces _flash_bwd_dq_kernel (mmf_tpu/ops/attention.py) in
 // float32. One block per (b, h, 64 q rows); q and dO own, k and v through
-// the ring with the tile's padding-mask row.
+// the ring with the tile's padding-mask row, twice: delta = rowsum(p dp)
+// over the first pass (the file's head says why), ds and dq over the
+// second (5 products a tile in all, 3 before).
 template <int NB, int MIN_BLOCKS>
 __global__ void __launch_bounds__(F_THREADS, MIN_BLOCKS)
     bwd_dq_tf32x3_kernel(const __grid_constant__ Maps maps, const Args a) {
@@ -547,65 +584,22 @@ __global__ void __launch_bounds__(F_THREADS, MIN_BLOCKS)
                    fill(64 * t));
 
   const long long so = ((long long)b * a.H + h) * a.Sq;
-  {
-    // delta = rowsum(dO * O), 8 threads a row, 16-byte loads, with m and
-    // 1 / l, for the block's rows
-    const float* ob =
-        static_cast<const float*>(a.o) + b * st.o[0] + h * st.o[1];
-    const float* dob =
-        static_cast<const float*>(a.dout) + b * st.dout[0] + h * st.dout[1];
-    const int part = tid & 7;
-    float acc[4], mv[4], lv[4];
-#pragma unroll
-    for (int pass = 0; pass < 4; ++pass) {
-      const int s = q0 + 16 * pass + (tid >> 3);
-      const bool in = s < a.Sq;
-      acc[pass] = 0.f;
-      mv[pass] = 0.f;
-      lv[pass] = 1.f;
-      if (in && part == 0) {
-        mv[pass] = a.m[so + s];
-        lv[pass] = a.l[so + s];
-      }
-#pragma unroll
-      for (int c = 0; c < 2 * NB; ++c) {
-        const int c4 = 4 * part + 32 * c;
-        if (!in || c4 >= a.D) continue;
-        const float4 x =
-            *reinterpret_cast<const float4*>(dob + s * st.dout[2] + c4);
-        const float4 y =
-            *reinterpret_cast<const float4*>(ob + s * st.o[2] + c4);
-        acc[pass] = fmaf(x.x, y.x, acc[pass]);
-        acc[pass] = fmaf(x.y, y.y, acc[pass]);
-        acc[pass] = fmaf(x.z, y.z, acc[pass]);
-        acc[pass] = fmaf(x.w, y.w, acc[pass]);
-      }
-    }
-#pragma unroll
-    for (int pass = 0; pass < 4; ++pass) {
-      const int r = 16 * pass + (tid >> 3), s = q0 + r;
-      const bool in = s < a.Sq;
-      const float d = sum_xor(acc[pass], 8);
-      if (part == 0) {
-        dl_s[r] = in ? d : 0.f;
-        m_s[r] = mv[pass];
-        li_s[r] = 1.f / lv[pass];
-        if (in) a.delta[so + s] = d;
-      }
-    }
-    __syncthreads();
+  if (tid < ROWS) {  // m and 1 / l of the block's rows
+    const bool in = q0 + tid < a.Sq;
+    m_s[tid] = in ? a.m[so + q0 + tid] : 0.f;
+    li_s[tid] = in ? 1.f / a.l[so + q0 + tid] : 1.f;
   }
+  __syncthreads();
   // warp w owns q rows q0 + 16 w + g and + 8
   const int r0 = 16 * (tid >> 5) + g;
   const int qrow[2] = {q0 + r0, q0 + r0 + 8};
   const bool elem_bias = bias_bh != nullptr && !row_bias;
-  float mr[2], lir[2], dr[2];
+  float mr[2], lir[2], dr[2] = {0.f, 0.f};
   const float* brow[2];  // rows of a per-element bias (clamped to Sq)
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     mr[i] = m_s[r0 + 8 * i];
     lir[i] = li_s[r0 + 8 * i];
-    dr[i] = dl_s[r0 + 8 * i];
     brow[i] = elem_bias ? bias_bh + min(qrow[i], a.Sq - 1) * st.bias[2]
                         : nullptr;
   }
@@ -621,17 +615,37 @@ __global__ void __launch_bounds__(F_THREADS, MIN_BLOCKS)
   const float* do_t =
       reinterpret_cast<const float*>(base + Lay::TILE) + 512 * (tid >> 5);
 
-  for (int t = 0; t < n_tiles; ++t) {
-    const int kv0 = 64 * t, ahead = 64 * (t + F_STAGES - 1);
-    next_stage<NB>(t, n_tiles, ring, full, &maps.k, &maps.v, h, b, boxes,
-                   fill(ahead));
-    const unsigned char* stg = ring + (t % F_STAGES) * Lay::STAGE;
+  // two passes over the kv tiles: the first sums delta = rowsum(p dp)
+  // (dq_tile_p_dp), the second forms ds and dq from it
+  float dsum[2] = {0.f, 0.f};
+  for (int u = 0; u < 2 * n_tiles; ++u) {
+    const int t = u % n_tiles, kv0 = 64 * t;
+    const int ahead = 64 * ((u + F_STAGES - 1) % n_tiles);
+    next_stage<NB>(u, 2 * n_tiles, ring, full, &maps.k, &maps.v, h, b,
+                   boxes, fill(ahead), n_tiles);
+    const unsigned char* stg = ring + (u % F_STAGES) * Lay::STAGE;
     const float* k_t = reinterpret_cast<const float*>(stg);
     const float* v_t = reinterpret_cast<const float*>(stg + Lay::TILE);
     const float* bias_row =
         reinterpret_cast<const float*>(stg + 2 * Lay::TILE);
     float sc[32], dp[32];
     score_products<NB, 2>(sc, dp, q_t, k_t, do_t, v_t, frag);
+    if (u < n_tiles) {
+      if (elem_bias)
+        dq_tile_p_dp<true>(sc, dp, bias_row, brow, kv0, a.Skv, a.scale, mr,
+                           lir, dsum);
+      else
+        dq_tile_p_dp<false>(sc, dp, bias_row, brow, kv0, a.Skv, a.scale, mr,
+                            lir, dsum);
+      if (u == n_tiles - 1) {  // the 4 lanes of a row hold its columns
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          dr[i] = sum_xor(dsum[i], 4);
+          if ((tid & 3) == 0 && qrow[i] < a.Sq) a.delta[so + qrow[i]] = dr[i];
+        }
+      }
+      continue;
+    }
     if (elem_bias)
       dq_tile_ds<true>(sc, dp, bias_row, brow, kv0, a.Skv, a.scale, mr,
                        lir, dr);
@@ -731,6 +745,339 @@ __global__ void __launch_bounds__(F_THREADS, MIN_BLOCKS)
   store_rows<NB, float>(dvb, st.dv[2], kvrow, a.Skv, a.D, v_mul, dv);
 }
 
+// ---------------------------------------------------------------------------
+// float32 at head dims 136-256: FP32 FMA code for few query rows
+// (flash_attention_f32_wide.cuh says why). K2: a block per (b, h, 16 q
+// rows), q and dO own, k and v through a 2-stage ring of 32-row tiles.
+// K3: a block per (b, h, 32 kv rows), k and v own, q and dO through a
+// 2-stage ring of 16-row tiles.
+// ---------------------------------------------------------------------------
+namespace wide = mmf_flash_wide;
+
+struct WideDqLayout {
+  int q, dout, ring, stage, ds, stats, bytes;  // float offsets; bytes
+  __host__ __device__ explicit WideDqLayout(int D) {
+    q = 0;
+    dout = wide::W_QR * D;
+    ring = 2 * wide::W_QR * D;
+    stage = 2 * wide::W_KT * D;  // k then v
+    ds = ring + 2 * stage;       // [32][W_PT] ds, transposed
+    stats = ds + wide::W_KT * wide::W_PT;  // m, 1 / l, delta of 16 rows
+    bytes = 4 * (stats + 3 * wide::W_QR);
+  }
+};
+
+struct WideDkvLayout {
+  int k, v, ring, stage, p, ds, bytes;  // float offsets; bytes
+  __host__ __device__ explicit WideDkvLayout(int D) {
+    k = 0;
+    v = wide::W_KT * D;
+    ring = 2 * wide::W_KT * D;
+    stage = 2 * wide::W_QR * D;  // q then dO
+    p = ring + 2 * stage;        // [16][32] p and ds
+    ds = p + wide::W_QR * wide::W_KT;
+    bytes = 4 * (ds + wide::W_QR * wide::W_KT);
+  }
+};
+
+__global__ void __launch_bounds__(wide::W_THREADS, 1)
+    bwd_dq_f32_wide_kernel(const Args a) {
+  using namespace mmf_flash_wide;
+  extern __shared__ float4 smem_f4[];
+  float* sm = reinterpret_cast<float*>(smem_f4);
+  const int D = a.D;
+  const WideDqLayout lay(D);
+  float* q_s = sm + lay.q;
+  float* do_s = sm + lay.dout;
+  float* ds_t = sm + lay.ds;
+  float* m_s = sm + lay.stats;
+  float* li_s = m_s + W_QR;
+  float* dl_s = li_s + W_QR;
+
+  const int q0 = blockIdx.x * W_QR, h = blockIdx.y, b = blockIdx.z;
+  const Strides& st = a.st;
+  const int nr = min(W_QR, a.Sq - q0);
+  const int n_tiles = (a.Skv + W_KT - 1) / W_KT;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const float* kb =
+      static_cast<const float*>(a.k) + b * st.k[0] + h * st.k[1];
+  const float* vb =
+      static_cast<const float*>(a.v) + b * st.v[0] + h * st.v[1];
+  const float* bias_bh =
+      a.bias == nullptr ? nullptr : a.bias + b * st.bias[0] + h * st.bias[1];
+  const long long so = ((long long)b * a.H + h) * a.Sq;
+
+  // ring tile u (slot u & 1) holds kv tile u % n_tiles: two passes
+  auto load_tile = [&](int u) {
+    float* stg = sm + lay.ring + (u & 1) * lay.stage;
+    const int t = u % n_tiles;
+    load_rows(stg, kb, st.k[2], W_KT * t, W_KT, a.Skv, D);
+    load_rows(stg + W_KT * D, vb, st.v[2], W_KT * t, W_KT, a.Skv, D);
+  };
+  load_rows(q_s, static_cast<const float*>(a.q) + b * st.q[0] + h * st.q[1],
+            st.q[2], q0, W_QR, a.Sq, D);
+  load_rows(do_s,
+            static_cast<const float*>(a.dout) + b * st.dout[0] +
+                h * st.dout[1],
+            st.dout[2], q0, W_QR, a.Sq, D);
+  load_tile(0);
+  cp_async_commit();
+  load_tile(1);  // two passes: at least two ring tiles
+  cp_async_commit();
+
+  if (tid < W_QR) {  // m and 1 / l of the block's rows
+    m_s[tid] = tid < nr ? a.m[so + q0 + tid] : 0.f;
+    li_s[tid] = tid < nr ? 1.f / a.l[so + q0 + tid] : 0.f;
+  }
+  // this thread's share of delta = rowsum(p dp) (the first pass; lanes 0-3
+  // of each warp, their kv rows), summed over the warps in dl_s
+  float dsum[W_QR];
+#pragma unroll
+  for (int r = 0; r < W_QR; ++r) dsum[r] = 0.f;
+  float* part_s = ds_t;  // [8 warps][16 rows] before the second pass
+
+  float dq[W_QR];
+#pragma unroll
+  for (int r = 0; r < W_QR; ++r) dq[r] = 0.f;
+  // two passes over the kv tiles: the first sums delta = rowsum(p dp), with
+  // p and dp as the second forms ds from them (the TF32 K2 says why), the
+  // second forms ds and dq
+  for (int u = 0; u < 2 * n_tiles; ++u) {
+    const int t = u % n_tiles, kv0 = W_KT * t;
+    const float* k_t = sm + lay.ring + (u & 1) * lay.stage;
+    const float* v_t = k_t + W_KT * D;
+    cp_async_wait_one();
+    __syncthreads();
+    if (u == n_tiles) {  // delta: the warps' partial sums, in warp order
+      // lanes 0-3 hold the warp's four kv rows (the others zeros)
+#pragma unroll
+      for (int r = 0; r < W_QR; ++r) dsum[r] = sum_xor(dsum[r], 4);
+      if (lane == 0)
+#pragma unroll
+        for (int r = 0; r < W_QR; ++r) part_s[warp * W_QR + r] = dsum[r];
+      __syncthreads();
+      if (tid < W_QR) {
+        float d = 0.f;
+        for (int w = 0; w < W_WARPS; ++w) d += part_s[w * W_QR + tid];
+        dl_s[tid] = d;
+        if (tid < nr) a.delta[so + q0 + tid] = d;
+      }
+      __syncthreads();
+    }
+    // ds = p (dO v^T - delta), p = exp(q k^T * scale + bias - m) / l;
+    // past Skv and past Sq: 0 (the first pass: p dp into dsum)
+    {
+      float4 kr[4][2], vr[4][2];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        load_chunks(kr[u], k_t + tile_row(u) * D, D);
+        load_chunks(vr[u], v_t + tile_row(u) * D, D);
+      }
+      for (int r = 0; r < W_QR; ++r) {
+        float ds = 0.f;
+        if (r < nr) {
+          float4 qr[2], dr[2];
+          load_chunks(qr, q_s + r * D, D);
+          load_chunks(dr, do_s + r * D, D);
+          float x[4], y[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            x[u] = dot_chunks(qr, kr[u]);
+            y[u] = dot_chunks(dr, vr[u]);
+          }
+          warp_sum4(x);
+          warp_sum4(y);
+          const int kv = kv0 + tile_row(lane & 3);
+          if (lane < 4 && kv < a.Skv) {
+            const float bias =
+                bias_bh == nullptr
+                    ? 0.f
+                    : bias_bh[(long long)(q0 + r) * st.bias[2] + kv];
+            const float p =
+                exp2f((fmaf(pick4(x, lane), a.scale, bias) - m_s[r]) *
+                      W_LOG2E) *
+                li_s[r];
+            if (u < n_tiles)
+              dsum[r] = fmaf(p, pick4(y, lane), dsum[r]);
+            else
+              ds = p * (pick4(y, lane) - dl_s[r]);
+          }
+        }
+        if (lane < 4 && u >= n_tiles) ds_t[tile_row(lane) * W_PT + r] = ds;
+      }
+    }
+    __syncthreads();
+    if (u < n_tiles) {  // the first pass: no dq yet
+      if (u + 2 < 2 * n_tiles) load_tile(u + 2);
+      cp_async_commit();
+      continue;
+    }
+    // dq += ds k: thread d, head-dim column d
+    if (tid < D) {
+      const int nk = min(W_KT, a.Skv - kv0);
+      for (int j = 0; j < nk; ++j) {
+        const float kj = k_t[j * D + tid];
+        const float4* dj = reinterpret_cast<const float4*>(ds_t + j * W_PT);
+#pragma unroll
+        for (int c = 0; c < W_QR / 4; ++c) {
+          const float4 d4 = dj[c];
+          dq[4 * c] = fmaf(d4.x, kj, dq[4 * c]);
+          dq[4 * c + 1] = fmaf(d4.y, kj, dq[4 * c + 1]);
+          dq[4 * c + 2] = fmaf(d4.z, kj, dq[4 * c + 2]);
+          dq[4 * c + 3] = fmaf(d4.w, kj, dq[4 * c + 3]);
+        }
+      }
+    }
+    __syncthreads();  // the stage and ds are free
+    if (u + 2 < 2 * n_tiles) load_tile(u + 2);
+    cp_async_commit();
+  }
+  if (tid < D) {
+    float* dqb = static_cast<float*>(a.dq) + b * st.dq[0] + h * st.dq[1];
+#pragma unroll
+    for (int r = 0; r < W_QR; ++r)
+      if (r < nr) dqb[(long long)(q0 + r) * st.dq[2] + tid] = dq[r] * a.scale;
+  }
+}
+
+__global__ void __launch_bounds__(wide::W_THREADS, 1)
+    bwd_dkv_f32_wide_kernel(const Args a) {
+  using namespace mmf_flash_wide;
+  extern __shared__ float4 smem_f4[];
+  float* sm = reinterpret_cast<float*>(smem_f4);
+  const int D = a.D;
+  const WideDkvLayout lay(D);
+  float* k_s = sm + lay.k;
+  float* v_s = sm + lay.v;
+  float* p_s = sm + lay.p;    // [16][32]: q row r, kv column j
+  float* ds_s = sm + lay.ds;  // the same for ds
+
+  const int kv0 = blockIdx.x * W_KT, h = blockIdx.y, b = blockIdx.z;
+  const Strides& st = a.st;
+  const int n_tiles = (a.Sq + W_QR - 1) / W_QR;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const float* qb =
+      static_cast<const float*>(a.q) + b * st.q[0] + h * st.q[1];
+  const float* dob =
+      static_cast<const float*>(a.dout) + b * st.dout[0] + h * st.dout[1];
+  const float* bias_bh =
+      a.bias == nullptr ? nullptr : a.bias + b * st.bias[0] + h * st.bias[1];
+  const long long so = ((long long)b * a.H + h) * a.Sq;
+
+  auto load_tile = [&](int t) {
+    float* stg = sm + lay.ring + (t & 1) * lay.stage;
+    load_rows(stg, qb, st.q[2], W_QR * t, W_QR, a.Sq, D);
+    load_rows(stg + W_QR * D, dob, st.dout[2], W_QR * t, W_QR, a.Sq, D);
+  };
+  load_rows(k_s, static_cast<const float*>(a.k) + b * st.k[0] + h * st.k[1],
+            st.k[2], kv0, W_KT, a.Skv, D);
+  load_rows(v_s, static_cast<const float*>(a.v) + b * st.v[0] + h * st.v[1],
+            st.v[2], kv0, W_KT, a.Skv, D);
+  load_tile(0);
+  cp_async_commit();
+  if (n_tiles > 1) load_tile(1);
+  cp_async_commit();
+
+  float dk[W_KT], dv[W_KT];
+#pragma unroll
+  for (int j = 0; j < W_KT; ++j) dk[j] = dv[j] = 0.f;
+  const int kv = kv0 + tile_row(lane & 3);  // lane < 4: its kv row
+  for (int t = 0; t < n_tiles; ++t) {
+    const int q0 = W_QR * t, nq = min(W_QR, a.Sq - q0);
+    const float* q_t = sm + lay.ring + (t & 1) * lay.stage;
+    const float* do_t = q_t + W_QR * D;
+    cp_async_wait_one();
+    __syncthreads();
+    // p = exp(q k^T * scale + bias - m) / l and ds = p (dO v^T - delta)
+    // for the tile's rows against the block's kv rows; past Skv: 0
+    {
+      float4 kr[4][2], vr[4][2];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        load_chunks(kr[u], k_s + tile_row(u) * D, D);
+        load_chunks(vr[u], v_s + tile_row(u) * D, D);
+      }
+      for (int r = 0; r < nq; ++r) {
+        float4 qr[2], dr[2];
+        load_chunks(qr, q_t + r * D, D);
+        load_chunks(dr, do_t + r * D, D);
+        float x[4], y[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          x[u] = dot_chunks(qr, kr[u]);
+          y[u] = dot_chunks(dr, vr[u]);
+        }
+        warp_sum4(x);
+        warp_sum4(y);
+        if (lane < 4) {
+          float p = 0.f, ds = 0.f;
+          if (kv < a.Skv) {
+            const long long row = so + q0 + r;
+            const float bias =
+                bias_bh == nullptr
+                    ? 0.f
+                    : bias_bh[(long long)(q0 + r) * st.bias[2] + kv];
+            p = exp2f((fmaf(pick4(x, lane), a.scale, bias) - a.m[row]) *
+                      W_LOG2E) /
+                a.l[row];
+            ds = p * (pick4(y, lane) - a.delta[row]);
+          }
+          p_s[r * W_KT + tile_row(lane)] = p;
+          ds_s[r * W_KT + tile_row(lane)] = ds;
+        }
+      }
+    }
+    __syncthreads();
+    // dv += p^T dO, dk += ds^T q: thread d, head-dim column d
+    if (tid < D) {
+      for (int r = 0; r < nq; ++r) {
+        const float dor = do_t[r * D + tid], qv = q_t[r * D + tid];
+        const float4* pr = reinterpret_cast<const float4*>(p_s + r * W_KT);
+        const float4* dr = reinterpret_cast<const float4*>(ds_s + r * W_KT);
+#pragma unroll
+        for (int c = 0; c < W_KT / 4; ++c) {
+          const float4 p4 = pr[c], d4 = dr[c];
+          dv[4 * c] = fmaf(p4.x, dor, dv[4 * c]);
+          dv[4 * c + 1] = fmaf(p4.y, dor, dv[4 * c + 1]);
+          dv[4 * c + 2] = fmaf(p4.z, dor, dv[4 * c + 2]);
+          dv[4 * c + 3] = fmaf(p4.w, dor, dv[4 * c + 3]);
+          dk[4 * c] = fmaf(d4.x, qv, dk[4 * c]);
+          dk[4 * c + 1] = fmaf(d4.y, qv, dk[4 * c + 1]);
+          dk[4 * c + 2] = fmaf(d4.z, qv, dk[4 * c + 2]);
+          dk[4 * c + 3] = fmaf(d4.w, qv, dk[4 * c + 3]);
+        }
+      }
+    }
+    __syncthreads();  // the stage, p and ds are free
+    if (t + 2 < n_tiles) load_tile(t + 2);
+    cp_async_commit();
+  }
+  if (tid < D) {
+    float* dkb = static_cast<float*>(a.dk) + b * st.dk[0] + h * st.dk[1];
+    float* dvb = static_cast<float*>(a.dv) + b * st.dv[0] + h * st.dv[1];
+#pragma unroll
+    for (int j = 0; j < W_KT; ++j)
+      if (kv0 + j < a.Skv) {
+        dkb[(long long)(kv0 + j) * st.dk[2] + tid] = dk[j] * a.scale;
+        dvb[(long long)(kv0 + j) * st.dv[2] + tid] = dv[j];
+      }
+  }
+}
+
+// The wide kernels: their shared-memory size set, a block per (16 q rows,
+// h, b) for K2, per (32 kv rows, h, b) for K3.
+cudaError_t launch_f32_wide(bool dq, int B, const Args& a, cudaStream_t s) {
+  auto kernel = dq ? bwd_dq_f32_wide_kernel : bwd_dkv_f32_wide_kernel;
+  const int smem = dq ? WideDqLayout(a.D).bytes : WideDkvLayout(a.D).bytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int rows = dq ? wide::W_QR : wide::W_KT;
+  dim3 grid(((dq ? a.Sq : a.Skv) + rows - 1) / rows, a.H, B);
+  kernel<<<grid, wide::W_THREADS, smem, s>>>(a);
+  return cudaGetLastError();
+}
+
 // A bf16 K2 instance: the kernel and its dynamic shared memory.
 struct DqKernel {
   void (*kernel)(const Maps, const Args);
@@ -815,6 +1162,7 @@ cudaError_t launch_bf16(bool dq, int B, const Args& a, cudaStream_t s) {
 // The f32 kernels: two blocks an SM at D <= 64 (~100 KB of shared memory
 // each, 8 warps an SM: up to 255 registers a thread), one above (~196 KB).
 cudaError_t launch_f32(bool dq, int B, const Args& a, cudaStream_t s) {
+  if (a.D > MAX_D) return launch_f32_wide(dq, B, a, s);
   const dim3 grid = row_grid(dq ? a.Sq : a.Skv, a, B);
   if (a.D > 64)
     return dq ? launch_sm90(bwd_dq_tf32x3_kernel<2, 1>, FLayout<2>::BYTES,
@@ -831,7 +1179,9 @@ cudaError_t launch_f32(bool dq, int B, const Args& a, cudaStream_t s) {
 // Returns cudaSuccess, or the error the entry point reports.
 cudaError_t prepare(Args& a, int dtype, int B, int H, int Sq, int Skv,
                     int D, const long long* strides, float scale) {
-  if (D <= 0 || D > MAX_D || D % 8 != 0 || B > 65535 || H > 65535 ||
+  // f32 takes head dims up to 256 (the wide kernels above 128), bf16 128
+  const int max_d = dtype == 0 ? mmf_flash_wide::W_MAX_D : MAX_D;
+  if (D <= 0 || D > max_d || D % 8 != 0 || B > 65535 || H > 65535 ||
       (dtype != 0 && dtype != 1) || a.m == nullptr || a.l == nullptr ||
       a.delta == nullptr)
     return cudaErrorInvalidValue;
@@ -918,6 +1268,8 @@ int mmf_flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
 // Dynamic shared memory of a K2 (dq 1) or K3 (dq 0) block at head dim D,
 // bf16 (dtype 1) or f32 (0; K2 and K3 share the layout), for reports.
 int mmf_flash_attention_bwd_smem_bytes(int D, int dtype, int dq) {
+  if (dtype == 0 && D > MAX_D)
+    return dq ? WideDqLayout(D).bytes : WideDkvLayout(D).bytes;
   if (dtype == 0) return D <= 64 ? FLayout<1>::BYTES : FLayout<2>::BYTES;
   if (dq) return dq_block(D, false).smem;
   return D <= 64 ? WLayout<1>::BYTES : WLayout<2>::BYTES;

@@ -92,12 +92,13 @@
 #include <limits.h>
 #include <math.h>
 
+#include "flash_attention_f32_wide.cuh"
 #include "flash_attention_tf32.cuh"
 
 namespace {
 
 using namespace mmf_flash_tf32;
-constexpr int MAX_D = 128;
+constexpr int MAX_D = 128;  // bf16; f32 takes up to mmf_flash_wide::W_MAX_D
 
 struct Strides {
   long long q[3], k[3], v[3], o[3], bias[3];  // (batch, head, seq)
@@ -548,9 +549,187 @@ cudaError_t launch_f32_nb(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// float32 at head dims 136-256: FP32 FMA code for few query rows
+// (flash_attention_f32_wide.cuh says why), the inference and stats forms.
+// One block per (b, h, 16 q rows); q own, k and v through a 2-stage ring
+// of 32-row tiles.
+// ---------------------------------------------------------------------------
+namespace wide = mmf_flash_wide;
+
+struct WideFwdLayout {
+  int q, ring, stage, s, pt, stats, bytes;  // float offsets; bytes
+  __host__ __device__ explicit WideFwdLayout(int D) {
+    q = 0;
+    stage = 2 * wide::W_KT * D;  // k then v
+    ring = q + wide::W_QR * D;
+    s = ring + 2 * stage;
+    pt = s + wide::W_QR * wide::W_KT;
+    stats = pt + wide::W_KT * wide::W_PT;  // alpha, m, l of the 16 rows
+    bytes = 4 * (stats + 3 * wide::W_QR);
+  }
+};
+
+template <int FORM>
+__global__ void __launch_bounds__(wide::W_THREADS, 1)
+    flash_fwd_f32_wide_kernel(const float* __restrict__ q,
+                              const float* __restrict__ k,
+                              const float* __restrict__ v, const Args a) {
+  using namespace mmf_flash_wide;
+  extern __shared__ float4 smem_f4[];
+  float* sm = reinterpret_cast<float*>(smem_f4);
+  const int D = a.D;
+  const WideFwdLayout lay(D);
+  float* q_s = sm + lay.q;
+  float* s_s = sm + lay.s;    // [16][32] the tile's scores
+  float* p_t = sm + lay.pt;   // [32][W_PT] its probabilities, transposed
+  float* alpha_s = sm + lay.stats;
+  float* m_s = alpha_s + W_QR;
+  float* l_s = m_s + W_QR;
+
+  const int q0 = blockIdx.x * W_QR, h = blockIdx.y, b = blockIdx.z;
+  const Strides& st = a.st;
+  const int nr = min(W_QR, a.Sq - q0);
+  const int n_tiles = (a.Skv + W_KT - 1) / W_KT;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const float* qb = q + b * st.q[0] + h * st.q[1];
+  const float* kb = k + b * st.k[0] + h * st.k[1];
+  const float* vb = v + b * st.v[0] + h * st.v[1];
+  const float* bias_bh =
+      a.bias == nullptr ? nullptr : a.bias + b * st.bias[0] + h * st.bias[1];
+
+  auto load_tile = [&](int t) {
+    float* stg = sm + lay.ring + (t & 1) * lay.stage;
+    load_rows(stg, kb, st.k[2], W_KT * t, W_KT, a.Skv, D);
+    load_rows(stg + W_KT * D, vb, st.v[2], W_KT * t, W_KT, a.Skv, D);
+  };
+  load_rows(q_s, qb, st.q[2], q0, W_QR, a.Sq, D);
+  load_tile(0);
+  cp_async_commit();
+  if (n_tiles > 1) load_tile(1);
+  cp_async_commit();
+
+  float o[W_QR];
+#pragma unroll
+  for (int r = 0; r < W_QR; ++r) o[r] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // rows warp, + 8
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int kv0 = W_KT * t;
+    const float* k_t = sm + lay.ring + (t & 1) * lay.stage;
+    const float* v_t = k_t + W_KT * D;
+    cp_async_wait_one();
+    __syncthreads();
+    // s = q k^T * scale + bias for the block's rows; past Skv: -inf
+    {
+      float4 kr[4][2];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) load_chunks(kr[u], k_t + tile_row(u) * D, D);
+      for (int r = 0; r < nr; ++r) {
+        float4 qr[2];
+        load_chunks(qr, q_s + r * D, D);
+        float x[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) x[u] = dot_chunks(qr, kr[u]);
+        warp_sum4(x);
+        if (lane < 4) {
+          const int j = tile_row(lane), kv = kv0 + j;
+          float sc = -INFINITY;
+          if (kv < a.Skv)
+            sc = fmaf(pick4(x, lane), a.scale,
+                      bias_bh == nullptr
+                          ? 0.f
+                          : bias_bh[(long long)(q0 + r) * st.bias[2] + kv]);
+          s_s[r * W_KT + j] = sc;
+        }
+      }
+    }
+    __syncthreads();
+    // the online softmax: warp w takes rows w and w + 8, lane j column j
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = warp + W_WARPS * i;
+      const float sc = r < nr ? s_s[r * W_KT + lane] : -INFINITY;
+      const float m_new = fmaxf(m[i], max_xor(sc, 32));
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;
+      const float alpha = exp2f((m[i] - m_use) * W_LOG2E);
+      const float p = exp2f((sc - m_use) * W_LOG2E);
+      l[i] = fmaf(l[i], alpha, sum_xor(p, 32));
+      m[i] = m_new;
+      p_t[lane * W_PT + r] = p;
+      if (lane == 0) alpha_s[r] = alpha;
+    }
+    __syncthreads();
+    // o = alpha o + p v: thread d, head-dim column d
+    if (tid < D) {
+      float pv[W_QR];
+#pragma unroll
+      for (int r = 0; r < W_QR; ++r) pv[r] = 0.f;
+      const int nk = min(W_KT, a.Skv - kv0);
+      for (int j = 0; j < nk; ++j) {
+        const float vj = v_t[j * D + tid];
+        const float4* pj = reinterpret_cast<const float4*>(p_t + j * W_PT);
+#pragma unroll
+        for (int c = 0; c < W_QR / 4; ++c) {
+          const float4 p4 = pj[c];
+          pv[4 * c] = fmaf(p4.x, vj, pv[4 * c]);
+          pv[4 * c + 1] = fmaf(p4.y, vj, pv[4 * c + 1]);
+          pv[4 * c + 2] = fmaf(p4.z, vj, pv[4 * c + 2]);
+          pv[4 * c + 3] = fmaf(p4.w, vj, pv[4 * c + 3]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < W_QR; ++r) o[r] = fmaf(o[r], alpha_s[r], pv[r]);
+    }
+    __syncthreads();  // the stage and p are free
+    if (t + 2 < n_tiles) load_tile(t + 2);
+    cp_async_commit();
+  }
+
+  if (lane == 0)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      m_s[warp + W_WARPS * i] = m[i];
+      l_s[warp + W_WARPS * i] = l[i];
+    }
+  __syncthreads();
+  if (tid < D) {
+    float* ob = static_cast<float*>(a.o) + b * st.o[0] + h * st.o[1];
+#pragma unroll
+    for (int r = 0; r < W_QR; ++r)
+      if (r < nr)  // l == 0 (no finite score): zeros
+        ob[(long long)(q0 + r) * st.o[2] + tid] =
+            l_s[r] > 0.f ? o[r] / l_s[r] : 0.f;
+  }
+  if (FORM == STATS && tid < nr) {
+    const long long so = ((long long)b * a.H + h) * a.Sq + q0 + tid;
+    const bool parked = !(l_s[tid] > 0.f);
+    a.m[so] = parked ? 0.f : m_s[tid];
+    a.l[so] = parked ? 1.f : l_s[tid];
+  }
+}
+
+// Sets the wide kernel's shared-memory size and launches a block per
+// (16 q rows, h, b).
+template <int FORM>
+cudaError_t launch_f32_wide(const void* q, const void* k, const void* v,
+                            const Args& a, int B, cudaStream_t stream) {
+  auto kernel = flash_fwd_f32_wide_kernel<FORM>;
+  const int smem = WideFwdLayout(a.D).bytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((a.Sq + wide::W_QR - 1) / wide::W_QR, a.H, B);
+  kernel<<<grid, wide::W_THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), a);
+  return cudaGetLastError();
+}
+
 template <int FORM>
 cudaError_t launch_f32(const void* q, const void* k, const void* v,
                        const Args& a, int B, cudaStream_t s) {
+  if (a.D > MAX_D) return launch_f32_wide<FORM>(q, k, v, a, B, s);
   return a.D > 64 ? launch_f32_nb<2, FORM>(q, k, v, a, B, s)
                   : launch_f32_nb<1, FORM>(q, k, v, a, B, s);
 }
@@ -577,8 +756,11 @@ static int forward(const void* q, const void* k, const void* v,
                    void* stream) {
   // (Skv 0 leaves no kv tile to map; the bf16 kernels' items must count
   // in an int)
+  // f32 takes head dims up to 256 (the wide kernel above 128, not in the
+  // raw form); bf16 up to 128
+  const int max_d = dtype == 0 && !raw ? mmf_flash_wide::W_MAX_D : MAX_D;
   if ((m_out == nullptr) != (l_out == nullptr) || (raw && m_out == nullptr) ||
-      D <= 0 || D > MAX_D || D % 8 != 0 || B > 65535 || H > 65535 ||
+      D <= 0 || D > max_d || D % 8 != 0 || B > 65535 || H > 65535 ||
       Skv <= 0 || (Sq + 63LL) / 64 * H * B > INT_MAX ||
       (dtype != 0 && dtype != 1))
     return int(cudaErrorInvalidValue);
@@ -643,6 +825,7 @@ int mmf_flash_attention_fwd_raw(const void* q, const void* k, const void* v,
 // Dynamic shared memory of a K1 block at head dim D, bf16 (dtype 1) or
 // f32 (0), for reports.
 int mmf_flash_attention_fwd_smem_bytes(int D, int dtype) {
+  if (dtype == 0 && D > MAX_D) return WideFwdLayout(D).bytes;
   if (dtype == 0) return D <= 64 ? FLayout<1, 1>::BYTES : FLayout<2, 1>::BYTES;
   return bf16_block(D, INFERENCE, false).smem;
 }

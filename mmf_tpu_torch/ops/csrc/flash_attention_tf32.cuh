@@ -302,18 +302,23 @@ __device__ __forceinline__ void load_stage(int t, unsigned char* ring,
 // Before tile t's products: starts tile t + F_STAGES - 1 into the stage
 // that tile t - 1 used, once every warp is done with it (the loads of a
 // tile overlap the products of the tiles before it), then waits for tile
-// t. The first F_STAGES - 1 tiles are started before the loop.
+// t. The first F_STAGES - 1 tiles are started before the loop. With
+// `period`, the ring walks the rows `period` tiles at a time, again and
+// again (tile t holds rows 64 (t % period) on; K2's two passes).
 template <int NB, typename Fill>
 __device__ __forceinline__ void next_stage(int t, int n_tiles,
                                            unsigned char* ring,
                                            uint64_t* full,
                                            const CUtensorMap* m0,
                                            const CUtensorMap* m1, int h,
-                                           int b, int boxes, Fill fill) {
+                                           int b, int boxes, Fill fill,
+                                           int period = 0) {
   const int ahead = t + F_STAGES - 1;
   if (ahead < n_tiles) {
     if (t > 0) __syncthreads();
-    load_stage<NB>(ahead, ring, full, m0, m1, 64 * ahead, h, b, boxes, fill);
+    load_stage<NB>(ahead, ring, full, m0, m1,
+                   64 * (period > 0 ? ahead % period : ahead), h, b, boxes,
+                   fill);
   }
   mbar_wait(&full[t % F_STAGES], (t / F_STAGES) & 1);
 }

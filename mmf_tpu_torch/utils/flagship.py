@@ -98,6 +98,13 @@ masked VQA2, VinVL finetuned on VQA2) with its dataset and model, and
 data), ``vl3_batch(key, ...)`` draws a batch of the config's layout at
 its widths, and ``vl3_trainer`` builds the step with the dataset's meta
 fields.
+
+mmf_bert (VQA2, masked VQA2), Pythia's multihead (VQA2) and Pythia on
+Visual Genome: ``PYTHIA2`` names each config with its dataset and model,
+``PYTHIA2_OVERRIDES`` what each YAML lacks to run (in JAX too);
+``pythia2_config(key, opts)`` reads one, ``pythia2_model`` builds its
+model, and ``mmf_bert_batch`` draws an mmf_bert batch (VQA2 targets, or
+the masked LM's labels).
 """
 
 from __future__ import annotations
@@ -299,6 +306,34 @@ VL3_OVERRIDES = {
                    "dataset_config.vqa2.return_features_info=true",
                    "training.early_stop.criteria=vinvl/vqa_accuracy"],
 }
+# mmf_bert on VQA2 and its masked-VQA2 pretraining, Pythia's multihead on
+# VQA2 and Pythia on Visual Genome. What each YAML lacks to run (ROADMAP
+# C.4, in JAX too): mmf_bert's pretraining head returns its own losses,
+# keyed <dataset>/<split>/<name>, so the meter holds no val/total_loss and
+# the masked-VQA2 run's early stopping raises ValueError at its first
+# validation: it watches the masked LM's val loss (a criterion that names
+# "val" is taken as it is). The other three run as they are (mmf_bert's
+# VQA head is num_labels wide, 3129 by default, VQA2's answers)
+PYTHIA2 = {  # key -> (project config, dataset, model)
+    "mmf_bert_vqa2": ("projects/others/mmf_bert/configs/vqa2/defaults.yaml",
+                      "vqa2", "mmf_bert"),
+    "mmf_bert_masked_vqa2": ("projects/others/mmf_bert/configs/masked_vqa2/"
+                             "defaults.yaml", "masked_vqa2", "mmf_bert"),
+    "multihead": ("projects/pythia/configs/multihead/defaults.yaml", "vqa2",
+                  "multihead"),
+    "pythia_visual_genome": ("projects/pythia/configs/visual_genome/"
+                             "defaults.yaml", "visual_genome", "pythia"),
+}
+PYTHIA2_OVERRIDES = {
+    "mmf_bert_vqa2": [],
+    "mmf_bert_masked_vqa2": [
+        "training.early_stop.criteria=masked_vqa2/val/masked_lm_loss",
+        "training.early_stop.minimize=true"],
+    "multihead": [],
+    "pythia_visual_genome": [],
+}
+# mmf_bert's tokens (bert_tokenizer's max_seq_length), the regions
+MMF_BERT_SEQ, PYTHIA_REGIONS = 128, 100
 # the widths the configs give their inputs: tokens and regions
 VL3_SEQ = {"uniter_vqa2": 128, "uniter_masked_coco": 128,
            "lxmert_vqa2": 128, "lxmert_pretrain": 20, "vinvl_vqa2": 70}
@@ -1032,3 +1067,54 @@ def caption_trainer(model, config, seed: int = 0, device: Any = "cuda"):
     return vqa2_trainer(model, config, seed, device,
                         {"dataset_name": config["datasets"],
                          "dataset_type": "train"})
+
+
+def pythia2_config(key: str, opts: Optional[List[str]] = None):
+    """The config of ``PYTHIA2[key]`` over the root defaults with its
+    ``PYTHIA2_OVERRIDES``, then ``opts``."""
+    path, dataset, model = PYTHIA2[key]
+    return _project_config(path, dataset, PYTHIA2_OVERRIDES[key] +
+                           list(opts or []), model)
+
+
+def pythia2_model(config,
+                  model_overrides: Optional[Dict[str, Any]] = None):
+    """The model a ``PYTHIA2`` config names, from its ``model_config``
+    with ``model_overrides`` on a copy."""
+    return _model(config["model"], config, model_overrides)
+
+
+def mmf_bert_batch(batch_size: int = 8, seq_len: int = MMF_BERT_SEQ,
+                   regions: int = PYTHIA_REGIONS, feature_dim: int = 2048,
+                   vocab_size: int = 30522, num_labels: int = VQA2_NUM_LABELS,
+                   pretraining: bool = False,
+                   seed: int = 0) -> Dict[str, Any]:
+    """An mmf_bert batch as ``bert_tokenizer`` and the VQA2 dataset give
+    it, drawn from ``np.random.RandomState(seed)``: [CLS] question [SEP]
+    of 6 to ``seq_len`` tokens, padded and masked, zero segments, region
+    features [B, regions, feature_dim], and VQA2 soft ``targets``; with
+    ``pretraining``, 15% of the real tokens labelled (``lm_label_ids``,
+    -1 elsewhere) and ``is_correct``."""
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(1000, vocab_size, (batch_size, seq_len))
+    lengths = rng.randint(min(6, seq_len), seq_len + 1, batch_size)
+    mask = (np.arange(seq_len)[None] < lengths[:, None]).astype(np.int64)
+    ids[:, 0] = 101
+    ids[np.arange(batch_size), lengths - 1] = 102
+    ids = (ids * mask).astype(np.int64)
+    batch = {"input_ids": ids, "input_mask": mask,
+             "segment_ids": np.zeros_like(ids),
+             "image_feature_0": rng.randn(batch_size, regions,
+                                          feature_dim).astype(np.float32)}
+    if pretraining:
+        labels = np.where((rng.rand(batch_size, seq_len) < 0.15) & (
+            mask == 1), ids, -1)
+        labels[:, 1] = ids[:, 1]  # every row holds a label
+        batch["lm_label_ids"] = labels.astype(np.int64)
+        batch["is_correct"] = rng.randint(0, 2, batch_size).astype(np.int64)
+    else:
+        targets = np.zeros((batch_size, num_labels), np.float32)
+        for i in range(batch_size):
+            targets[i, rng.randint(num_labels, size=3)] = [1.0, 0.6, 0.3]
+        batch["targets"] = targets
+    return batch

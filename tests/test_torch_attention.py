@@ -165,12 +165,14 @@ def test_dropout_routes_to_plain_version_and_uses_the_generator():
 
 @pytest.mark.parametrize("d,padded", [(1, 8), (4, 8), (8, 8), (12, 16),
                                       (64, 64), (121, 128), (128, 128),
-                                      (0, None), (136, None), (256, None)])
+                                      (0, None), (136, 136), (256, 256),
+                                      (250, 256), (257, None)])
 def test_padded_head_dim(d, padded):
     """The head dim the kernels run a head dim at (a multiple of 8), and
-    the head dims they refuse."""
+    the head dims they refuse (above 256; bf16 above 128 is refused by
+    the kernels' wrappers)."""
     if padded is None:
-        with pytest.raises(ValueError, match="head dims 1 to 128"):
+        with pytest.raises(ValueError, match="head dims 1 to 256"):
             tattn.padded_head_dim(d)
     else:
         assert tattn.padded_head_dim(d) == padded
@@ -267,3 +269,31 @@ def test_zero_keys_give_zeros_as_jax(dtype, bias):
                                                     dout)
         assert dq.shape == tq.shape and not dq.float().any()
         assert dk.shape == dv.shape == (2, 3, 0, 16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_centered_values_leave_the_backward_as_it_is(dtype):
+    """What the f32 autograd backward hands K2 and K3 (``centered_values``:
+    v and the output less v's mean row) gives the plain backward's dq, dk
+    and dv: ds = p (dO v^T - rowsum(dO out)) does not move when one vector
+    is taken off every row of both, and dv does not read v. bf16 and an
+    empty kv pass through as they are."""
+    g = torch.Generator().manual_seed(3)
+    q, k, v, dout = (torch.randn(2, 3, s, 16, generator=g).to(dtype)
+                     for s in (5, 7, 7, 5))
+    v = v + 4.0  # a common part the centring takes off
+    bias = torch.zeros(2, 1, 1, 7)
+    bias[1, ..., 5:] = -1e9
+    out, m, l = tattn.flash_forward_reference(q, k, v, bias)
+    v_c, out_c = tattn.centered_values(v, out)
+    if dtype == torch.bfloat16:
+        assert v_c is v and out_c is out
+        return
+    assert float(v_c.mean(dim=-2).abs().max()) < 1e-5
+    want = tattn.flash_backward_reference(q, k, v, bias, out, m, l, dout)
+    got = tattn.flash_backward_reference(q, k, v_c, bias, out_c, m, l, dout)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+    assert torch.equal(got[2], want[2])
+    empty = torch.zeros(2, 3, 0, 16)
+    assert tattn.centered_values(empty, out)[0] is empty

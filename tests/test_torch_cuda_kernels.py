@@ -793,9 +793,116 @@ def test_attention_pads_the_head_dim(card, no_tf32, dtype, d):
 
 
 def test_attention_refuses_head_dims_over_128(card):
-    q = torch.randn(1, 2, 9, 136, device=card)
-    with pytest.raises(ValueError, match="head dims 1 to 128"):
+    """bf16 above 128 and f32 above 256 raise (f32 up to 256 runs the wide
+    kernels); so does the raw-stats form above 128."""
+    q = torch.randn(1, 2, 9, 136, device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="bf16 kernels take head dims up "
+                                         "to 128"):
         A.dot_product_attention(q, q, q)
+    with pytest.raises(ValueError, match="head dims 1 to 256"):
+        q = torch.randn(1, 2, 9, 264, device=card)
+        A.dot_product_attention(q, q, q)
+    q = torch.randn(1, 2, 9, 136, device=card)
+    with pytest.raises(ValueError, match="raw-stats form takes head dims"):
+        A.flash_attention_block(q, q, q)
+
+
+# mmf_bert's f32 attention (8 heads of 96): the text self-attention over
+# 128 tokens, the regions' intra-attention over 100, the text's queries over
+# the regions; multihead's one question row over 100 regions (8 heads of
+# 256, the wide kernels); the wide kernels at 136 and 160 and at several
+# ring tiles; D = 96's third 32-column box is the TF32 kernels' partly
+# used 64-column block
+PYTHIA2_SHAPES = [(2, 8, 128, 128, 96), (2, 8, 100, 100, 96),
+                  (2, 8, 128, 100, 96), (4, 8, 1, 100, 256),
+                  (2, 3, 37, 70, 136), (2, 2, 40, 130, 160),
+                  (1, 2, 130, 65, 256)]
+# the wide kernels' edges at D = 256: q rows of one 16-row block or not, or
+# one row into the next, against kv of one row, a 32-row ring tile, a
+# ragged second, several tiles
+WIDE_EDGE_SHAPES = [(2, 2, sq, skv, 256) for sq in (1, 2, 15, 16, 17)
+                    for skv in (1, 31, 32, 33, 100, 130)]
+
+
+@pytest.mark.parametrize("shape", PYTHIA2_SHAPES + WIDE_EDGE_SHAPES)
+def test_pythia2_shapes_match_plain(card, no_tf32, shape):
+    """K1 in its inference and stats forms, K2 and K3 in f32 at mmf_bert's
+    and multihead's shapes and the wide kernels' edges, with a padding
+    bias (and, at two batches, one batch whose every key is -inf), against
+    their plain versions (the f32 bounds above); through autograd too."""
+    b, h, sq, skv, d = shape
+    q, k, v, bias, dout = _bwd_case(card, torch.float32, *shape,
+                                    seed=sq * 1000 + skv)
+    out = A.flash_attention(q, k, v, bias)
+    out_s, m, l = A.flash_attention_with_stats(q, k, v, bias)
+    dq, delta = A.flash_attention_bwd_dq(q, k, v, bias, out_s, m, l, dout)
+    dk, dv = A.flash_attention_bwd_dkv(q, k, v, bias, dout, m, l, delta)
+    torch.cuda.synchronize()
+    ref_out, ref_m, ref_l = A.flash_forward_reference(q, k, v, bias)
+    torch.testing.assert_close(out, ref_out, **TOL[torch.float32])
+    assert torch.equal(out, out_s)
+    torch.testing.assert_close(m, ref_m, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(l, ref_l, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(delta, (dout * out).sum(-1), atol=1e-3,
+                               rtol=1e-4)
+    want = A.flash_backward_reference(q, k, v, bias, out_s, m, l, dout)
+    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        # one key: p = 1 and ds = dp - delta cancels, so dq and dk are
+        # zero but for rounding and no relative bound holds them
+        if skv > 1 or name == "dv":
+            _assert_rel(got, ref, GRAD_REL[torch.float32], name)
+    if b > 1:  # the -inf batch: zero outputs and gradients, not NaN
+        assert (out[-1] == 0).all() and (dq[-1] == 0).all()
+        assert (dk[-1] == 0).all() and (dv[-1] == 0).all()
+    # through autograd: K2 and K3 on v and the output centred on v's mean
+    # row (the same ds; dv bit-equal)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    before = A.flash_attention_bwd_dkv.launches
+    A.dot_product_attention(*leaves, bias).backward(dout)
+    torch.cuda.synchronize()
+    assert A.flash_attention_bwd_dkv.launches == before + 1
+    assert torch.equal(leaves[2].grad, dv)
+    for name, got, ref in zip(("dq", "dk"), leaves[:2], want[:2]):
+        if skv > 1:
+            _assert_rel(got.grad, ref, GRAD_REL[torch.float32], name)
+
+
+@pytest.mark.parametrize("shape", [(2, 8, 128, 100, 96), (4, 8, 1, 100, 256),
+                                   (2, 12, 128, 100, 64)])
+def test_f32_backward_resolves_nearly_alike_values(card, no_tf32, shape):
+    """Values whose rows differ by 1% (mmf_bert's cross-attention reads
+    another attention's output): dp = dO v^T and delta nearly cancel in
+    ds; the backward through autograd (v and the output centred on v's
+    mean row) holds dq, dk and dv to float64 within the f32 bound."""
+    b, h, sq, skv, d = shape
+    g = torch.Generator(device=card).manual_seed(sq + d)
+    q, k, _, bias, dout = _bwd_case(card, torch.float32, b, h, sq, skv, d,
+                                    seed=5)
+    common = torch.randn(b, h, 1, d, device=card, generator=g)
+    v = common + 0.01 * torch.randn(b, h, skv, d, device=card, generator=g)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    A.dot_product_attention(*leaves, bias).backward(dout)
+    ref = [t.detach().double().requires_grad_() for t in (q, k, v)]
+    A.mha_reference(*ref, bias.double()).backward(dout.double())
+    torch.cuda.synchronize()
+    for name, got, want in zip(("dq", "dk", "dv"), leaves, ref):
+        _assert_rel(got.grad, want.grad, GRAD_REL[torch.float32], name)
+
+
+@pytest.mark.parametrize("shape", [(4, 8, 1, 100, 256),
+                                   (2, 8, 128, 100, 96)])
+def test_pythia2_backward_is_bit_equal_across_calls(card, shape):
+    """Two backward calls give the same bits at multihead's and mmf_bert's
+    shapes (no atomics in either design)."""
+    q, k, v, bias, dout = _bwd_case(card, torch.float32, *shape, seed=9)
+    out, m, l = A.flash_attention_with_stats(q, k, v, bias)
+    first = A.flash_attention_bwd_dq(q, k, v, bias, out, m, l, dout)
+    first += A.flash_attention_bwd_dkv(q, k, v, bias, dout, m, l, first[1])
+    second = A.flash_attention_bwd_dq(q, k, v, bias, out, m, l, dout)
+    second += A.flash_attention_bwd_dkv(q, k, v, bias, dout, m, l, second[1])
+    torch.cuda.synchronize()
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
 
 
 @pytest.mark.parametrize("k", [40, 100, 776])

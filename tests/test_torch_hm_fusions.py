@@ -145,12 +145,19 @@ def test_text_embedding_matches_jax(etype, params):
                                    "mcan", "preextracted"])
 def test_unported_text_embeddings_name_their_module(etype):
     """The unported types raise, naming their module; ``attention``
-    (Pythia's) is ported and builds (``tests/test_torch_pythia.py``)."""
+    (Pythia's) and ``projection`` (``ProjectionEmbedding``) are ported and
+    build (``tests/test_torch_pythia.py``,
+    ``tests/test_torch_mmf_bert.py``)."""
     from mmf_tpu_torch.modules.embeddings import TextEmbedding
 
     if etype == "attention":
         emb = TextEmbedding(etype, {"embedding_dim": 4, "hidden_dim": 4})
         assert emb.out_dim == 4 * 2  # two glimpses by default
+        return
+    if etype == "projection":
+        emb = TextEmbedding(etype, {"in_dim": 4, "out_dim": 6})
+        assert emb.out_dim == 6  # the linear form by default
+        assert tuple(emb.module.layers.weight.shape) == (6, 4)
         return
     with pytest.raises(NotImplementedError, match="not ported yet"):
         TextEmbedding(etype, {"embedding_dim": 4, "hidden_dim": 4})

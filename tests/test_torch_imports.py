@@ -80,6 +80,10 @@ SLICE_MODULES = [
     "mmf_tpu_torch.datasets.builders.coco.dataset",
     "mmf_tpu_torch.datasets.builders.coco.masked_dataset",
     "mmf_tpu_torch.datasets.builders.vinvl.builder",
+    "mmf_tpu_torch.modules.attention",
+    "mmf_tpu_torch.models.pythia",
+    "mmf_tpu_torch.models.mmf_bert",
+    "mmf_tpu_torch.datasets.builders.visual_genome.builder",
 ]
 
 _PROBE = """

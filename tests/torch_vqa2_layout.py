@@ -67,6 +67,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import struct
 import zlib
 from typing import Dict, List, Sequence
@@ -74,8 +75,11 @@ from typing import Dict, List, Sequence
 import numpy as np
 
 # configs/zoo/datasets.yaml: the versions of the zoo entries that
-# configs/datasets/vqa2/defaults.yaml requires
-ZOO_VERSIONS = {"coco": "1.0_2020_05_04", "vqa2": "1.0_2020_05_29"}
+# configs/datasets/vqa2/defaults.yaml requires (visual_genome.defaults,
+# which the Visual Genome config requires, is not in that file: its
+# marker's version is a placeholder)
+ZOO_VERSIONS = {"coco": "1.0_2020_05_04", "vqa2": "1.0_2020_05_29",
+                "visual_genome": "1.0_2020_05_29"}
 SPLITS = {"train": "imdb_train2014.npy", "val": "imdb_val2014.npy",
           "test": "imdb_test2015.npy"}
 FEATURES = {"train": "trainval2014", "val": "trainval2014",
@@ -222,7 +226,8 @@ def write_layout(root: str, n_train: int = 640, n_val: int = 128,
                  cls_prob_width: int = 0,
                  glove: bool = False, coco: bool = False,
                  object_labels: bool = False,
-                 caption_vocab: int = 0) -> Dict[str, str]:
+                 caption_vocab: int = 0,
+                 visual_genome: bool = False) -> Dict[str, str]:
     """Write the layout under ``root``; returns its main paths. The
     class probabilities and the object labels come from generators of
     their own, so the other fields are the same with and without them
@@ -230,7 +235,11 @@ def write_layout(root: str, n_train: int = 640, n_val: int = 128,
     label map does not name). ``glove`` also writes
     what VQA2's ``vocab`` text processor reads: ``vocabulary_100k.txt``
     (every word a question can hold) and 300-wide random vectors in
-    ``datasets/vectors/glove.6B.300d.txt``."""
+    ``datasets/vectors/glove.6B.300d.txt``. ``visual_genome`` (with
+    ``glove``) also writes the Visual Genome QA dataset as Pythia's
+    config reads it: VQA2's imdbs and vocabularies under
+    ``datasets/visual_genome/defaults`` and ``vocabulary_100k.txt`` under
+    ``datasets/vocabs`` (its attribute and name processors')."""
     rng = np.random.RandomState(seed)
     cls_rng = np.random.RandomState(seed + 1)
     label_rng = np.random.RandomState(seed + 4)
@@ -295,6 +304,10 @@ def write_layout(root: str, n_train: int = 640, n_val: int = 128,
             question_id += 1
         np.save(os.path.join(vqa2, "annotations", SPLITS[split]),
                 np.array(rows, dtype=object))
+        if split == "train":  # mmf_bert's masked VQA2 names this file
+            np.save(os.path.join(vqa2, "annotations",
+                                 "imdb_train2014_len_coco.npy"),
+                    np.array(rows, dtype=object))
 
     vocab_dir = os.path.join(vqa2, "extras", "vocabs")
     os.makedirs(vocab_dir, exist_ok=True)
@@ -319,7 +332,17 @@ def write_layout(root: str, n_train: int = 640, n_val: int = 128,
                 f.write(w + " " + " ".join(
                     f"{x:.4f}" for x in vec_rng.randn(300)) + "\n")
 
+    if visual_genome:
+        vg = os.path.join(datasets, "visual_genome", "defaults")
+        shutil.copytree(os.path.join(vqa2, "annotations"),
+                        os.path.join(vg, "annotations"))
+        shutil.copytree(vocab_dir, os.path.join(vg, "extras", "vocabs"))
+        os.makedirs(os.path.join(datasets, "vocabs"), exist_ok=True)
+        shutil.copy(os.path.join(vocab_dir, "vocabulary_100k.txt"),
+                    os.path.join(datasets, "vocabs"))
     for name, version in ZOO_VERSIONS.items():
+        if name == "visual_genome" and not visual_genome:
+            continue
         base = os.path.join(datasets, name)
         for sub in ("", "annotations", "features"):
             _mark_built(os.path.join(base, sub), version)
