@@ -315,6 +315,15 @@ the script exits non-zero without a result line):
               the losses against the train step, multihead's step device
               time by kind, card against CPU, one served bucket of 32 of
               each from its run's folder. Runs right after pythia-run.
+32b. lorra-ban-run - LoRRA (B=512: two feature sets and the OCR
+              context, the soft copy's answers) and BAN (B=512: a GRU of
+              1280, 4 bilinear glimpses over 100 regions) on VQA2 and
+              LoRRA on VizWiz (one update of 128, evaluated: prediction
+              rows with OCR copies) through mmf_run on the caption
+              layout: no kernel launched, the losses against the train
+              step, the step's device time by kind, wall, idle share and
+              peak memory, card against CPU, bucket 32 served from the
+              run's folder against the CPU forward.
 33. pythia2-kernels - K1 (inference and stats forms), K2 and K3 in f32
               at mmf_bert's shapes (B=512, 8 heads of 96: the text
               self-attention over 128 tokens with its key padding, the
@@ -332,6 +341,11 @@ the script exits non-zero without a result line):
               3 steps of each head through the kernels against the plain
               versions at dropout 0 (3 K1-stats, K2, K3 and 2 K4, K4-bwd
               a step).
+34b. lorra-textvqa, cnn-lstm-run - LoRRA on TextVQA (B=128, the
+              soft-copy answers of flagship.LORRA_BAN_OVERRIDES) and
+              CNN-LSTM on Hateful Memes (B=480, 224 px memes, cuDNN's
+              convolutions in f32) through mmf_run on layouts of their
+              own, with lorra-ban-run's checks.
 35. ln-bwd-shapes - K4-bwd at every (rows, hidden, dtype, residual) at
               which the optimizer steps of phases 1-34 ran it (recorded
               as they ran: LnBwdRecord), with the phases' steps and calls
@@ -6383,16 +6397,18 @@ def _caption_layout():
     write_layout(root, n_train=CAPTION_SPLITS["train"],
                  n_val=CAPTION_SPLITS["val"], n_test=CAPTION_SPLITS["test"],
                  n_images=CAPTION_IMAGES, glove=True, coco=True,
-                 caption_vocab=CAPTION_VOCAB, visual_genome=True)
+                 caption_vocab=CAPTION_VOCAB, visual_genome=True, ocr=True,
+                 vizwiz=True)
     return root, time.perf_counter() - t0
 
 
 def phase_caption_layout(card):
-    """The layout of butd-run, pythia-run and multihead-run: its
-    folder."""
+    """The layout of butd-run, pythia-run, multihead-run and
+    lorra-ban-run: its folder."""
     root, seconds = _caption_layout()
     print(f"phase caption-layout: ok BUTD's COCO captions and Pythia's "
-          f"VQA2 questions (and their copy as Visual Genome's) over "
+          f"VQA2 questions with their OCR tokens (and their copies as "
+          f"Visual Genome's and VizWiz's) over "
           f"{CAPTION_IMAGES} images of 100 regions x "
           f"2048 (tests/torch_vqa2_layout.py), written in {seconds:.1f}s",
           flush=True)
@@ -7426,6 +7442,272 @@ def phase_multihead_run(card, root):
     return total
 
 
+# LoRRA, BAN and CNN-LSTM at full width: the configs' batches, 2 updates
+# each (LoRRA on VizWiz, the cut depth: 1 update of 128)
+LORRA_BAN_UPDATES = 2
+LORRA_BAN_B = {"lorra_vqa2": 512, "ban_vqa2": 512, "lorra_vizwiz": 128,
+               "lorra_textvqa": 128, "cnn_lstm_hateful_memes": 480}
+# the fields each model reads, which a served request carries (LoRRA's
+# string context_tokens stay out: neither engine stacks a list of strings)
+SERVED_FIELDS = {
+    "lorra": ("text", "image_feature_0", "image_info_0", "image_feature_1",
+              "image_info_1", "context_feature_0", "context_info_0",
+              "order_vectors"),
+    "ban": ("text", "image_feature_0"),
+    "cnn_lstm": ("text", "image"),
+}
+LORRA_TEXTVQA_SPLITS = {"train": 256, "val": 128, "test": 128}
+CNN_LSTM_SPLITS = {"train": 960, "val": 96, "test": 96}
+
+
+@contextlib.contextmanager
+def _fasttext_stand_in():
+    """wiki.en.bin's seeded stand-in for the OCR tokens' vectors (the
+    ``fasttext`` package and the file are not on the card's machine)."""
+    from mmf_tpu_torch.datasets.processors import processors as P
+    from tests.torch_textvqa_layout import FastTextStandIn
+
+    load = P.FastTextProcessor._load_fasttext_model
+
+    def stand_in(self, model_file):
+        self.model = FastTextStandIn()
+
+    P.FastTextProcessor._load_fasttext_model = stand_in
+    try:
+        yield
+    finally:
+        P.FastTextProcessor._load_fasttext_model = load
+
+
+def _lorra_ban_case(card, key, root, opts, splits, profile=True,
+                    evaluate=True):
+    """One ``flagship.LORRA_BAN`` config through mmf_run on the card at
+    its batch (``LORRA_BAN_B``): no hand-written kernel launched (the run,
+    the served bucket), the losses against the train step alone on the
+    same batches, with ``evaluate`` a validation and the report rows, the
+    step alone's device time by kind (``profile``), card against CPU on 8
+    samples, the run's folder served at bucket 32 against the CPU
+    forward. A line of its figures."""
+    import glob
+
+    from mmf_tpu_torch.serving import ServingEngine
+
+    t0 = time.perf_counter()
+    path, dataset, model_name = flagship.LORRA_BAN[key]
+    b = LORRA_BAN_B[key]
+    u = 1 if key == "lorra_vizwiz" else LORRA_BAN_UPDATES
+    trainer, recorder, launches, run_s = _cli_run(
+        os.path.join(root, f"save_{key}"), path, model_name, dataset, u,
+        opts + (_evaluated(u) if evaluate else ["run_type=train"])
+        + flagship.LORRA_BAN_OVERRIDES[key] + [*LOADER_IN_PROCESS],
+        batch_size=b)
+    check(launches == ZERO_COUNTS, f"{key} launches {launches}")
+    loss_key = [k for k in trainer.meter.meters if k.startswith("train/")
+                and not k.endswith("total_loss")]
+    check(len(loss_key) == 1, f"{key} losses {loss_key}")
+    loss_key = loss_key[0]
+    rel, got = _steps_again(trainer, recorder, flagship.lorra_ban_model,
+                            flagship.caption_trainer, [loss_key])
+    save_dir = trainer.config["env"]["save_dir"]
+    ext = "csv" if dataset == "hateful_memes" else "json"
+    rows, metric = {}, {}
+    for split in ("val", "test") if evaluate else ():
+        for f in glob.glob(os.path.join(save_dir, "reports",
+                                        f"{dataset}_*_{split}_*.{ext}")):
+            with open(f) as fh:
+                rows[split] = (len(fh.readlines()) - 1 if ext == "csv"
+                               else len(json.load(fh)))
+    if evaluate:
+        check(rows == {"val": splits["val"], "test": splits["test"]},
+              f"{key} report rows {rows}")
+        metric = {k: m.global_avg for k, m in
+                  recorder.val_meters[0].meters.items()
+                  if k.startswith("val/") and "loss" not in k}
+    model = trainer.model
+    trainer.teardown()
+    batch = recorder.batches[0]
+    line = (f"  {key}: mmf_run of {path}, B={b}: {u} update(s), {loss_key} "
+            f"{[round(x, 6) for x in got[loss_key]]} equal to the train "
+            f"step's on the same batches (max rel {rel:.3g}, bound "
+            f"{RUN_LOSS_RTOL}); launches: none; "
+            + (("val " + ", ".join(f"{k} {v:.4f}" for k, v in metric.items())
+                + f"; report rows {rows}") if evaluate else
+               "no evaluation (VizWiz's run evaluates LoRRA's copies)")
+            + f"; run {run_s:.1f}s")
+    if profile:
+        cfg = trainer.config
+        step_model = flagship.lorra_ban_model(cfg)
+        step_model.load_state_dict(recorder.initial, strict=True)
+        state, step = flagship.caption_trainer(step_model, cfg, seed=1,
+                                               device=DEV)
+        box = [state]
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+        def one_step():
+            box[0], rep = step(box[0], batch)
+            float(rep["total_loss"])
+
+        one_step()
+        t1 = time.perf_counter()
+        one_step()
+        step_wall_ms = 1e3 * (time.perf_counter() - t1)
+        step_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        reset_counts()
+        dev_ms, by_category = _device_ms(one_step, 1)
+        check(read_counts() == ZERO_COUNTS, f"{key} step launches")
+        del state, step, step_model, box
+        line += (f"; the step alone {step_wall_ms:.1f} ms wall, device "
+                 f"{dev_ms:.2f} ms (idle "
+                 f"{100 * max(0.0, 1 - dev_ms / step_wall_ms):.1f}%), peak "
+                 f"{step_peak_gb:.2f} GB, by kind (ms, launches): "
+                 + "; ".join(f"{c} {ms:.3f} x{n:.0f}" for c, (ms, n) in
+                             sorted(by_category.items(),
+                                    key=lambda kv: -kv[1][0])))
+    fields = {k: v for k, v in batch.items()
+              if k in SERVED_FIELDS[model_name]}
+    small = {k: (v[:8] if torch.is_tensor(v) else
+                 {kk: vv[:8] for kk, vv in v.items()})
+             for k, v in fields.items()}
+    small.update(dataset_name=dataset, dataset_type="val")
+    cpu_rel, _, _ = _card_vs_cpu(model, small, "scores")
+    check(cpu_rel <= CARD_VS_CPU_RTOL, f"{key} card vs cpu {cpu_rel}")
+    _prune_checkpoints(save_dir)
+    engine = ServingEngine.from_checkpoint(save_dir, max_batch_size=SERVE_B)
+    requests = [{k: ({kk: vv[i].cpu().numpy() for kk, vv in v.items()}
+                     if isinstance(v, dict) else v[i].cpu().numpy())
+                 for k, v in fields.items()} for i in range(SERVE_B)]
+    engine.predict_many(requests)
+    reset_counts()
+    t1 = time.perf_counter()
+    served = engine.predict_many(requests)
+    bucket_ms = 1e3 * (time.perf_counter() - t1)
+    per = read_counts()
+    check(per == ZERO_COUNTS, f"{key} served launches {per}")
+    cpu = copy.deepcopy(model).to("cpu").eval()
+    with torch.no_grad():
+        want = cpu(train_state._to_device(
+            {k: (v[:SERVE_B] if torch.is_tensor(v) else
+                 {kk: vv[:SERVE_B] for kk, vv in v.items()})
+             for k, v in fields.items()}, torch.device("cpu")))[
+                 "scores"].float().numpy()
+    got_s = np.stack([o["scores"] for o in served])
+    served_rel = float(np.abs(got_s - want).max() / np.abs(want).max())
+    check(np.isfinite(got_s).all() and served_rel <= CARD_VS_CPU_RTOL,
+          f"{key} served {served_rel}")
+    line += (f"; card vs CPU on 8 samples rel {cpu_rel:.2e} (bound "
+             f"{CARD_VS_CPU_RTOL}); served from the run's folder at bucket "
+             f"{SERVE_B}: {bucket_ms:.1f} ms, launches: none, rel "
+             f"{served_rel:.2e} against the CPU forward; "
+             f"{time.perf_counter() - t0:.1f}s on '{card}'")
+    del engine, model, trainer, recorder, batch, cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line
+
+
+def phase_lorra_ban_run(card, root):
+    """LoRRA (B=512: two feature sets, fc7 and the ResNet stand-in, and
+    the OCR context of 50 FastText vectors with order vectors; the soft
+    copy's 3129 + 50 answers) and BAN (B=512: a GRU of 1280, 4 glimpses of
+    k 3 over 100 regions x 14 words) on VQA2, and LoRRA on VizWiz at the
+    cut depth, through mmf_run on the caption layout (its questions' OCR
+    tokens, its VizWiz copy)."""
+    from mmf_tpu_torch.common.registry import registry
+
+    registry.register_callback("chip_smoke_recorder")(_StepRecorder)
+    lines = []
+    with _fasttext_stand_in():
+        for key in ("lorra_vqa2", "ban_vqa2", "lorra_vizwiz"):
+            dataset = flagship.LORRA_BAN[key][1]
+            opts = _features_opts(root, dataset)
+            if key == "lorra_vqa2":  # the second set stands for ResNet's
+                opts = [f"env.data_dir={root}"] + [
+                    f"dataset_config.vqa2.features.{split}=['coco/defaults/"
+                    f"features/{folder},coco/defaults/features/{folder}']"
+                    for split, folder in (("train", "trainval2014"),
+                                          ("val", "trainval2014"),
+                                          ("test", "test2015"))]
+            lines.append(_lorra_ban_case(card, key, root, opts,
+                                         CAPTION_SPLITS,
+                                         profile=key != "lorra_vizwiz",
+                                         evaluate=key == "lorra_vizwiz"))
+    print("phase lorra-ban-run: ok LoRRA (the combine and classifier 5000 "
+          "wide, the question 2048, the context branch's sigmoid attention "
+          "over 50 OCR tokens) and BAN at full width through mmf_run, f32, "
+          "no hand-written kernel on these paths:")
+    for line in lines:
+        print(line)
+    return dict(ZERO_COUNTS)
+
+
+def phase_lorra_textvqa(card):
+    """LoRRA on TextVQA (B=128) through mmf_run on a TextVQA layout of its
+    own, with ``flagship.LORRA_BAN_OVERRIDES`` (the soft-copy answers)."""
+    from mmf_tpu_torch.common.registry import registry
+    from tests.torch_textvqa_layout import layout_opts, write_layout
+
+    registry.register_callback("chip_smoke_recorder")(_StepRecorder)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_lorra_textvqa_")
+    try:
+        t0 = time.perf_counter()
+        write_layout(tmp, n_train=LORRA_TEXTVQA_SPLITS["train"],
+                     n_val=LORRA_TEXTVQA_SPLITS["val"],
+                     n_test=LORRA_TEXTVQA_SPLITS["test"], n_images=64)
+        layout_s = time.perf_counter() - t0
+        with _fasttext_stand_in():
+            line = _lorra_ban_case(card, "lorra_textvqa", tmp,
+                                   layout_opts(tmp), LORRA_TEXTVQA_SPLITS)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase lorra-textvqa: ok LoRRA on TextVQA at full width (5000 "
+          f"answers + 50 OCR copies; layout written in {layout_s:.1f}s):")
+    print(line)
+    return dict(ZERO_COUNTS)
+
+
+def phase_cnn_lstm_run(card):
+    """CNN-LSTM on Hateful Memes (B=480, 224 px memes through six
+    ConvNets, the bidirectional LSTM of 50) through mmf_run on a Hateful
+    Memes layout of its own; its vocabulary size from the layout's
+    (``flagship.text_vocab_size``)."""
+    from mmf_tpu_torch.common.registry import registry
+    from mmf_tpu_torch.config.configuration import Configuration
+    from tests.torch_hm_layout import layout_opts, write_layout
+
+    registry.register_callback("chip_smoke_recorder")(_StepRecorder)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cnn_lstm_")
+    key = "cnn_lstm_hateful_memes"
+    tf32 = torch.backends.cudnn.allow_tf32
+    try:
+        t0 = time.perf_counter()
+        write_layout(tmp, n_train=CNN_LSTM_SPLITS["train"],
+                     n_val=CNN_LSTM_SPLITS["val"],
+                     n_test=CNN_LSTM_SPLITS["test"], n_images=32)
+        layout_s = time.perf_counter() - t0
+        path, dataset, model = flagship.LORRA_BAN[key]
+        opts = layout_opts(tmp, False)
+        words = flagship.text_vocab_size(Configuration(
+            [f"config={path}", f"model={model}", f"dataset={dataset}"]
+            + opts).get_config())
+        # the convolutions in f32, as JAX computes them (cuDNN's default
+        # rounds their inputs to TF32: 9.5e-4 from the CPU's forward)
+        torch.backends.cudnn.allow_tf32 = False
+        line = _lorra_ban_case(
+            card, key, tmp,
+            opts + [f"model_config.cnn_lstm.text_vocab_size={words}"],
+            CNN_LSTM_SPLITS)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase cnn-lstm-run: ok CNN-LSTM on Hateful Memes at full width "
+          f"({words} words; cuDNN's convolutions in f32, TF32 off; layout "
+          f"written in {layout_s:.1f}s):")
+    print(line)
+    return dict(ZERO_COUNTS)
+
+
 def phase_ln_bwd_shapes(card, record):
     """K4-bwd at every (rows, hidden, dtype, residual) the main paths'
     optimizer steps ran it at (``LnBwdRecord``), each checked and timed
@@ -7589,11 +7871,14 @@ def main():
         hm.append(timed(phase_butd_run, card, caption_root))
         hm.append(timed(phase_pythia_run, card, caption_root))
         hm.append(timed(phase_multihead_run, card, caption_root))
+        hm.append(timed(phase_lorra_ban_run, card, caption_root))
     finally:
         shutil.rmtree(caption_root, ignore_errors=True)
     hm.append(timed(phase_m4c_coco_joint, card))
     pythia2_att = timed(phase_pythia2_kernels, card)
     hm.append(timed(phase_mmf_bert_run, card))
+    hm.append(timed(phase_lorra_textvqa, card))
+    hm.append(timed(phase_cnn_lstm_run, card))
     LN_BWD_RECORD.stop()
     results["layer_norm_bwd"]["recorded_shapes"] = timed(
         phase_ln_bwd_shapes, card, LN_BWD_RECORD)
@@ -7726,8 +8011,8 @@ def main():
             # LXMERT's and VinVL's mmf_run, compared steps and mmf_serve,
             # the joint TextCaps + COCO captioner's run and compared
             # step (BUTD and Pythia run none), multihead's mmf_run and
-            # served bucket, and mmf_bert's mmf_runs, served bucket and
-            # compared steps
+            # served bucket, mmf_bert's mmf_runs, served bucket and
+            # compared steps (LoRRA, BAN and CNN-LSTM run none)
             "launches": (served[name] + trained[name] + mmbt[name]
                          + vb_int8[name] + pretrained[name]
                          + served_ckpt[name] + mmf_run[name]

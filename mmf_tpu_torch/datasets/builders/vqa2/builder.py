@@ -3,7 +3,8 @@
 Port of ``mmf_tpu/datasets/builders/vqa2/builder.py``: ``vqa2``,
 ``vqa2_train_val`` (train on train2014 + val2014), ``masked_vqa2`` (the
 masked-LM and masked-region pretraining dataset) and ``masked_q_vqa2``
-(the question cloze). The OCR variant (``vqa2_ocr``) is not ported yet.
+(the question cloze) and ``vqa2_ocr`` (``configs/datasets/vqa2/ocr.yaml``:
+VQA2 with ``use_ocr``).
 """
 
 from __future__ import annotations
@@ -88,3 +89,13 @@ class MaskedQVQA2Builder(VQA2Builder):
     @classmethod
     def config_path(cls):
         return "configs/datasets/vqa2/masked_q.yaml"
+
+
+@registry.register_builder("vqa2_ocr")
+class VQA2OCRBuilder(VQA2Builder):
+    def __init__(self, dataset_name="vqa2_ocr", *args, **kwargs):
+        super().__init__(dataset_name)
+
+    @classmethod
+    def config_path(cls):
+        return "configs/datasets/vqa2/ocr.yaml"

@@ -6,9 +6,15 @@ database (``use_features``) or the image itself (``use_images``:
 ``<image_name>.jpg`` from the image database, through the
 ``image_processor``, as ``image`` [3, H, W] float32), the soft answer
 scores as ``targets``, and the predictions formatted as
-``{"question_id", "answer"}`` rows. The OCR fields
-(``add_ocr_details``, which COCO's captions never call) wait for the
-``vqa2_ocr`` builder: a VQA2 sample with ``use_ocr`` raises.
+``{"question_id", "answer"}`` rows. With ``use_ocr`` (LoRRA's
+configs, the ``vqa2_ocr`` builder, VizWiz) a sample also holds its OCR
+tokens through the ``context_processor`` (``context``, the padded
+``context_tokens`` as strings, ``context_feature_0``, its length as
+``context_info_0.max_features``) and the ``order_vectors`` (an identity
+zeroed past the length), and the answer processor scores the OCR copy
+slots (``soft_copy_answer``); with ``use_ocr_info`` the OCR boxes
+(``ocr_bbox``). A prediction past the answer space copies its OCR token
+(the pad token answers "unanswerable").
 """
 
 from __future__ import annotations
@@ -101,27 +107,54 @@ class VQA2Dataset(MMFDataset):
                                                          current_sample))
 
     def add_ocr_details(self, sample_info, sample):
-        if self.use_ocr or self.use_ocr_info:
-            raise NotImplementedError(
-                "use_ocr / use_ocr_info: the OCR fields come with the "
-                "vqa2_ocr builder, which is not ported yet")
+        if self.use_ocr:
+            ocr_tokens = [
+                self.ocr_token_processor({"text": token})["text"]
+                for token in sample_info["ocr_tokens"]
+            ]
+            context = self.context_processor({"tokens": ocr_tokens})
+            sample.context = context["text"]
+            sample.context_tokens = context["tokens"]
+            sample.context_feature_0 = context["text"]
+            sample.context_info_0 = Sample()
+            sample.context_info_0.max_features = context["length"]
+
+            order_vectors = np.eye(len(sample.context_tokens),
+                                   dtype=np.float32)
+            order_vectors[int(context["length"]):] = 0
+            sample.order_vectors = order_vectors
+
+        if self.use_ocr_info and "ocr_info" in sample_info:
+            sample.ocr_bbox = self.bbox_processor(
+                {"info": sample_info["ocr_info"]})["bbox"]
         return sample
 
     def add_answer_info(self, sample_info, sample):
         if "answers" in sample_info:
-            answers = sample_info["answers"]
-            processed = self.answer_processor({"answers": answers})
+            answer_processor_arg = {"answers": sample_info["answers"]}
+            if self.use_ocr:
+                answer_processor_arg["tokens"] = sample_info["ocr_tokens"]
+            processed = self.answer_processor(answer_processor_arg)
             sample.targets = processed["answers_scores"]
         return sample
 
     def format_for_prediction(self, report):
         """One ``{"question_id", "answer"}`` row a question: the answer
-        of the largest score (the OCR copy slots of ``vqa2_ocr`` wait for
-        that builder)."""
+        of the largest score; an index past the answer space copies that
+        slot of the question's ``context_tokens``, and the pad token
+        answers "unanswerable"."""
         answers = np.asarray(report["scores"]).argmax(axis=1)
         predictions = []
+        answer_space_size = self.answer_processor.get_true_vocab_size()
         for idx, question_id in enumerate(report["question_id"]):
-            answer = self.answer_processor.idx2word(int(answers[idx]))
+            answer_id = int(answers[idx])
+            if answer_id >= answer_space_size:
+                answer_id -= answer_space_size
+                answer = report["context_tokens"][idx][answer_id]
+                if answer == self.context_processor.PAD_TOKEN:
+                    answer = "unanswerable"
+            else:
+                answer = self.answer_processor.idx2word(answer_id)
             predictions.append(
                 {"question_id": int(np.asarray(question_id)),
                  "answer": answer}

@@ -3,9 +3,10 @@
 Port of the processors of ``mmf_tpu/datasets/processors/processors.py``
 that the VQA2, masked-VQA2 and TextVQA paths build: the ``Processor``
 wrapper (type + params dispatch through the registry), ``vqa_answer``
-(soft VQA-accuracy scores over the answer vocabulary) and
-``multi_hot_answer_from_vocab``, ``vocab`` (words to indices through a
-vocabulary file), ``caption`` (COCO's caption ids back to words),
+(soft VQA-accuracy scores over the answer vocabulary),
+``multi_hot_answer_from_vocab``, ``soft_copy_answer`` (LoRRA's: the
+scores and the OCR copy slots' soft accuracies), ``vocab`` (words to
+indices through a vocabulary file), ``caption`` (COCO's caption ids back to words),
 ``simple_word``, ``simple_sentence``, ``bbox``,
 ``masked_region`` (region masks for masked-region pretraining, drawn
 from Python's ``random`` as in JAX) and ``transformer_bbox`` (normalised
@@ -26,6 +27,7 @@ import logging
 import os
 import random
 import re
+import warnings
 from collections import Counter, defaultdict
 from itertools import islice, product
 
@@ -197,6 +199,62 @@ class MultiHotAnswerFromVocabProcessor(VQAAnswerProcessor):
         scores[np.asarray(answers_indices, np.int64)] = 1
         scores[self.answer_vocab.UNK_INDEX] = 0
         return scores
+
+
+@registry.register_processor("soft_copy_answer")
+class SoftCopyAnswerProcessor(VQAAnswerProcessor):
+    """VQA answer scores over the answer vocabulary and ``max_length``
+    OCR copy slots (reference processors.py:960-1051): each slot whose
+    token (through ``context_preprocessor``) is one of the answers gets
+    that answer's soft VQA accuracy. ``get_vocab_size`` counts the
+    slots, ``get_true_vocab_size`` the answers alone."""
+
+    DEFAULT_MAX_LENGTH = 50
+
+    def __init__(self, config, *args, **kwargs):
+        super().__init__(config, *args, **kwargs)
+        self.use_soft_copy = True
+        if "max_length" in config:
+            self.max_length = config["max_length"]
+        else:
+            self.max_length = self.DEFAULT_MAX_LENGTH
+            warnings.warn(
+                "SoftCopyAnswerProcessor: max_length not configured; "
+                f"using {self.DEFAULT_MAX_LENGTH} copy slots")
+        self.context_preprocessor = None
+        if "context_preprocessor" in config:
+            self.context_preprocessor = Processor(
+                config["context_preprocessor"])
+
+    def get_vocab_size(self):
+        return self.answer_vocab.num_vocab + self.max_length
+
+    def get_true_vocab_size(self):
+        return self.answer_vocab.num_vocab
+
+    def __call__(self, item):
+        processed = super().__call__({"answers": item["answers"]})
+        answers, scores = processed["answers"], processed["answers_scores"]
+        tokens = item["tokens"]
+        length = min(len(tokens), self.max_length)
+        if self.context_preprocessor is not None:
+            tokens = [self.context_preprocessor({"text": token})["text"]
+                      for token in tokens]
+        # the closed form of compute_answers_scores, a slot's token
+        # counted among the answers
+        tokens_scores = np.zeros(self.max_length, np.float32)
+        n, counts = len(answers), Counter(answers)
+        for slot, token in enumerate(tokens[:length]):
+            c = counts[token]
+            if c == 0:
+                continue
+            held_in = min(1.0, (c - 1) / 3.0)
+            held_out = min(1.0, c / 3.0)
+            tokens_scores[slot] = (c * held_in + (n - c) * held_out) / n
+        scores[-len(tokens_scores):] = tokens_scores
+        return {"answers": answers,
+                "answers_indices": processed["answers_indices"],
+                "answers_scores": scores}
 
 
 @registry.register_processor("vocab")

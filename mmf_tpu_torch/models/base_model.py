@@ -88,7 +88,8 @@ class BaseModel(nn.Module):
         (``ImageFinetune``'s pickles) takes them again afterwards, and one
         with a constant initialiser (``LanguageDecoder``'s
         ``fc_bias_init``) its constants; an LSTM cell's products are
-        Dense layers, weight-norm gains stay 1."""
+        Dense layers, weight-norm gains stay 1; a module with parameters
+        of its own (BCNet's ``h_mat``) draws them with ``init_params``."""
         from mmf_tpu_torch.modules.embeddings import Conv1d
         from mmf_tpu_torch.modules.resnet import BatchNorm
         from mmf_tpu_torch.modules.transformer import (
@@ -126,6 +127,8 @@ class BaseModel(nn.Module):
                 module.bias.zero_()
                 module.running_mean.zero_()
                 module.running_var.fill_(1.0)
+            elif hasattr(module, "init_params"):  # its own parameters
+                module.init_params(normal)
         for module in self.modules():
             if hasattr(module, "init_constants"):
                 module.init_constants()

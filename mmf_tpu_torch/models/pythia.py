@@ -27,6 +27,7 @@ features entry), at most the configured ones: VQA2's one.
 
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, List, Optional
 
 import torch
@@ -57,6 +58,9 @@ class Pythia(BaseModel):
 
     def __init__(self, config: Any = None):
         super().__init__(config)
+        self._build()
+
+    def _build(self):
         self.word_embedding = Embed(self._vocab_size(), WORD_DIM)
         text_dim = 0
         for i, te_cfg in enumerate(self.config["text_embeddings"]):
@@ -79,6 +83,22 @@ class Pythia(BaseModel):
     @classmethod
     def config_path(cls):
         return "configs/models/pythia/defaults.yaml"
+
+    def materialize_from_state_dict(self, state_dict):
+        """Rebuild for the feature sets a checkpoint's weights hold, where
+        they are more or fewer than the built ones: a served model has no
+        dataset config to count them from (flax takes them from the
+        batch)."""
+        if not hasattr(self, "image_encoder_names"):
+            return
+        sets = {int(m.group(1)) for m in (
+            re.match(r"image_feature_embeddings_(\d+)_", k)
+            for k in state_dict) if m}
+        if sets and len(sets) != len(self.image_encoder_names):
+            self._feature_sets = len(sets)
+            self._modules.clear()
+            self.encoder_names = []
+            self._build()
 
     @classmethod
     def format_state_key(cls, key):
@@ -107,6 +127,8 @@ class Pythia(BaseModel):
     def _num_feature_sets(self) -> int:
         """Feature sets the first dataset gives a sample (one a
         comma-joined path of its first training features entry)."""
+        if getattr(self, "_feature_sets", None):
+            return self._feature_sets
         ds = _dataset_config()
         name = self._datasets()[0].strip()
         if ds is None or name not in ds:
@@ -117,12 +139,26 @@ class Pythia(BaseModel):
         return len(str(features[0]).split(","))
 
     def _build_image_embeddings(self, text_dim: int) -> int:
-        encodings = self.config["image_feature_encodings"]
+        return self._build_feature_embeddings(
+            "image", text_dim, self.config.get("image_feature_dim", 2048),
+            self._num_feature_sets())
+
+    def _build_feature_embeddings(self, attr: str, text_dim: int,
+                                  feature_dim: int, n_sets: int,
+                                  extra_dim: int = 0) -> int:
+        """The encoders and embeddings of ``attr``'s first ``n_sets``
+        configured encodings (``<attr>_feature_encodings``) over
+        ``feature_dim``-wide features; each embedding pools the encoded
+        features with ``extra_dim`` more columns (the order vectors).
+        Returns the pooled width of them all."""
+        encodings = self.config[f"{attr}_feature_encodings"]
         width = 0
-        feature_dim = self.config.get("image_feature_dim", 2048)
-        # flax names an unnamed module after its class and a count
-        self.encoder_names: List[str] = []
-        for i in range(min(len(encodings), self._num_feature_sets())):
+        # flax names an unnamed module after its class and a count, over
+        # the model's whole scope (the context's after the image's)
+        if not hasattr(self, "encoder_names"):
+            self.encoder_names: List[str] = []
+        names = []
+        for i in range(min(len(encodings), n_sets)):
             params = dict(encodings[i].get("params", {}) or {})
             params.setdefault("in_dim", feature_dim)
             encoder = build_image_encoder(
@@ -133,22 +169,26 @@ class Pythia(BaseModel):
             name = f"{base}_{seen}"
             self.add_module(name, encoder)
             self.encoder_names.append(name)
+            names.append(name)
             for j, fe_cfg in enumerate(
-                    self.config["image_feature_embeddings"]):
+                    self.config[f"{attr}_feature_embeddings"]):
                 emb, out_dim = self._feature_embedding(
-                    encoder.out_dim, text_dim, fe_cfg)
-                self.add_module(f"image_feature_embeddings_{i}_{j}", emb)
+                    encoder.out_dim, text_dim, fe_cfg, extra_dim)
+                self.add_module(f"{attr}_feature_embeddings_{i}_{j}", emb)
                 width += out_dim
+        setattr(self, f"{attr}_encoder_names", names)
         return width
 
-    def _feature_embedding(self, image_dim: int, text_dim: int, fe_cfg):
-        """One image-feature embedding and the width it gives: Pythia's
-        top-down pooling, ``out_dim`` maps of the regions."""
+    def _feature_embedding(self, image_dim: int, text_dim: int, fe_cfg,
+                           extra_dim: int = 0):
+        """One feature embedding and the width it gives: Pythia's
+        top-down pooling, ``out_dim`` maps of the features (with
+        ``extra_dim`` columns appended after the attention)."""
         emb = ImageFeatureEmbedding(
             image_dim, text_dim, fe_cfg["modal_combine"],
             fe_cfg["transform"], fe_cfg.get("normalization", "softmax"))
         out = (fe_cfg["transform"].get("params", {}) or {}).get("out_dim", 1)
-        return emb, image_dim * out
+        return emb, (image_dim + extra_dim) * out
 
     def _text_total(self, sample_list):
         words = self.word_embedding(sample_list["text"].long())
@@ -157,25 +197,35 @@ class Pythia(BaseModel):
                          dim=1)
 
     def _image_total(self, sample_list, text_total):
+        return self._feature_embedding_total("image", sample_list,
+                                             text_total)
+
+    def _feature_embedding_total(self, attr: str, sample_list, text_total,
+                                 extra: Optional[Dict[str, Any]] = None):
+        """``attr``'s features (``<attr>_feature_<i>`` while the batch
+        holds them) through their encoders and embeddings, masked past
+        ``<attr>_info_<i>.max_features``; ``extra``'s order vectors are
+        appended after the attention. The pooled features, concatenated."""
+        names = getattr(self, f"{attr}_encoder_names")
         pooled = []
-        for i in range(len(self.config["image_feature_encodings"])):
-            feature = sample_list.get(f"image_feature_{i}", None)
+        for i in range(len(self.config[f"{attr}_feature_encodings"])):
+            feature = sample_list.get(f"{attr}_feature_{i}", None)
             if feature is None:
                 break
-            if i >= len(self.encoder_names):
+            if i >= len(names):
                 raise ValueError(
-                    f"the batch holds image_feature_{i}, and the model was "
-                    f"built for {len(self.encoder_names)} feature sets (the "
-                    "first dataset's features)")
-            info = sample_list.get(f"image_info_{i}", {}) or {}
-            image_dims = info.get("max_features", None)
-            if image_dims is None:
-                image_dims = torch.full((feature.shape[0],), feature.shape[1],
-                                        device=feature.device)
-            encoded = getattr(self, self.encoder_names[i])(feature)
-            for j in range(len(self.config["image_feature_embeddings"])):
-                emb, _ = getattr(self, f"image_feature_embeddings_{i}_{j}")(
-                    encoded, text_total, image_dims)
+                    f"the batch holds {attr}_feature_{i}, and the model was "
+                    f"built for {len(names)} feature sets (the first "
+                    "dataset's features)")
+            info = sample_list.get(f"{attr}_info_{i}", {}) or {}
+            dims = info.get("max_features", None)
+            if dims is None:
+                dims = torch.full((feature.shape[0],), feature.shape[1],
+                                  device=feature.device)
+            encoded = getattr(self, names[i])(feature)
+            for j in range(len(self.config[f"{attr}_feature_embeddings"])):
+                emb, _ = getattr(self, f"{attr}_feature_embeddings_{i}_{j}")(
+                    encoded, text_total, dims, extra)
                 pooled.append(emb)
         return torch.cat(pooled, dim=1)
 
@@ -223,7 +273,8 @@ class PythiaMultiHead(Pythia):
     ``MultiHeadImageFeatureEmbedding`` of the config's ``num_heads``
     (8), as wide as the text embedding."""
 
-    def _feature_embedding(self, image_dim: int, text_dim: int, fe_cfg):
+    def _feature_embedding(self, image_dim: int, text_dim: int, fe_cfg,
+                           extra_dim: int = 0):
         return MultiHeadImageFeatureEmbedding(
             image_dim, text_dim, num_heads=fe_cfg.get("num_heads", 8)), \
             text_dim

@@ -5,15 +5,16 @@
 ``vocab`` (``VocabEmbedding``, a trainable table; JAX does not load
 pretrained vectors into it either), ``torch`` (a bare table),
 ``attention`` (``AttentionTextEmbedding``, Pythia's LSTM with
-convolutional attention over the words) and ``projection``
-(``ProjectionEmbedding``, a ``linear`` layer or a stack of ``conv``
-layers). The other types (``bilstm``, ``mcan``, ``preextracted``) raise,
+convolutional attention over the words), ``bilstm``
+(``BiLSTMTextEmbedding``, BAN's GRU or LSTM over the words) and
+``projection`` (``ProjectionEmbedding``, a ``linear`` layer or a stack
+of ``conv`` layers). The other types (``mcan``, ``preextracted``) raise,
 naming the module they wait for. ``ImageFeatureEmbedding`` is Pythia's
 question-guided pooling of the regions, ``MultiHeadImageFeatureEmbedding``
 the ``multihead`` model's multi-head attention from the question to the
 regions. Module names mirror the flax scopes (``module`` at each level,
-``lstm_0_fwd``, ``conv1``), so ``params_from_jax`` maps the weights
-mechanically.
+``lstm_0_fwd``, ``rnn_0_fwd``, ``conv1``), so ``params_from_jax`` maps
+the weights mechanically.
 """
 
 from __future__ import annotations
@@ -30,7 +31,6 @@ from torch import nn
 from mmf_tpu_torch.modules.transformer import Dense, Dropout, Embed
 
 _NOT_PORTED = {
-    "bilstm": "BiLSTMTextEmbedding",
     "mcan": "SAEmbedding",
     "preextracted": "PreExtractedEmbedding",
 }
@@ -73,6 +73,11 @@ class TextEmbedding(nn.Module):
                 p.get("dropout", 0.0), p.get("conv1_out", 512),
                 p.get("conv2_out", 2), p.get("kernel_size", 1),
                 p.get("padding", 0), p.get("bidirectional", False))
+        elif emb_type == "bilstm":
+            self.module = BiLSTMTextEmbedding(
+                p["hidden_dim"], p["embedding_dim"], p.get("num_layers", 1),
+                p.get("dropout", 0.0), p.get("bidirectional", False),
+                p.get("rnn_type", "GRU"))
         elif emb_type == "projection":
             self.module = ProjectionEmbedding(
                 p.get("module", "linear"), p.get("in_dim"), p.get("out_dim"),
@@ -89,7 +94,7 @@ class TextEmbedding(nn.Module):
     def out_dim(self):
         if self.emb_type == "attention":
             return self.module.text_out_dim
-        if self.emb_type == "projection":
+        if self.emb_type in ("projection", "bilstm"):
             return self.module.out_dim
         return getattr(self.module, "embedding_dim", None)
 
@@ -157,6 +162,48 @@ class ProjectionEmbedding(nn.Module):
         return x
 
 
+class BiLSTMTextEmbedding(nn.Module):
+    """BAN's question encoder (``mmf_tpu/modules/embeddings.py:59``):
+    ``num_layers`` recurrent layers (``rnn_type`` ``GRU``, flax's
+    ``GRUCell``, or ``LSTM``, its ``OptimizedLSTMCell``) named
+    ``rnn_<layer>_fwd``, and ``rnn_<layer>_bwd`` run backwards in time
+    when bidirectional (``hidden_dim / 2`` each, concatenated), over every
+    step of the padded length, as ``nn.RNN`` runs without
+    ``seq_lengths``. ``forward_all`` returns every step [B, T, H], else
+    the last step's [B, H], bidirectional or not, as JAX does. The rate
+    of ``dropout`` is read nowhere, in JAX too."""
+
+    def __init__(self, hidden_dim: int, embedding_dim: int,
+                 num_layers: int = 1, dropout: float = 0.0,
+                 bidirectional: bool = False, rnn_type: str = "GRU"):
+        super().__init__()
+        from mmf_tpu_torch.modules.layers import GRUCell, LSTMCell
+
+        cell = {"LSTM": LSTMCell, "GRU": GRUCell}[rnn_type]
+        self.bidirectional = bidirectional
+        self.num_layers = num_layers
+        hid = hidden_dim // (2 if bidirectional else 1)
+        width = embedding_dim
+        for i in range(num_layers):
+            self.add_module(f"rnn_{i}_fwd", cell(width, hid))
+            if bidirectional:
+                self.add_module(f"rnn_{i}_bwd", cell(width, hid))
+            width = 2 * hid if bidirectional else hid
+        self.out_dim = width
+
+    def forward(self, x, forward_all: bool = False):
+        from mmf_tpu_torch.modules.layers import run_rnn
+
+        out = x
+        for i in range(self.num_layers):
+            fwd = run_rnn(getattr(self, f"rnn_{i}_fwd"), out)
+            if self.bidirectional:
+                bwd = run_rnn(getattr(self, f"rnn_{i}_bwd"), out, True)
+                fwd = torch.cat([fwd, bwd], dim=-1)
+            out = fwd
+        return out if forward_all else out[:, -1]
+
+
 class AttentionTextEmbedding(nn.Module):
     """An LSTM over the words (flax ``nn.RNN`` over an
     ``OptimizedLSTMCell`` named ``lstm_<layer>_fwd``, and ``_bwd`` run
@@ -187,26 +234,14 @@ class AttentionTextEmbedding(nn.Module):
         self.conv1 = Conv1d(width, conv1_out, kernel_size, padding)
         self.conv2 = Conv1d(conv1_out, conv2_out, kernel_size, padding)
 
-    @staticmethod
-    def _run(cell, x, reverse: bool = False):
-        b = x.shape[0]
-        zeros = x.new_zeros(b, cell.features)
-        carry, weights, outs = (zeros, zeros), cell.fused(), []
-        steps = range(x.shape[1] - 1, -1, -1) if reverse else range(
-            x.shape[1])
-        for t in steps:
-            carry, h = cell(carry, x[:, t], weights)
-            outs.append(h)
-        if reverse:
-            outs.reverse()
-        return torch.stack(outs, dim=1)
-
     def forward(self, x):
+        from mmf_tpu_torch.modules.layers import run_rnn
+
         out = x
         for i in range(self.num_layers):
-            fwd = self._run(getattr(self, f"lstm_{i}_fwd"), out)
+            fwd = run_rnn(getattr(self, f"lstm_{i}_fwd"), out)
             if self.bidirectional:
-                bwd = self._run(getattr(self, f"lstm_{i}_bwd"), out, True)
+                bwd = run_rnn(getattr(self, f"lstm_{i}_bwd"), out, True)
                 fwd = torch.cat([fwd, bwd], dim=-1)
             out = fwd
         lstm_drop = self.dropout(out)  # [B, T, H]

@@ -13,13 +13,20 @@ ReLU and dropout), ``logit`` (Pythia's two-branch head) and
 flax scopes (``module``, ``dense_0``, ``norm_0``, ``out``, ...), so
 ``params_from_jax`` maps a JAX init mechanically, ``batch_stats``
 included: a ``wn_dense`` is two modules, the gain under its name and the
-Dense as the parent's ``Dense_<n>`` (``add_wn_dense``), and an LSTM cell
-keeps flax's eight products (``ii`` ... ``ho``).
+Dense as the parent's ``Dense_<n>`` (``add_wn_dense``), an LSTM cell
+keeps flax's eight products (``ii`` ... ``ho``) and a GRU cell its six
+(``ir`` ... ``hn``). ``run_rnn`` is flax's ``nn.RNN`` over either cell.
+BAN's blocks are here too: ``FCNet`` (weight-normalised Dense layers),
+``BCNet`` (the bilinear connection, in its three forms) and
+``BiAttention``; and CNN-LSTM's ``ConvNet`` (conv, leaky ReLU, max pool,
+BatchNorm).
 
 flax infers a Dense layer's input width from its first input; here the
 caller gives it (``in_features``, the width of what the classifier
-reads). ``in_dim`` keeps its JAX meaning: the default hidden width of
-the ``weight_norm`` head.
+reads), or leaves it to the first input (``in_features=None`` with
+``in_dim=None``: the ``mlp`` head's first Dense is a ``LazyDense``).
+``in_dim`` keeps its JAX meaning: the default hidden width of the
+``weight_norm`` head.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from mmf_tpu_torch.modules.resnet import BatchNorm
 from mmf_tpu_torch.modules.transformer import (
     Dense,
     Dropout,
+    LazyDense,
     PredictionHeadTransform,
     TransformerConfig,
 )
@@ -57,13 +65,17 @@ class MLPClassifier(nn.Module):
         self.batch_norm = batch_norm
         hidden = hidden_dim or in_features
         width = in_features
+
+        def dense(out):  # the first takes its width from its input
+            return LazyDense(out) if width is None else Dense(width, out)
+
         for i in range(num_layers):
-            self.add_module(f"dense_{i}", Dense(width, hidden))
+            self.add_module(f"dense_{i}", dense(hidden))
             if batch_norm:
                 self.add_module(f"norm_{i}", BatchNorm(hidden))
             self.add_module(f"dropout_{i}", Dropout(dropout))
             width = hidden
-        self.out = Dense(width, out_dim)
+        self.out = dense(out_dim)
 
     def forward(self, x):
         for i in range(self.num_layers):
@@ -223,6 +235,80 @@ class LSTMCell(nn.Module):
         h = torch.sigmoid(o) * torch.tanh(c)
         return (c, h), h
 
+    def zero_carry(self, x):
+        zeros = x.new_zeros(x.shape[0], self.features)
+        return zeros, zeros
+
+    def prepare(self, xs):
+        """What ``run_rnn`` hands each step: the inputs as they are, and
+        the fused weights."""
+        return xs, self.fused()
+
+
+class GRUCell(nn.Module):
+    """flax ``nn.GRUCell``: the input products ``ir``, ``iz``, ``in`` with
+    a bias, the hidden products ``hr`` and ``hz`` without one and ``hn``
+    with one; ``r = sigmoid(ir x + hr h)``, ``z = sigmoid(iz x + hz h)``,
+    ``n = tanh(in x + r hn h)``, ``h' = (1 - z) n + z h``; the carry is
+    ``h``. ``prepare`` runs the three input products over the whole
+    sequence at once; each step then makes one product of ``h`` with the
+    hidden weights concatenated (the bias of ``hr`` and ``hz`` is a zero
+    row, which adds nothing)."""
+
+    def __init__(self, in_features: int, features: int):
+        super().__init__()
+        self.features = features
+        for g in "rzn":
+            self.add_module(f"i{g}", Dense(in_features, features))
+        self.hr = Dense(features, features, bias=False)
+        self.hz = Dense(features, features, bias=False)
+        self.hn = Dense(features, features)
+
+    def zero_carry(self, x):
+        return x.new_zeros(x.shape[0], self.features)
+
+    def prepare(self, xs):
+        """(the input products of ``xs`` [B, T, in] -> [B, T, 3H], the
+        hidden weight [3H, H] and bias [3H])."""
+        wi = torch.cat([self.ir.weight, self.iz.weight, self.in_.weight])
+        bi = torch.cat([self.ir.bias, self.iz.bias, self.in_.bias])
+        wh = torch.cat([self.hr.weight, self.hz.weight, self.hn.weight])
+        bh = torch.cat([torch.zeros_like(self.hn.bias).repeat(2),
+                        self.hn.bias])
+        return F.linear(xs, wi, bi), (wh, bh)
+
+    @property
+    def in_(self):  # ``in`` is a Python keyword
+        return getattr(self, "in")
+
+    def forward(self, h, xp, weights):
+        """One step: ``xp`` is this step's row of ``prepare``'s input
+        products."""
+        xr, xz, xn = xp.split(self.features, dim=-1)
+        hr, hz, hn = F.linear(h, *weights).split(self.features, dim=-1)
+        r = torch.sigmoid(xr + hr)
+        z = torch.sigmoid(xz + hz)
+        n = torch.tanh(xn + r * hn)
+        h = (1.0 - z) * n + z * h
+        return h, h
+
+
+def run_rnn(cell, xs, reverse: bool = False):
+    """flax ``nn.RNN(cell)`` over ``xs`` [B, T, in] from a zero carry:
+    every step of the padded length (no ``seq_lengths``); ``reverse``
+    walks from the last step to the first and keeps the outputs in the
+    inputs' order (``reverse=True, keep_order=True``). [B, T, H]."""
+    inputs, weights = cell.prepare(xs)
+    carry, outs = cell.zero_carry(xs), []
+    steps = range(xs.shape[1] - 1, -1, -1) if reverse else range(
+        xs.shape[1])
+    for t in steps:
+        carry, h = cell(carry, inputs[:, t], weights)
+        outs.append(h)
+    if reverse:
+        outs.reverse()
+    return torch.stack(outs, dim=1)
+
 
 class TopDownAttentionLSTM(nn.Module):
     """BUTD's attention LSTM (``mmf_tpu/modules/layers.py:404``): an LSTM
@@ -270,7 +356,8 @@ class NonLinearElementMultiply(nn.Module):
     arms (``mmf_tpu/modules/layers.py:369``); ``branch`` keeps one arm,
     built and called alone (the ``pythia_question_only`` /
     ``pythia_image_only`` ablations). ``context_dim`` adds the
-    ``fa_context`` arm."""
+    ``fa_context`` arm (LoRRA's): ``fa_context(c) * fa_txt(t)`` is
+    concatenated to the image's product, twice as wide."""
 
     def __init__(self, image_dim: int, text_dim: int, hidden_dim: int,
                  dropout: float, context_dim: Optional[int] = None,
@@ -284,7 +371,8 @@ class NonLinearElementMultiply(nn.Module):
         if context_dim is not None:
             self.fa_context = ReLUWithWeightNormFC(context_dim, hidden_dim)
         self.dropout = Dropout(dropout)
-        self.out_dim = hidden_dim
+        # the context's product is concatenated to the image's
+        self.out_dim = hidden_dim * (1 if context_dim is None else 2)
 
     def forward(self, image_feat, question_embedding, context_embedding=None,
                 branch: Optional[str] = None):
@@ -380,6 +468,8 @@ class ClassifierLayer(nn.Module):
         p = dict(params or {})
         width = in_dim if in_features is None else in_features
         t = classifier_type
+        if width is None and t != "mlp":
+            raise ValueError(f"classifier {t!r} needs its input width")
         if t == "weight_norm":
             self.module = WeightNormClassifier(
                 width, out_dim, p.get("hidden_dim", in_dim),
@@ -413,3 +503,140 @@ class ClassifierLayer(nn.Module):
 
     def forward(self, x, *args, **kwargs):
         return self.module(x, *args, **kwargs)
+
+
+_ACTIVATIONS = {"ReLU": F.relu, "relu": F.relu, None: lambda x: x}
+
+
+class FCNet(nn.Module):
+    """BAN's stack of weight-normalised Dense layers
+    (``mmf_tpu/modules/layers.py:99``): for each step of ``dims``,
+    dropout, ``wn_dense`` (the gain ``fc_<i>`` over ``Dense_<i>``, one
+    gain a kernel) and the activation."""
+
+    def __init__(self, dims, act: Optional[str] = "ReLU",
+                 dropout: float = 0.0):
+        super().__init__()
+        self.act = _ACTIVATIONS[act]
+        self.n_layers = len(dims) - 1
+        for i in range(self.n_layers):
+            add_wn_dense(self, f"fc_{i}", i, dims[i], dims[i + 1])
+        self.dropout = Dropout(dropout)
+
+    def forward(self, x):
+        for i in range(self.n_layers):
+            x = self.act(apply_wn_dense(self, f"fc_{i}", self.dropout(x)))
+        return x
+
+
+# the rates BCNet takes when it is given none (FCNet's, then the one
+# before the bilinear product), as in JAX; no config key reaches them
+BCNET_DROPOUT = (0.2, 0.5)
+
+
+class BCNet(nn.Module):
+    """BAN's bilinear connection (``mmf_tpu/modules/layers.py:478``) of
+    regions ``v`` [B, V, v_dim] and words ``q`` [B, Q, q_dim], each
+    through an ``FCNet`` to ``h_dim * k``:
+
+    - given ``w`` [B, V, Q] (``forward_with_weights``): the bilinear
+      pooling sum_ij v'_bi w_bij q'_bj, its ``k`` slices averaged and
+      scaled by ``k``: [B, h_dim];
+    - ``h_out`` None: the products [B, V, Q, h_dim * k];
+    - ``h_out`` <= 32: ``h_out`` maps through the learned ``h_mat`` and
+      ``h_bias``, [B, h_out, V, Q]: the regions times ``h_mat`` are one
+      [B, h_out, V, h_dim * k] tensor (3.1 GB in f32 at BAN's B = 512),
+      as in JAX;
+    - ``h_out`` > 32: the products through ``wn_dense`` ``h_net`` (over
+      ``Dense_0``), [B, h_out, V, Q]."""
+
+    C = 32
+
+    def __init__(self, v_dim: int, q_dim: int, h_dim: int,
+                 h_out: Optional[int], act: str = "ReLU",
+                 dropout: Optional[Any] = None, k: int = 3):
+        super().__init__()
+        dropout = list(dropout or BCNET_DROPOUT)
+        self.k, self.h_out = k, h_out
+        self.v_net = FCNet((v_dim, h_dim * k), act, dropout[0])
+        self.q_net = FCNet((q_dim, h_dim * k), act, dropout[0])
+        self.dropout = Dropout(dropout[1])
+        if h_out is not None and h_out <= self.C:
+            self.h_mat = nn.Parameter(torch.zeros(1, h_out, 1, h_dim * k))
+            self.h_bias = nn.Parameter(torch.zeros(1, h_out, 1, 1))
+        elif h_out is not None:
+            add_wn_dense(self, "h_net", 0, h_dim * k, h_out)
+
+    def init_params(self, normal):
+        """flax's ``normal(1.0)`` for ``h_mat`` and ``h_bias``."""
+        if self.h_out is not None and self.h_out <= self.C:
+            normal(self.h_mat, 1.0)
+            normal(self.h_bias, 1.0)
+
+    def forward(self, v, q, w=None):
+        v_, q_ = self.v_net(v), self.q_net(q)
+        if w is not None:
+            logits = torch.einsum("bvk,bvq,bqk->bk", v_, w, q_)
+            if self.k > 1:
+                logits = logits.reshape(logits.shape[0], -1, self.k).mean(
+                    -1) * self.k
+            return logits
+        if self.h_out is None:
+            return torch.einsum("bvk,bqk->bvqk", v_, q_)
+        v_d = self.dropout(v_)
+        if self.h_out <= self.C:
+            logits = torch.einsum("bgvk,bqk->bgvq", v_d[:, None] * self.h_mat,
+                                  q_)
+            return logits + self.h_bias
+        d = torch.einsum("bvk,bqk->bvqk", v_d, q_)
+        return apply_wn_dense(self, "h_net", d).permute(0, 3, 1, 2)
+
+
+class BiAttention(nn.Module):
+    """BAN's bilinear attention maps (``mmf_tpu/modules/layers.py:525``):
+    a ``BCNet`` named ``logits`` with ``k`` 3 and ``glimpse`` maps, the
+    regions whose features are all zero set to -inf, then a softmax over
+    each map's V x Q entries. Returns (maps [B, glimpse, V, Q], the
+    masked logits)."""
+
+    def __init__(self, v_dim: int, q_dim: int, z_dim: int, glimpse: int,
+                 dropout: Optional[Any] = None):
+        super().__init__()
+        self.glimpse = glimpse
+        self.logits = BCNet(v_dim, q_dim, z_dim, glimpse, dropout=dropout,
+                            k=3)
+
+    def forward(self, v, q, v_mask: bool = True):
+        v_num, q_num = v.shape[1], q.shape[1]
+        logits = self.logits(v, q)
+        if v_mask:
+            mask = (v.abs().sum(2) == 0)[:, None, :, None]
+            logits = logits.masked_fill(mask, float("-inf"))
+        p = torch.softmax(logits.reshape(-1, self.glimpse, v_num * q_num),
+                          dim=2)
+        return p.reshape(-1, self.glimpse, v_num, q_num), logits
+
+
+class ConvNet(nn.Module):
+    """CNN-LSTM's convolution block (``mmf_tpu/modules/layers.py:34``)
+    over [B, C, H, W]: ``conv`` (padded ``kernel_size // 2`` on each side
+    for ``"same"``), leaky ReLU at 0.01, a ``pool_stride`` max pool, then
+    ``norm``, BatchNorm with flax's statistics. The convolution runs on
+    cuDNN on the card."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int, padding_size: Any = "same",
+                 pool_stride: int = 2, batch_norm: bool = True):
+        super().__init__()
+        pad = kernel_size // 2 if padding_size == "same" else padding_size
+        self.conv = nn.Conv2d(in_channels, out_channels, kernel_size,
+                              padding=pad)
+        self.pool_stride = pool_stride
+        self.batch_norm = batch_norm
+        if batch_norm:
+            self.norm = BatchNorm(out_channels)
+
+    def forward(self, x):
+        x = F.max_pool2d(F.leaky_relu(self.conv(x), 0.01), self.pool_stride,
+                         self.pool_stride)
+        return self.norm(x) if self.batch_norm else x

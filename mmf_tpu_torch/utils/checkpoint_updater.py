@@ -14,12 +14,13 @@ the flax paths with dots, so the mapping is mechanical:
 - LayerNorm/BatchNorm ``scale`` -> ``weight``
 - ``bias``                    -> ``bias``
 - a parameter made with ``self.param`` outside those modules (the ViT
-  patch embeddings' ``cls_token`` and ``position_embeddings``) keeps
-  its name
+  patch embeddings' ``cls_token`` and ``position_embeddings``, BAN's
+  ``BCNet`` ``h_mat`` and ``h_bias``) keeps its name
 - a ``WeightNorm`` wrapper's gain (``fc1/{Dense_0/kernel/scale}``, flax
   names it after the wrapped kernel) keeps its name:
   ``fc1.Dense_0/kernel/scale`` (``modules/layers.py::WeightNormGain``)
-- an LSTM cell's products (``ii`` ... ``ho``) are Dense layers
+- an LSTM cell's products (``ii`` ... ``ho``) and a GRU cell's (``ir``
+  ... ``hn``) are Dense layers
 
 A module that flax applies more than once holds one scope, and so one
 parameter here: UNITER's token-type table, which its image stream reads
@@ -62,7 +63,7 @@ _LEAF = {"kernel": "weight", "embedding": "weight", "scale": "weight",
          "bias": "bias"}
 _STATS = {"mean": "running_mean", "var": "running_var"}
 _VERBATIM = {"cls_token", "position_embeddings", "classifier_w",
-             "classifier_b"}
+             "classifier_b", "h_mat", "h_bias"}
 
 
 def _flatten(tree, prefix=()):

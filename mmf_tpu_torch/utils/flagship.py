@@ -57,7 +57,7 @@ For Hateful Memes at batch 1 (the JAX package's latency metric,
 ``configs/models/mmbt/defaults.yaml`` with the classification head, and
 ``hateful_memes_example_batch`` draws that script's inputs. For
 training on Hateful Memes: ``HATEFUL_MEMES_CONFIGS`` names each model's
-project config (MMBT and the five baselines),
+project config (MMBT, the five baselines and CNN-LSTM),
 ``hateful_memes_config(model, opts)`` reads one,
 ``hateful_memes_model(config)`` builds its model,
 ``hateful_memes_train_batch`` draws a training batch of the
@@ -105,6 +105,13 @@ Visual Genome: ``PYTHIA2`` names each config with its dataset and model,
 ``pythia2_config(key, opts)`` reads one, ``pythia2_model`` builds its
 model, and ``mmf_bert_batch`` draws an mmf_bert batch (VQA2 targets, or
 the masked LM's labels).
+
+LoRRA (TextVQA, VQA2, VizWiz), BAN (VQA2, TextVQA, VizWiz) and CNN-LSTM
+(Hateful Memes): ``LORRA_BAN`` names each config with its dataset and
+model, ``LORRA_BAN_OVERRIDES`` what each YAML lacks to run (in JAX too);
+``lorra_ban_model`` builds the model of a run's config, and
+``text_vocab_size(config)`` reads the size of a config's text
+vocabulary, which CNN-LSTM's Hateful Memes run must be given.
 """
 
 from __future__ import annotations
@@ -136,6 +143,8 @@ HATEFUL_MEMES_CONFIGS = {
                            "bert.yaml", True),
     "unimodal_image": ("projects/hateful_memes/configs/unimodal/image.yaml",
                        False),
+    "cnn_lstm": ("projects/others/cnn_lstm/hateful_memes/defaults.yaml",
+                 False),
 }
 VILBERT_VQA2_CONFIG = "projects/vilbert/configs/vqa2/defaults.yaml"
 VILBERT_MASKED_VQA2_CONFIG = "projects/vilbert/configs/masked_vqa2/pretrain.yaml"
@@ -332,6 +341,40 @@ PYTHIA2_OVERRIDES = {
     "multihead": [],
     "pythia_visual_genome": [],
 }
+# LoRRA on TextVQA, VQA2 and VizWiz, BAN on VQA2, TextVQA and VizWiz,
+# CNN-LSTM on Hateful Memes
+LORRA_BAN = {  # key -> (project config, dataset, model)
+    "lorra_textvqa": ("projects/lorra/configs/textvqa/defaults.yaml",
+                      "textvqa", "lorra"),
+    "lorra_vqa2": ("projects/lorra/configs/vqa2/defaults.yaml", "vqa2",
+                   "lorra"),
+    "lorra_vizwiz": ("projects/lorra/configs/vizwiz/defaults.yaml",
+                     "vizwiz", "lorra"),
+    "ban_vqa2": ("projects/ban/configs/vqa2/defaults.yaml", "vqa2", "ban"),
+    "ban_textvqa": ("projects/ban/configs/textvqa/defaults.yaml", "textvqa",
+                    "ban"),
+    "ban_vizwiz": ("projects/ban/configs/vizwiz/defaults.yaml", "vizwiz",
+                   "ban"),
+    "cnn_lstm_hateful_memes": (HATEFUL_MEMES_CONFIGS["cnn_lstm"][0],
+                               "hateful_memes", "cnn_lstm"),
+}
+LORRA_BAN_OVERRIDES = {key: [] for key in LORRA_BAN}
+for _key in ("lorra_textvqa", "lorra_vqa2", "lorra_vizwiz"):
+    LORRA_BAN_OVERRIDES[_key] = list(BUTD_OVERRIDES)
+LORRA_BAN_OVERRIDES["lorra_vqa2"].append(
+    "dataset_config.vqa2.zoo_requirements=[coco.defaults,vqa2.defaults]")
+for _key in ("ban_textvqa", "ban_vizwiz"):
+    LORRA_BAN_OVERRIDES[_key] = ["optimizer.type=Adamax",
+                                 "optimizer.params={lr: 0.005, eps: 1.0e-08}"]
+for _key in ("lorra_textvqa", "ban_textvqa"):
+    LORRA_BAN_OVERRIDES[_key].append(
+        "dataset_config.textvqa.processors.answer_processor={type: "
+        "soft_copy_answer, params: {vocab_file: textvqa/defaults/extras/"
+        "vocabs/fixed_answer_vocab_textvqa_5k.txt, preprocessor: {type: "
+        "simple_word, params: {}}, context_preprocessor: {type: "
+        "simple_word, params: {}}, max_length: 50, num_answers: 10}}")
+LORRA_BAN_OVERRIDES["cnn_lstm_hateful_memes"] = [
+    "model_config.cnn_lstm.num_labels=2"]
 # mmf_bert's tokens (bert_tokenizer's max_seq_length), the regions
 MMF_BERT_SEQ, PYTHIA_REGIONS = 128, 100
 # the widths the configs give their inputs: tokens and regions
@@ -1118,3 +1161,31 @@ def mmf_bert_batch(batch_size: int = 8, seq_len: int = MMF_BERT_SEQ,
             targets[i, rng.randint(num_labels, size=3)] = [1.0, 0.6, 0.3]
         batch["targets"] = targets
     return batch
+
+
+def lorra_ban_model(config):
+    """The model a ``LORRA_BAN`` config names, from its ``model_config``;
+    CNN-LSTM's classifier is sized by a 224 px Hateful Memes batch (the
+    configs' images)."""
+    model = _model(config["model"], config, None)
+    if model.has_uninitialized_params():
+        _sized(model, hateful_memes_train_batch(1, seq_len=6))
+    return model
+
+
+def text_vocab_size(config) -> int:
+    """The size of the first dataset's text vocabulary as its text
+    processor reads it (a ``vocab`` processor's ``get_vocab_size``), from
+    the dataset's ``data_dir``. CNN-LSTM's Hateful Memes run gives it as
+    ``model_config.cnn_lstm.text_vocab_size``: the Hateful Memes builder
+    registers no vocabulary, and the model's default of 100 words is
+    smaller than any real one."""
+    from mmf_tpu_torch.common.registry import registry
+    from mmf_tpu_torch.utils.env import setup_imports
+
+    setup_imports()
+    dataset = str(config["datasets"]).split(",")[0].strip()
+    ds = config["dataset_config"][dataset]
+    tp = ds["processors"]["text_processor"]
+    return registry.get_processor_class(tp["type"])(
+        tp["params"], data_dir=ds["data_dir"]).get_vocab_size()

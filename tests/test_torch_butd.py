@@ -42,6 +42,7 @@ from tests.torch_caption_models import (
     assert_round_trip,
     build,
     grads,
+    init_shapes,
     load,
     randomize,
     trajectory,
@@ -95,7 +96,7 @@ def weights():
     """The JAX model's redrawn variables (the same for every inference
     type)."""
     jm = build("jax", "butd", overrides())
-    return randomize(jm.init(jax.random.PRNGKey(0), tree_map(
+    return randomize(init_shapes(jm, jax.random.PRNGKey(0), tree_map(
         jnp.asarray, batch()), False), seed=2)
 
 
@@ -454,8 +455,9 @@ def test_language_decoder_and_visdial_match_jax():
     options = rng.randn(3, 4, 5).astype(np.float32)
     enc = rng.randn(3, 7).astype(np.float32)
     jv = JVis(7)
-    variables = randomize(jv.init(jax.random.PRNGKey(1), jnp.asarray(enc),
-                                  jnp.asarray(options)), 4)
+    variables = randomize(init_shapes(jv, jax.random.PRNGKey(1),
+                                      jnp.asarray(enc), jnp.asarray(options)),
+                          4)
     pv = VisDialDiscriminator(5, 7)
     pv.load_state_dict(params_from_jax(variables["params"]), strict=True)
     with torch.no_grad():

@@ -40,7 +40,7 @@ import pytest
 import torch
 
 from mmf_tpu_torch.utils.checkpoint_updater import params_from_jax
-from tests.torch_port_utils import registries_restored, tree_map
+from tests.torch_port_utils import jit_init, registries_restored, tree_map
 from tests.torch_vqa2_layout import write_layout
 
 torch.set_num_threads(2)  # several test workers share the host
@@ -149,7 +149,8 @@ def initial_weights(root, out):
     batch = {"image_feature_0": jnp.asarray(rng.randn(2, REGIONS, DIM),
                                             jnp.float32),
              "text": jnp.asarray(rng.randint(0, v, (2, LENGTH)))}
-    variables = jax.device_get(jm.init(jax.random.PRNGKey(3), batch, False))
+    variables = jax.device_get(jit_init(jm, jax.random.PRNGKey(3), batch,
+                                        False))
     jax_file = os.path.join(str(out), "init_jax")
     _checkpointer().save(jax_file, {"variables": dict(variables)})
     port_file = os.path.join(str(out), "init_port.pth")
@@ -343,10 +344,13 @@ def test_greedy_predictions_raise_as_jax(runs):
             trainer.prediction_loop("test")
 
 
-def _jax_params(template, state):
+def _jax_params(template, state, leaves=None):
     """The port's state_dict as a flax params tree shaped like
-    ``template`` (the inverse of ``params_from_jax``)."""
-    from mmf_tpu_torch.utils.checkpoint_updater import _LEAF
+    ``template`` (the inverse of ``params_from_jax``); ``leaves`` maps
+    the leaf names (a ``batch_stats`` tree's ``mean`` and ``var``)."""
+    from mmf_tpu_torch.utils.checkpoint_updater import _LEAF, _VERBATIM
+
+    leaves = leaves or _LEAF
 
     def walk(tree, path):
         out = {}
@@ -355,11 +359,13 @@ def _jax_params(template, state):
             if isinstance(value, dict):
                 out[name] = walk(value, here)
                 continue
-            verbatim = name.endswith("/kernel/scale")
-            key = ".".join(here if verbatim else here[:-1] + (_LEAF[name],))
+            verbatim = name.endswith("/kernel/scale") or name in _VERBATIM
+            key = ".".join(here if verbatim else here[:-1] + (leaves[name],))
             arr = state[key].numpy()
             if name == "kernel" and arr.ndim == 2:
                 arr = arr.T
+            elif name == "kernel" and arr.ndim == 4:  # OIHW -> HWIO
+                arr = arr.transpose(2, 3, 1, 0)
             assert arr.shape == value.shape, (key, arr.shape, value.shape)
             out[name] = arr
         return out
@@ -386,8 +392,14 @@ def jax_engine(folder, samples, model, monkeypatch, max_batch_size=4):
             lambda b: jm.init(jax.random.PRNGKey(0), b, False), batch)
         state = torch.load(os.path.join(folder, f"{model}_final.pth"),
                            weights_only=True)
-        params = _jax_params(jax.device_get(template)["params"], state)
-        return dict(items, checkpoint={"variables": {"params": params}})
+        template = jax.device_get(template)
+        variables = {"params": _jax_params(template["params"], state)}
+        if "batch_stats" in template:
+            from mmf_tpu_torch.utils.checkpoint_updater import _STATS
+
+            variables["batch_stats"] = _jax_params(
+                template["batch_stats"], state, _STATS)
+        return dict(items, checkpoint={"variables": variables})
 
     monkeypatch.setattr(jax_checkpoint, "load_pretrained_model", adapted)
     with registries_restored(empty=True):

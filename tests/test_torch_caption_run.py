@@ -42,7 +42,7 @@ from tests.test_torch_m4c_family_run import (
     _restore_global_state,  # noqa: F401 (the module's autouse fixture)
     small,
 )
-from tests.torch_port_utils import registries_restored, tree_map
+from tests.torch_port_utils import jit_init, registries_restored, tree_map
 from tests.torch_textvqa_layout import layout_opts as m4c_layout_opts
 from tests.torch_textvqa_layout import write_joint_coco_layout
 from tests.torch_vqa2_layout import write_layout
@@ -132,7 +132,7 @@ def pythia_runs(tmp_path_factory):
     jm = jreg.get_model_class("pythia")(config=config["model_config"][
         "pythia"])
     rng = np.random.RandomState(5)
-    variables = jax.device_get(jm.init(jax.random.PRNGKey(3), {
+    variables = jax.device_get(jit_init(jm, jax.random.PRNGKey(3), {
         "text": jnp.asarray(rng.randint(1, 20, (2, 14))),
         "image_feature_0": jnp.asarray(rng.randn(2, REGIONS, DIM),
                                        jnp.float32)}, False))

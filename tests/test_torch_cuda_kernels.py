@@ -889,6 +889,36 @@ def test_f32_backward_resolves_nearly_alike_values(card, no_tf32, shape):
         _assert_rel(got.grad, want.grad, GRAD_REL[torch.float32], name)
 
 
+@pytest.mark.parametrize("shape", [(2, 8, 128, 100, 128),
+                                   (2, 12, 128, 100, 64)])
+def test_bf16_backward_resolves_nearly_alike_values(card, shape):
+    """The bf16 form of the test above, at ViLBERT's co-attention (D =
+    128) and the main path's head dim: values whose rows differ by 1%,
+    the backward through autograd (the bf16 K2 takes delta from dO and
+    the forward's output; centred_values passes bf16 through) holds dq,
+    dk and dv to float64 on the same bf16 inputs within the bf16
+    bound."""
+    b, h, sq, skv, d = shape
+    g = torch.Generator(device=card).manual_seed(sq + d)
+    q, k, _, bias, dout = _bwd_case(card, torch.bfloat16, b, h, sq, skv, d,
+                                    seed=5)
+    common = torch.randn(b, h, 1, d, device=card, generator=g)
+    v = (common + 0.01 * torch.randn(b, h, skv, d, device=card,
+                                     generator=g)).to(torch.bfloat16)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    before = (A.flash_attention_bwd_dq.launches,
+              A.flash_attention_bwd_dkv.launches)
+    A.dot_product_attention(*leaves, bias).backward(dout)
+    ref = [t.detach().double().requires_grad_() for t in (q, k, v)]
+    A.mha_reference(*ref, bias.double()).backward(dout.double())
+    torch.cuda.synchronize()
+    assert (A.flash_attention_bwd_dq.launches,
+            A.flash_attention_bwd_dkv.launches) == (before[0] + 1,
+                                                    before[1] + 1)
+    for name, got, want in zip(("dq", "dk", "dv"), leaves, ref):
+        _assert_rel(got.grad, want.grad, GRAD_REL[torch.bfloat16], name)
+
+
 @pytest.mark.parametrize("shape", [(4, 8, 1, 100, 256),
                                    (2, 8, 128, 100, 96)])
 def test_pythia2_backward_is_bit_equal_across_calls(card, shape):

@@ -145,10 +145,18 @@ def test_text_embedding_matches_jax(etype, params):
                                    "mcan", "preextracted"])
 def test_unported_text_embeddings_name_their_module(etype):
     """The unported types raise, naming their module; ``attention``
-    (Pythia's) and ``projection`` (``ProjectionEmbedding``) are ported and
-    build (``tests/test_torch_pythia.py``,
-    ``tests/test_torch_mmf_bert.py``)."""
+    (Pythia's), ``projection`` (``ProjectionEmbedding``) and ``bilstm``
+    (BAN's ``BiLSTMTextEmbedding``) are ported and build
+    (``tests/test_torch_pythia.py``, ``tests/test_torch_mmf_bert.py``,
+    ``tests/test_torch_ban.py``)."""
     from mmf_tpu_torch.modules.embeddings import TextEmbedding
+
+    if etype == "bilstm":
+        emb = TextEmbedding(etype, {"embedding_dim": 4, "hidden_dim": 6,
+                                    "bidirectional": True})
+        assert emb.out_dim == 6  # two directions of 3
+        assert tuple(emb.module.rnn_0_bwd.ir.weight.shape) == (3, 4)
+        return
 
     if etype == "attention":
         emb = TextEmbedding(etype, {"embedding_dim": 4, "hidden_dim": 4})

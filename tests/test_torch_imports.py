@@ -84,6 +84,10 @@ SLICE_MODULES = [
     "mmf_tpu_torch.models.pythia",
     "mmf_tpu_torch.models.mmf_bert",
     "mmf_tpu_torch.datasets.builders.visual_genome.builder",
+    "mmf_tpu_torch.models.lorra",
+    "mmf_tpu_torch.models.ban",
+    "mmf_tpu_torch.models.cnn_lstm",
+    "mmf_tpu_torch.datasets.builders.vizwiz.builder",
 ]
 
 _PROBE = """

@@ -29,6 +29,7 @@ import pytest
 import torch
 
 from tests.torch_caption_models import (
+    init_shapes,
     TRAJ_RTOL,
     assert_grads_match,
     assert_params_match,
@@ -109,8 +110,9 @@ def models():
     out = {}
     for head in HEADS:
         jm = build("jax", "mmf_bert", overrides(head))
-        out[head] = (jm, randomize(jm.init(jax.random.PRNGKey(0), tree_map(
-            jnp.asarray, batch(head)), False), seed=1))
+        out[head] = (jm, randomize(init_shapes(
+            jm, jax.random.PRNGKey(0), tree_map(jnp.asarray, batch(head)),
+            False), seed=1))
     return out
 
 
@@ -192,8 +194,8 @@ def _flax_and_port(flax_module, port_module, *inputs, seed=0):
     from mmf_tpu_torch.utils.checkpoint_updater import params_from_jax
 
     j_in = [jnp.asarray(x) for x in inputs]
-    variables = randomize(flax_module.init(jax.random.PRNGKey(seed), *j_in),
-                          seed + 1)
+    variables = randomize(init_shapes(flax_module, jax.random.PRNGKey(seed),
+                                      *j_in), seed + 1)
     port_module.load_state_dict(params_from_jax(variables["params"]),
                                 strict=True)
     want = flax_module.apply(variables, *j_in)

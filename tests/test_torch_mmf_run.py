@@ -28,7 +28,7 @@ import torch
 
 import jax
 
-from tests.torch_port_utils import registries_restored
+from tests.torch_port_utils import jit_init, registries_restored
 from tests.torch_vqa2_layout import layout_opts, write_layout
 
 TINY = {
@@ -120,7 +120,7 @@ def initial_weights(tmp_path_factory):
     }
     key = jax.random.PRNGKey(3)
     variables = jax.device_get(
-        model.init({"params": key, "dropout": key}, batch, False))
+        jit_init(model, {"params": key, "dropout": key}, batch, False))
     jax_file = str(out / "init_jax")
     _checkpointer().save(jax_file, {"variables": dict(variables)})
     port_file = str(out / "init_port.pth")

@@ -25,7 +25,7 @@ from tests.test_torch_vilt import (  # noqa: F401 (a fixture)
     port_no_dropout,
     trajectory,
 )
-from tests.torch_port_utils import tree_map
+from tests.torch_port_utils import cached_init, tree_map
 
 torch.set_num_threads(2)  # several test workers share the host
 
@@ -95,8 +95,8 @@ def _batch(seed=0):
 
 def _pair(heads, batch, **overrides):
     jm = _model("jax", heads, **overrides)
-    variables = jm.init(jax.random.PRNGKey(0),
-                        dict(tree_map(jnp.asarray, batch), **META), False)
+    variables = cached_init(jm, jax.random.PRNGKey(0),
+                            dict(tree_map(jnp.asarray, batch), **META), False)
     tm = _model("port", heads, **overrides)
     tm.materialize(dict(tree_map(torch.from_numpy, batch), **META))
     # flax makes params only for the heads the batch's dataset calls;

@@ -35,6 +35,7 @@ from tests.torch_caption_models import (
     assert_round_trip,
     build,
     grads,
+    init_shapes,
     load,
     randomize,
     trajectory,
@@ -52,7 +53,7 @@ MULTIHEAD = dict(OVERRIDES, image_feature_embeddings=[{
 @pytest.fixture(scope="module")
 def model():
     jm = build("jax", "multihead", MULTIHEAD)
-    variables = randomize(jm.init(jax.random.PRNGKey(0), tree_map(
+    variables = randomize(init_shapes(jm, jax.random.PRNGKey(0), tree_map(
         jnp.asarray, batch()), False), seed=1)
     return jm, variables
 
@@ -76,7 +77,7 @@ def test_multihead_feature_embedding_matches_jax(question_dim, heads):
         def __call__(self, i, q):
             return JEmb(D, question_dim, heads, name="emb")(i, q, None)[0]
 
-    variables = randomize(Flax().init(jax.random.PRNGKey(0), image,
+    variables = randomize(init_shapes(Flax(), jax.random.PRNGKey(0), image,
                                       question), 2)
     port = MultiHeadImageFeatureEmbedding(D, question_dim, heads)
     port.load_state_dict({k[len("emb."):]: v for k, v in params_from_jax(

@@ -33,6 +33,7 @@ from tests.torch_caption_models import (
     assert_round_trip,
     build,
     grads,
+    init_shapes,
     load,
     randomize,
     trajectory,
@@ -80,7 +81,7 @@ def models():
     out = {}
     for name in MODELS:
         jm = build("jax", name, OVERRIDES)
-        variables = randomize(jm.init(jax.random.PRNGKey(0), tree_map(
+        variables = randomize(init_shapes(jm, jax.random.PRNGKey(0), tree_map(
             jnp.asarray, batch()), False), seed=1)
         out[name] = (jm, variables, load(build("port", name, OVERRIDES),
                                          variables))
@@ -97,8 +98,8 @@ def _flax_and_port(flax_module, port_module, *inputs, seed=0):
     from mmf_tpu_torch.utils.checkpoint_updater import params_from_jax
 
     j_in = [jnp.asarray(x) for x in inputs]
-    variables = randomize(flax_module.init(jax.random.PRNGKey(seed), *j_in),
-                          seed + 1)
+    variables = randomize(init_shapes(flax_module, jax.random.PRNGKey(seed),
+                                      *j_in), seed + 1)
     port_module.load_state_dict(params_from_jax(variables["params"]),
                                 strict=True)
     want = flax_module.apply(variables, *j_in)

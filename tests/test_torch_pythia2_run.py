@@ -44,7 +44,7 @@ from tests.test_torch_m4c_family_run import (
     _clear_processors,
     _restore_global_state,  # noqa: F401 (the module's autouse fixture)
 )
-from tests.torch_port_utils import registries_restored, tree_map
+from tests.torch_port_utils import jit_init, registries_restored, tree_map
 from tests.torch_vqa2_layout import layout_opts, write_layout
 
 torch.set_num_threads(2)  # several test workers share the host
@@ -150,8 +150,9 @@ def runs(request, layout, tmp_path_factory):
         jreg.register("config", config)
         jm = jreg.get_model_class(model)(
             config=config["model_config"][model])
-        variables = jax.device_get(jm.init(
-            jax.random.PRNGKey(3), tree_map(jnp.asarray, _init_batch(model)),
+        variables = jax.device_get(jit_init(
+            jm, jax.random.PRNGKey(3),
+            tree_map(jnp.asarray, _init_batch(model)),
             False))
     jax_file = os.path.join(out, "init_jax")
     _checkpointer().save(jax_file, {"variables": dict(variables)})

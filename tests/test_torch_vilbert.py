@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from mmf_tpu_torch.utils.checkpoint_updater import params_from_jax
-from tests.torch_port_utils import tree_map
+from tests.torch_port_utils import cached_init, tree_map
 
 torch.set_num_threads(2)  # several test workers share the host
 
@@ -126,7 +126,7 @@ def _pair(overrides, batch, seed=0):
     same weights (eval mode)."""
     jm = _jax_model(overrides)
     jb = dict(tree_map(jnp.asarray, batch), **META)
-    variables = jm.init(jax.random.PRNGKey(seed), jb, False)
+    variables = cached_init(jm, jax.random.PRNGKey(seed), jb, False)
     tm = _port_model(overrides).eval()
     tm.load_state_dict(params_from_jax(jax.device_get(variables["params"])),
                        strict=True)

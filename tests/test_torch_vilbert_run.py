@@ -27,7 +27,7 @@ import jax
 import jax.numpy as jnp
 
 from tests.test_torch_vilbert import SMALL
-from tests.torch_port_utils import registries_restored
+from tests.torch_port_utils import jit_init, registries_restored
 from tests.torch_vqa2_layout import layout_opts, write_layout
 
 SEQ, REGIONS, DIM, ANSWERS, TARGETS = 16, 10, 16, 6, 11
@@ -116,8 +116,8 @@ def _initial_weights(head, out):
     model = _jax_model(dict(MODEL, training_head_type=head))
     batch = dict(tree_map(jnp.asarray, _batch(head=head)),
                  dataset_name="vqa2", dataset_type="train")
-    variables = jax.device_get(model.init(jax.random.PRNGKey(3), batch,
-                                          False))
+    variables = jax.device_get(jit_init(model, jax.random.PRNGKey(3),
+                                        batch, False))
     jax_file = str(out / f"init_jax_{head}")
     _checkpointer().save(jax_file, {"variables": dict(variables)})
     port_file = str(out / f"init_port_{head}.pth")

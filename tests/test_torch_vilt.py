@@ -21,7 +21,7 @@ import pytest
 import torch
 
 from mmf_tpu_torch.utils.checkpoint_updater import params_from_jax
-from tests.torch_port_utils import tree_map
+from tests.torch_port_utils import cached_init, tree_map
 
 torch.set_num_threads(2)  # several test workers share the host
 
@@ -98,8 +98,8 @@ def _batch(seed=0, no_labels=False):
 
 def _pair(heads, batch, seed=0):
     jm = _jax_model(heads)
-    variables = jm.init(jax.random.PRNGKey(seed),
-                        dict(tree_map(jnp.asarray, batch), **META), False)
+    variables = cached_init(jm, jax.random.PRNGKey(seed),
+                            dict(tree_map(jnp.asarray, batch), **META), False)
     tm = _port_model(heads).eval()
     tm.load_state_dict(params_from_jax(jax.device_get(variables["params"])),
                        strict=True)

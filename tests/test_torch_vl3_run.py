@@ -37,7 +37,7 @@ import pytest
 import torch
 
 from mmf_tpu_torch.utils.checkpoint_updater import params_from_jax
-from tests.torch_port_utils import registries_restored, tree_map
+from tests.torch_port_utils import jit_init, registries_restored, tree_map
 from tests.torch_vqa2_layout import LABEL_MAP, layout_opts, write_layout
 
 torch.set_num_threads(2)  # several test workers share the host
@@ -163,7 +163,8 @@ def initial_weights(key, root, out):
     jm = jreg.get_model_class(model)(config=config["model_config"][model])
     batch = dict(tree_map(jnp.asarray, _init_batch()),
                  dataset_name=dataset, dataset_type="train")
-    variables = jax.device_get(jm.init(jax.random.PRNGKey(3), batch, False))
+    variables = jax.device_get(jit_init(jm, jax.random.PRNGKey(3), batch,
+                                        False))
     jax_file = os.path.join(str(out), "init_jax")
     _checkpointer().save(jax_file, {"variables": dict(variables)})
     port_file = os.path.join(str(out), "init_port.pth")

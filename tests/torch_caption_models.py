@@ -1,9 +1,9 @@
-"""Shared helpers of the Pythia and BUTD parity tests
-(``tests/test_torch_{pythia,butd}.py``): the models built in JAX and in
-the port from their default YAML at small widths, the JAX init carried
-across by ``params_from_jax``, seeded numpy inputs, and the 4-step
-trajectory of the configs' optimizer: Adamax with the warmup
-``multi_step`` schedule and global-norm clipping at 0.25."""
+"""Shared helpers of the Pythia, BUTD, LoRRA and BAN parity tests
+(``tests/test_torch_{pythia,butd,multihead,lorra,ban}.py``): the models
+built in JAX and in the port from their default YAML at small widths,
+the JAX init carried across by ``params_from_jax``, seeded numpy inputs,
+and the 4-step trajectory of the configs' optimizer: Adamax with the
+warmup ``multi_step`` schedule and global-norm clipping at 0.25."""
 
 import jax
 import jax.numpy as jnp
@@ -40,7 +40,8 @@ def model_config(package, name, overrides):
         from mmf_tpu_torch.utils.env import setup_imports
     setup_imports()
     # multihead has no YAML of its own: the runs give it Pythia's
-    folder = name if name in ("butd", "mmf_bert") else "pythia"
+    folder = "pythia" if name.startswith("pythia") or name == "multihead" \
+        else name
     mcs = load_yaml(f"configs/models/{folder}/defaults.yaml")["model_config"]
     mc = mcs[name] if name in mcs else mcs[folder]
     for key, value in overrides.items():
@@ -174,6 +175,13 @@ def trajectory(jm, variables, tm, batch, jax_batch, loss_names, steps=4,
         t_losses.append(float(trep["total_loss"]))
     want = params_from_jax(jax.device_get(jstate.variables["params"]))
     return j_losses, t_losses, want
+
+
+def init_shapes(module, *args, **kwargs):
+    """The shapes of ``module.init(*args, **kwargs)``'s variables, which
+    is all ``randomize`` reads (flax's initialisers, run eagerly, cost
+    seconds a model)."""
+    return jax.eval_shape(lambda: module.init(*args, **kwargs))
 
 
 def randomize(variables, seed: int = 0):

@@ -90,9 +90,10 @@ def model_config(key, direct=False):
     return name, mc
 
 
-def batch(seed=0):
+def batch(seed=0, image=IMAGE):
     """Numpy inputs of every model: ragged BERT masks, two segments in
-    one sample, 32 px images, vocabulary ids and binary targets."""
+    one sample, 32 px images (``image``), vocabulary ids and binary
+    targets."""
     rng = np.random.RandomState(seed)
     mask = np.ones((B, T), np.int32)
     mask[0, T - 4:] = 0
@@ -103,7 +104,7 @@ def batch(seed=0):
         "input_ids": rng.randint(1, VOCAB, (B, T)).astype(np.int32),
         "input_mask": mask,
         "segment_ids": segments,
-        "image": rng.randn(B, 3, IMAGE, IMAGE).astype(np.float32),
+        "image": rng.randn(B, 3, image, image).astype(np.float32),
         "text": rng.randint(0, VOCAB, (B, 14)).astype(np.int32),
         "targets": np.asarray([0, 1, 1, 0], np.int64),
         "image_feature_0": rng.randn(B, REGIONS, FEATURE_DIM).astype(
@@ -178,7 +179,7 @@ class Pair:
     ``f64``, in float64 on both sides: build and use it inside
     ``x64()``."""
 
-    def __init__(self, key, seed=0, f64=False, direct=False):
+    def __init__(self, key, seed=0, f64=False, direct=False, image=IMAGE):
         from mmf_tpu.common.registry import registry as jreg
         from mmf_tpu.config import omega as jomega
         from mmf_tpu.utils.env import setup_imports as jsetup
@@ -193,7 +194,7 @@ class Pair:
             if mc.get("text_encoder", {}).get("type") == "transformer":
                 mc["text_encoder"]["params"]["dtype"] = "float64"
         self.config = mc
-        self.batch = batch(seed)
+        self.batch = batch(seed, image)
         if f64:
             for k in ("image", "image_feature_0"):
                 self.batch[k] = self.batch[k].astype(np.float64)

@@ -4,6 +4,7 @@ init carried across by ``params_from_jax``, and numpy inputs fed to both;
 ``registries_restored`` for the tests that fill the registries."""
 
 import contextlib
+import hashlib
 
 import numpy as np
 import torch
@@ -24,6 +25,57 @@ TINY = {
     "dtype": "float32",
 }
 META = {"dataset_name": "vqa2", "dataset_type": "val"}
+
+
+_INITS = {}
+
+
+def _fingerprint(tree):
+    """The tree's structure and every leaf: an array by shape, dtype and
+    a hash of its bytes, anything else by its repr."""
+    leaves, treedef = jax.tree_util.tree_flatten_with_path(tree)
+    parts = [str(treedef)]
+    for path, leaf in leaves:
+        where = jax.tree_util.keystr(path)
+        if isinstance(leaf, (jax.Array, np.ndarray)):
+            a = np.asarray(leaf)
+            parts.append((where, a.shape, str(a.dtype),
+                          hashlib.sha1(a.tobytes()).hexdigest()))
+        else:
+            parts.append((where, repr(leaf)))
+    return tuple(parts)
+
+
+def cached_init(module, rngs, *args, **kwargs):
+    """``module.init(rngs, *args, **kwargs)``, run once a process for a
+    module (its repr: class and configuration) and inputs: flax's eager
+    initialisers cost seconds a model, and several tests start from the
+    same one. Each call gets containers of its own over the shared
+    arrays, which nothing changes."""
+    key = (repr(module), _fingerprint((rngs, args, kwargs)))
+    if key not in _INITS:
+        _INITS[key] = module.init(rngs, *args, **kwargs)
+    return jax.tree_util.tree_map(lambda leaf: leaf, _INITS[key])
+
+
+def jit_init(module, rngs, *args, **kwargs):
+    """``module.init(rngs, *args, **kwargs)`` compiled as one program:
+    flax's initialisers run eagerly compile each operation on its own
+    (seconds a model). The array leaves of the arguments are the
+    program's inputs; the rest (flags, the batches' strings) are closed
+    over."""
+    leaves, treedef = jax.tree_util.tree_flatten((args, kwargs))
+    dynamic = [i for i, leaf in enumerate(leaves)
+               if isinstance(leaf, (jax.Array, np.ndarray))]
+
+    def init(rngs, *values):
+        full = list(leaves)
+        for i, value in zip(dynamic, values):
+            full[i] = value
+        a, k = jax.tree_util.tree_unflatten(treedef, full)
+        return module.init(rngs, *a, **k)
+
+    return jax.jit(init)(rngs, *[leaves[i] for i in dynamic])
 
 
 @contextlib.contextmanager
@@ -104,7 +156,7 @@ def init_pair(overrides, batch, seed=0):
 
     jm = jax_visual_bert(overrides)
     jb = dict(tree_map(jnp.asarray, batch), **META)
-    variables = jm.init(jax.random.PRNGKey(seed), jb, False)
+    variables = cached_init(jm, jax.random.PRNGKey(seed), jb, False)
     tm = port_visual_bert(overrides).eval()
     tm.load_state_dict(
         params_from_jax(jax.device_get(variables["params"])), strict=True

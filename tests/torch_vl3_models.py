@@ -16,7 +16,7 @@ import torch
 
 from mmf_tpu_torch.utils.checkpoint_updater import params_from_jax
 from tests.test_torch_vilt import port_no_dropout
-from tests.torch_port_utils import tree_map
+from tests.torch_port_utils import cached_init, tree_map
 
 ATOL, LOSS_RTOL = 2e-5, 1e-5
 GRAD_RTOL, TRAJ_LOSS_RTOL, TRAJ_PARAM_RTOL = 5e-4, 2e-4, 1e-3
@@ -58,7 +58,7 @@ def pair(name, overrides, batch, meta, seed=0):
     # an init with no task runs every task, so that every head is built
     init_meta = {k: v for k, v in meta.items() if k != "task"}
     jb = dict(tree_map(jnp.asarray, batch), **init_meta)
-    variables = jm.init(jax.random.PRNGKey(seed), jb, False)
+    variables = cached_init(jm, jax.random.PRNGKey(seed), jb, False)
     tm = model("port", name, overrides)
     if tm.has_uninitialized_params():
         tm.materialize(tree_map(torch.from_numpy, batch))

@@ -79,7 +79,8 @@ import numpy as np
 # which the Visual Genome config requires, is not in that file: its
 # marker's version is a placeholder)
 ZOO_VERSIONS = {"coco": "1.0_2020_05_04", "vqa2": "1.0_2020_05_29",
-                "visual_genome": "1.0_2020_05_29"}
+                "visual_genome": "1.0_2020_05_29",
+                "vizwiz": "1.0_2020_05_29"}
 SPLITS = {"train": "imdb_train2014.npy", "val": "imdb_val2014.npy",
           "test": "imdb_test2015.npy"}
 FEATURES = {"train": "trainval2014", "val": "trainval2014",
@@ -212,6 +213,25 @@ def _write_label_map(datasets: str):
                   f)
 
 
+_OCR_WORDS = ["stop", "exit", "coca", "cola", "nike", "sale", "open",
+              "2", "10", "pepsi", "main", "st", "bus", "red"]
+
+
+def _add_ocr(rng, row):
+    """The row's OCR tokens and their boxes, drawn from ``rng`` alone."""
+    tokens = [_OCR_WORDS[i] for i in rng.randint(len(_OCR_WORDS),
+                                                 size=rng.randint(0, 9))]
+    if tokens and rng.rand() < 0.3:
+        tokens[0] = tokens[0].capitalize() + ","
+    if tokens and "answers" in row and rng.rand() < 0.5:
+        tokens[rng.randint(len(tokens))] = row["answers"][0]
+    row["ocr_tokens"] = tokens
+    xy = rng.rand(len(tokens), 2) * 0.5
+    row["ocr_info"] = {"bbox": np.concatenate(
+        [xy, xy + 0.1 + 0.4 * rng.rand(len(tokens), 2)], 1).astype(
+            np.float32).reshape(-1, 4)}
+
+
 def _mark_built(path: str, version: str):
     os.makedirs(path, exist_ok=True)
     with open(os.path.join(path, ".built"), "w") as f:
@@ -227,7 +247,8 @@ def write_layout(root: str, n_train: int = 640, n_val: int = 128,
                  glove: bool = False, coco: bool = False,
                  object_labels: bool = False,
                  caption_vocab: int = 0,
-                 visual_genome: bool = False) -> Dict[str, str]:
+                 visual_genome: bool = False, ocr: bool = False,
+                 vizwiz: bool = False) -> Dict[str, str]:
     """Write the layout under ``root``; returns its main paths. The
     class probabilities and the object labels come from generators of
     their own, so the other fields are the same with and without them
@@ -239,10 +260,20 @@ def write_layout(root: str, n_train: int = 640, n_val: int = 128,
     ``glove``) also writes the Visual Genome QA dataset as Pythia's
     config reads it: VQA2's imdbs and vocabularies under
     ``datasets/visual_genome/defaults`` and ``vocabulary_100k.txt`` under
-    ``datasets/vocabs`` (its attribute and name processors')."""
+    ``datasets/vocabs`` (its attribute and name processors'). ``ocr``
+    gives every question the OCR tokens of its image, as LoRRA's configs
+    read them (``ocr_tokens``: 0 to 8 words, some of them capitalised or
+    with punctuation, about half the rows one of the question's answers
+    among them, the copy targets; ``ocr_info``: their ``bbox``), drawn
+    from a generator of their own, so the other fields are the same with
+    and without them. ``vizwiz`` (with ``glove``) also writes the VizWiz
+    dataset as its configs read it: VQA2's imdbs and vocabularies under
+    ``datasets/vizwiz/defaults`` (the answers also as
+    ``vizwiz/v2019/extras/vocabs/answers_vizwiz_7k.txt``, LoRRA's)."""
     rng = np.random.RandomState(seed)
     cls_rng = np.random.RandomState(seed + 1)
     label_rng = np.random.RandomState(seed + 4)
+    ocr_rng = np.random.RandomState(seed + 5)
     datasets = os.path.join(root, "datasets")
     vqa2 = os.path.join(datasets, "vqa2", "defaults")
     coco = os.path.join(datasets, "coco", "defaults")
@@ -300,6 +331,8 @@ def write_layout(root: str, n_train: int = 640, n_val: int = 128,
             if split != "test":
                 row["answers"] = _answers(rng, answer_words)
                 row["all_answers"] = list(row["answers"])
+            if ocr:
+                _add_ocr(ocr_rng, row)
             rows.append(row)
             question_id += 1
         np.save(os.path.join(vqa2, "annotations", SPLITS[split]),
@@ -340,8 +373,19 @@ def write_layout(root: str, n_train: int = 640, n_val: int = 128,
         os.makedirs(os.path.join(datasets, "vocabs"), exist_ok=True)
         shutil.copy(os.path.join(vocab_dir, "vocabulary_100k.txt"),
                     os.path.join(datasets, "vocabs"))
+    if vizwiz:
+        vz = os.path.join(datasets, "vizwiz", "defaults")
+        shutil.copytree(os.path.join(vqa2, "annotations"),
+                        os.path.join(vz, "annotations"))
+        shutil.copytree(vocab_dir, os.path.join(vz, "extras", "vocabs"))
+        v2019 = os.path.join(datasets, "vizwiz", "v2019", "extras", "vocabs")
+        os.makedirs(v2019, exist_ok=True)
+        shutil.copy(os.path.join(vocab_dir, "answers_vqa.txt"),
+                    os.path.join(v2019, "answers_vizwiz_7k.txt"))
     for name, version in ZOO_VERSIONS.items():
         if name == "visual_genome" and not visual_genome:
+            continue
+        if name == "vizwiz" and not vizwiz:
             continue
         base = os.path.join(datasets, name)
         for sub in ("", "annotations", "features"):
